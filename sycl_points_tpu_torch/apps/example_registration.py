@@ -8,6 +8,9 @@ annealing 10 -> 2.5 over 3 levels, LM, at most 10 iterations per level.
 Usage:
   python -m sycl_points_tpu_torch.apps.example_registration SOURCE.ply TARGET.ply \
       [--voxel 0.25] [--k 10] [--loops 20] [--gt T.txt] [--device cuda]
+
+It runs on the card unless ``--device cpu`` is given, and raises when no card
+is present.
 """
 
 from __future__ import annotations
@@ -21,12 +24,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sycl_points_tpu.points import io
+from sycl_points_tpu_torch import require_device
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
 from sycl_points_tpu_torch.ops.filters import box_filter
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.ops.voxel import voxel_downsample
+from sycl_points_tpu_torch.points import io
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, pad_capacity_for
 from sycl_points_tpu_torch.registration.factors import RegType
 from sycl_points_tpu_torch.registration.pipeline import (
@@ -135,12 +139,14 @@ def main(argv=None):
     ap.add_argument("--loops", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--gt", default=None, help="ground-truth 4x4 matrix txt")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
+    device = require_device(args.device)
 
-    src_raw = PointCloud.from_numpy(io.read_file(args.source)["points"], device=device)
-    tgt_raw = PointCloud.from_numpy(io.read_file(args.target)["points"], device=device)
+    src_raw, tgt_raw = (
+        PointCloud.from_numpy(io.read_file(path)["points"], device=device)
+        for path in (args.source, args.target)
+    )
     cap = voxel_capacity((src_raw, tgt_raw), args.voxel)
     generator = torch.Generator(device=device).manual_seed(1234)
 

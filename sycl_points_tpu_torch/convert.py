@@ -43,9 +43,10 @@ _ENUMS = {cls.__name__: cls for cls in (RegType, RobustLossType)}
 def cloud_from_numpy(
     data: dict | np.ndarray,
     capacity: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> PointCloud:
-    """A padded cloud on ``device`` from a ``PointCloud.to_numpy``-style dict
+    """A padded cloud on ``device`` (the card unless the caller asks for the
+    CPU) from a ``PointCloud.to_numpy``-style dict
     (``points`` plus optional attributes) or from a points array."""
     if not isinstance(data, dict):
         data = {"points": data}

@@ -4,6 +4,13 @@
 //       (sycl_points_tpu/ops/pallas_knn.py): the exact 1-NN correspondence
 //       search run every ICP iteration, with the 4x4 pose folded into the
 //       queries inside the kernel (the reference's transT).
+// nn1_tiled replaces the TPU tile sweep `make_nn1(query_tile,
+//       target_chunk).nn1` (scripts/bench_pallas_tiles.py): the same kernel
+//       as nn1, instantiated over threads per block {64, 128, 256, 512} x
+//       shared-memory target tile {512, 1024, 2048, 4096} points. The
+//       production nn1 is the <128, 2048> instance. 3 x 4096 x 4 B = 48 KB is
+//       the static shared-memory limit, so 4096 is the largest tile; that
+//       limit is this card's counterpart of the TPU sweep's VMEM skip.
 // knn_k replaces `_approx_knn_single` (sycl_points_tpu/ops/knn.py), which is
 //       built on the TPU-only `lax.approx_max_k`; here it is an exact k-NN
 //       (k <= 16), which is what the CPU reference computes.
@@ -16,17 +23,17 @@
 //
 // The simple design: one thread per query holds its query and its running
 // best (1-NN) or its sorted best-k list in registers. A block stages the
-// target through shared memory in tiles of kTile points, in ascending index
-// order. Masked targets are staged as +inf coordinates, so their distance is
-// +inf and the strict `<` never takes them: no per-pair mask test.
-// Distances use the exact difference form (q - t)^2 summed as
+// target through shared memory in tiles, in ascending index order
+// (nn1_common.cuh). Masked targets are staged as +inf coordinates, so their
+// distance is +inf and the strict `<` never takes them: no per-pair mask
+// test. Distances use the exact difference form (q - t)^2 summed as
 // e0*e0 + e1*e1 + e2*e2; the library is built with --fmad=false so every
 // operation rounds once, as in the Pallas kernel and the PyTorch plain
 // version. A strict `<` keeps the earliest index on ties.
 //
 // Known limit of this first version: nn1 at 1000 queries fills only a few
-// of the 132 SMs. Splitting the target across blocks with a second-pass
-// reduce is the first optimisation queued for it.
+// of the 132 SMs. nn1_variants.cu holds the lanes-per-query formulation that
+// puts more warps on the card.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
@@ -34,47 +41,25 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "nn1_common.cuh"
+
 namespace {
+
+using spt::sqdist;
+using spt::stage_tile;
 
 constexpr int kThreads = 128;
 constexpr int kTile = 2048;
 
-// Stage targets [base, base + kTile) into shared memory; masked or
-// out-of-range rows become +inf.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ tgt,
-                                           const unsigned char* __restrict__ mask,
-                                           int M, int base, float* sx, float* sy,
-                                           float* sz) {
-  for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
-    int g = base + j;
-    float x = CUDART_INF_F, y = CUDART_INF_F, z = CUDART_INF_F;
-    if (g < M && mask[g] != 0) {
-      x = tgt[3 * g + 0];
-      y = tgt[3 * g + 1];
-      z = tgt[3 * g + 2];
-    }
-    sx[j] = x;
-    sy[j] = y;
-    sz[j] = z;
-  }
-}
-
-__device__ __forceinline__ float sqdist(float qx, float qy, float qz, float tx,
-                                        float ty, float tz) {
-  float e0 = qx - tx;
-  float e1 = qy - ty;
-  float e2 = qz - tz;
-  return e0 * e0 + e1 * e1 + e2 * e2;
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int kBlock, int kTileN>
+__global__ void __launch_bounds__(kBlock)
 nn1_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask,
            int M, const float* __restrict__ queries, int Q,
            const float* __restrict__ pose, int* __restrict__ out_idx,
            float* __restrict__ out_d2) {
-  __shared__ float sx[kTile];
-  __shared__ float sy[kTile];
-  __shared__ float sz[kTile];
+  __shared__ float sx[kTileN];
+  __shared__ float sy[kTileN];
+  __shared__ float sz[kTileN];
 
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   float qx = 0.f, qy = 0.f, qz = 0.f;
@@ -96,11 +81,11 @@ nn1_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask
 
   float best_d = CUDART_INF_F;
   int best_i = 0;
-  for (int base = 0; base < M; base += kTile) {
+  for (int base = 0; base < M; base += kTileN) {
     __syncthreads();
-    stage_tile(tgt, mask, M, base, sx, sy, sz);
+    stage_tile<kTileN>(tgt, mask, M, base, sx, sy, sz);
     __syncthreads();
-    const int n = min(kTile, M - base);
+    const int n = min(kTileN, M - base);
 #pragma unroll 8
     for (int j = 0; j < n; ++j) {
       float d = sqdist(qx, qy, qz, sx[j], sy[j], sz[j]);
@@ -143,7 +128,7 @@ knn_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask
 
   for (int base = 0; base < M; base += kTile) {
     __syncthreads();
-    stage_tile(tgt, mask, M, base, sx, sy, sz);
+    stage_tile<kTile>(tgt, mask, M, base, sx, sy, sz);
     __syncthreads();
     const int n = min(kTile, M - base);
     for (int j = 0; j < n; ++j) {
@@ -181,15 +166,50 @@ knn_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask
   }
 }
 
-inline int num_blocks(int Q) { return (Q + kThreads - 1) / kThreads; }
+inline int num_blocks(int Q, int threads = kThreads) { return (Q + threads - 1) / threads; }
 
 }  // namespace
 
 extern "C" int spt_nn1(const float* tgt, const unsigned char* mask, int M,
                        const float* queries, int Q, const float* pose,
                        int* out_idx, float* out_d2, void* stream) {
-  nn1_kernel<<<num_blocks(Q), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  nn1_kernel<kThreads, kTile><<<num_blocks(Q), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       tgt, mask, M, queries, Q, pose, out_idx, out_d2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define SPT_NN1_TILE_CASE(TH, TI)                                            \
+  case TI:                                                                   \
+    nn1_kernel<TH, TI><<<num_blocks(Q, TH), TH, 0, s>>>(tgt, mask, M, queries, \
+                                                       Q, nullptr, out_idx,  \
+                                                       out_d2);              \
+    break;
+
+#define SPT_NN1_THREADS_CASE(TH)                      \
+  case TH:                                            \
+    switch (tile) {                                   \
+      SPT_NN1_TILE_CASE(TH, 512)                      \
+      SPT_NN1_TILE_CASE(TH, 1024)                     \
+      SPT_NN1_TILE_CASE(TH, 2048)                     \
+      SPT_NN1_TILE_CASE(TH, 4096)                     \
+      default:                                        \
+        return static_cast<int>(cudaErrorInvalidValue); \
+    }                                                 \
+    break;
+
+// nn1 without a pose at a chosen (threads per block, target tile) instance.
+extern "C" int spt_nn1_tiled(const float* tgt, const unsigned char* mask, int M,
+                             const float* queries, int Q, int threads, int tile,
+                             int* out_idx, float* out_d2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (threads) {
+    SPT_NN1_THREADS_CASE(64)
+    SPT_NN1_THREADS_CASE(128)
+    SPT_NN1_THREADS_CASE(256)
+    SPT_NN1_THREADS_CASE(512)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

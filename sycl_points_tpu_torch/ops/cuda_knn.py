@@ -1,17 +1,26 @@
 """Hand-written CUDA nearest-neighbour kernels: build, wrappers, plain versions.
 
-Counterpart of :mod:`sycl_points_tpu.ops.pallas_knn`. Two kernels live in
-``csrc/knn.cu``:
+Counterpart of :mod:`sycl_points_tpu.ops.pallas_knn` and of the two TPU
+studies of its kernel. In ``csrc/knn.cu``:
 
   * ``nn1``   exact 1-NN with the 4x4 pose folded into the queries; replaces
               the Pallas kernel ``nn1_pallas_prepped`` (the ICP
               correspondence search);
+  * ``nn1_tiled`` the same kernel at a chosen (threads per block, target
+              tile) instance; replaces the tile sweep's ``make_nn1``
+              (``scripts/bench_pallas_tiles.py``);
   * ``knn_k`` exact k-NN, k <= 16; replaces ``_approx_knn_single``, which
               rests on the TPU-only ``lax.approx_max_k``.
 
-On first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
+In ``csrc/nn1_variants.cu``, the formulations of the variant study
+(``scripts/bench_nn1_variants.py``) on queries already moved by the pose:
+``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8 or 32 lanes a query) and
+``nn1_unroll2`` (v3). Every 1-NN kernel equals :func:`nn1_plain`.
+
+On first use every source under ``csrc/`` is compiled with ``nvcc`` for
+``sm_90a`` (one ``nvcc`` a source, all started together) and linked into one
 shared library with a plain C interface under ``_build/``, keyed by a hash of
-the source and flags, and loaded with ``ctypes``. There is no fallback: a
+the sources and flags, and loaded with ``ctypes``. There is no fallback: a
 missing or failing ``nvcc`` raises with its output.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and
@@ -22,6 +31,7 @@ kernel launches only; the plain versions never touch it.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -35,17 +45,21 @@ import torch
 from sycl_points_tpu_torch.ops.transform import transform_points
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "knn.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 MAX_K = 16
+# Instances compiled into the library (csrc/knn.cu, csrc/nn1_variants.cu).
+NN1_THREADS = (64, 128, 256, 512)
+NN1_TILES = (512, 1024, 2048, 4096)
+NN1_LANES = (8, 32)
 
 # Kernel launches per wrapper; reset with reset_launch_counts().
-launch_counts = {"nn1": 0, "knn_k": 0}
+launch_counts = {"nn1": 0, "knn_k": 0, "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -72,30 +86,35 @@ def find_nvcc() -> str:
 
 
 def build_library() -> str:
-    """Compile ``csrc/knn.cu`` unless a library for this source and these flags
-    exists; returns its path."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libspt_knn_{key}.so")
+    """Compile every ``csrc/*.cu`` into one library unless a library for these
+    sources (headers included) and these flags exists; returns its path."""
+    files = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    sources = [f for f in files if f.endswith(".cu")]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in files:
+        with open(name, "rb") as f:
+            digest.update(os.path.basename(name).encode() + b"\0" + f.read())
+    path = os.path.join(BUILD_DIR, f"libspt_knn_{digest.hexdigest()[:16]}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objects = [os.path.join(work, os.path.basename(src) + ".o") for src in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)
+        ]
+        outputs = [p.communicate()[0] for p in procs]
+        failed = [f"{src} ({p.returncode}):\n{out}" for src, p, out in zip(sources, procs, outputs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed compiling " + "\n".join(failed))
+        lib = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objects], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) linking {objects}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, path)
     return path
 
 
@@ -107,9 +126,14 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_library())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.spt_nn1.argtypes = [p, p, i, p, i, p, p, p, p]
-            lib.spt_nn1.restype = i
             lib.spt_knn_k.argtypes = [p, p, i, p, i, i, p, p, p]
-            lib.spt_knn_k.restype = i
+            lib.spt_nn1_tiled.argtypes = [p, p, i, p, i, i, i, p, p, p]
+            lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
+            lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
+            lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
+            for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_tiled, lib.spt_nn1_bias,
+                       lib.spt_nn1_lanes, lib.spt_nn1_unroll2):
+                fn.restype = i
             _lib = lib
     return _lib
 
@@ -234,16 +258,15 @@ def knn_mismatches(idx, d2, ref_idx, ref_d2, tie_tol: float) -> int:
 # --------------------------------------------------------------------------
 
 
-def nn1(target_xyz, target_mask, queries, pose=None):
-    """Exact 1-NN of ``queries [Q,3]`` (moved by ``pose [4,4]`` if given)
-    against the masked ``target_xyz [M,3]``: ``(idx [Q] int32, d2 [Q] f32)``.
-
-    CPU tensors run :func:`nn1_plain`; CUDA tensors launch the kernel."""
+def _nn1_launch(name, entry, target_xyz, target_mask, queries, pose=None, extra=()):
+    """The 1-NN wrappers' shared body: check the inputs, run :func:`nn1_plain`
+    for CPU tensors, else launch ``lib.<entry>(tgt, mask, M, queries, Q,
+    *extra, idx, d2, stream)`` once and count it under ``name``."""
     device = _check_inputs(target_xyz, target_mask, queries, pose)
     if device.type == "cpu":
         return nn1_plain(target_xyz, target_mask, queries, pose)
     if device.type != "cuda":
-        raise ValueError(f"nn1 runs on cpu or cuda tensors, got {device}")
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
     _require_contiguous(target_xyz, target_mask, queries, pose)
     Q, M = queries.shape[0], target_xyz.shape[0]
     idx = torch.empty(Q, dtype=torch.int32, device=device)
@@ -252,14 +275,52 @@ def nn1(target_xyz, target_mask, queries, pose=None):
         return idx, d2
     lib = load_library()
     with torch.cuda.device(device):
-        rc = lib.spt_nn1(
-            target_xyz.data_ptr(), target_mask.data_ptr(), M,
-            queries.data_ptr(), Q, None if pose is None else pose.data_ptr(),
+        rc = getattr(lib, entry)(
+            target_xyz.data_ptr(), target_mask.data_ptr(), M, queries.data_ptr(), Q, *extra,
             idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
-    _check_rc(rc, "nn1")
-    launch_counts["nn1"] += 1
+    _check_rc(rc, name)
+    launch_counts[name] += 1
     return idx, d2
+
+
+def nn1(target_xyz, target_mask, queries, pose=None):
+    """Exact 1-NN of ``queries [Q,3]`` (moved by ``pose [4,4]`` if given)
+    against the masked ``target_xyz [M,3]``: ``(idx [Q] int32, d2 [Q] f32)``.
+
+    CPU tensors run :func:`nn1_plain`; CUDA tensors launch the kernel."""
+    pose_ptr = None if pose is None else pose.data_ptr()
+    return _nn1_launch("nn1", "spt_nn1", target_xyz, target_mask, queries, pose, (pose_ptr,))
+
+
+def nn1_tiled(target_xyz, target_mask, queries, threads: int, tile: int):
+    """:func:`nn1` without a pose, at the kernel instance with ``threads`` per
+    block (one of :data:`NN1_THREADS`) and a shared-memory target tile of
+    ``tile`` points (one of :data:`NN1_TILES`). ``(128, 2048)`` is the
+    production instance."""
+    if threads not in NN1_THREADS or tile not in NN1_TILES:
+        raise ValueError(f"nn1_tiled has threads in {NN1_THREADS} and tile in {NN1_TILES}, got {threads}, {tile}")
+    return _nn1_launch("nn1_tiled", "spt_nn1_tiled", target_xyz, target_mask, queries, extra=(threads, tile))
+
+
+def nn1_bias(target_xyz, target_mask, queries):
+    """:func:`nn1` without a pose, masking by an added 0 / 3e38 bias (the TPU
+    study's v1); masked and none-valid rows as in :func:`nn1`."""
+    return _nn1_launch("nn1_bias", "spt_nn1_bias", target_xyz, target_mask, queries)
+
+
+def nn1_lanes(target_xyz, target_mask, queries, lanes: int):
+    """:func:`nn1` without a pose, with ``lanes`` (one of :data:`NN1_LANES`)
+    threads a query, each keeping its own best, reduced at the end (the TPU
+    study's v2)."""
+    if lanes not in NN1_LANES:
+        raise ValueError(f"nn1_lanes has lanes in {NN1_LANES}, got {lanes}")
+    return _nn1_launch("nn1_lanes", "spt_nn1_lanes", target_xyz, target_mask, queries, extra=(lanes,))
+
+
+def nn1_unroll2(target_xyz, target_mask, queries):
+    """:func:`nn1` without a pose, two targets a step (the TPU study's v3)."""
+    return _nn1_launch("nn1_unroll2", "spt_nn1_unroll2", target_xyz, target_mask, queries)
 
 
 def knn_k(target_xyz, target_mask, queries, k: int):

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sycl_points_tpu_torch import require_device
+
 _OPTIONAL_FIELDS = ("covs", "normals", "rgb", "intensities", "timestamp_offsets")
 
 
@@ -77,9 +79,11 @@ class PointCloud:
         intensities: Optional[np.ndarray] = None,
         timestamp_offsets: Optional[np.ndarray] = None,
         capacity: Optional[int] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "PointCloud":
-        """Build a padded cloud on ``device`` from host arrays."""
+        """Build a padded cloud on ``device`` (the card unless the caller asks
+        for the CPU) from host arrays."""
+        device = require_device(device)
         n = int(points.shape[0])
         cap = capacity if capacity is not None else pad_capacity_for(n)
         if cap < n:

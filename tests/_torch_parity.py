@@ -33,7 +33,7 @@ def clouds(points, capacity=None, **attrs):
 
     return (
         JCloud.from_numpy(points, capacity=capacity, **attrs),
-        TCloud.from_numpy(points, capacity=capacity, **attrs),
+        TCloud.from_numpy(points, capacity=capacity, device="cpu", **attrs),
     )
 
 

@@ -8,6 +8,8 @@ machine without it:
 Tolerances: indices equal except distance ties within 1e-6; distances within
 1e-5 absolute (the kernel and the plain version use the same operation order,
 the remaining slack covers the [Q,M] reduction order of the plain version).
+The study kernels (nn1_tiled, nn1_bias, nn1_lanes, nn1_unroll2) must equal
+nn1_plain exactly: indices and distances, bit for bit.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 import sycl_points_tpu_torch  # noqa: F401  (float32 settings)
 from sycl_points_tpu_torch.ops import cuda_knn
+from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.utils.lie import se3_exp
 
 pytestmark = [
@@ -25,6 +28,15 @@ pytestmark = [
 
 TIE = 1e-6
 D_ATOL = 1e-5
+
+# Every study kernel instance of the two study entry points: label ->
+# (launch-count key, call on (t, m, q)); the production nn1 is tested above.
+STUDY = {
+    label: inst
+    for study in (bench_nn1_tiles, bench_nn1_variants)
+    for label, inst in study.INSTANCES.items()
+    if inst[0] != "nn1"
+}
 
 
 def _cloud(n, seed, extent=50.0, masked_every=0):
@@ -63,6 +75,28 @@ def test_nn1_all_masked():
     tgt, mask = _cloud(3000, 3)
     qry, _ = _cloud(100, 4)
     i, d = cuda_knn.nn1(tgt, torch.zeros_like(mask), qry, _pose())
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(d).all()) and bool((i == 0).all())
+
+
+@pytest.mark.parametrize("m,q,masked_every", [(1, 33, 0), (300, 70, 0), (2049, 129, 3), (25000, 1000, 37)])
+@pytest.mark.parametrize("label", sorted(STUDY))
+def test_study_kernels_equal_plain(label, m, q, masked_every):
+    key, fn = STUDY[label]
+    tgt, mask = _cloud(m, 11, masked_every=masked_every)
+    qry = _cloud(q, 12)[0]
+    before = cuda_knn.launch_counts[key]
+    i, d = fn(tgt, mask.to(torch.uint8), qry)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts[key] == before + 1
+    ri, rd = cuda_knn.nn1_plain(tgt, mask, qry)
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+
+
+@pytest.mark.parametrize("label", sorted(STUDY))
+def test_study_kernels_all_masked(label):
+    tgt, mask = _cloud(3000, 13)
+    i, d = STUDY[label][1](tgt, torch.zeros_like(mask), _cloud(100, 14)[0])
     torch.cuda.synchronize()
     assert bool(torch.isinf(d).all()) and bool((i == 0).all())
 

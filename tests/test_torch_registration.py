@@ -93,7 +93,7 @@ def pair():
     for pose in (pose_src, pose_tgt):
         jc, _ = clouds(scan_at(world, pose, n_az=256, n_rings=24))
         jc = _features(voxel_downsample(box_filter(jc, 0.5, 50.0), 0.5, out_capacity=2048))
-        out.append((jc, cloud_from_numpy(jc.to_numpy(compacted=False))))
+        out.append((jc, cloud_from_numpy(jc.to_numpy(compacted=False), device="cpu")))
     (js, ts), (jt, tt) = out
     ts = ts.replace(mask=both(np_(js.mask))[1])
     tt = tt.replace(mask=both(np_(jt.mask))[1])

@@ -111,7 +111,7 @@ def test_slice_matches_jax(scan_pair):
 def test_register_pair_recovers_ground_truth(scan_pair):
     src, tgt, T_gt = scan_pair
     res = app.register_pair(
-        cloud_from_numpy(src), cloud_from_numpy(tgt), VOXEL, K,
+        cloud_from_numpy(src, device="cpu"), cloud_from_numpy(tgt, device="cpu"), VOXEL, K,
         generator=torch.Generator().manual_seed(1234),
     )
     trans, rot = app.pose_error(np_(res.output.result.T), T_gt)
@@ -139,7 +139,7 @@ def test_synthetic_scan_at_matches_reference():
     world = World()
     T = figure8_trajectory(3, speed=0.7)[2]
     ref = scan_at(world, T, n_az=128, n_rings=16)
-    out = synthetic.scan_at(world, T, n_az=128, n_rings=16)
+    out = synthetic.scan_at(world, T, n_az=128, n_rings=16, device="cpu")
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
 
