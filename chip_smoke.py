@@ -3,11 +3,16 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kNN kernels from ``sycl_points_tpu_torch/csrc``.
-2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (nn1: 1000 queries against the target's voxels under a
-   non-identity pose, and all targets masked; knn_k: k=10 self-search over
-   the voxels with some masked); runs the slice on a small pair on the card
-   and through the plain versions on the CPU and compares the poses.
+2. Holds the production kernels (``csrc/knn_cluster.cu``) to exact
+   references on the card, bit for bit in indices and distances, at the main
+   path's shapes, with every target masked, and on the first 24,575 targets:
+   nn1 (1000 queries against the target's voxels under a non-identity pose)
+   against nn1_plain; knn_k (k=10 self-search over the voxels with some
+   masked) against knn_k_simple, its first design, and against knn_k_plain
+   in its sets. Runs the slice on a small pair on the card and through the
+   plain versions on the CPU and compares the poses; runs register_pair's
+   stages after the voxel step through the production kernels and through
+   knn_k_simple + nn1_plain, and requires equal poses, bit for bit.
 3. Holds every instance of the study kernels (nn1_tiled, nn1_bias,
    nn1_lanes, nn1_unroll2) against nn1_plain at the nn1 shape, on queries
    moved by the ground-truth pose, with some targets masked, with every
@@ -18,7 +23,9 @@
    or ``topk``), as marginal per-launch CUDA-event times, and computes each
    kernel's bound (``scripts.measure``): the larger of its bytes over
    3.35 TB/s and its FP32 operations (9 a query/target pair) over 33.5e12 a
-   second.
+   second. nn1 and knn_k are timed in turns with their first designs (and
+   nn1 with nn1_lanes <32> and <8>) at the path's shape and at Q=M=22,528;
+   their kernel rows carry these as ``previous_ms`` and ``shapes``.
 5. Drives the main path, ``apps.example_registration.register_pair``, on a
    synthetic HDL-64 pair (2048 x 64 rays raycast on the card, two poses of a
    figure-8 about 1 m apart) and checks the pose against the ground truth,
@@ -57,7 +64,7 @@ from sycl_points_tpu_torch.apps.example_registration import (
 from sycl_points_tpu_torch.convert import cloud_from_numpy
 from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
-from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn
+from sycl_points_tpu_torch.ops.knn import BruteForceKNN, KNNResult, self_knn
 from sycl_points_tpu_torch.ops.sampling import random_sampling
 from sycl_points_tpu_torch.ops.transform import transform_points
 from sycl_points_tpu_torch.registration.pipeline import align_pipeline
@@ -73,7 +80,8 @@ TIE_TOL = 1e-6  # index disagreements allowed only between distances this close
 D2_ATOL = 1e-5  # squared-distance agreement, kernel vs plain
 MAX_TRANS_ERR_M = 0.05
 MAX_ROT_ERR_DEG = 0.5
-KNN_SOURCE = "sycl_points_tpu_torch/csrc/knn.cu"
+KNN_SOURCE = "sycl_points_tpu_torch/csrc/knn_cluster.cu"
+FIRST_SOURCE = "sycl_points_tpu_torch/csrc/knn.cu"
 VARIANTS_SOURCE = "sycl_points_tpu_torch/csrc/nn1_variants.cu"
 STUDY_SHAPE = ((1024, 6144),)  # the TPU variant study's small shape
 MASK_EVERY = 37
@@ -86,16 +94,23 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def compare_times(kernel_fn, plain_fn, library_fn, rounds: int = 2):
-    """Marginal per-launch CUDA-event times (ms) of kernel, plain and library:
-    medians of kernel and plain taken in turns plain, kernel, kernel, plain,
-    and one time of the library."""
+def in_turns(fns: dict, rounds: int = 2) -> dict:
+    """Median marginal per-launch CUDA-event ms of each call, timed in turns:
+    every call in order, then in reverse order, ``rounds`` times."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    times = {"kernel": [], "plain": []}
+    order = list(fns)
+    times = {name: [] for name in order}
     for _ in range(rounds):
-        for name, fn in (("plain", plain_fn), ("kernel", kernel_fn), ("kernel", kernel_fn), ("plain", plain_fn)):
-            times[name].append(marginal_ms(fn, dev))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"]), marginal_ms(library_fn, dev)
+        for name in order + order[::-1]:
+            times[name].append(marginal_ms(fns[name], dev))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def compare_times(kernel_fn, plain_fn, library_fn):
+    """(kernel ms, plain ms) in turns plain, kernel, kernel, plain, and one
+    time of the library call."""
+    t = in_turns({"plain": plain_fn, "kernel": kernel_fn})
+    return t["kernel"], t["plain"], marginal_ms(library_fn, torch.device("cuda", torch.cuda.current_device()))
 
 
 def inf_masked(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -123,69 +138,144 @@ def finite_max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def exact_cases(points: torch.Tensor, mask: torch.Tensor) -> dict:
+    """The bit-equality cases: the path's target, every target masked, and
+    the first odd number of targets (off the 512-target tile and the 8
+    slices of the cluster kernels, and off every tile of the first designs)."""
+    n_odd = (points.shape[0] - 1) | 1
+    return {"path": (points, mask), "all masked": (points, torch.zeros_like(mask)),
+            f"first {n_odd} targets": (points[:n_odd], mask[:n_odd])}
+
+
+def check_equal(name: str, got, ref, what: str) -> None:
+    bad = int((got[0] != ref[0]).sum())
+    if bad or not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"{name} ({what}): {bad} index mismatches, distances equal: {torch.equal(got[1], ref[1])}")
+
+
+def n_sm() -> int:
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def second_shape():
+    """The studies' Q=M=22,528 inputs (uniform +-50 m, every 37th target
+    masked), as targets, uint8 mask and queries on the card."""
+    Q = M = 22528
+    return bench_nn1_variants.study_inputs(np.random.default_rng(0), Q, M, bench_nn1_variants.MASK_EVERY,
+                                           torch.device("cuda", torch.cuda.current_device()))
+
+
 def check_nn1(target, queries, pose) -> dict:
+    """The production nn1 (cluster kernel) equal to nn1_plain bit for bit
+    under the path's pose in every exact case. Times, in turns, at the path's
+    shape and at Q=M=22,528: ``ms`` the kernel through nn1_prepped (the ICP
+    loop's per-iteration call, target prepared once), ``public_ms`` nn1
+    (prep_target included), ``previous_ms`` the first design (nn1_tiled
+    <128, 2048>), the nn1_lanes <32> and <8> study kernels, and nn1_plain.
+    The first design and the lanes kernels take no pose, so they get the
+    queries already moved."""
     mask = target.mask.to(torch.uint8)
-    idx, d2 = cuda_knn.nn1(target.points, mask, queries, pose)
-    ref_idx, ref_d2 = cuda_knn.nn1_plain(target.points, mask, queries, pose)
-    torch.cuda.synchronize()
-    bad = cuda_knn.nn1_mismatches(idx, d2, ref_idx, ref_d2, TIE_TOL)
-    err = finite_max_abs_err(d2, ref_d2)
-    print(f"nn1: Q={queries.shape[0]} M={target.capacity} (valid {int(target.count())}): "
-          f"{bad} index mismatches beyond ties, max |d2 - plain| = {err:.3g}")
-    if bad or err > D2_ATOL:
-        raise AssertionError("nn1 kernel disagrees with its plain version")
+    t = target.points
+    for what, (tt, m) in exact_cases(t, mask).items():
+        got = cuda_knn.nn1(tt, m, queries, pose)
+        ref = cuda_knn.nn1_plain(tt, m, queries, pose)
+        torch.cuda.synchronize()
+        check_equal("nn1", got, ref, what)
+        if what == "all masked" and not (bool(torch.isinf(got[1]).all()) and bool((got[0] == 0).all())):
+            raise AssertionError("nn1 with every target masked must give idx 0, d2 = inf")
+    print(f"nn1: Q={queries.shape[0]} M={target.capacity} (valid {int(target.count())}): equal to nn1_plain "
+          f"bit for bit ({', '.join(exact_cases(t, mask))})")
 
-    none = torch.zeros_like(mask)
-    idx0, d20 = cuda_knn.nn1(target.points, none, queries, pose)
-    torch.cuda.synchronize()
-    if not (bool(torch.isinf(d20).all()) and bool((idx0 == 0).all())):
-        raise AssertionError("nn1 with every target masked must give idx 0, d2 = inf")
-    print("nn1 all-masked: idx 0, d2 = inf everywhere")
+    moved = transform_points(queries, pose).contiguous()
+    library_ms = marginal_ms(lambda: cdist_min(moved, inf_masked(t, mask)), t.device)
+    shapes = {}
+    for label, (tt, m, q, p) in {"path": (t, mask, queries, pose), "Q=M=22528": (*second_shape(), None)}.items():
+        qm = q if p is None else moved
+        pr = cuda_knn.prep_target(tt, m)
+        check_equal("nn1", cuda_knn.nn1_prepped(pr, q, p), cuda_knn.nn1_plain(tt, m, q, p), label)
+        turns = in_turns({
+            "ms": lambda: cuda_knn.nn1_prepped(pr, q, p),
+            "previous_ms": lambda: cuda_knn.nn1_tiled(tt, m, qm, 128, 2048),
+            "lanes32_ms": lambda: cuda_knn.nn1_lanes(tt, m, qm, 32),
+            "lanes8_ms": lambda: cuda_knn.nn1_lanes(tt, m, qm, 8),
+            "public_ms": lambda: cuda_knn.nn1(tt, m, q, p),
+            "plain_ms": lambda: cuda_knn.nn1_plain(tt, m, q, p),
+        })
+        sb = nn1_bound(q.shape[0], tt.shape[0], int(m.sum()))
+        qt, slices = cuda_knn.cluster_shape(q.shape[0], cuda_knn.NN1_QUERY_TILES, n_sm())
+        shapes[label] = {"Q": q.shape[0], "M": tt.shape[0], "valid": int(m.sum()), **turns,
+                         "bound_ms": sb[0], "bound_by": sb[1], "query_tile": qt, "slices": slices}
+        print(f"nn1 at {label} (Q={q.shape[0]}, M={tt.shape[0]}, {qt} queries x {slices} slices a cluster), "
+              f"marginal CUDA-event ms per launch, medians in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in turns.items()) + f"; bound {sb[0]:.4f} ({sb[1]})")
+    print(f"nn1 library (cdist + min at the path's shape): {library_ms:.4f} ms")
+    path = shapes["path"]
+    return row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", "register_pair", 0.0,
+               (path["ms"], path["plain_ms"], library_ms), (path["bound_ms"], path["bound_by"]),
+               previous_ms=path["previous_ms"], shapes=shapes)
 
-    moved, t_inf = transform_points(queries, pose).contiguous(), inf_masked(target.points, mask)
-    times = compare_times(
-        lambda: cuda_knn.nn1(target.points, mask, queries, pose),
-        lambda: cuda_knn.nn1_plain(target.points, mask, queries, pose),
-        lambda: cdist_min(moved, t_inf),
-    )
-    b = nn1_bound(queries.shape[0], target.capacity, int(mask.sum()))
-    print(f"nn1 time: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, cdist+min {times[2]:.4f} ms, "
-          f"bound {b[0]:.4f} ms ({b[1]}) (marginal CUDA-event ms per launch, medians)")
-    return row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", "register_pair", err, times, b)
+
+def knn_bound(Q: int, M: int, n_valid: int, k: int):
+    # the distance and the compare against the k-th best of every pair; the
+    # data-dependent insertions are not counted
+    return bound(Q * n_valid, 13 * M + 12 * Q + 8 * Q * k)
 
 
 def check_knn(cloud) -> dict:
+    """The production knn_k (cluster kernel) equal to knn_k_simple (the first
+    design) bit for bit in every exact case, and to knn_k_plain in its sets.
+    Times, in turns, at the path's shape (k=10 self-search) and at
+    Q=M=22,528: ``ms`` the kernel through knn_k_prepped, ``public_ms`` knn_k
+    (prep_target included, the path's self_knn call), ``previous_ms`` the
+    first design, and knn_k_plain."""
     keep = torch.arange(cloud.capacity, device=cloud.device) % 10 != 3
     pts, mask = cloud.points, cloud.mask & keep
+    for what, (tt, m) in exact_cases(pts, mask).items():
+        got = cuda_knn.knn_k(tt, m, pts, K)
+        check_equal("knn_k", got, cuda_knn.knn_k_simple(tt, m, pts, K), what)
     idx, d2 = cuda_knn.knn_k(pts, mask, pts, K)
     ref_idx, ref_d2 = cuda_knn.knn_k_plain(pts, mask, pts, K)
     torch.cuda.synchronize()
     bad = cuda_knn.knn_mismatches(idx, d2, ref_idx, ref_d2, TIE_TOL)
     err = finite_max_abs_err(d2, ref_d2)
-    print(f"knn_k: k={K} Q=M={cloud.capacity} (valid {int(mask.sum())}): "
-          f"{bad} set mismatches beyond ties, max |d2 - plain| = {err:.3g}")
+    print(f"knn_k: k={K} Q=M={cloud.capacity} (valid {int(mask.sum())}): equal to knn_k_simple bit for bit "
+          f"({', '.join(exact_cases(pts, mask))}); {bad} set mismatches against knn_k_plain beyond ties, "
+          f"max |d2 - plain| = {err:.3g}")
     if bad or err > D2_ATOL:
         raise AssertionError("knn_k kernel disagrees with its plain version")
     t_inf = inf_masked(pts, mask)
-    times = compare_times(
-        lambda: cuda_knn.knn_k(pts, mask, pts, K),
-        lambda: cuda_knn.knn_k_plain(pts, mask, pts, K),
+    library_ms = marginal_ms(
         lambda: torch.cdist(pts, t_inf, compute_mode="donot_use_mm_for_euclid_dist").topk(K, largest=False),
-    )
-    Q = M = cloud.capacity
-    # the distance and the compare against the k-th best of every pair; the
-    # data-dependent insertions are not counted
-    b = bound(Q * int(mask.sum()), 13 * M + 12 * Q + 8 * Q * K)
-    print(f"knn_k time: kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms, cdist+topk {times[2]:.4f} ms, "
-          f"bound {b[0]:.4f} ms ({b[1]}) (marginal CUDA-event ms per launch, medians)")
-    return row("knn_k", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", "register_pair", err, times, b)
+        pts.device)
+    shapes = {}
+    for label, (tt, m, q) in {"path": (pts, mask, pts), "Q=M=22528": second_shape()}.items():
+        pr = cuda_knn.prep_target(tt, m)
+        check_equal("knn_k", cuda_knn.knn_k_prepped(pr, q, K), cuda_knn.knn_k_simple(tt, m, q, K), label)
+        turns = in_turns({
+            "ms": lambda: cuda_knn.knn_k_prepped(pr, q, K),
+            "previous_ms": lambda: cuda_knn.knn_k_simple(tt, m, q, K),
+            "public_ms": lambda: cuda_knn.knn_k(tt, m, q, K),
+            "plain_ms": lambda: cuda_knn.knn_k_plain(tt, m, q, K),
+        })
+        sb = knn_bound(q.shape[0], tt.shape[0], int(m.sum()), K)
+        qt, slices = cuda_knn.cluster_shape(q.shape[0], (cuda_knn.KNN_QUERY_TILE,), n_sm())
+        shapes[label] = {"Q": q.shape[0], "M": tt.shape[0], "valid": int(m.sum()), **turns,
+                         "bound_ms": sb[0], "bound_by": sb[1], "query_tile": qt, "slices": slices}
+        print(f"knn_k at {label} (k={K}, Q={q.shape[0]}, M={tt.shape[0]}, {qt} queries x {slices} slices a "
+              f"cluster), marginal CUDA-event ms per launch, medians in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in turns.items()) + f"; bound {sb[0]:.4f} ({sb[1]})")
+    print(f"knn_k library (cdist + topk at the path's shape): {library_ms:.4f} ms")
+    path = shapes["path"]
+    return row("knn_k", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", "register_pair", err,
+               (path["ms"], path["plain_ms"], library_ms), (path["bound_ms"], path["bound_by"]),
+               previous_ms=path["previous_ms"], shapes=shapes)
 
 
 STUDIES = (bench_nn1_tiles, bench_nn1_variants)
 # Each study kernel's launch-count key -> (its source, the TPU kernel it
 # replaces). The studies' v0 is the production nn1, checked above.
 STUDY_KERNELS = {
-    "nn1_tiled": (KNN_SOURCE, "scripts/bench_pallas_tiles.py:27"),
+    "nn1_tiled": (FIRST_SOURCE, "scripts/bench_pallas_tiles.py:27"),
     "nn1_bias": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:106"),
     "nn1_lanes": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:134"),
     "nn1_unroll2": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:168"),
@@ -322,6 +412,38 @@ def check_small_pair_against_cpu(world, pose_src, pose_tgt, device) -> None:
         raise AssertionError("the card and the CPU reference disagree on the small pair")
 
 
+class PlainNN1Search(BruteForceKNN):
+    """The ICP loop's correspondence search through nn1_plain."""
+
+    def search(self, query_points, k, pose=None):
+        i, d = cuda_knn.nn1_plain(self.points, self.mask, query_points, pose)
+        return KNNResult(i[:, None], d[:, None])
+
+
+def check_pose_bit_exact(src_raw, tgt_raw, cap) -> None:
+    """register_pair's stages after the voxel step, on one pair of voxel
+    clouds, through the production kernels and through their exact
+    references (knn_k_simple for the self-k-NN, nn1_plain for the
+    correspondences): the poses must be equal bit for bit. The voxel step
+    runs once, as its index_add_ sums in no fixed order."""
+    vox = [downsample(raw, VOXEL, cap) for raw in (src_raw, tgt_raw)]
+    poses = []
+    for knn_fn, search in ((self_knn, BruteForceKNN),
+                           (lambda p, m, k: KNNResult(*cuda_knn.knn_k_simple(p, m, p, k)), PlainNN1Search)):
+        clouds = []
+        for c in vox:
+            covs = estimate_covariances(c.points, knn_fn(c.points, c.mask, K))
+            clouds.append(c.replace(covs=covs, normals=extract_normals(c.points, covs)))
+        gen = torch.Generator(device=c.points.device).manual_seed(SEED)
+        out = align_pipeline(clouds[0], clouds[1], search(points=clouds[1].points, mask=clouds[1].mask),
+                             PAIR_PARAMS, generator=gen)
+        poses.append(out.result.T)
+    if not torch.equal(poses[0], poses[1]):
+        raise AssertionError(f"the pose through the kernels differs from the pose through their references: "
+                             f"{(poses[0] - poses[1]).abs().max().item():.3g}")
+    print("register_pair after the voxel step, cluster kernels vs knn_k_simple + nn1_plain: poses equal bit for bit")
+
+
 def check_on_device(tree, device) -> None:
     for name, value in tree.items():
         if isinstance(value, torch.Tensor) and value.device.type != device.type:
@@ -366,6 +488,7 @@ def main() -> None:
     pose = torch.as_tensor(T_gt, dtype=torch.float32, device=dev).contiguous()
     results = [check_nn1(tgt_vox, queries, pose), check_knn(tgt_vox)]
     check_small_pair_against_cpu(world, pose_src, pose_tgt, dev)
+    check_pose_bit_exact(src_raw, tgt_raw, cap)
     results += check_study_kernels(tgt_vox, queries, pose)
 
     # --- the main path -------------------------------------------------------

@@ -1,19 +1,20 @@
-// Exact nearest-neighbour kernels for Hopper (sm_90a), plain C interface.
+// The first exact nearest-neighbour kernels for Hopper (sm_90a), plain C
+// interface. The production nn1 and knn_k are the split-target cluster
+// kernels of knn_cluster.cu; these stay as the exact references and the
+// earlier designs they are timed against.
 //
-// nn1   replaces the Pallas TPU kernel `nn1_pallas_prepped` / `_nn1_kernel`
-//       (sycl_points_tpu/ops/pallas_knn.py): the exact 1-NN correspondence
-//       search run every ICP iteration, with the 4x4 pose folded into the
-//       queries inside the kernel (the reference's transT).
 // nn1_tiled replaces the TPU tile sweep `make_nn1(query_tile,
-//       target_chunk).nn1` (scripts/bench_pallas_tiles.py): the same kernel
-//       as nn1, instantiated over threads per block {64, 128, 256, 512} x
-//       shared-memory target tile {512, 1024, 2048, 4096} points. The
-//       production nn1 is the <128, 2048> instance. 3 x 4096 x 4 B = 48 KB is
+//       target_chunk).nn1` (scripts/bench_pallas_tiles.py), and was the first
+//       production nn1 (the Pallas `nn1_pallas_prepped`,
+//       sycl_points_tpu/ops/pallas_knn.py) at its <128, 2048> instance:
+//       instances over threads per block {64, 128, 256, 512} x shared-memory
+//       target tile {512, 1024, 2048, 4096} points. 3 x 4096 x 4 B = 48 KB is
 //       the static shared-memory limit, so 4096 is the largest tile; that
 //       limit is this card's counterpart of the TPU sweep's VMEM skip.
-// knn_k replaces `_approx_knn_single` (sycl_points_tpu/ops/knn.py), which is
-//       built on the TPU-only `lax.approx_max_k`; here it is an exact k-NN
-//       (k <= 16), which is what the CPU reference computes.
+// knn_k_simple was the first production knn_k, the exact k-NN (k <= 16) that
+//       replaces `_approx_knn_single` (sycl_points_tpu/ops/knn.py, built on
+//       the TPU-only `lax.approx_max_k`). The GPU tests and the smoke run hold
+//       the cluster knn_k to it bit for bit, ties included.
 //
 // What bounds them on the card: both are brute force. Each query/target pair
 // costs ~9 FP32 ALU operations (3 sub, 3 mul, 2 add, 1 compare), so the
@@ -31,9 +32,8 @@
 // operation rounds once, as in the Pallas kernel and the PyTorch plain
 // version. A strict `<` keeps the earliest index on ties.
 //
-// Known limit of this first version: nn1 at 1000 queries fills only a few
-// of the 132 SMs. nn1_variants.cu holds the lanes-per-query formulation that
-// puts more warps on the card.
+// Its limit: one thread a query fills few SMs (nn1 at 1000 queries runs 8
+// blocks on 132 SMs); knn_cluster.cu splits the target across a cluster.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
@@ -55,8 +55,7 @@ template <int kBlock, int kTileN>
 __global__ void __launch_bounds__(kBlock)
 nn1_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask,
            int M, const float* __restrict__ queries, int Q,
-           const float* __restrict__ pose, int* __restrict__ out_idx,
-           float* __restrict__ out_d2) {
+           int* __restrict__ out_idx, float* __restrict__ out_d2) {
   __shared__ float sx[kTileN];
   __shared__ float sy[kTileN];
   __shared__ float sz[kTileN];
@@ -64,19 +63,9 @@ nn1_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (qi < Q) {
-    float px = queries[3 * qi + 0];
-    float py = queries[3 * qi + 1];
-    float pz = queries[3 * qi + 2];
-    if (pose != nullptr) {
-      // transform_points order: (R p) as a row-wise sum, then + t.
-      qx = pose[0] * px + pose[1] * py + pose[2] * pz + pose[3];
-      qy = pose[4] * px + pose[5] * py + pose[6] * pz + pose[7];
-      qz = pose[8] * px + pose[9] * py + pose[10] * pz + pose[11];
-    } else {
-      qx = px;
-      qy = py;
-      qz = pz;
-    }
+    qx = queries[3 * qi + 0];
+    qy = queries[3 * qi + 1];
+    qz = queries[3 * qi + 2];
   }
 
   float best_d = CUDART_INF_F;
@@ -170,19 +159,10 @@ inline int num_blocks(int Q, int threads = kThreads) { return (Q + threads - 1) 
 
 }  // namespace
 
-extern "C" int spt_nn1(const float* tgt, const unsigned char* mask, int M,
-                       const float* queries, int Q, const float* pose,
-                       int* out_idx, float* out_d2, void* stream) {
-  nn1_kernel<kThreads, kTile><<<num_blocks(Q), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tgt, mask, M, queries, Q, pose, out_idx, out_d2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 #define SPT_NN1_TILE_CASE(TH, TI)                                            \
   case TI:                                                                   \
     nn1_kernel<TH, TI><<<num_blocks(Q, TH), TH, 0, s>>>(tgt, mask, M, queries, \
-                                                       Q, nullptr, out_idx,  \
-                                                       out_d2);              \
+                                                       Q, out_idx, out_d2);  \
     break;
 
 #define SPT_NN1_THREADS_CASE(TH)                      \
@@ -219,9 +199,10 @@ extern "C" int spt_nn1_tiled(const float* tgt, const unsigned char* mask, int M,
                                                       Q, out_idx, out_d2);   \
     break;
 
-extern "C" int spt_knn_k(const float* tgt, const unsigned char* mask, int M,
-                         const float* queries, int Q, int k, int* out_idx,
-                         float* out_d2, void* stream) {
+// The first design of knn_k on the raw target and its mask.
+extern "C" int spt_knn_k_simple(const float* tgt, const unsigned char* mask, int M,
+                                const float* queries, int Q, int k, int* out_idx,
+                                float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     SPT_KNN_CASE(1)

@@ -1,0 +1,353 @@
+// Split-target nearest-neighbour kernels for Hopper (sm_90a), plain C
+// interface: the production nn1 and knn_k.
+//
+// nn1   replaces the Pallas TPU kernel `nn1_pallas_prepped` / `_nn1_kernel`
+//       (sycl_points_tpu/ops/pallas_knn.py): the exact 1-NN correspondence
+//       search run every ICP iteration, with the 4x4 pose folded into the
+//       queries in registers (the reference's transT).
+// knn_k replaces `_approx_knn_single` (sycl_points_tpu/ops/knn.py), built on
+//       the TPU-only `lax.approx_max_k`; here an exact k-NN (k <= 16), which
+//       is what the CPU reference computes.
+//
+// What bounds them on this card: FP32 ALU issue, not bytes. A query/target
+// pair costs 9 FP32 operations (3 sub, 3 mul, 2 add, 1 compare, built with
+// --fmad=false so each rounds once, as in the Pallas kernel and the plain
+// PyTorch versions), while the target, 12 bytes a point, streams from L2
+// once per block. The first versions (knn.cu: one thread a query, the whole
+// target per block) filled few SMs with few warps: nn1 at 1000 queries ran
+// 8 blocks on 132 SMs, knn_k at 24,576 queries 1.45 waves of 4-warp blocks,
+// latency-bound on a compare chain.
+//
+// The design:
+//   * The grid is query tiles x S target slices. The S blocks of one query
+//     tile form a thread-block cluster (S = 1 to 16, chosen by the wrapper
+//     from Q so the grid holds about 4 blocks an SM); block r scans only
+//     slice r of the target, so a small query count still fills the card.
+//   * One query a thread. A block's 4 warps form G = 4 / QW groups of QW
+//     warps: each group holds the block's QT = 32 * QW queries and scans 1/G
+//     of every staged tile, so a block of 32 queries still has 4 warps at
+//     work. knn_k runs QT = 128, nn1 32 to 128 by Q.
+//   * Registers set the occupancy: 64 a thread up to k = 10 (8 blocks, 32
+//     warps an SM), 80 above (6 blocks). Two queries a thread, which would
+//     share each shared-memory load, cost more in occupancy than they saved.
+//   * The slice streams through two shared-memory tiles loaded with cp.async
+//     while the other is scanned: whole aligned tiles of the prepared target,
+//     no mask, no edge test. A float4 load is a warp-wide broadcast feeding
+//     4 distances.
+//   * Each thread keeps a sorted partial best-k in registers, with knn.cu's
+//     insertion rule (strict `<`, after entries <= d, targets in index
+//     order), so a partial list is the k smallest (d, idx) of its targets.
+//   * knn_k prunes: the insertions, not the distances, held the unpruned
+//     design back (the voxel order makes the distance fall target after
+//     target for long runs, and a warp inserts when any lane does). Every
+//     block first takes the best-k of every 16th target of its slice; the
+//     cluster's least k-th distance over these samples, read through
+//     distributed shared memory, bounds the query's true k-th distance from
+//     above, and the full scan then inserts only distances <= that bound.
+//     Anything pruned has k real neighbours closer, so the result does not
+//     change.
+//   * Merge: each group writes its lists to its block's shared memory,
+//     cluster.sync(), then block r merges 1/S of the tile's queries by
+//     reading every peer's lists through cluster.map_shared_rank, by
+//     (d, idx) in lexicographic order, and writes idx/d2. A last
+//     cluster.sync() keeps every block's shared memory alive until all peers
+//     have read it.
+//
+// Why the result equals knn.cu's bit for bit, ties included: that kernel
+// returns the k smallest (d, idx) pairs in lexicographic order; a merge of
+// per-slice k-smallest lists by the same key returns the same pairs. Slots
+// with no valid neighbour stay idx 0, d2 = +inf: an +inf distance never
+// enters a list, and (inf, 0) loses to any finite entry in the merge.
+//
+// Every entry point launches on the caller's stream, allocates nothing, and
+// returns the first error of cudaFuncSetAttribute, cudaLaunchKernelEx or
+// cudaGetLastError, so a refused cluster launch raises in the wrapper.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "knn_cluster.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using spt::cp_async16;
+using spt::cp_async_commit;
+using spt::cp_async_wait;
+using spt::insert_lex;
+using spt::lex_less;
+using spt::scan_span;
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 512;         // targets a staged tile; prep_target pads to it
+constexpr int kMaxSlices = 16;     // blocks a cluster; above 8 is a non-portable size
+constexpr int kSampleStride = 16;  // knn_k's pruning sample: every 16th target
+constexpr int kMaxQueryTiles = 65535;
+
+template <int K, int QW, bool kPrune>
+struct Cfg {
+  static constexpr int G = kWarps / QW;    // warp groups, each scans 1/G of a tile
+  static constexpr int QT = 32 * QW;       // queries a block (and a cluster)
+  static constexpr int kChunk = kTile / G; // targets a group scans per tile
+  static constexpr int kTileFloats = 2 * 3 * kTile;       // two staged tiles
+  static constexpr int kListFloats = 2 * G * QT * K;      // (d, idx) lists
+  static constexpr int kMain = kTileFloats > kListFloats ? kTileFloats : kListFloats;
+  static constexpr int kPub = kPrune ? G * QT : 0;        // sampled k-th distances
+  static constexpr size_t kSmemBytes = sizeof(float) * (kMain + kPub);
+  static constexpr int kMinBlocks = K <= 10 ? 8 : 6;      // 64 / 80 registers a thread
+  static_assert(kWarps % QW == 0, "QW divides the block's warps");
+  static_assert(QT % kMaxSlices == 0, "every slice count divides the query tile");
+  static_assert(kChunk % 8 == 0 && kTile % (kSampleStride * 8) == 0, "float4 spans");
+};
+
+template <int K, int QW, bool kPose, bool kPrune>
+__global__ void __launch_bounds__(kThreads, (Cfg<K, QW, kPrune>::kMinBlocks))
+knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restrict__ queries,
+                   int Q, const float* __restrict__ pose, int* __restrict__ out_idx,
+                   float* __restrict__ out_d2) {
+  using C = Cfg<K, QW, kPrune>;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int g = (threadIdx.x / 32) / QW;
+  const int slot = threadIdx.x % C::QT;  // the thread's query in the block's tile
+  const int qbase = blockIdx.y * C::QT;
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (qbase + slot < Q) {
+    const float* p = queries + 3 * static_cast<size_t>(qbase + slot);
+    if constexpr (kPose) {
+      // transform_points order: (R p) as a row-wise sum, then + t.
+      qx = pose[0] * p[0] + pose[1] * p[1] + pose[2] * p[2] + pose[3];
+      qy = pose[4] * p[0] + pose[5] * p[1] + pose[6] * p[2] + pose[7];
+      qz = pose[8] * p[0] + pose[9] * p[1] + pose[10] * p[2] + pose[11];
+    } else {
+      qx = p[0];
+      qy = p[1];
+      qz = p[2];
+    }
+  }
+
+  float bd[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = CUDART_INF_F;
+    bi[s] = 0;
+  }
+  float cap = CUDART_INF_F, lim = CUDART_INF_F;
+
+  // This block's slice: tiles [t0, t1), in ascending index order.
+  const int n_tiles = Mp / kTile;
+  const int t0 = static_cast<int>(static_cast<long long>(rank) * n_tiles / S);
+  const int t1 = static_cast<int>(static_cast<long long>(rank + 1) * n_tiles / S);
+  float* tiles = smem;
+
+  if constexpr (kPrune) {
+    // Phase 1: best-k of every kSampleStride-th target of the slice.
+    const int s_first = t0 * kTile;
+    const int n_sample = (t1 - t0) * (kTile / kSampleStride);
+    for (int c0 = 0; c0 < n_sample; c0 += kTile) {
+      const int n = min(kTile, n_sample - c0);
+      __syncthreads();
+      for (int j = threadIdx.x; j < n; j += kThreads) {
+        const size_t t = static_cast<size_t>(s_first) + static_cast<size_t>(c0 + j) * kSampleStride;
+        tiles[j] = tgt[t];
+        tiles[kTile + j] = tgt[static_cast<size_t>(Mp) + t];
+        tiles[2 * kTile + j] = tgt[2 * static_cast<size_t>(Mp) + t];
+      }
+      __syncthreads();
+      const int span = n / C::G;  // n is a multiple of 32
+      scan_span<K>(tiles, tiles + kTile, tiles + 2 * kTile, g * span, (g + 1) * span,
+                   s_first + c0 * kSampleStride, kSampleStride, qx, qy, qz, bd, bi, lim, cap);
+    }
+    // The cluster's bound: the least sampled k-th distance over every block
+    // and group. nextafter keeps a distance equal to it: such a target can
+    // still win on its index.
+    float* pub = smem + C::kMain;
+    pub[g * C::QT + slot] = bd[K - 1];
+    cluster.sync();
+    float tau = CUDART_INF_F;
+    for (int r = 0; r < S; ++r) {
+      const float* peer = cluster.map_shared_rank(pub, r);
+#pragma unroll
+      for (int gg = 0; gg < C::G; ++gg) tau = fminf(tau, peer[gg * C::QT + slot]);
+    }
+    cap = lim = nextafterf(tau, CUDART_INF_F);
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      bd[s] = CUDART_INF_F;
+      bi[s] = 0;
+    }
+    __syncthreads();  // the sample buffer is free for the tiles
+  }
+
+  // Phase 2: the whole slice, double-buffered through cp.async.
+  auto stage = [&](int tile, int buf) {
+    float* dst = tiles + buf * 3 * kTile;
+    for (int c = threadIdx.x; c < 3 * kTile / 4; c += kThreads) {
+      const int row = c / (kTile / 4);
+      const int off = (c % (kTile / 4)) * 4;
+      cp_async16(dst + row * kTile + off,
+                 tgt + static_cast<size_t>(row) * Mp + static_cast<size_t>(tile) * kTile + off);
+    }
+    cp_async_commit();
+  };
+  if (t0 < t1) stage(t0, 0);
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) {
+      stage(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sx = tiles + buf * 3 * kTile;
+    scan_span<K>(sx, sx + kTile, sx + 2 * kTile, g * C::kChunk, (g + 1) * C::kChunk, t * kTile, 1,
+                 qx, qy, qz, bd, bi, lim, cap);
+    __syncthreads();
+  }
+
+  // Merge: every group's lists into this block's shared memory ...
+  float2* lists = reinterpret_cast<float2*>(smem);
+  float2* mine = lists + (g * C::QT + slot) * K;
+#pragma unroll
+  for (int s = 0; s < K; ++s) mine[s] = make_float2(bd[s], __int_as_float(bi[s]));
+  cluster.sync();
+  // ... then block `rank` merges its share of the tile's queries from every
+  // peer's lists, in lexicographic (d, idx) order.
+  const int per_block = C::QT / S;
+  if (threadIdx.x < per_block) {
+    const int q_slot = rank * per_block + threadIdx.x;
+    float md[K];
+    int mi[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      md[s] = CUDART_INF_F;
+      mi[s] = 0;
+    }
+    for (int r = 0; r < S; ++r) {
+      const float2* peer = cluster.map_shared_rank(lists, r);
+#pragma unroll
+      for (int gg = 0; gg < C::G; ++gg) {
+        const float2* l = peer + (gg * C::QT + q_slot) * K;
+        float2 e[K];
+#pragma unroll
+        for (int s = 0; s < K; ++s) e[s] = l[s];
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          const float d = e[s].x;
+          const int idx = __float_as_int(e[s].y);
+          // a list ascends by (d, idx): the rest of it cannot enter either
+          if (!lex_less(d, idx, md[K - 1], mi[K - 1])) break;
+          insert_lex<K>(md, mi, d, idx);
+        }
+      }
+    }
+    const int q = qbase + q_slot;
+    if (q < Q) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        out_idx[static_cast<size_t>(q) * K + s] = mi[s];
+        out_d2[static_cast<size_t>(q) * K + s] = md[s];
+      }
+    }
+  }
+  cluster.sync();  // no block exits while a peer may still read its lists
+}
+
+template <int K, int QW, bool kPose, bool kPrune>
+int launch(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int slices,
+           int* out_idx, float* out_d2, void* stream) {
+  using C = Cfg<K, QW, kPrune>;
+  if (Q <= 0) return static_cast<int>(cudaSuccess);
+  const int n_qtiles = (Q + C::QT - 1) / C::QT;
+  const bool pow2 = slices > 0 && (slices & (slices - 1)) == 0;
+  if (Mp % kTile != 0 || n_qtiles > kMaxQueryTiles || !pow2 || slices > kMaxSlices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = knn_cluster_kernel<K, QW, kPose, kPrune>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::kSmemBytes));
+  if (err == cudaSuccess && slices > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slices, n_qtiles, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tgt, Mp, queries, Q, pose, out_idx, out_d2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int QW>
+int launch_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int slices,
+               int* out_idx, float* out_d2, void* stream) {
+  if (pose != nullptr)
+    return launch<1, QW, true, false>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+  return launch<1, QW, false, false>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+}
+
+}  // namespace
+
+// Exact 1-NN of queries [Q,3] (moved by pose [4,4] row-major if not null)
+// against a prepared target [3, Mp]. The wrapper chooses from Q the queries
+// a cluster (query_tile: 32, 64 or 128) and the target slices, blocks a
+// cluster (slices: 1, 2, 4, 8 or 16).
+extern "C" int spt_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose,
+                       int query_tile, int slices, int* out_idx, float* out_d2, void* stream) {
+  switch (query_tile) {
+    case 32:
+      return launch_nn1<1>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+    case 64:
+      return launch_nn1<2>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+    case 128:
+      return launch_nn1<4>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#define SPT_KNN_CLUSTER_CASE(KV) \
+  case KV:                       \
+    return launch<KV, 4, false, true>(tgt, Mp, queries, Q, nullptr, slices, out_idx, out_d2, stream);
+
+// Exact k-NN (1 <= k <= 16) of queries [Q,3] against a prepared target
+// [3, Mp], ascending by (d, idx): 128 queries a cluster and the slices the
+// wrapper chooses from Q (as for nn1).
+extern "C" int spt_knn_k(const float* tgt, int Mp, const float* queries, int Q, int k, int slices,
+                         int* out_idx, float* out_d2, void* stream) {
+  switch (k) {
+    SPT_KNN_CLUSTER_CASE(1)
+    SPT_KNN_CLUSTER_CASE(2)
+    SPT_KNN_CLUSTER_CASE(3)
+    SPT_KNN_CLUSTER_CASE(4)
+    SPT_KNN_CLUSTER_CASE(5)
+    SPT_KNN_CLUSTER_CASE(6)
+    SPT_KNN_CLUSTER_CASE(7)
+    SPT_KNN_CLUSTER_CASE(8)
+    SPT_KNN_CLUSTER_CASE(9)
+    SPT_KNN_CLUSTER_CASE(10)
+    SPT_KNN_CLUSTER_CASE(11)
+    SPT_KNN_CLUSTER_CASE(12)
+    SPT_KNN_CLUSTER_CASE(13)
+    SPT_KNN_CLUSTER_CASE(14)
+    SPT_KNN_CLUSTER_CASE(15)
+    SPT_KNN_CLUSTER_CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,21 +1,26 @@
 """Hand-written CUDA nearest-neighbour kernels: build, wrappers, plain versions.
 
 Counterpart of :mod:`sycl_points_tpu.ops.pallas_knn` and of the two TPU
-studies of its kernel. In ``csrc/knn.cu``:
+studies of its kernel. The production kernels, in ``csrc/knn_cluster.cu``,
+split the target across the blocks of a thread-block cluster and read a
+target prepared once by :func:`prep_target`:
 
   * ``nn1``   exact 1-NN with the 4x4 pose folded into the queries; replaces
               the Pallas kernel ``nn1_pallas_prepped`` (the ICP
               correspondence search);
-  * ``nn1_tiled`` the same kernel at a chosen (threads per block, target
-              tile) instance; replaces the tile sweep's ``make_nn1``
-              (``scripts/bench_pallas_tiles.py``);
   * ``knn_k`` exact k-NN, k <= 16; replaces ``_approx_knn_single``, which
               rests on the TPU-only ``lax.approx_max_k``.
 
-In ``csrc/nn1_variants.cu``, the formulations of the variant study
-(``scripts/bench_nn1_variants.py``) on queries already moved by the pose:
-``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8 or 32 lanes a query) and
-``nn1_unroll2`` (v3). Every 1-NN kernel equals :func:`nn1_plain`.
+In ``csrc/knn.cu``, the first designs, one thread a query on the raw target
+and its mask: ``nn1_tiled``, the 1-NN at a chosen (threads per block, target
+tile) instance, which replaces the tile sweep's ``make_nn1``
+(``scripts/bench_pallas_tiles.py``) and whose ``(128, 2048)`` instance was
+the first production ``nn1``; and ``knn_k_simple``, the first ``knn_k``, kept
+as the exact reference for ties. In ``csrc/nn1_variants.cu``, the
+formulations of the variant study (``scripts/bench_nn1_variants.py``) on
+queries already moved by the pose: ``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8
+or 32 lanes a query) and ``nn1_unroll2`` (v3). Every 1-NN kernel equals
+:func:`nn1_plain`.
 
 On first use every source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` (one ``nvcc`` a source, all started together) and linked into one
@@ -38,7 +43,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,13 +59,25 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 MAX_K = 16
+# The cluster kernels (csrc/knn_cluster.cu): a prepared target is padded to a
+# multiple of TARGET_TILE; a cluster is one query tile (one of
+# NN1_QUERY_TILES for nn1, KNN_QUERY_TILE for knn_k) against the target cut
+# into CLUSTER_SLICES slices, a block each; cluster_shape() chooses both.
+TARGET_TILE = 512
+CLUSTER_SLICES = (1, 2, 4, 8, 16)
+NN1_QUERY_TILES = (32, 64, 128)
+KNN_QUERY_TILE = 128
+BLOCKS_PER_SM = 4
 # Instances compiled into the library (csrc/knn.cu, csrc/nn1_variants.cu).
 NN1_THREADS = (64, 128, 256, 512)
 NN1_TILES = (512, 1024, 2048, 4096)
 NN1_LANES = (8, 32)
 
 # Kernel launches per wrapper; reset with reset_launch_counts().
-launch_counts = {"nn1": 0, "knn_k": 0, "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0}
+launch_counts = {
+    "nn1": 0, "knn_k": 0, "knn_k_simple": 0,
+    "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -125,37 +143,58 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.spt_nn1.argtypes = [p, p, i, p, i, p, p, p, p]
-            lib.spt_knn_k.argtypes = [p, p, i, p, i, i, p, p, p]
+            lib.spt_nn1.argtypes = [p, i, p, i, p, i, i, p, p, p]
+            lib.spt_knn_k.argtypes = [p, i, p, i, i, i, p, p, p]
+            lib.spt_knn_k_simple.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_tiled.argtypes = [p, p, i, p, i, i, i, p, p, p]
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
-            for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_tiled, lib.spt_nn1_bias,
-                       lib.spt_nn1_lanes, lib.spt_nn1_unroll2):
+            for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_knn_k_simple, lib.spt_nn1_tiled,
+                       lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2):
                 fn.restype = i
             _lib = lib
     return _lib
 
 
-def _check_inputs(target_xyz, target_mask, queries, pose=None):
-    M, Q = target_xyz.shape[0], queries.shape[0]
-    if target_xyz.shape != (M, 3) or queries.shape != (Q, 3):
-        raise ValueError(f"expected [M,3] targets and [Q,3] queries, got {tuple(target_xyz.shape)}, {tuple(queries.shape)}")
-    if target_mask.shape != (M,):
-        raise ValueError(f"expected a [{M}] target mask, got {tuple(target_mask.shape)}")
+def _check_queries(queries, pose, *others):
+    """Check ``queries [Q,3]`` f32 and ``pose [4,4]`` f32 (or None), all on
+    the device of ``others``; returns that device."""
+    Q = queries.shape[0]
+    if queries.shape != (Q, 3):
+        raise ValueError(f"expected [Q,3] queries, got {tuple(queries.shape)}")
     if pose is not None and pose.shape != (4, 4):
         raise ValueError(f"expected a [4,4] pose, got {tuple(pose.shape)}")
-    tensors = [target_xyz, target_mask, queries] + ([] if pose is None else [pose])
+    tensors = [*others, queries] + ([] if pose is None else [pose])
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on more than one device: {devices}")
-    for t in (target_xyz, queries) + (() if pose is None else (pose,)):
+    for t in (queries,) + (() if pose is None else (pose,)):
         if t.dtype != torch.float32:
             raise TypeError(f"expected float32 coordinates, got {t.dtype}")
+    return devices.pop()
+
+
+def _check_target(target_xyz, target_mask):
+    M = target_xyz.shape[0]
+    if target_xyz.shape != (M, 3):
+        raise ValueError(f"expected [M,3] targets, got {tuple(target_xyz.shape)}")
+    if target_mask.shape != (M,):
+        raise ValueError(f"expected a [{M}] target mask, got {tuple(target_mask.shape)}")
+    if target_xyz.dtype != torch.float32:
+        raise TypeError(f"expected float32 coordinates, got {target_xyz.dtype}")
     if target_mask.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"expected a bool or uint8 mask, got {target_mask.dtype}")
-    return devices.pop()
+
+
+def _check_inputs(target_xyz, target_mask, queries, pose=None):
+    _check_target(target_xyz, target_mask)
+    return _check_queries(queries, pose, target_xyz, target_mask)
+
+
+def _require_cuda(device, name: str) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
 
 
 def _require_contiguous(*tensors):
@@ -170,28 +209,67 @@ def _check_rc(rc: int, name: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# The prepared target
+# --------------------------------------------------------------------------
+
+
+class PreppedTarget(NamedTuple):
+    """A kernel-ready target: ``xyz [3, Mp]`` float32, the x, y and z rows,
+    with masked rows and the padding up to ``Mp`` (a multiple of
+    :data:`TARGET_TILE`) at +inf; ``M`` is the true target count."""
+
+    xyz: torch.Tensor
+    M: int
+
+    def points(self) -> torch.Tensor:
+        """``[M, 3]`` coordinates, +inf on masked rows (a view)."""
+        return self.xyz[:, : self.M].T
+
+
+def prep_target(points: torch.Tensor, mask: torch.Tensor) -> PreppedTarget:
+    """The target as the cluster kernels read it, made once for any number of
+    searches (the counterpart of ``pallas_knn.prep_target``): an +inf target
+    has an +inf distance, which no strict ``<`` takes, so the kernels read
+    whole aligned tiles with no mask and no edge test."""
+    _check_target(points, mask)
+    if points.device != mask.device:
+        raise ValueError(f"inputs on more than one device: {points.device}, {mask.device}")
+    M = points.shape[0]
+    Mp = -(-M // TARGET_TILE) * TARGET_TILE
+    xyz = torch.where(mask.bool()[None, :], points.T, torch.inf)
+    return PreppedTarget(torch.nn.functional.pad(xyz, (0, Mp - M), value=torch.inf).contiguous(), M)
+
+
+def _check_prepped(prep: PreppedTarget, queries, pose):
+    xyz = prep.xyz
+    if xyz.dim() != 2 or xyz.shape[0] != 3 or xyz.shape[1] % TARGET_TILE or not 0 <= prep.M <= xyz.shape[1]:
+        raise ValueError(f"expected a prepared [3, Mp] target, Mp a multiple of {TARGET_TILE}, "
+                         f"got {tuple(xyz.shape)} with M={prep.M}")
+    if xyz.dtype != torch.float32:
+        raise TypeError(f"expected float32 coordinates, got {xyz.dtype}")
+    return _check_queries(queries, pose, xyz)
+
+
+# --------------------------------------------------------------------------
 # Plain PyTorch versions (CPU path, and the reference for the kernels)
 # --------------------------------------------------------------------------
 
 
-def _sqdist_block(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _sqdist_block(q: torch.Tensor, t: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
     """Exact ``[Q, M]`` squared distances ``e0*e0 + e1*e1 + e2*e2`` (the
     kernels' operation order); invalid targets are +inf."""
     e = q[:, None, :] - t[None, :, :]
     d2 = e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1] + e[..., 2] * e[..., 2]
-    return torch.where(valid[None, :], d2, torch.inf)
+    return d2 if valid is None else torch.where(valid[None, :], d2, torch.inf)
 
 
 def _query_chunk(M: int) -> int:
     return max(1, _PLAIN_BLOCK_ELEMS // max(M, 1))
 
 
-def nn1_plain(target_xyz, target_mask, queries, pose=None):
-    """Exact 1-NN: ``(idx [Q] int32, d2 [Q] f32)``; the earliest index wins
-    ties; with no valid target, idx 0 and d2 = +inf."""
+def _nn1_plain(target_xyz, valid, queries, pose):
     if pose is not None:
         queries = transform_points(queries, pose)
-    valid = target_mask.bool()
     Q, M = queries.shape[0], target_xyz.shape[0]
     idx = torch.zeros(Q, dtype=torch.int32, device=queries.device)
     d2 = torch.full((Q,), torch.inf, dtype=torch.float32, device=queries.device)
@@ -206,10 +284,13 @@ def nn1_plain(target_xyz, target_mask, queries, pose=None):
     return idx, d2
 
 
-def knn_k_plain(target_xyz, target_mask, queries, k: int):
-    """Exact k-NN, ascending: ``(idx [Q,k] int32, d2 [Q,k] f32)``. Slots with
-    no valid neighbour get idx 0 and d2 = +inf."""
-    valid = target_mask.bool()
+def nn1_plain(target_xyz, target_mask, queries, pose=None):
+    """Exact 1-NN: ``(idx [Q] int32, d2 [Q] f32)``; the earliest index wins
+    ties; with no valid target, idx 0 and d2 = +inf."""
+    return _nn1_plain(target_xyz, target_mask.bool(), queries, pose)
+
+
+def _knn_k_plain(target_xyz, valid, queries, k: int):
     Q, M = queries.shape[0], target_xyz.shape[0]
     idx = torch.zeros((Q, k), dtype=torch.int32, device=queries.device)
     d2 = torch.full((Q, k), torch.inf, dtype=torch.float32, device=queries.device)
@@ -223,6 +304,12 @@ def knn_k_plain(target_xyz, target_mask, queries, k: int):
         idx[s : s + step, :kk] = torch.where(torch.isfinite(d), i, 0).to(torch.int32)
         d2[s : s + step, :kk] = d
     return idx, d2
+
+
+def knn_k_plain(target_xyz, target_mask, queries, k: int):
+    """Exact k-NN, ascending: ``(idx [Q,k] int32, d2 [Q,k] f32)``. Slots with
+    no valid neighbour get idx 0 and d2 = +inf."""
+    return _knn_k_plain(target_xyz, target_mask.bool(), queries, k)
 
 
 def nn1_mismatches(idx, d2, ref_idx, ref_d2, tie_tol: float = 1e-6) -> int:
@@ -258,49 +345,146 @@ def knn_mismatches(idx, d2, ref_idx, ref_d2, tie_tol: float) -> int:
 # --------------------------------------------------------------------------
 
 
-def _nn1_launch(name, entry, target_xyz, target_mask, queries, pose=None, extra=()):
-    """The 1-NN wrappers' shared body: check the inputs, run :func:`nn1_plain`
-    for CPU tensors, else launch ``lib.<entry>(tgt, mask, M, queries, Q,
-    *extra, idx, d2, stream)`` once and count it under ``name``."""
-    device = _check_inputs(target_xyz, target_mask, queries, pose)
-    if device.type == "cpu":
-        return nn1_plain(target_xyz, target_mask, queries, pose)
-    if device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
-    _require_contiguous(target_xyz, target_mask, queries, pose)
-    Q, M = queries.shape[0], target_xyz.shape[0]
-    idx = torch.empty(Q, dtype=torch.int32, device=device)
-    d2 = torch.empty(Q, dtype=torch.float32, device=device)
-    if Q == 0:
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_shape(Q: int, query_tiles, n_sm: int) -> tuple[int, int]:
+    """``(queries a cluster, slices a cluster)`` for ``Q`` queries: the
+    largest query tile, then the fewest slices, that give the grid
+    ``BLOCKS_PER_SM`` blocks an SM, else the smallest tile and the most
+    slices. On the H100 (132 SMs) Q=1000 runs 32 x 16 = 512 blocks and
+    Q=24,576 runs 192 x 4 = 768: few queries take many slices, many take
+    few, as a merge costs more than a block saves there."""
+    want = BLOCKS_PER_SM * n_sm
+    tiles = lambda qt: -(-Q // qt)
+    qt = next((qt for qt in sorted(query_tiles, reverse=True) if tiles(qt) * CLUSTER_SLICES[-1] >= want),
+              min(query_tiles))
+    slices = next((s for s in CLUSTER_SLICES if tiles(qt) * s >= want), CLUSTER_SLICES[-1])
+    return qt, slices
+
+
+def _launch(name, device, shape, call):
+    """Allocate ``idx`` (int32) and ``d2`` (f32) of ``shape`` on ``device``,
+    then, unless they are empty, run ``call(lib, idx_ptr, d2_ptr, stream)``
+    once on the current stream, raise on its error code and count it under
+    ``name``."""
+    idx = torch.empty(shape, dtype=torch.int32, device=device)
+    d2 = torch.empty(shape, dtype=torch.float32, device=device)
+    if idx.numel() == 0:
         return idx, d2
     lib = load_library()
     with torch.cuda.device(device):
-        rc = getattr(lib, entry)(
-            target_xyz.data_ptr(), target_mask.data_ptr(), M, queries.data_ptr(), Q, *extra,
-            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
+        rc = call(lib, idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _check_rc(rc, name)
     launch_counts[name] += 1
     return idx, d2
 
 
+def _check_prepped_cuda(prep: PreppedTarget, queries, pose, device, name: str) -> None:
+    _require_cuda(device, name)
+    _require_contiguous(prep.xyz, queries, pose)
+    if prep.xyz.data_ptr() % 16:
+        raise ValueError(f"{name} reads the prepared target in 16-byte copies: it must be 16-byte aligned")
+
+
+def nn1_prepped(prep: PreppedTarget, queries, pose=None):
+    """Exact 1-NN of ``queries [Q,3]`` (moved by ``pose [4,4]`` if given)
+    against a target made by :func:`prep_target`: ``(idx [Q] int32, d2 [Q]
+    f32)``, the earliest index on ties, idx 0 and d2 = +inf with no valid
+    target. The ICP loop's call: the target is prepared once per align.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    device = _check_prepped(prep, queries, pose)
+    if device.type == "cpu":
+        return _nn1_plain(prep.points(), None, queries, pose)
+    _check_prepped_cuda(prep, queries, pose, device, "nn1")
+    Q = queries.shape[0]
+    qt, slices = cluster_shape(Q, NN1_QUERY_TILES, _sm_count(device.index))
+    pose_ptr = None if pose is None else pose.data_ptr()
+    return _launch("nn1", device, (Q,), lambda lib, i, d, s: lib.spt_nn1(
+        prep.xyz.data_ptr(), prep.xyz.shape[1], queries.data_ptr(), Q, pose_ptr, qt, slices, i, d, s))
+
+
 def nn1(target_xyz, target_mask, queries, pose=None):
     """Exact 1-NN of ``queries [Q,3]`` (moved by ``pose [4,4]`` if given)
     against the masked ``target_xyz [M,3]``: ``(idx [Q] int32, d2 [Q] f32)``.
+    Prepares the target for this one call; see :func:`nn1_prepped`."""
+    _check_inputs(target_xyz, target_mask, queries, pose)
+    return nn1_prepped(prep_target(target_xyz, target_mask), queries, pose)
 
-    CPU tensors run :func:`nn1_plain`; CUDA tensors launch the kernel."""
-    pose_ptr = None if pose is None else pose.data_ptr()
-    return _nn1_launch("nn1", "spt_nn1", target_xyz, target_mask, queries, pose, (pose_ptr,))
+
+def knn_k_prepped(prep: PreppedTarget, queries, k: int):
+    """Exact k nearest neighbours (``1 <= k <= 16``) of ``queries [Q,3]`` in a
+    target made by :func:`prep_target`, ascending by distance, lower index
+    first on ties: ``(idx [Q,k] int32, d2 [Q,k] f32)``; slots with no valid
+    neighbour get idx 0 and d2 = +inf.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
+    device = _check_prepped(prep, queries, None)
+    if device.type == "cpu":
+        return _knn_k_plain(prep.points(), None, queries, k)
+    _check_prepped_cuda(prep, queries, None, device, "knn_k")
+    Q = queries.shape[0]
+    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index))
+    return _launch("knn_k", device, (Q, k), lambda lib, i, d, s: lib.spt_knn_k(
+        prep.xyz.data_ptr(), prep.xyz.shape[1], queries.data_ptr(), Q, k, slices, i, d, s))
+
+
+def knn_k(target_xyz, target_mask, queries, k: int):
+    """Exact k nearest neighbours (``1 <= k <= 16``) of ``queries [Q,3]`` in
+    the masked ``target_xyz [M,3]``. Prepares the target for this one call;
+    see :func:`knn_k_prepped`."""
+    _check_inputs(target_xyz, target_mask, queries)
+    return knn_k_prepped(prep_target(target_xyz, target_mask), queries, k)
+
+
+def _raw_launch(name, entry, target_xyz, target_mask, queries, shape, extra):
+    """The first designs' shared body (raw target and mask): launch
+    ``lib.<entry>(tgt, mask, M, queries, Q, *extra, idx, d2, stream)``."""
+    _require_contiguous(target_xyz, target_mask, queries)
+    M, Q = target_xyz.shape[0], queries.shape[0]
+    return _launch(name, queries.device, shape, lambda lib, i, d, s: getattr(lib, entry)(
+        target_xyz.data_ptr(), target_mask.data_ptr(), M, queries.data_ptr(), Q, *extra, i, d, s))
+
+
+def knn_k_simple(target_xyz, target_mask, queries, k: int):
+    """:func:`knn_k` through its first design (one thread a query, the whole
+    target per block, ``csrc/knn.cu``): the exact reference the cluster
+    kernel is held to, ties included, and timed against."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
+    device = _check_inputs(target_xyz, target_mask, queries)
+    if device.type == "cpu":
+        return knn_k_plain(target_xyz, target_mask, queries, k)
+    _require_cuda(device, "knn_k_simple")
+    return _raw_launch("knn_k_simple", "spt_knn_k_simple", target_xyz, target_mask, queries,
+                       (queries.shape[0], k), (k,))
+
+
+def _nn1_launch(name, entry, target_xyz, target_mask, queries, extra=()):
+    """The study 1-NN wrappers' shared body: check the inputs, run
+    :func:`nn1_plain` for CPU tensors, else launch the study kernel once on
+    the raw target and mask and count it under ``name``."""
+    device = _check_inputs(target_xyz, target_mask, queries)
+    if device.type == "cpu":
+        return nn1_plain(target_xyz, target_mask, queries)
+    _require_cuda(device, name)
+    return _raw_launch(name, entry, target_xyz, target_mask, queries, (queries.shape[0],), extra)
 
 
 def nn1_tiled(target_xyz, target_mask, queries, threads: int, tile: int):
-    """:func:`nn1` without a pose, at the kernel instance with ``threads`` per
-    block (one of :data:`NN1_THREADS`) and a shared-memory target tile of
-    ``tile`` points (one of :data:`NN1_TILES`). ``(128, 2048)`` is the
+    """:func:`nn1` without a pose, through the first design (one thread a
+    query, ``csrc/knn.cu``) at the instance with ``threads`` per block (one
+    of :data:`NN1_THREADS`) and a shared-memory target tile of ``tile``
+    points (one of :data:`NN1_TILES`). ``(128, 2048)`` was the first
     production instance."""
     if threads not in NN1_THREADS or tile not in NN1_TILES:
         raise ValueError(f"nn1_tiled has threads in {NN1_THREADS} and tile in {NN1_TILES}, got {threads}, {tile}")
-    return _nn1_launch("nn1_tiled", "spt_nn1_tiled", target_xyz, target_mask, queries, extra=(threads, tile))
+    return _nn1_launch("nn1_tiled", "spt_nn1_tiled", target_xyz, target_mask, queries, (threads, tile))
 
 
 def nn1_bias(target_xyz, target_mask, queries):
@@ -315,40 +499,9 @@ def nn1_lanes(target_xyz, target_mask, queries, lanes: int):
     study's v2)."""
     if lanes not in NN1_LANES:
         raise ValueError(f"nn1_lanes has lanes in {NN1_LANES}, got {lanes}")
-    return _nn1_launch("nn1_lanes", "spt_nn1_lanes", target_xyz, target_mask, queries, extra=(lanes,))
+    return _nn1_launch("nn1_lanes", "spt_nn1_lanes", target_xyz, target_mask, queries, (lanes,))
 
 
 def nn1_unroll2(target_xyz, target_mask, queries):
     """:func:`nn1` without a pose, two targets a step (the TPU study's v3)."""
     return _nn1_launch("nn1_unroll2", "spt_nn1_unroll2", target_xyz, target_mask, queries)
-
-
-def knn_k(target_xyz, target_mask, queries, k: int):
-    """Exact k nearest neighbours (``1 <= k <= 16``) of ``queries [Q,3]`` in
-    the masked ``target_xyz [M,3]``, ascending by distance, lower index first
-    on ties: ``(idx [Q,k] int32, d2 [Q,k] f32)``.
-
-    CPU tensors run :func:`knn_k_plain`; CUDA tensors launch the kernel."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
-    device = _check_inputs(target_xyz, target_mask, queries)
-    if device.type == "cpu":
-        return knn_k_plain(target_xyz, target_mask, queries, k)
-    if device.type != "cuda":
-        raise ValueError(f"knn_k runs on cpu or cuda tensors, got {device}")
-    _require_contiguous(target_xyz, target_mask, queries)
-    Q, M = queries.shape[0], target_xyz.shape[0]
-    idx = torch.empty((Q, k), dtype=torch.int32, device=device)
-    d2 = torch.empty((Q, k), dtype=torch.float32, device=device)
-    if Q == 0:
-        return idx, d2
-    lib = load_library()
-    with torch.cuda.device(device):
-        rc = lib.spt_knn_k(
-            target_xyz.data_ptr(), target_mask.data_ptr(), M,
-            queries.data_ptr(), Q, k,
-            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
-    _check_rc(rc, "knn_k")
-    launch_counts["knn_k"] += 1
-    return idx, d2

@@ -2,8 +2,9 @@
 
   * :func:`brute_force_knn`: exact k-NN of arbitrary queries;
   * :class:`BruteForceKNN`: the correspondence-search structure over a target
-    cloud; ``search(k=1)`` goes through the ``nn1`` kernel wrapper with the
-    pose folded into the queries (the ICP hot loop);
+    cloud, prepared once (``cuda_knn.prep_target``); ``search(k=1)`` goes
+    through the ``nn1`` kernel wrapper with the pose folded into the queries
+    (the ICP hot loop);
   * :func:`self_knn`: the exact self-k-NN of a cloud through the ``knn_k``
     kernel wrapper. It takes the place of ``approx_knn``, whose
     ``lax.approx_max_k`` exists only on a TPU and lowers to an exact top-k
@@ -37,13 +38,13 @@ def brute_force_knn(
     k: int,
     pose: Optional[torch.Tensor] = None,
 ) -> KNNResult:
-    """Exact k-NN (``k <= 16``) through the ``knn_k`` wrapper; ``pose`` (4x4),
-    when given, moves the queries first."""
+    """Exact k-NN (``k <= 16``) through the ``knn_k`` wrapper, on a target
+    prepared once for the call; ``pose`` (4x4), when given, moves the queries
+    first."""
     if pose is not None:
         query_points = transform_points(query_points, pose)
-    idx, d2 = cuda_knn.knn_k(
-        target_points.contiguous(), target_mask.contiguous(), query_points.contiguous(), k
-    )
+    prep = cuda_knn.prep_target(target_points, target_mask)
+    idx, d2 = cuda_knn.knn_k_prepped(prep, query_points.contiguous(), k)
     return KNNResult(idx, d2)
 
 
@@ -57,33 +58,29 @@ def self_knn(points: torch.Tensor, mask: torch.Tensor, k: int) -> KNNResult:
 class BruteForceKNN:
     """Correspondence search over a target cloud.
 
-    ``prepped()`` holds the kernel-ready target (contiguous xyz and a uint8
-    mask), made once per align outside the ICP loop."""
+    ``prepped()`` holds the kernel-ready target (``cuda_knn.prep_target``:
+    +inf on masked rows, padded to the kernels' tile), made once per align
+    outside the ICP loop."""
 
     points: torch.Tensor  # [M, 3]
     mask: torch.Tensor  # [M]
-    is_prepped: bool = False
+    target: Optional[cuda_knn.PreppedTarget] = None
 
     @staticmethod
     def build(cloud: PointCloud) -> "BruteForceKNN":
         return BruteForceKNN(points=cloud.points, mask=cloud.mask)
 
     def prepped(self) -> "BruteForceKNN":
-        if self.is_prepped:
+        if self.target is not None:
             return self
-        return BruteForceKNN(
-            points=self.points.contiguous(),
-            mask=self.mask.to(torch.uint8).contiguous(),
-            is_prepped=True,
-        )
+        return dataclasses.replace(self, target=cuda_knn.prep_target(self.points, self.mask))
 
     def search(
         self, query_points: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None
     ) -> KNNResult:
         if k == 1:
-            t = self.prepped()
-            i, d = cuda_knn.nn1(
-                t.points, t.mask, query_points.contiguous(),
+            i, d = cuda_knn.nn1_prepped(
+                self.prepped().target, query_points.contiguous(),
                 None if pose is None else pose.contiguous(),
             )
             return KNNResult(i[:, None], d[:, None])

@@ -5,11 +5,21 @@ machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
-Tolerances: indices equal except distance ties within 1e-6; distances within
-1e-5 absolute (the kernel and the plain version use the same operation order,
-the remaining slack covers the [Q,M] reduction order of the plain version).
-The study kernels (nn1_tiled, nn1_bias, nn1_lanes, nn1_unroll2) must equal
-nn1_plain exactly: indices and distances, bit for bit.
+Tolerances: the production ``nn1`` (the split-target cluster kernel) must
+equal ``nn1_plain`` bit for bit, indices and distances; the production
+``knn_k`` must equal ``knn_k_simple`` (the first design, one thread a query)
+bit for bit, ties included, and ``knn_k_plain`` in its sets beyond ties
+within 1e-6 (``knn_mismatches``; ``topk`` on the card orders ties in no
+stated way), with distances within 1e-5 absolute (the remaining slack covers
+the [Q,M] reduction order of the plain version). The study kernels
+(nn1_tiled, nn1_bias, nn1_lanes, nn1_unroll2) and ``knn_k_simple`` against
+``knn_k_plain`` as before.
+
+The cluster kernels split the target into 1 to 16 slices of whole
+512-target tiles, the count chosen from Q; the cases below put M off both,
+run every slice count, Q below one query tile, a slice with
+every target masked, every target masked, fewer valid targets than k, and
+duplicated points whose exact ties span the slices.
 """
 
 import numpy as np
@@ -53,28 +63,84 @@ def _pose():
     return se3_exp(twist).cuda().contiguous()
 
 
-@pytest.mark.parametrize(
-    "m,q,masked_every,with_pose",
-    [(300, 70, 0, False), (5000, 1000, 7, True), (25000, 1000, 5, True), (2049, 129, 3, False)],
-)
-def test_nn1_matches_plain(m, q, masked_every, with_pose):
-    tgt, mask = _cloud(m, 1, masked_every=masked_every)
-    qry, _ = _cloud(q, 2)
+def _dup_cloud(n, copies, seed):
+    """``copies`` copies of one cloud of ``n`` points, one after the other:
+    every point has exact ties in every slice."""
+    pts, _ = _cloud(n, seed)
+    return pts.repeat(copies, 1).contiguous(), torch.ones(n * copies, dtype=torch.bool, device="cuda")
+
+
+def _slice_masked(m):
+    """A mask with targets [1024, 2048) masked (and every 5th elsewhere):
+    whole slices of the cluster kernels at 8 and 16 slices."""
+    mask = torch.arange(m, device="cuda") % 5 != 0
+    mask[2 * cuda_knn.TARGET_TILE:4 * cuda_knn.TARGET_TILE] = False
+    return mask
+
+
+# (targets, queries, mask) makers for nn1 and knn_k: name -> callable
+def _case(name):
+    if name.startswith("dup"):
+        tgt, mask = _dup_cloud(1000, 9, 21)
+        return tgt, tgt[::7].contiguous(), mask
+    if name == "slice masked":
+        tgt, _ = _cloud(8192, 22)
+        return tgt, _cloud(700, 23)[0], _slice_masked(8192)
+    if name == "all masked":
+        tgt, mask = _cloud(3000, 24)
+        return tgt, _cloud(100, 25)[0], torch.zeros_like(mask)
+    m, q, masked_every = (int(x) for x in name.split(","))
+    tgt, mask = _cloud(m, 26, masked_every=masked_every)
+    return tgt, _cloud(q, 27)[0], mask
+
+
+# M off the tile and the slices; Q below one query tile (32 for nn1), at
+# each of nn1's query tiles (32, 64, 128 queries a cluster) and at 16, 4, 2
+# and 1 slices a cluster (cuda_knn.cluster_shape)
+NN1_CASES = ["300,70,0", "5000,1000,7", "25000,1000,5", "2049,129,3", "1,5,0", "513,31,0",
+             "24575,3000,11", "24576,6000,0", "22528,22528,37", "2049,50000,3", "1000,70000,0",
+             "dup", "slice masked", "all masked"]
+
+
+@pytest.mark.parametrize("with_pose", [False, True])
+@pytest.mark.parametrize("case", NN1_CASES)
+def test_nn1_matches_plain(case, with_pose):
+    tgt, qry, mask = _case(case)
     pose = _pose() if with_pose else None
     before = cuda_knn.launch_counts["nn1"]
     i, d = cuda_knn.nn1(tgt, mask.to(torch.uint8), qry, pose)
     torch.cuda.synchronize()
     assert cuda_knn.launch_counts["nn1"] == before + 1
     ri, rd = cuda_knn.nn1_plain(tgt, mask, qry, pose)
-    assert cuda_knn.nn1_mismatches(i, d, ri, rd, TIE) == 0
-    torch.testing.assert_close(d, rd, rtol=0, atol=D_ATOL)
-    assert bool(mask[i.long()].all())
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    assert bool(mask[i.long()][torch.isfinite(d)].all())
 
 
 def test_nn1_all_masked():
     tgt, mask = _cloud(3000, 3)
     qry, _ = _cloud(100, 4)
     i, d = cuda_knn.nn1(tgt, torch.zeros_like(mask), qry, _pose())
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(d).all()) and bool((i == 0).all())
+
+
+def test_nn1_prepped_equals_nn1():
+    tgt, mask = _cloud(5000, 31, masked_every=4)
+    qry, _ = _cloud(1000, 32)
+    pose = _pose()
+    prep = cuda_knn.prep_target(tgt, mask)
+    assert prep.xyz.shape == (3, 5120) and prep.M == 5000
+    a = cuda_knn.nn1_prepped(prep, qry, pose)
+    b = cuda_knn.nn1(tgt, mask, qry, pose)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_nn1_empty():
+    tgt, mask = _cloud(100, 33)
+    i, d = cuda_knn.nn1(tgt, mask, tgt[:0].contiguous())
+    assert i.shape == (0,) and d.shape == (0,)
+    i, d = cuda_knn.nn1(tgt[:0].contiguous(), mask[:0], tgt)
     torch.cuda.synchronize()
     assert bool(torch.isinf(d).all()) and bool((i == 0).all())
 
@@ -113,6 +179,29 @@ def test_knn_k_matches_plain(k, m, masked_every):
     assert cuda_knn.knn_mismatches(i, d, ri, rd, TIE) == 0
     torch.testing.assert_close(d, rd, rtol=0, atol=D_ATOL)
     assert bool((d[:, 1:] >= d[:, :-1]).all())
+    si, sd = cuda_knn.knn_k_simple(tgt, mask, tgt, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, si) and torch.equal(d, sd)
+
+
+KNN_CASES = ["300,70,0", "2049,129,3", "1,5,0", "24575,2000,37", "25000,25000,6", "2049,50000,3",
+             "1000,70000,0", "dup", "slice masked", "all masked"]
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("case", KNN_CASES)
+def test_knn_k_equals_simple(case, k):
+    """Bit for bit against the first design, ties included; the sets against
+    the plain version."""
+    tgt, qry, mask = _case(case)
+    i, d = cuda_knn.knn_k(tgt, mask, qry, k)
+    before = cuda_knn.launch_counts["knn_k_simple"]
+    si, sd = cuda_knn.knn_k_simple(tgt, mask, qry, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k_simple"] == before + 1
+    assert torch.equal(i, si) and torch.equal(d, sd)
+    ri, rd = cuda_knn.knn_k_plain(tgt, mask, qry, k)
+    assert cuda_knn.knn_mismatches(i, d, ri, rd, TIE) == 0
 
 
 def test_knn_k_fewer_valid_than_k():
@@ -122,6 +211,17 @@ def test_knn_k_fewer_valid_than_k():
     torch.cuda.synchronize()
     assert bool(torch.isinf(d[:, 6:]).all()) and bool((i[:, 6:] == 0).all())
     assert bool(torch.isfinite(d[:, :6]).all())
+    si, sd = cuda_knn.knn_k_simple(tgt, mask, tgt, 10)
+    assert torch.equal(i, si) and torch.equal(d, sd)
+
+
+def test_knn_k_prepped_equals_knn_k():
+    tgt, mask = _cloud(3000, 34, masked_every=3)
+    prep = cuda_knn.prep_target(tgt, mask)
+    a = cuda_knn.knn_k_prepped(prep, tgt, 10)
+    b = cuda_knn.knn_k(tgt, mask, tgt, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -129,10 +229,12 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         cuda_knn.nn1(tgt[:, :2], mask, tgt)
     with pytest.raises(ValueError):
-        cuda_knn.nn1(tgt.t().contiguous().t(), mask, tgt)
+        cuda_knn.nn1(tgt, mask, tgt.t().contiguous().t())
     with pytest.raises(TypeError):
         cuda_knn.knn_k(tgt.double(), mask, tgt.double(), 4)
     with pytest.raises(ValueError):
         cuda_knn.knn_k(tgt, mask, tgt, 17)
     with pytest.raises(ValueError):
         cuda_knn.nn1(tgt, mask.cpu(), tgt)
+    with pytest.raises(ValueError):
+        cuda_knn.nn1_prepped(cuda_knn.PreppedTarget(tgt.T.contiguous(), 100), tgt)
