@@ -34,6 +34,28 @@
    ``scripts.bench_nn1_variants``) at one small shape, each with the launch
    counts set to 0 just before and read just after, and fails if a study
    kernel never launched or an instance differs from nn1_plain there.
+7. Drives the LiDAR-odometry frame, ``LidarOdometry.process``, over a
+   20-frame replay at the full width of the replay deployment
+   (``apps.odometry_replay``: 2048 x 64 rays a scan, 5,000-point scans, a
+   2^17-slot voxel-hash map, a 16,384-row target), with the launch counts set
+   to 0 just before and read just after. Prints every frame, the ATE, ms per
+   frame, launches and host syncs a frame, and the stage times of a second
+   run whose stages end in a synchronisation. Fails if a frame after the
+   first is not ``success``, if fewer than 2 keyframes were taken (the first
+   frame is the first), if the ATE
+   exceeds MAX_ATE_M, or if nn1 or knn_k never launched.
+8. Holds nn1 and knn_k against their exact references, bit for bit, at the
+   frame's own shapes, taken from that replay: 1,000 queries under the
+   frame's pose against the 16,384-row target (the first frame's, mostly
+   masked, and the last keyframe's), the self-search of a 5,000-row scan and
+   of the 16,384-row target; times each beside its bound, plain and library
+   time.
+9. A short replay (512 x 32 rays) from a 2^10-slot map and a 2^9-row target,
+   so that map growth, the extract tiers and the re-extraction run on the
+   card: fails if the map never grew, if contributions were dropped, or if
+   the ATE exceeds MAX_ATE_M. The same replay at the default capacities on
+   the card and on the CPU (plain versions): final poses within
+   CPU_TRANS_M / CPU_ROT_DEG of each other.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -53,6 +75,7 @@ import time
 import numpy as np
 import torch
 
+from sycl_points_tpu_torch.apps import odometry_replay
 from sycl_points_tpu_torch.apps.example_registration import (
     PAIR_PARAMS,
     downsample,
@@ -85,6 +108,17 @@ FIRST_SOURCE = "sycl_points_tpu_torch/csrc/knn.cu"
 VARIANTS_SOURCE = "sycl_points_tpu_torch/csrc/nn1_variants.cu"
 STUDY_SHAPE = ((1024, 6144),)  # the TPU variant study's small shape
 MASK_EVERY = 37
+# The LiDAR-odometry replays. The ATE limit is about twice what the card
+# showed on the full-width replay (0.051 m over 20 frames, H100).
+LO_FRAMES = 20
+LO_WARMUP = 3
+MAX_ATE_M = 0.10
+SMALL_RAYS = (512, 32)
+GROWTH_FRAMES = 12
+GROWTH_CAPACITIES = (1 << 10, 1 << 9)
+CPU_FRAMES = 6
+CPU_TRANS_M, CPU_ROT_DEG = 0.02, 0.1
+LO_PATH = "LidarOdometry.process"
 
 
 def nvidia_smi(query: str) -> str:
@@ -450,6 +484,187 @@ def check_on_device(tree, device) -> None:
             raise AssertionError(f"{name} lies on {value.device}, not on {device}")
 
 
+def print_frames(out) -> None:
+    for r in out["rows"]:
+        print(f"  frame {r['frame']:2d}: {r['result']:<12s} {r['ms']:8.3f} ms, {r['iterations']:2d} iterations, "
+              f"{r['inliers']:4d} inliers, keyframe {int(r['keyframe'])}, load {r['load']:.4f} of "
+              f"{r['map_capacity']}, target {r['target']}, launches nn1 {r['launches']['nn1']} "
+              f"knn_k {r['launches']['knn_k']}, host syncs {r['syncs']}")
+
+
+def check_replay(name: str, out, n_keyframes_min: int, max_ate: float) -> None:
+    bad = [r["frame"] for r in out["rows"][1:] if r["result"] != "success"]
+    n_kf = len(out["odometry"].get_keyframe_poses())  # the first frame is the first keyframe
+    print(f"{name}: ATE {out['ate_m']:.4f} m over {len(out['rows'])} frames, {n_kf} keyframes (the first frame "
+          f"included)")
+    if out["rows"][0]["result"] != "first_frame" or bad:
+        raise AssertionError(f"{name}: frames {bad} did not succeed")
+    if n_kf < n_keyframes_min:
+        raise AssertionError(f"{name}: {n_kf} keyframes, fewer than {n_keyframes_min}")
+    if not out["ate_m"] <= max_ate:
+        raise AssertionError(f"{name}: ATE {out['ate_m']:.4f} m above {max_ate} m")
+    if not all(np.isfinite(T).all() for T in out["poses"]):
+        raise AssertionError(f"{name}: a pose is not finite")
+
+
+def median_of(rows, key, pick=lambda r: True):
+    vals = [key(r) for r in rows if pick(r)]
+    return statistics.median(vals) if vals else float("nan")
+
+
+def lo_replay(dev) -> dict:
+    """The full-width replay: frames, ATE, frame times, launches and syncs a
+    frame, and what the kernel checks at the frame's shapes need."""
+    t0 = time.perf_counter()
+    poses, scans = odometry_replay.make_scans(LO_FRAMES, device=dev)
+    params = odometry_replay.replay_params(poses[0])
+    print(f"LO replay: {LO_FRAMES} scans of {scans[0].capacity} rays "
+          f"({int(scans[0].count())} returns in the first), made in {time.perf_counter() - t0:.2f} s")
+    odometry_replay.run_replay(params, poses[:LO_WARMUP + 1], scans[:LO_WARMUP + 1], device=dev)  # warms the allocator
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = odometry_replay.run_replay(params, poses, scans, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    print_frames(out)
+    check_replay("LO replay (2048 x 64, full width)", out, 2, MAX_ATE_M)
+    lo = out["odometry"]
+    final_t, final_r = pose_error(out["poses"][-1], poses[-1])
+    rows = out["rows"][LO_WARMUP:]
+    ms = [r["ms"] for r in rows]
+    print(f"LO frame after {LO_WARMUP} warm-up frames: median {statistics.median(ms):.3f} ms, max {max(ms):.3f} ms "
+          f"(keyframes median {median_of(rows, lambda r: r['ms'], lambda r: r['keyframe']):.3f}, others "
+          f"{median_of(rows, lambda r: r['ms'], lambda r: not r['keyframe']):.3f}); final pose error "
+          f"{final_t * 100:.3f} cm, {final_r:.4f} deg; map load {rows[-1]['load']:.4f}, "
+          f"dropped {int(lo.submap.map_state.dropped)}, budget lost {lo.submap.budget_lost}")
+    n = len(out["rows"]) - 1
+    print(f"LO launches over {n} frames after the first: nn1 {launches['nn1']} ({launches['nn1'] / n:.2f} a frame), "
+          f"knn_k {launches['knn_k']} ({launches['knn_k'] / n:.2f} a frame); host syncs a frame: median "
+          f"{median_of(rows, lambda r: r['syncs'])}, keyframes {median_of(rows, lambda r: r['syncs'], lambda r: r['keyframe'])}, "
+          f"others {median_of(rows, lambda r: r['syncs'], lambda r: not r['keyframe'])}")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the LO frame never launched: {launches}")
+    check_on_device(vars(lo.submap.submap_cloud), dev)
+    check_on_device(vars(lo.submap.map_state), dev)
+    check_on_device(vars(lo.preprocessed), dev)
+
+    # the split of a frame by stage: a second run whose stages end in a synchronisation
+    staged = odometry_replay.run_replay(params, poses, scans, device=dev, sync_stage_times=True)
+    srows = staged["rows"][LO_WARMUP:]
+    for stage in sorted(srows[-1]["stages_ms"]):
+        get = lambda r, stage=stage: r["stages_ms"].get(stage, 0.0)
+        print(f"LO stage {stage}: median {median_of(srows, get):.3f} ms, keyframes "
+              f"{median_of(srows, get, lambda r: r['keyframe']):.3f}, others "
+              f"{median_of(srows, get, lambda r: not r['keyframe']):.3f}")
+    print(f"LO frame with synchronised stages: median {statistics.median(r['ms'] for r in srows):.3f} ms, "
+          f"ATE {staged['ate_m']:.4f} m")
+
+    # the frame's kernel inputs: the first frame's target and the last one
+    first = odometry_replay.run_replay(params, poses[:1], scans[:1], device=dev)["odometry"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    queries = random_sampling(lo.preprocessed, N_QUERIES, gen).points.contiguous()
+    pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
+    pose0 = torch.as_tensor(out["poses"][1], dtype=torch.float32, device=dev).contiguous()
+    return {"launches": launches, "scan": lo.preprocessed, "queries": queries,
+            "targets": {"first frame": (first.submap.submap_cloud, pose0), "last keyframe": (lo.submap.submap_cloud, pose)}}
+
+
+def check_lo_shapes(lo_out) -> list:
+    """nn1 and knn_k at the odometry frame's shapes: bit-equal to nn1_plain and
+    to knn_k_simple (and knn_k_plain in its sets), and timed in turns with
+    their plain versions; one row each for the JSON line, at the last
+    keyframe's target (nn1) and the scan's self-search (knn_k)."""
+    dev = lo_out["queries"].device
+    q = lo_out["queries"]
+    rows, shapes = [], {}
+    for label, (target, pose) in lo_out["targets"].items():
+        t, m = target.points.contiguous(), target.mask.to(torch.uint8)
+        for what, (tt, mm) in {"target": (t, m), "all masked": (t, torch.zeros_like(m))}.items():
+            check_equal("nn1", cuda_knn.nn1(tt, mm, q, pose), cuda_knn.nn1_plain(tt, mm, q, pose), f"LO {label}, {what}")
+        pr = cuda_knn.prep_target(t, m)
+        turns = in_turns({"plain_ms": lambda: cuda_knn.nn1_plain(t, m, q, pose),
+                          "ms": lambda: cuda_knn.nn1_prepped(pr, q, pose)})
+        moved = transform_points(q, pose).contiguous()
+        lib = marginal_ms(lambda: cdist_min(moved, inf_masked(t, m)), dev)
+        sb = nn1_bound(q.shape[0], t.shape[0], int(m.sum()))
+        shapes[label] = {"Q": q.shape[0], "M": t.shape[0], "valid": int(m.sum()), **turns, "library_ms": lib,
+                         "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"nn1 at the LO frame's shape, {label} target (Q={q.shape[0]}, M={t.shape[0]}, valid {int(m.sum())}): "
+              f"equal to nn1_plain bit for bit (all masked too); kernel {turns['ms']:.4f} ms, plain "
+              f"{turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
+    last = shapes["last keyframe"]
+    rows.append(row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", LO_PATH, 0.0,
+                    (last["ms"], last["plain_ms"], last["library_ms"]), (last["bound_ms"], last["bound_by"]),
+                    shapes=shapes))
+
+    shapes = {}
+    clouds = {"scan": lo_out["scan"], "submap target": lo_out["targets"]["last keyframe"][0]}
+    for label, cloud in clouds.items():
+        pts, mask = cloud.points.contiguous(), cloud.mask
+        got = cuda_knn.knn_k(pts, mask, pts, K)
+        check_equal("knn_k", got, cuda_knn.knn_k_simple(pts, mask, pts, K), f"LO {label}")
+        check_equal("knn_k", cuda_knn.knn_k(pts, torch.zeros_like(mask), pts, K),
+                    cuda_knn.knn_k_simple(pts, torch.zeros_like(mask), pts, K), f"LO {label}, all masked")
+        ref = cuda_knn.knn_k_plain(pts, mask, pts, K)
+        torch.cuda.synchronize()
+        bad, err = cuda_knn.knn_mismatches(*got, *ref, TIE_TOL), finite_max_abs_err(got[1], ref[1])
+        if bad or err > D2_ATOL:
+            raise AssertionError(f"knn_k disagrees with its plain version at the LO {label}'s shape")
+        pr = cuda_knn.prep_target(pts, mask)
+        turns = in_turns({"plain_ms": lambda: cuda_knn.knn_k_plain(pts, mask, pts, K),
+                          "ms": lambda: cuda_knn.knn_k_prepped(pr, pts, K),
+                          "public_ms": lambda: cuda_knn.knn_k(pts, mask, pts, K)})
+        t_inf = inf_masked(pts, mask)
+        lib = marginal_ms(lambda: torch.cdist(pts, t_inf, compute_mode="donot_use_mm_for_euclid_dist")
+                          .topk(K, largest=False), dev)
+        n = pts.shape[0]
+        sb = knn_bound(n, n, int(mask.sum()), K)
+        shapes[label] = {"Q": n, "M": n, "valid": int(mask.sum()), **turns, "library_ms": lib, "max_abs_err": err,
+                         "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"knn_k at the LO frame's shape, {label} (k={K}, Q=M={n}, valid {int(mask.sum())}): equal to "
+              f"knn_k_simple bit for bit (all masked too), max |d2 - plain| = {err:.3g}; kernel {turns['ms']:.4f} ms, "
+              f"with prep {turns['public_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+topk {lib:.4f}, "
+              f"bound {sb[0]:.4f} ({sb[1]})")
+    scan = shapes["scan"]
+    rows.append(row("knn_k", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", LO_PATH, scan["max_abs_err"],
+                    (scan["ms"], scan["plain_ms"], scan["library_ms"]), (scan["bound_ms"], scan["bound_by"]),
+                    shapes=shapes))
+    for r in rows:
+        r["launches"] = lo_out["launches"][r["name"]]
+    return rows
+
+
+def small_replays(dev) -> None:
+    """Map growth on the card, and the card against the CPU, on 512 x 32
+    scans."""
+    n_az, n_rings = SMALL_RAYS
+    poses, scans = odometry_replay.make_scans(GROWTH_FRAMES, n_az, n_rings, device=dev)
+    out = odometry_replay.run_replay(odometry_replay.replay_params(poses[0], *GROWTH_CAPACITIES), poses, scans,
+                                     device=dev)
+    torch.cuda.synchronize()
+    print_frames(out)
+    check_replay(f"growth replay ({n_az} x {n_rings}, from {GROWTH_CAPACITIES[0]} slots)", out, 2, MAX_ATE_M)
+    sm = out["odometry"].submap
+    print(f"growth replay: map {GROWTH_CAPACITIES[0]} -> {sm.map_capacity} slots, target {GROWTH_CAPACITIES[1]} -> "
+          f"{sm.extract_capacity} rows, dropped {int(sm.map_state.dropped)}, extract overflow {sm.extract_overflow}")
+    if sm.map_capacity <= GROWTH_CAPACITIES[0]:
+        raise AssertionError("the map never grew")
+    if int(sm.map_state.dropped) or sm.extract_overflow:
+        raise AssertionError("contributions were dropped, or the target is truncated")
+
+    finals = {}
+    for device in (torch.device("cpu"), dev):
+        p, s = odometry_replay.make_scans(CPU_FRAMES, n_az, n_rings, device=device)
+        o = odometry_replay.run_replay(odometry_replay.replay_params(p[0]), p, s, device=device)
+        check_replay(f"{CPU_FRAMES}-frame replay on {device.type}", o, 2, MAX_ATE_M)
+        finals[device.type] = o["poses"][-1]
+    trans, rot = pose_error(finals["cuda"], finals["cpu"])
+    print(f"card vs CPU plain path after {CPU_FRAMES} frames ({n_az} x {n_rings}): {trans * 1e3:.3f} mm, "
+          f"{rot:.5f} deg apart")
+    if not (trans <= CPU_TRANS_M and rot <= CPU_ROT_DEG):
+        raise AssertionError("the card and the CPU disagree on the small replay")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -538,6 +753,10 @@ def main() -> None:
 
     # --- the study entry points ------------------------------------------------
     run_studies(results)
+
+    # --- the LiDAR-odometry frame ------------------------------------------------
+    results += check_lo_shapes(lo_replay(dev))
+    small_replays(dev)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

@@ -1,9 +1,10 @@
-"""PyTorch + CUDA port of the scan-pair registration path of sycl_points_tpu.
+"""PyTorch + CUDA port of sycl_points_tpu: the scan-pair registration path and
+the LiDAR-odometry frame (``pipeline.lidar_odometry.LidarOdometry``).
 
 The JAX package :mod:`sycl_points_tpu` is the reference: every module here has
 its counterpart at the same relative path there. Plain tensor code is
 PyTorch; the nearest-neighbour kernels are hand-written CUDA
-(:mod:`sycl_points_tpu_torch.ops.cuda_knn`, ``csrc/knn.cu``).
+(:mod:`sycl_points_tpu_torch.ops.cuda_knn`, ``csrc/*.cu``).
 
 Everything is float32. Reduced-precision products pick wrong neighbours on
 LiDAR-scale coordinates, so TF32 is switched off for matmuls and cuDNN when

@@ -1,0 +1,120 @@
+"""Replay of synthetic scans through the LiDAR odometry.
+
+The JAX package's documented LiDAR-odometry deployment is its replay
+benchmark (``benchmarks/bench_odometry_replay.py`` with its defaults);
+:func:`replay_params` holds the same values: box 2-50 m, 1 m voxels, random
+sampling to 5,000 points in a capacity of 8,192, robust k=10 covariances,
+angle-of-incidence filter 0-80 deg; GICP with Gauss-Newton, at most 20
+iterations on 1,000 sampled points; a voxel-hash submap of 2^17 slots at 1 m,
+a 2^14-row target within 30 m, 512 points a keyframe. The scans are synthetic
+HDL-64 sweeps (:mod:`..utils.synthetic`) along a figure-8 at 10 Hz.
+
+    from sycl_points_tpu_torch.apps.odometry_replay import make_scans, replay_params, run_replay
+    poses, scans = make_scans(20)                      # 2048 x 64 rays a scan, on the card
+    out = run_replay(replay_params(poses[0]), poses, scans)
+    print(out["ate_m"], out["frame_ms"])
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.ops import cuda_knn
+from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry, ResultType
+from sycl_points_tpu_torch.pipeline.params import (
+    DownsamplingParams,
+    LidarOdometryParams,
+    PolarDownsamplingParams,
+    PoseParams,
+    RandomDownsamplingParams,
+    ScanParams,
+    SubmapParams,
+    VoxelDownsamplingParams,
+)
+from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, scan_at
+
+FRAME_DT = 0.1  # a 10 Hz sensor
+
+
+def replay_params(initial_pose: np.ndarray, map_capacity: int = 1 << 17,
+                  extract_capacity: int = 1 << 14) -> LidarOdometryParams:
+    """The replay deployment, starting at ``initial_pose``; every value not
+    named here is the parameter tree's default."""
+    return LidarOdometryParams(
+        scan=ScanParams(downsampling=DownsamplingParams(
+            voxel=VoxelDownsamplingParams(enable=True, size=1.0),
+            polar=PolarDownsamplingParams(enable=False),
+            random=RandomDownsamplingParams(enable=True, num=5000),
+        )),
+        submap=SubmapParams(map_type="VOXEL_HASH_MAP", voxel_size=1.0, map_capacity=map_capacity,
+                            extract_capacity=extract_capacity, point_random_sampling_num=512),
+        scan_capacity=1 << 13,
+        pose=PoseParams(initial=tuple(np.asarray(initial_pose, np.float32).ravel().tolist())),
+    )
+
+
+def make_scans(n_frames: int, n_az: int = 2048, n_rings: int = 64, speed: float = 0.35,
+               device: torch.device | str = "cuda"):
+    """Ground-truth poses of a figure-8 and the scans seen from them, as
+    clouds of capacity ``n_az * n_rings`` on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = require_device(device)
+    world = World()
+    poses = figure8_trajectory(n_frames, speed=speed)
+    scans = [
+        PointCloud.from_numpy(scan_at(world, T, n_az=n_az, n_rings=n_rings, device=device),
+                              capacity=n_az * n_rings, device=device)
+        for T in poses
+    ]
+    return poses, scans
+
+
+def ate(estimated, truth) -> float:
+    """Absolute trajectory error: the RMSE of the translation error, the
+    first pose given (the odometry starts at the first true pose)."""
+    err = [np.linalg.norm(np.asarray(e)[:3, 3] - np.asarray(t)[:3, 3]) for e, t in zip(estimated, truth, strict=True)]
+    return float(np.sqrt(np.mean(np.square(err))))
+
+
+def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device | str = "cuda",
+               sync_stage_times: bool = False) -> dict:
+    """Drive ``LidarOdometry.process`` over ``scans`` at 10 Hz. Each frame is
+    timed on the host clock around work that ends in a device
+    synchronisation. Returns the odometry object, per-frame rows (result,
+    ms, iterations, inliers, keyframe flag, map load, target size, kernel
+    launches, host syncs, stage times), the estimated poses and the ATE."""
+    device = require_device(device)
+    lo = LidarOdometry(params, device=device)
+    lo.sync_stage_times = sync_stage_times
+    cuda = device.type == "cuda"
+    rows, estimated = [], []
+    for i, scan in enumerate(scans):
+        before = dict(cuda_knn.launch_counts)
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        result = lo.process(scan, FRAME_DT * (i + 1))
+        if cuda:
+            torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        reg = lo.reg_result
+        rows.append({
+            "frame": i, "result": result.value, "ms": ms,
+            "iterations": int(reg.iterations) if reg is not None and result is ResultType.success else 0,
+            "inliers": int(reg.inlier) if reg is not None and result is ResultType.success else 0,
+            "keyframe": bool(lo.is_keyframe_last_frame),
+            "load": float(lo.submap.map_state.used.sum()) / lo.submap.map_capacity,
+            "map_capacity": lo.submap.map_capacity,
+            "target": int(lo.submap.submap_cloud.count()) if lo.submap.submap_cloud is not None else 0,
+            "launches": {k: cuda_knn.launch_counts[k] - before[k] for k in ("nn1", "knn_k")},
+            "syncs": lo.sync_count_last_frame,
+            "stages_ms": {k: v * 1e3 for k, v in lo.get_processing_times().items()},
+        })
+        estimated.append(lo.get_odometry())
+    return {"odometry": lo, "rows": rows, "poses": estimated, "ate_m": ate(estimated, poses),
+            "frame_ms": [r["ms"] for r in rows]}

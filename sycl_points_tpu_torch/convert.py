@@ -4,7 +4,9 @@
     :class:`PointCloud` on a device;
   * :func:`params_from_reference`: rebuilds this package's parameter
     dataclasses from the JAX package's by reading field names. Enums map by
-    member name; the JAX modules are never imported.
+    member name; the JAX modules are never imported;
+  * :func:`map_state_from_reference`: a JAX ``VoxelHashMapState`` as this
+    package's, so that a map filled by one side can be read by the other.
 """
 
 from __future__ import annotations
@@ -16,9 +18,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.mapping.voxel_hash_map import VoxelHashMapConfig, VoxelHashMapState
 from sycl_points_tpu_torch.ops.robust import RobustLossType
+from sycl_points_tpu_torch.pipeline import params as pipeline_params
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
-from sycl_points_tpu_torch.registration import pipeline, registration
+from sycl_points_tpu_torch.registration import map_prior, pipeline, registration
 from sycl_points_tpu_torch.registration.factors import RegType
 
 _PARAM_CLASSES = {
@@ -35,8 +40,16 @@ _PARAM_CLASSES = {
         pipeline.RobustScheduleParams,
         pipeline.VelocityUpdateParams,
         pipeline.RegistrationPipelineParams,
+        map_prior.MapPriorParams,
+        VoxelHashMapConfig,
+        *(cls for cls in vars(pipeline_params).values()
+          if dataclasses.is_dataclass(cls) and cls.__module__ == pipeline_params.__name__),
     )
 }
+# Fields of the JAX package's dataclasses that this package does not carry
+# yet (the IMU preintegration and initial-alignment blocks come with the
+# IMU / LIO slice); params_from_reference leaves them out.
+_NOT_PORTED_FIELDS = {"IMUParams": {"preintegration", "initial_alignment"}}
 _ENUMS = {cls.__name__: cls for cls in (RegType, RobustLossType)}
 
 
@@ -67,6 +80,23 @@ def params_from_reference(obj):
     if isinstance(obj, enum.Enum):
         return _ENUMS[type(obj).__name__][obj.name]
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        cls = _PARAM_CLASSES[type(obj).__name__]
-        return cls(**{f.name: params_from_reference(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        name = type(obj).__name__
+        skip = _NOT_PORTED_FIELDS.get(name, ())
+        return _PARAM_CLASSES[name](**{
+            f.name: params_from_reference(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.name not in skip
+        })
     return obj
+
+
+def map_state_from_reference(state, device: torch.device | str = "cuda") -> VoxelHashMapState:
+    """This package's map state on ``device`` (the card unless the caller
+    asks for the CPU) from a JAX ``VoxelHashMapState``, or any object whose
+    attributes of the same names convert with ``numpy.asarray``. Slots keep
+    their places: both packages hash alike, so either can go on inserting
+    into and reading from the other's table."""
+    dev = require_device(device)
+    return VoxelHashMapState(**{
+        f.name: torch.from_numpy(np.array(getattr(state, f.name))).to(dev)
+        for f in dataclasses.fields(VoxelHashMapState)
+    })

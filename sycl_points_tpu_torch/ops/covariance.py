@@ -1,12 +1,13 @@
 """Per-point covariance and normal estimation from k-NN neighbourhoods
-(counterpart of :mod:`sycl_points_tpu.ops.covariance`; the robust IRLS
-estimator is not ported yet)."""
+(counterpart of :mod:`sycl_points_tpu.ops.covariance`): the plain estimator
+and the robust IRLS one."""
 
 from __future__ import annotations
 
 import torch
 
 from sycl_points_tpu_torch.ops.knn import KNNResult
+from sycl_points_tpu_torch.ops.robust import RobustLossType, compute_weight
 from sycl_points_tpu_torch.utils import eigh3
 from sycl_points_tpu_torch.utils.eigh3 import normalize_covariance, plane_regularize  # noqa: F401 (re-export)
 
@@ -41,6 +42,53 @@ def estimate_covariances(points: torch.Tensor, knn: KNNResult, min_num: int = 4)
     """Plain neighbourhood covariance."""
     cov, _, _ = _weighted_moments(points, knn, torch.ones_like(knn.distances), min_num)
     return cov
+
+
+def _row_median(x: torch.Tensor) -> torch.Tensor:
+    """Median along the last axis, the mean of the two middle values for an
+    even length (``torch.median`` would take the lower one)."""
+    k = x.shape[-1]
+    s, _ = torch.sort(x, dim=-1)
+    return 0.5 * (s[..., (k - 1) // 2] + s[..., k // 2])
+
+
+def estimate_covariances_robust(
+    points: torch.Tensor,
+    knn: KNNResult,
+    loss: RobustLossType = RobustLossType.CAUCHY,
+    mad_scale: float = 1.4826,
+    min_robust_scale: float = 1e-4,
+    max_iterations: int = 3,
+    min_num: int = 4,
+) -> torch.Tensor:
+    """IRLS robust covariance. The robust weight's argument is the squared
+    Mahalanobis distance of a neighbour under the current estimate; the
+    per-point scale is ``mad_scale * median(d^2)``, floored at
+    ``min_robust_scale``. Invalid neighbour slots count as 0 in the median.
+    A failed re-estimate freezes the previous value."""
+    if loss is RobustLossType.NONE:
+        return estimate_covariances(points, knn, min_num)
+
+    valid = _neighbor_validity(knn)
+    nbr = points[torch.clamp_min(knn.indices, 0).long()]
+    cov, mean, success0 = _weighted_moments(points, knn, torch.ones_like(knn.distances), min_num)
+    keep_running = success0
+
+    for _ in range(max_iterations):
+        cov_inv = eigh3.inv3(cov)
+        diff = nbr - mean[:, None, :]
+        u = (cov_inv[:, None, :, :] * diff[:, :, None, :]).sum(-1)  # [N, k, 3]
+        d2 = torch.where(valid, (diff * u).sum(-1), 0.0)
+        scale = torch.clamp_min(mad_scale * _row_median(d2), min_robust_scale)
+        weights = compute_weight(loss, d2, scale[:, None])
+        new_cov, new_mean, ok = _weighted_moments(points, knn, weights, min_num)
+        upd = keep_running & ok
+        cov = torch.where(upd[:, None, None], new_cov, cov)
+        mean = torch.where(upd[:, None], new_mean, mean)
+        keep_running = upd
+
+    eye = torch.eye(3, dtype=points.dtype, device=points.device).expand(cov.shape)
+    return torch.where(success0[:, None, None], cov, eye)
 
 
 def extract_normals(points: torch.Tensor, covs: torch.Tensor) -> torch.Tensor:

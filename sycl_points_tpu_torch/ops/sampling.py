@@ -1,12 +1,16 @@
 """Random point sampling (counterpart of :mod:`sycl_points_tpu.ops.sampling`;
-weighted, mixed and farthest-point sampling are not ported yet).
+farthest-point sampling is not ported yet).
 
-Uniform sampling without replacement is a Gumbel top-k over the valid
-points. The noise comes from an explicit ``torch.Generator``; the top-k sits
-in :func:`sample_by_scores` so that a caller can supply the scores.
+Sampling without replacement is a Gumbel top-k: uniform over the valid
+points, or weighted (Efraimidis-Spirakis: ``log w`` plus the noise). The
+noise comes from an explicit ``torch.Generator``, or from the caller as
+``noise``; the top-k sits in :func:`sample_by_scores` so that a caller can
+supply the scores.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -37,13 +41,23 @@ def gumbel_noise(n: int, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def sample_by_scores(cloud: PointCloud, num: int, scores: torch.Tensor) -> PointCloud:
-    """The ``num`` valid points of highest ``scores [capacity]``, in
-    descending score order; slots beyond the valid count are masked."""
-    score = torch.where(cloud.mask, scores, _NEG)
-    _, idx = torch.topk(score, num, sorted=True)
-    valid = torch.arange(num, device=cloud.device) < cloud.count()
-    return _take(cloud, idx, valid)
+def _top_eligible(scores: torch.Tensor, eligible: torch.Tensor, num: int):
+    """Indices of the ``num`` highest ``scores`` among ``eligible`` rows, in
+    descending order, and which of them are real (``num`` may exceed the
+    eligible count)."""
+    _, idx = torch.topk(torch.where(eligible, scores, _NEG), num, sorted=True)
+    taken = torch.arange(num, device=scores.device) < eligible.sum(dtype=torch.int32)
+    return idx, taken
+
+
+def sample_by_scores(
+    cloud: PointCloud, num: int, scores: torch.Tensor, eligible: Optional[torch.Tensor] = None
+) -> PointCloud:
+    """The ``num`` points of highest ``scores [capacity]`` among the
+    ``eligible`` rows (default: the valid ones), in descending score order;
+    slots beyond the eligible count are masked."""
+    idx, taken = _top_eligible(scores, cloud.mask if eligible is None else eligible, num)
+    return _take(cloud, idx, taken)
 
 
 def random_sampling(cloud: PointCloud, num: int, generator: torch.Generator) -> PointCloud:
@@ -52,3 +66,54 @@ def random_sampling(cloud: PointCloud, num: int, generator: torch.Generator) -> 
     if num >= cloud.capacity:
         return cloud
     return sample_by_scores(cloud, num, gumbel_noise(cloud.capacity, generator, cloud.device))
+
+
+def _weighted_scores(cloud: PointCloud, weights: torch.Tensor, noise: torch.Tensor):
+    """Gumbel scores of the weighted draw and the rows it may take: valid
+    points of positive finite weight."""
+    w_ok = cloud.mask & (weights > 0.0) & torch.isfinite(weights)
+    return torch.log(torch.clamp_min(weights, 1e-30)) + noise, w_ok
+
+
+def weighted_sampling(
+    cloud: PointCloud,
+    num: int,
+    weights: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> PointCloud:
+    """Weighted sampling without replacement to ``num`` points; points of
+    non-positive or non-finite weight are never taken. ``noise [capacity]``,
+    when given, replaces the Gumbel noise drawn from ``generator``."""
+    if num >= cloud.capacity:
+        return cloud
+    if noise is None:
+        noise = gumbel_noise(cloud.capacity, generator, cloud.device)
+    scores, w_ok = _weighted_scores(cloud, weights, noise)
+    return sample_by_scores(cloud, num, scores, w_ok)
+
+
+def mixed_sampling(
+    cloud: PointCloud,
+    num: int,
+    weights: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    weighted_ratio: float = 0.8,
+    noise: Optional[tuple] = None,
+) -> PointCloud:
+    """``weighted_ratio`` of the draw weighted, the remainder uniform over
+    the valid points not yet taken. ``noise``, when given, is the pair of
+    ``[capacity]`` Gumbel arrays of the two draws."""
+    if num >= cloud.capacity:
+        return cloud
+    n_weighted = int(round(num * weighted_ratio))
+    n_uniform = num - n_weighted
+    if noise is None:
+        noise = (gumbel_noise(cloud.capacity, generator, cloud.device),
+                 gumbel_noise(cloud.capacity, generator, cloud.device))
+    scores_w, w_ok = _weighted_scores(cloud, weights, noise[0])
+    idx_w, w_taken = _top_eligible(scores_w, w_ok, n_weighted)
+    selected = torch.zeros_like(cloud.mask)
+    selected[idx_w] = w_taken
+    idx_u, u_taken = _top_eligible(noise[1], cloud.mask & ~selected, n_uniform)
+    return _take(cloud, torch.cat([idx_w, idx_u]), torch.cat([w_taken, u_taken]))

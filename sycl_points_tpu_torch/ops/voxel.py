@@ -24,10 +24,11 @@ _SENTINEL = 2**31 - 1
 MAX_CELLS_PER_AXIS = 1024
 
 
-def voxel_coords(points: torch.Tensor, valid: torch.Tensor, voxel_size: float):
-    """Integer voxel coordinates ``[N, 3]`` (sentinel for invalid points) and
-    the validity mask: floor(p / voxel_size) + offset, invalid when
-    non-finite or outside the 21-bit range."""
+def voxel_coords_counted(points: torch.Tensor, valid: torch.Tensor, voxel_size: float):
+    """Integer voxel coordinates ``[N, 3]`` (sentinel for invalid points), the
+    validity mask, and the count of finite valid points outside the 21-bit
+    coordinate range (the map surfaces it as budget loss):
+    floor(p / voxel_size) + offset, invalid when non-finite or out of range."""
     scaled = points * (1.0 / voxel_size)
     finite = torch.isfinite(scaled).all(-1) & valid
     # Clamp before the cast so huge or non-finite values convert defined;
@@ -36,8 +37,46 @@ def voxel_coords(points: torch.Tensor, valid: torch.Tensor, voxel_size: float):
     c = floor.to(torch.int32) + COORD_OFFSET
     in_range = ((c >= 0) & (c <= COORD_MASK)).all(-1)
     ok = finite & in_range
+    n_range_lost = (finite & ~in_range).sum(dtype=torch.int32)
     c = torch.where(ok[:, None], c, _SENTINEL)
+    return c, ok, n_range_lost
+
+
+def voxel_coords(points: torch.Tensor, valid: torch.Tensor, voxel_size: float):
+    """:func:`voxel_coords_counted` without the count."""
+    c, ok, _ = voxel_coords_counted(points, valid, voxel_size)
     return c, ok
+
+
+def cell_sort_ids(coords: torch.Tensor, ok: torch.Tensor):
+    """Sort rows by cell with one stable sort on a packed int32 key (3 x 10
+    bits, rebased to the per-frame minimum). Invalid rows and rows beyond the
+    per-axis extent budget get the maximal key and sort to the tail as one
+    segment.
+
+    Returns ``(order, ok_sorted, seg_id, new_seg, n_extent_lost)``:
+    ``seg_id`` (int64) numbers the cells in key order, ``new_seg`` marks each
+    cell's first row, ``n_extent_lost`` counts valid rows outside the extent
+    budget."""
+    masked = torch.where(ok[:, None], coords, 2**30)
+    rel = coords - masked.amin(0)
+    in_bound = ok & ((rel >= 0) & (rel < MAX_CELLS_PER_AXIS)).all(-1)
+    n_extent_lost = (ok & ~in_bound).sum(dtype=torch.int32)
+    key = (rel[:, 0] * MAX_CELLS_PER_AXIS + rel[:, 1]) * MAX_CELLS_PER_AXIS + rel[:, 2]
+    key = torch.where(in_bound, key, _SENTINEL)
+    key_s, order = torch.sort(key, stable=True)
+    ok_s = key_s != _SENTINEL
+    new_seg = torch.ones_like(ok_s)
+    new_seg[1:] = key_s[1:] != key_s[:-1]
+    seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
+    return order, ok_s, seg_id, new_seg, n_extent_lost
+
+
+def sort_by_cell(coords: torch.Tensor, ok: torch.Tensor):
+    """:func:`cell_sort_ids` plus the gathered sorted coordinates: ``(order,
+    coords_sorted, ok_sorted, seg_id, new_seg, n_extent_lost)``."""
+    order, ok_s, seg_id, new_seg, n_extent_lost = cell_sort_ids(coords, ok)
+    return order, coords[order], ok_s, seg_id, new_seg, n_extent_lost
 
 
 def voxel_downsample(
@@ -67,20 +106,9 @@ def downsample_by_coords(
     out_cap = out_capacity or cloud.capacity
     dev = cloud.device
 
-    masked = torch.where(ok[:, None], coords, 2**30)
-    rel = coords - masked.amin(0)
-    in_bound = ok & ((rel >= 0) & (rel < MAX_CELLS_PER_AXIS)).all(-1)
-    n_extent_lost = (ok & ~in_bound).sum(dtype=torch.int32)
-    key = (rel[:, 0] * MAX_CELLS_PER_AXIS + rel[:, 1]) * MAX_CELLS_PER_AXIS + rel[:, 2]
-    key = torch.where(in_bound, key, _SENTINEL)
-
     # Invalid points share the maximal key and sort to the tail as one
     # zero-weight segment.
-    key_s, order = torch.sort(key, stable=True)
-    ok_s = key_s != _SENTINEL
-    new_seg = torch.ones_like(ok_s)
-    new_seg[1:] = key_s[1:] != key_s[:-1]
-    seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
+    order, ok_s, seg_id, _, n_extent_lost = cell_sort_ids(coords, ok)
     w = ok_s.to(cloud.points.dtype)
 
     cols = [cloud.points]

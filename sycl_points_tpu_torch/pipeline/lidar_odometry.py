@@ -1,0 +1,337 @@
+"""LiDAR-only odometry pipeline.
+
+Counterpart of :mod:`sycl_points_tpu.pipeline.lidar_odometry`: the per-frame
+state machine (preprocess, covariances, refine, first-frame bootstrap, motion
+prediction, registration against the submap with an optional MAP prior,
+submap update, velocity / odometry update), per-stage wall-clock timing and
+the frame ``ResultType`` codes. Everything on the device stays there from
+the raw scan to the pose.
+
+A frame has two parts, as in the JAX package. The registration step (the
+min-points gate, the MAP prior, the whole align pipeline, the keyframe
+decision) ends in one fetch of the 62-entry ``stats1`` vector: pose, counts,
+keyframe flag and the raw Hessian for the next frame's motion prediction. The
+submap step (robust-weighted sampling, map insert, extraction, covariance
+finalize; :mod:`.fused_submap`) runs on keyframes and ends in the fetch of
+``stats2``. Where the JAX package runs one jitted program per part and waits
+on the device once a frame, eager PyTorch also waits at every data-dependent
+loop exit (the solver's convergence test, the hash table's probe loops);
+``sync_count_last_frame`` counts all of them.
+
+Not ported yet: the IMU branches and the constant-velocity deskew of
+``lo_velocity_update`` (ROADMAP Queue 1 item 8); both raise at construction.
+"""
+
+from __future__ import annotations
+
+import enum
+import math
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.ops.knn import BruteForceKNN
+from sycl_points_tpu_torch.pipeline.fused_submap import make_submap_step
+from sycl_points_tpu_torch.pipeline.motion_predictor import MotionPredictor
+from sycl_points_tpu_torch.pipeline.params import LidarOdometryParams
+from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
+from sycl_points_tpu_torch.pipeline.submap import MAX_LOAD, Submap
+from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.registration.factors import RegType
+from sycl_points_tpu_torch.registration.map_prior import MapPriorParams, update as map_prior_update
+from sycl_points_tpu_torch.registration.pipeline import align_pipeline
+from sycl_points_tpu_torch.utils import lie, lie_np
+from sycl_points_tpu_torch.utils.sync import counts as sync_counts, to_host
+
+_F32 = torch.float32
+
+
+class ResultType(enum.Enum):
+    success = "success"
+    first_frame = "first_frame"
+    waiting_initial_alignment = "waiting_initial_alignment"
+    error = "error"
+    old_timestamp = "old_timestamp"
+    small_number_of_points = "small_number_of_points"
+
+
+# stats1, 62 entries: T_eff (16) | inlier, n_pre, n_reg, n_desk, is_kf, small,
+# converged, iterations, error (9) | H_raw (36) | error_raw (1)
+
+
+class LidarOdometry:
+    def __init__(self, params: LidarOdometryParams = LidarOdometryParams(),
+                 map_prior_params: MapPriorParams = MapPriorParams(),
+                 device: torch.device | str = "cuda"):
+        self.device = require_device(device)
+        if params.imu.enable:
+            raise NotImplementedError("the IMU branches of LidarOdometry are not ported yet (ROADMAP Queue 1 item 8)")
+        if params.lo_velocity_update.enable:
+            raise NotImplementedError(
+                "lo_velocity_update (constant-velocity deskew) is not ported yet (ROADMAP Queue 1 item 8)")
+        self.params = params
+        self.map_prior_params = map_prior_params
+        self.pc_processor = PCProcessor(params, self.device)
+        self.submap = Submap(params, self.device)
+        self.motion_predictor = MotionPredictor(params.motion_prediction)
+        self.pipeline_params = params.make_registration_pipeline_params()
+        self._submap_robust_scale = (
+            self.pipeline_params.robust.min_scale
+            if self.pipeline_params.robust.auto_scale
+            else params.registration.factor.robust.default_scale
+        )
+        self._submap_step = make_submap_step(params, self.submap, self._submap_robust_scale)
+        # When set, every stage of a frame ends in a device synchronisation,
+        # so get_processing_times() splits the frame by where the device
+        # spent it and not by where the host queued it.
+        self.sync_stage_times = False
+
+        self.odom = params.pose.initial_matrix()
+        self.prev_odom = self.odom.copy()
+        self.linear_velocity = np.zeros(3, np.float32)
+        self.angular_velocity = np.zeros(3, np.float32)
+        self.dt = 0.1
+        self.last_frame_time = -1.0
+        self.is_first_frame = True
+        self.registrated = False
+        self.reg_result = None
+        self.is_keyframe_last_frame = False
+        self.preprocessed: Optional[PointCloud] = None
+        self.error_message = ""
+        self.processing_times: Dict[str, float] = defaultdict(float)
+        self.frame_count = 0
+        self.sync_count_last_frame = 0
+        # host copies of the previous frame's stats (the motion predictor's
+        # inputs need no device read)
+        self._prev_Hraw_np: Optional[np.ndarray] = None
+        self._prev_inlier = 0
+        self._dropped_seen = 0
+
+    def precompile_growth(self, max_capacity: int, wait: bool = True) -> int:
+        """Returns 0: there is nothing to compile. The JAX package compiles
+        the submap programs of every map capacity up to ``max_capacity``
+        ahead of the stream, to keep XLA compile stalls out of a growth
+        event; eager PyTorch runs the same code at any capacity."""
+        return 0
+
+    # -- timing ---------------------------------------------------------------
+    def _stage_end(self, name: str, t0: float) -> float:
+        if self.sync_stage_times and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.processing_times[name] += now - t0
+        return now
+
+    # -- frame processing ----------------------------------------------------
+    def process(self, scan: PointCloud, timestamp: float, scan_duration_sec: float = 0.1) -> ResultType:
+        self.error_message = ""
+        if self.last_frame_time > 0.0:
+            dt = timestamp - self.last_frame_time
+            if dt > 0.0:
+                self.dt = float(dt)
+            else:
+                self.error_message = "old timestamp"
+                return ResultType.old_timestamp
+
+        self.processing_times.clear()
+        syncs_before = sync_counts["host_syncs"]
+        self.is_keyframe_last_frame = False
+        try:
+            return self._process(scan, timestamp)
+        finally:
+            self.sync_count_last_frame = sync_counts["host_syncs"] - syncs_before
+
+    def _process(self, scan: PointCloud, timestamp: float) -> ResultType:
+        p = self.params
+        # preprocess: queued on the device, nothing read back
+        t0 = time.perf_counter()
+        pre = self.pc_processor.prefilter(scan)
+        ctx = None
+        if self._needs_covariances():
+            ctx = self.pc_processor.prepare_context(pre)
+            pre = self.pc_processor.compute_covariances(pre, ctx)
+            pre = self.pc_processor.refine_filter(pre, ctx)
+        self.preprocessed = pre
+        t0 = self._stage_end("1. preprocessing", t0)
+
+        if self.is_first_frame:
+            # bootstrap: the min-points gate pays its one read here
+            if to_host(pre.count()) <= p.registration.min_num_points:
+                self.error_message = "point cloud size is too small"
+                return ResultType.small_number_of_points
+            self.submap.add_first_frame(pre, timestamp, self.odom)
+            self._dropped_seen = to_host(self.submap.map_state.dropped)
+            self._stage_end("4. build submap", t0)
+            self.is_first_frame = False
+            self.last_frame_time = timestamp
+            return ResultType.first_frame
+
+        return self._process_frame(pre, timestamp)
+
+    # ------------------------------------------------------------------
+    def _reg_step(self, pre: PointCloud, init_T_np: np.ndarray, kf_dt_exceeded: bool):
+        """The registration step: the min-points gate, the MAP prior, the
+        align pipeline, the keyframe decision and ``stats1``, all on the
+        device."""
+        p = self.params
+        dev = self.device
+        kfp = p.submap.keyframe
+        host = torch.from_numpy(np.stack([
+            np.asarray(init_T_np, np.float32), np.asarray(self.odom, np.float32),
+            np.asarray(self.submap.last_keyframe_pose, np.float32),
+        ])).to(dev)
+        init_T, prev_odom, last_kf_pose = host[0], host[1], host[2]
+        n_pre = pre.count()
+        small = n_pre <= p.registration.min_num_points
+
+        prior = None
+        if self.map_prior_params.enabled:
+            if self.reg_result is not None:
+                r = self.reg_result
+                prior = map_prior_update(self.map_prior_params, r.T, r.H_raw, r.error_raw, r.inlier, init_T)
+            else:
+                prior = map_prior_update(
+                    self.map_prior_params, torch.eye(4, dtype=_F32, device=dev),
+                    torch.zeros((6, 6), dtype=_F32, device=dev), torch.zeros((), dtype=_F32, device=dev),
+                    torch.zeros((), dtype=torch.int32, device=dev), init_T)
+            if not self.registrated:
+                prior = prior._replace(active=torch.zeros_like(prior.active))
+
+        out = align_pipeline(
+            pre, self.submap.submap_cloud, self.submap.submap_knn, self.pipeline_params,
+            initial_guess=init_T, map_prior=prior,
+        )
+        result = out.result
+        # a too-small frame must not move the odometry
+        T_eff = torch.where(small, prev_odom, result.T)
+
+        n_reg = out.registration_input.count()
+        n_desk = out.deskewed.count()
+        ratio = result.inlier.to(_F32) / torch.clamp_min(n_reg, 1).to(_F32)
+        inlier_ok = ratio > kfp.inlier_ratio_threshold if kfp.inlier_ratio_threshold > 0.0 \
+            else torch.ones((), dtype=torch.bool, device=dev)
+        delta = lie.transform_inverse(last_kf_pose) @ T_eff
+        dist = torch.linalg.vector_norm(delta[:3, 3])
+        angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[:3]) * (180.0 / math.pi)
+        geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees)
+        if kf_dt_exceeded:
+            geom_kf = torch.ones_like(geom_kf)
+        is_kf = (~small) & inlier_ok & geom_kf
+
+        stats1 = torch.cat([
+            T_eff.reshape(-1),
+            torch.stack([v.to(_F32) for v in (
+                result.inlier, n_pre, n_reg, n_desk, is_kf, small,
+                result.converged, result.iterations, result.error)]),
+            result.H_raw.reshape(-1),
+            result.error_raw.to(_F32)[None],
+        ])
+        return result, out.deskewed, T_eff, stats1
+
+    def _process_frame(self, pre: PointCloud, timestamp: float) -> ResultType:
+        p = self.params
+
+        # ---- motion prediction (host math on the previous frame's stats) ---
+        t0 = time.perf_counter()
+        init_T = self.motion_predictor.predict(
+            self.linear_velocity, self.angular_velocity, self.odom, self.dt,
+            self._prev_Hraw_np, self._prev_inlier, self.registrated, None, None,
+        )
+        kf_dt_exceeded = (
+            self.submap.last_keyframe_time <= 0.0
+            or (timestamp - self.submap.last_keyframe_time) >= p.submap.keyframe.time_threshold_seconds
+        )
+
+        # ---- registration + keyframe decision, then the first fetch ---------
+        result, deskewed, T_eff, s1 = self._reg_step(pre, init_T, kf_dt_exceeded)
+        stats = np.asarray(to_host(s1), np.float64)
+        t0 = self._stage_end("3. registration", t0)
+
+        T_np = stats[:16].reshape(4, 4).astype(np.float32)
+        (n_inlier, n_pre, n_reg, n_desk, kf_flag, small_flag,
+         converged, iterations, error) = stats[16:25]
+        H_raw_np = stats[25:61].reshape(6, 6).astype(np.float32)
+        if small_flag > 0.5:
+            self.error_message = "point cloud size is too small"
+            return ResultType.small_number_of_points
+        is_kf = kf_flag > 0.5
+
+        # ---- submap update (keyframes only), then the second fetch ----------
+        prev_map_state = self.submap.map_state
+        new_map_state, new_submap, sampled, s2 = self._submap_step(
+            prev_map_state, self.submap.submap_cloud, deskewed, T_eff, is_kf,
+            self.submap._generator, knn_prev=self.submap.submap_knn, n_desk=int(n_desk),
+        )
+        t0 = self._stage_end("4a. submap dispatch", t0)
+        load, overflow, ext_ok, dropped, budget_lost, n_extracted = to_host(s2)
+        t0 = self._stage_end("4b. stats fetch", t0)
+
+        # ---- commit host state --------------------------------------------
+        self.reg_result = result
+        self._prev_Hraw_np = H_raw_np
+        self._prev_inlier = int(n_inlier)
+        self.submap.map_state = new_map_state
+        self.submap.budget_lost = int(budget_lost)
+        self.is_keyframe_last_frame = is_kf
+        if is_kf:
+            # The target changed: prepare its search structure once, here.
+            self.submap.submap_cloud = new_submap
+            self.submap.submap_knn = BruteForceKNN.build(new_submap).prepped()
+            self.submap.extract_overflow = int(overflow)
+            self.submap.last_keyframe_cloud = sampled
+            self.submap.last_keyframe_pose = T_np.copy()
+            self.submap.last_keyframe_time = timestamp
+            self.submap.keyframe_poses.append(self.submap.last_keyframe_pose)
+
+        # growth policy (rare slow path; reads the device only when it fires)
+        if int(dropped) - self._dropped_seen > 0:
+            self.submap.map_state = prev_map_state  # the retry loses nothing
+            self.submap.retry_insert_after_drop(sampled, T_np)
+            self._dropped_seen = to_host(self.submap.map_state.dropped)
+        else:
+            self._dropped_seen = int(dropped)
+            if float(load) > MAX_LOAD:
+                self.submap._grow_map(origin=T_np)
+        # extract-overflow backstop: the in-range voxel set outgrew the
+        # extraction budget without a map growth
+        if self.submap.extract_overflow > 0:
+            self.submap.resolve_extract_overflow(T_np)
+        self._stage_end("4. build submap", t0)
+
+        # velocity / odometry update
+        self.prev_odom = self.odom.copy()
+        self.odom = T_np.copy()
+        self.last_frame_time = timestamp
+        delta = np.linalg.inv(self.prev_odom) @ self.odom
+        tw = lie_np.se3_log(delta)
+        self.linear_velocity = (delta[:3, 3] / self.dt).astype(np.float32)
+        self.angular_velocity = (tw[:3] / self.dt).astype(np.float32)
+
+        self.registrated = True
+        self.frame_count += 1
+        return ResultType.success
+
+    # ------------------------------------------------------------------
+    def _needs_covariances(self) -> bool:
+        p = self.params
+        return (
+            p.registration.factor.reg_type is RegType.GICP
+            or p.registration.factor.rotation_constraint.enable
+            or p.scan.preprocess.angle_incidence_filter.enable
+            or p.scan.intensity_gaussian.enable
+            or p.scan.intensity_local_mean_norm.enable
+        )
+
+    # -- accessors -----------------------------------------------------------
+    def get_odometry(self) -> np.ndarray:
+        return self.odom.copy()
+
+    def get_keyframe_poses(self):
+        return list(self.submap.keyframe_poses)
+
+    def get_processing_times(self) -> Dict[str, float]:
+        return dict(self.processing_times)

@@ -1,0 +1,317 @@
+"""Submap management: keyframing, map insertion and target preparation.
+
+Counterpart of :mod:`sycl_points_tpu.pipeline.submap` on the voxel-hash-map
+backend: the keyframe policy (distance >= 2 m or angle >= 20 deg or dt >= 1 s
+by default, behind an inlier-ratio gate), per-keyframe weighted or uniform
+sampling to ``point_random_sampling_num`` points, insertion into the map with
+the growth policy, extraction of the target within range, and the target's
+search structure and covariances / normals as the registration type needs.
+
+The search structure (``submap_knn``) holds the target prepared for the
+``nn1`` kernel; it is rebuilt only when the target changes (keyframes,
+growth), never per frame.
+
+Not ported yet: the occupancy-grid backend (ROADMAP Queue 1 item 9; it is
+the dataclass default of ``SubmapParams.map_type`` and raises here) and the
+pipelined server's ``make_reapply_chain`` / ``reconcile_chain`` (item 11).
+The JAX class's jit caches and compile log have nothing to hold in eager
+PyTorch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
+from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
+from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn
+from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
+from sycl_points_tpu_torch.ops.transform import transform_cloud
+from sycl_points_tpu_torch.pipeline.params import CommonParameters
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, compact_device
+from sycl_points_tpu_torch.registration.factors import RegType
+from sycl_points_tpu_torch.utils import lie_np
+from sycl_points_tpu_torch.utils.sync import to_host
+
+SEED = 4321
+MAX_LOAD = 0.7  # grow the table above this load factor
+MAX_GROW = 8
+
+
+class Submap:
+    def __init__(self, params: CommonParameters, device: torch.device | str = "cuda"):
+        self.params = params
+        self.device = require_device(device)
+        sp = params.submap
+        if sp.map_type.upper() == "OCCUPANCY_GRID_MAP":
+            raise NotImplementedError(
+                "the occupancy-grid map is not ported yet (ROADMAP Queue 1 item 9); it is the default "
+                "SubmapParams.map_type: pass map_type=\"VOXEL_HASH_MAP\"")
+        if sp.map_type.upper() != "VOXEL_HASH_MAP":
+            raise ValueError(f"unknown map_type {sp.map_type!r}")
+        self.vhm_config = vhm.VoxelHashMapConfig(
+            voxel_size=sp.voxel_size, capacity=sp.map_capacity,
+            max_staleness=sp.max_staleness,
+            remove_old_data_cycle=sp.remove_old_data_cycle,
+        )
+        self.map_state = vhm.create(self.vhm_config, self.device)
+
+        initial = np.asarray(params.pose.initial_matrix())
+        self.last_keyframe_pose = initial
+        self.last_keyframe_time = -1.0
+        self.keyframe_poses: List[np.ndarray] = [initial]
+        self._generator = torch.Generator(device=self.device).manual_seed(SEED)
+
+        self.submap_cloud: Optional[PointCloud] = None
+        self.submap_knn: Optional[BruteForceKNN] = None
+        self.last_keyframe_cloud: Optional[PointCloud] = None
+        # Telemetry (no silent caps): in-range voxels that did not fit the
+        # extract capacity on the latest insert, and cumulative fixed-budget
+        # losses (a larger table cannot fix those, see the map backend).
+        self.extract_overflow = 0
+        self.budget_lost = 0
+        # Extract capacity tiers with map growth: params.extract_capacity is
+        # the base tier; when the map doubles, the extraction budget follows
+        # at the same ratio, and the overflow counter grows it directly as a
+        # backstop (resolve_extract_overflow), so the target is never
+        # silently truncated.
+        self.extract_capacity = sp.extract_capacity
+        self._extract_ratio = max(1, sp.map_capacity // sp.extract_capacity)
+        self._extract_growth = sp.extract_capacity_growth
+
+        reg_type = params.registration.factor.reg_type
+        self._need_covs = (
+            reg_type in (RegType.GICP, RegType.POINT_TO_DISTRIBUTION, RegType.GENZ)
+            or params.registration.factor.rotation_constraint.enable
+        )
+        self._need_normals = reg_type in (RegType.POINT_TO_PLANE, RegType.GENZ)
+
+    # ------------------------------------------------------------------
+    @property
+    def map_config(self) -> vhm.VoxelHashMapConfig:
+        return self.vhm_config
+
+    @property
+    def map_capacity(self) -> int:
+        return self.vhm_config.capacity
+
+    def _pose_tensor(self, pose) -> torch.Tensor:
+        if isinstance(pose, torch.Tensor):
+            return pose.to(device=self.device, dtype=torch.float32)
+        return torch.from_numpy(np.ascontiguousarray(pose, dtype=np.float32)).to(self.device)
+
+    def _extract(self, state, origin: torch.Tensor):
+        return vhm.extract(
+            state, self.vhm_config, origin, self.params.submap.max_distance_range,
+            out_capacity=self.extract_capacity, with_covs=False, with_overflow=True,
+        )
+
+    def insert_extract(self, state, cloud: PointCloud, pose: torch.Tensor):
+        """Insert ``cloud`` at ``pose`` into ``state`` (left as it was), prune
+        stale voxels every ``remove_old_data_cycle`` inserts, and extract the
+        target around the pose at the current map config and extract
+        capacity: ``(new_state, extracted, load, extract_overflow)``, the last
+        two on the device."""
+        cfg = self.vhm_config
+        ns = vhm.add_point_cloud(state, cfg, cloud, pose)
+        if cfg.remove_old_data_cycle > 0:
+            # Both sides of the JAX lax.cond, selected on the device: pruning
+            # is a dozen elementwise kernels, a host branch would be a sync.
+            pruned = vhm.remove_old_data(ns, cfg)
+            due = ns.frame % cfg.remove_old_data_cycle == 0
+            ns = dataclasses.replace(ns, **{
+                f: torch.where(due, getattr(pruned, f), getattr(ns, f))
+                for f in ("coords", "used", "sum_pos", "count", "sum_logcov", "sum_rgba",
+                          "sum_intensity", "last_update")
+            })
+        extracted, overflow = self._extract(ns, pose[:3, 3])
+        return ns, extracted, vhm.load_factor(ns, cfg), overflow
+
+    def _set_target(self, target: PointCloud) -> None:
+        """Finalize ``target`` and prepare its search structure."""
+        self.submap_cloud = self._finalize_target(target)
+        self.submap_knn = BruteForceKNN.build(self.submap_cloud).prepped()
+
+    def extract_tier_for(self, map_capacity: int) -> int:
+        """The extract capacity the tiering policy pairs with a map capacity:
+        the base budget scaled by the map's growth factor. Never shrinks."""
+        if not self._extract_growth:
+            return self.extract_capacity
+        tier = max(self.params.submap.extract_capacity, map_capacity // self._extract_ratio)
+        return max(tier, self.extract_capacity)
+
+    def _grow_map(self, reextract: bool = True, origin=None) -> None:
+        """Double the map capacity. The extract capacity tiers up with it;
+        when the tier changes, the target is re-extracted at the new shape,
+        so that the next keyframe can select between the new extraction and
+        the kept target. Callers whose own loop extracts right after pass
+        ``reextract=False``. ``origin`` (a [3] position or [4,4] pose)
+        centres the re-extraction; the default is the last keyframe pose."""
+        self.map_state, self.vhm_config = vhm.grow(self.map_state, self.vhm_config)
+        old_ext = self.extract_capacity
+        self.extract_capacity = self.extract_tier_for(self.map_capacity)
+        if reextract and self.extract_capacity != old_ext and self.submap_cloud is not None:
+            self._reextract_target(self.last_keyframe_pose if origin is None else origin)
+
+    def grow_extract_capacity(self) -> None:
+        """Double the extraction budget directly: the backstop for an
+        in-range voxel set that outgrows its tier without the map growing."""
+        self.extract_capacity = self.extract_capacity * 2
+
+    def _reextract_target(self, origin) -> None:
+        """Re-extract the target from the committed map state at the current
+        extract capacity and rebuild the search structure (slow path: host
+        reads). When the extraction comes up short of ``min_num_points``,
+        the previous target is kept, mask-padded to the new capacity."""
+        origin = np.asarray(origin, np.float32)
+        if origin.shape == (4, 4):
+            origin = origin[:3, 3]
+        extracted, overflow = self._extract(self.map_state, self._pose_tensor(origin))
+        self.extract_overflow, n = to_host(torch.stack([overflow, extracted.count()]))
+        prev = self.submap_cloud
+        pad = 0 if prev is None else self.extract_capacity - prev.capacity
+        if n >= self.params.registration.min_num_points or prev is None or pad < 0:
+            target = PointCloud(points=extracted.points, mask=extracted.mask)
+        else:
+            target = PointCloud(
+                points=torch.cat([prev.points, prev.points.new_zeros((pad, 3))]),
+                mask=torch.cat([prev.mask, prev.mask.new_zeros(pad)]),
+            )
+        self._set_target(target)
+
+    def resolve_extract_overflow(self, origin, max_grow: int = 6) -> bool:
+        """Slow path: the latest extraction overflowed its budget. Grow the
+        extract capacity and re-extract the target around ``origin`` until
+        the in-range set fits. Returns True when the target was rebuilt."""
+        if not self._extract_growth or self.extract_overflow <= 0:
+            return False
+        changed = False
+        for _ in range(max_grow):
+            if self.extract_overflow <= 0 or self.extract_capacity >= self.map_capacity:
+                break
+            self.grow_extract_capacity()
+            self._reextract_target(origin)
+            changed = True
+        return changed
+
+    # ------------------------------------------------------------------
+    def add_first_frame(self, cloud: PointCloud, timestamp: float, current_pose: np.ndarray) -> None:
+        self.last_keyframe_pose = np.asarray(current_pose)
+        self.keyframe_poses = [self.last_keyframe_pose]
+        self._build_submap(cloud, self.last_keyframe_pose, is_first_frame=True)
+        self.last_keyframe_time = timestamp
+
+    def add_frame(self, cloud: PointCloud, reg_T: np.ndarray, inlier_ratio: float, timestamp: float,
+                  sampling_weights: Optional[torch.Tensor] = None) -> bool:
+        """Inlier gate, keyframe policy, insertion; True when the frame
+        became a keyframe."""
+        kf = self.params.submap.keyframe
+        if kf.inlier_ratio_threshold > 0.0 and inlier_ratio <= kf.inlier_ratio_threshold:
+            return False
+        if not self._is_keyframe(reg_T, timestamp):
+            return False
+        self.last_keyframe_pose = np.asarray(reg_T)
+        self.last_keyframe_time = timestamp
+        self.keyframe_poses.append(self.last_keyframe_pose)
+        self._build_submap(cloud, reg_T, False, sampling_weights)
+        return True
+
+    def _is_keyframe(self, T: np.ndarray, timestamp: float) -> bool:
+        delta = np.linalg.inv(self.last_keyframe_pose) @ np.asarray(T)
+        dist = float(np.linalg.norm(delta[:3, 3]))
+        angle = float(np.linalg.norm(lie_np.se3_log(delta)[:3])) * 180.0 / np.pi
+        dt = timestamp - self.last_keyframe_time if self.last_keyframe_time > 0.0 else float("inf")
+        kf = self.params.submap.keyframe
+        return (
+            dist >= kf.distance_threshold
+            or angle >= kf.angle_threshold_degrees
+            or dt >= kf.time_threshold_seconds
+        )
+
+    def _insert_with_growth(self, sampled: PointCloud, pose: torch.Tensor, grow_first: bool, attempts: int):
+        """Insert with the growth policy: retry the same insert on a doubled
+        table while any contribution was dropped on probe exhaustion (the
+        state from before the insert is kept, so nothing is lost).
+        Fixed-budget losses (``budget_lost``) recur at any capacity and never
+        trigger growth. Commits the state and the telemetry; returns
+        ``(extracted, load, n_extracted)`` with the last two on the host."""
+        for attempt in range(attempts):
+            if grow_first or attempt > 0:
+                self._grow_map(reextract=False)
+            new_state, extracted, load, overflow = self.insert_extract(self.map_state, sampled, pose)
+            dropped, before, overflow_h, lost, load_h, n_ext = to_host(torch.stack([
+                new_state.dropped, self.map_state.dropped, overflow, new_state.budget_lost,
+                load, extracted.count(),
+            ]).to(torch.float64))
+            if dropped == before:
+                break
+        self.map_state = new_state
+        self.extract_overflow = int(overflow_h)
+        self.budget_lost = int(lost)
+        return extracted, load_h, int(n_ext)
+
+    def _build_submap(self, cloud: PointCloud, pose, is_first_frame: bool, weights=None) -> None:
+        """Sample -> insert -> extract -> search structure and covariances."""
+        num = self.params.submap.point_random_sampling_num
+        if weights is not None:
+            sampled = mixed_sampling(cloud, num, weights, self._generator,
+                                     self.params.submap.weighted_sampling_ratio)
+        else:
+            sampled = random_sampling(cloud, num, self._generator)
+        self.last_keyframe_cloud = sampled
+        pose_t = self._pose_tensor(pose)
+        extracted, load, n_ext = self._insert_with_growth(sampled, pose_t, grow_first=False,
+                                                          attempts=MAX_GROW + 1)
+
+        if is_first_frame:
+            c = transform_cloud(compact_device(cloud, out_capacity=self.extract_capacity), pose_t)
+            self._set_target(PointCloud(points=c.points, mask=c.mask))
+        elif n_ext >= self.params.registration.min_num_points:
+            self._set_target(extracted)
+        elif self.submap_cloud is not None and self.submap_cloud.capacity != self.extract_capacity:
+            # The previous target is kept, but the retry loop changed the
+            # extract tier: pad it to the new shape.
+            self._reextract_target(np.asarray(pose))
+        if not is_first_frame and self.extract_overflow > 0:
+            self.resolve_extract_overflow(np.asarray(pose))
+        if load > MAX_LOAD:
+            self._grow_map(origin=np.asarray(pose))
+
+    def retry_insert_after_drop(self, sampled: PointCloud, pose_np) -> None:
+        """Slow-path growth retry of the frame step: the caller restored the
+        state from before the insert after seeing probe-exhaustion drops, so
+        growing and running the same insert again loses nothing."""
+        extracted, load, n_ext = self._insert_with_growth(
+            sampled, self._pose_tensor(pose_np), grow_first=True, attempts=MAX_GROW)
+        if n_ext >= self.params.registration.min_num_points:
+            self._set_target(PointCloud(points=extracted.points, mask=extracted.mask))
+        elif self.submap_cloud is not None and self.submap_cloud.capacity != self.extract_capacity:
+            self._reextract_target(pose_np)
+        if self.extract_overflow > 0:
+            self.resolve_extract_overflow(pose_np)
+        if load > MAX_LOAD:
+            self._grow_map(origin=np.asarray(pose_np))
+
+    # ------------------------------------------------------------------
+    def finalize_traced(self, cloud: PointCloud) -> PointCloud:
+        """Target finalize: neighbourhood covariances (and normals, as the
+        registration type requires) from the exact self-k-NN, the ``knn_k``
+        kernel on the card."""
+        k = self.params.covariance_estimation.neighbor_num
+        covs = cloud.covs
+        if covs is None:
+            covs = estimate_covariances(cloud.points, self_knn(cloud.points.contiguous(), cloud.mask, k))
+        normals = cloud.normals
+        if self._need_normals and normals is None:
+            normals = extract_normals(cloud.points, covs)
+        return cloud.replace(covs=covs, normals=normals)
+
+    def _finalize_target(self, cloud: PointCloud) -> PointCloud:
+        if not (self._need_covs or self._need_normals):
+            return cloud
+        return self.finalize_traced(cloud)

@@ -95,8 +95,10 @@ def align_pipeline(
     initial_guess: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     scores: Optional[torch.Tensor] = None,
+    map_prior=None,
 ) -> PipelineOutput:
-    """Sample the source, then align through the robust schedule.
+    """Sample the source, then align through the robust schedule;
+    ``map_prior`` goes to :func:`~.registration.align`.
 
     The sampling noise comes from ``generator`` (default: seeded with
     :data:`DEFAULT_SEED` on the source's device); ``scores [capacity]``, when
@@ -120,7 +122,7 @@ def align_pipeline(
     geo_scales, rot_scales = _robust_schedule(params)
     result = align(
         src, target, target_knn, params.registration,
-        initial_guess=initial_guess,
+        initial_guess=initial_guess, map_prior=map_prior,
         robust_schedule=tuple(zip(geo_scales, rot_scales)),
     )
     return PipelineOutput(result=result, registration_input=src, deskewed=src)

@@ -5,11 +5,12 @@ same parameter dataclasses, defaults and semantics. The JAX loop is one
 ``lax.while_loop``; here it is a Python loop whose tensors stay on the
 device. The host reads one small tensor per iteration (the loop's
 convergence test and, for LM, the first candidate's accept flag together),
-plus one more when the LM candidate sweep runs.
+plus one more when the LM candidate sweep runs; each read is counted
+(:mod:`sycl_points_tpu_torch.utils.sync`).
 
-Not ported in this slice (they raise ``NotImplementedError``): degenerate
-regularization, the map prior, the rotation constraint and the
-coarse-to-fine correspondence schedule.
+Not ported yet (they raise ``NotImplementedError``): degenerate
+regularization, the rotation constraint and the coarse-to-fine
+correspondence schedule.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from sycl_points_tpu_torch.registration.factors import (
 from sycl_points_tpu_torch.utils import lie
 from sycl_points_tpu_torch.utils.eigh3 import plane_regularize
 from sycl_points_tpu_torch.utils.smallmat import solve_psd
+from sycl_points_tpu_torch.utils.sync import to_host
 
 _F32 = torch.float32
 
@@ -343,7 +345,7 @@ def _lm_step(params, T, H, g, cur_err, inlier, lm_lambda, error_fn) -> _Step:
     delta0, _ = solve_psd(H + lams[0] * eye6, -g)
     T_c0 = T @ lie.se3_exp(delta0)
     err0, inl0 = error_fn(T_c0)
-    accept0, conv0 = torch.stack([err0 <= cur_err, _is_converged(params, delta0)]).tolist()
+    accept0, conv0 = to_host(torch.stack([err0 <= cur_err, _is_converged(params, delta0)]))
     if accept0:
         lam_next = torch.clamp(lams[0] / p.lambda_factor, p.min_lambda, p.max_lambda)
         return _Step(T_c0, conv0, err0, inl0, lam_next, None, delta0, _scalar(True, dev, torch.bool))
@@ -354,7 +356,7 @@ def _lm_step(params, T, H, g, cur_err, inlier, lm_lambda, error_fn) -> _Step:
     accept = errs <= cur_err
     prev_errs = torch.cat([torch.full((1,), torch.finfo(_F32).max, device=dev), errs[:-1]])
     take = accept | (torch.abs(errs - prev_errs) <= 1e-6)
-    take_h, accept_h, conv_h = torch.stack([take, accept, _is_converged(params, deltas)]).tolist()
+    take_h, accept_h, conv_h = to_host(torch.stack([take, accept, _is_converged(params, deltas)]))
     if not any(take_h):
         # Exhausted sweep: the reference's inner loop still records converged
         # from the last trial's delta, so a max-lambda micro-step ends the loop.
@@ -388,7 +390,7 @@ def _dogleg_step(params, T, H, g, cur_err, inlier, trust_radius, error_fn) -> _S
     conv = (~reject) & _is_converged(params, step)
     return _Step(
         T=torch.where(reject, T, T_c),
-        conv=bool(conv),
+        conv=to_host(conv),
         err=torch.where(reject, cur_err, new_err),
         inlier=torch.where(reject, inlier, new_inl),
         lam=None,
@@ -411,7 +413,9 @@ def align(
 ):
     """Run ICP from ``initial_guess`` (identity by default).
 
-    ``robust_schedule`` (tuple of (geometry_scale, rotation_scale) pairs; the
+    ``map_prior`` (a ``map_prior.MapPriorState``) adds the previous frame's
+    information to the normal equations of every iteration and its cost to
+    the LM / dogleg error. ``robust_schedule`` (tuple of (geometry_scale, rotation_scale) pairs; the
     rotation scale is unused until the rotation constraint is ported) runs
     the robust-annealing chain in one loop: each level runs at most
     ``max_iterations`` from the previous level's pose with fresh optimizer
@@ -421,8 +425,6 @@ def align(
     """
     if params.degenerate_reg is not None:
         raise NotImplementedError("degenerate regularization is not ported yet")
-    if map_prior is not None or params.map_prior_enable:
-        raise NotImplementedError("the map prior is not ported yet")
     if params.rotation_constraint.enable:
         raise NotImplementedError("the rotation constraint is not ported yet")
     if params.coarse_to_fine_iters > 0:
@@ -469,16 +471,21 @@ def align(
         corr = _correspondences(params, target_knn, src_pts, src_mask, T, tgt)
         alpha = _genz_alpha(corr) if params.reg_type is RegType.GENZ else torch.ones((), dtype=_F32, device=dev)
         lin = _linearize(params, T, src_pts, src_covs_reg, corr, r_scale, alpha)
+        H_raw, b_raw, error_raw = lin.H, lin.b, lin.error
+        if map_prior is not None:
+            lin = map_prior.apply(lin, T)
         H, g, cur_err, cur_inl = lin.H, lin.b, lin.error, lin.inlier
-        H_raw, b_raw, error_raw = H, g, cur_err
 
         def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale):
-            return _error_at(params, T_c, src_pts, src_covs_reg, corr, r_scale, alpha)
+            err, inl = _error_at(params, T_c, src_pts, src_covs_reg, corr, r_scale, alpha)
+            if map_prior is not None:
+                err = err + map_prior.prior_error(T_c)
+            return err, inl
 
         if method == "gauss_newton":
             delta, _ = solve_psd(H + params.gn.lambda_ * eye6, -g)
             conv_t = _is_converged(params, delta)
-            step = _Step(T @ lie.se3_exp(delta), bool(conv_t), cur_err, cur_inl, None, None, delta,
+            step = _Step(T @ lie.se3_exp(delta), to_host(conv_t), cur_err, cur_inl, None, None, delta,
                          _scalar(True, dev, torch.bool))
             damping = _scalar(params.gn.lambda_, dev)
         elif method == "levenberg_marquardt":
@@ -524,3 +531,57 @@ def align(
     if rows:
         buf[: len(rows)] = torch.stack(rows)
     return result, buf
+
+
+def _linearization_inputs(params, source, target, target_knn, pose, robust_scale):
+    """What one linearization at ``pose`` needs: the robust scale as a device
+    scalar, the source's regularized covariances, the correspondences and the
+    GenZ planar fraction. One ``nn1`` search on the prepared target."""
+    dev = source.device
+    r_scale = _scalar(params.robust.default_scale, dev) if robust_scale is None else robust_scale
+    src_covs_reg, tgt = _precompute_targets(params, source, target)
+    if hasattr(target_knn, "prepped"):
+        target_knn = target_knn.prepped()
+    corr = _correspondences(params, target_knn, source.points, source.mask, pose, tgt)
+    alpha = _genz_alpha(corr) if params.reg_type is RegType.GENZ else torch.ones((), dtype=_F32, device=dev)
+    return r_scale, src_covs_reg, corr, alpha
+
+
+def compute_linearized_result(
+    source: PointCloud,
+    target: PointCloud,
+    target_knn,
+    pose: torch.Tensor,
+    params: RegistrationParams = RegistrationParams(),
+    initial_pose: Optional[torch.Tensor] = None,
+    robust_scale=None,
+) -> LinearizedResult:
+    """One correspondence search and linearization at ``pose``. Degenerate
+    regularization toward ``initial_pose`` is not ported yet."""
+    if params.degenerate_reg is not None and initial_pose is not None:
+        raise NotImplementedError("degenerate regularization is not ported yet")
+    r_scale, src_covs_reg, corr, alpha = _linearization_inputs(
+        params, source, target, target_knn, pose, robust_scale)
+    return _linearize(params, pose, source.points, src_covs_reg, corr, r_scale, alpha)
+
+
+def compute_icp_robust_weights(
+    source: PointCloud,
+    target: PointCloud,
+    target_knn,
+    pose: torch.Tensor,
+    params: RegistrationParams = RegistrationParams(),
+    robust_scale=None,
+) -> torch.Tensor:
+    """Per-source-point robust weights at ``pose``, zero outside the
+    correspondence gate; the weights of the submap's mixed sampling."""
+    r_scale, src_covs_reg, corr, alpha = _linearization_inputs(
+        params, source, target, target_knn, pose, robust_scale)
+    rn, _ = residual_norms_only(
+        params.reg_type, pose, source.points, corr.points,
+        src_covs_reg=src_covs_reg, tgt_covs_reg=corr.covs_reg,
+        tgt_covs_raw=corr.covs_raw, tgt_normals=corr.normals,
+        genz_planar=corr.planar, genz_alpha=alpha,
+    )
+    w = compute_weight(params.robust.type, rn, r_scale)
+    return torch.where(corr.mask, w, 0.0)

@@ -18,8 +18,10 @@ the [Q,M] reduction order of the plain version). The study kernels
 The cluster kernels split the target into 1 to 16 slices of whole
 512-target tiles, the count chosen from Q; the cases below put M off both,
 run every slice count, Q below one query tile, a slice with
-every target masked, every target masked, fewer valid targets than k, and
-duplicated points whose exact ties span the slices.
+every target masked, every target masked, fewer valid targets than k,
+duplicated points whose exact ties span the slices, and the odometry
+frame's shapes (1,000 queries against a 16,384-row target with a masked
+tail; the self-search of a 5,000-row scan and of a 16,384-row submap).
 """
 
 import numpy as np
@@ -89,6 +91,14 @@ def _case(name):
     if name == "all masked":
         tgt, mask = _cloud(3000, 24)
         return tgt, _cloud(100, 25)[0], torch.zeros_like(mask)
+    if name.startswith("tail"):
+        # the odometry frame's shapes: a target of static capacity whose
+        # valid rows sit at the front, the tail masked; q == m searches the
+        # cloud in itself (the preprocessed scan, the extracted submap)
+        m, valid, q = (int(x) for x in name.split(",")[1:])
+        tgt, _ = _cloud(m, 28)
+        qry = tgt if q == m else _cloud(q, 29)[0]
+        return tgt, qry, torch.arange(m, device="cuda") < valid
     m, q, masked_every = (int(x) for x in name.split(","))
     tgt, mask = _cloud(m, 26, masked_every=masked_every)
     return tgt, _cloud(q, 27)[0], mask
@@ -99,6 +109,7 @@ def _case(name):
 # and 1 slices a cluster (cuda_knn.cluster_shape)
 NN1_CASES = ["300,70,0", "5000,1000,7", "25000,1000,5", "2049,129,3", "1,5,0", "513,31,0",
              "24575,3000,11", "24576,6000,0", "22528,22528,37", "2049,50000,3", "1000,70000,0",
+             "tail,16384,5000,1000", "tail,16384,13000,1000", "tail,16384,0,1000",
              "dup", "slice masked", "all masked"]
 
 
@@ -185,7 +196,8 @@ def test_knn_k_matches_plain(k, m, masked_every):
 
 
 KNN_CASES = ["300,70,0", "2049,129,3", "1,5,0", "24575,2000,37", "25000,25000,6", "2049,50000,3",
-             "1000,70000,0", "dup", "slice masked", "all masked"]
+             "1000,70000,0", "tail,5000,4300,5000", "tail,16384,5000,16384", "tail,16384,13000,16384",
+             "dup", "slice masked", "all masked"]
 
 
 @pytest.mark.parametrize("k", [1, 10, 16])

@@ -28,7 +28,12 @@ import synthetic_velodyne as ref_synth  # noqa: E402
 
 from sycl_points_tpu.points import io as ref_io  # noqa: E402
 from sycl_points_tpu_torch.apps import example_registration  # noqa: E402
-from sycl_points_tpu_torch.convert import cloud_from_numpy  # noqa: E402
+from sycl_points_tpu_torch.convert import cloud_from_numpy, map_state_from_reference  # noqa: E402
+from sycl_points_tpu_torch.mapping import voxel_hash_map  # noqa: E402
+from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
+from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry  # noqa: E402
+from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor  # noqa: E402
+from sycl_points_tpu_torch.pipeline.submap import Submap  # noqa: E402
 from sycl_points_tpu_torch.points import io as port_io  # noqa: E402
 from sycl_points_tpu_torch.points.point_cloud import PointCloud  # noqa: E402
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants  # noqa: E402
@@ -136,7 +141,9 @@ def test_rays_and_trajectory_equal_the_originals():
 
 
 @pytest.mark.parametrize("fn", [cloud_from_numpy, PointCloud.from_numpy, synthetic.scan_at,
-                                bench_nn1_tiles.main, bench_nn1_variants.main])
+                                bench_nn1_tiles.main, bench_nn1_variants.main,
+                                LidarOdometry, Submap, PCProcessor, voxel_hash_map.create,
+                                map_state_from_reference])
 def test_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -153,3 +160,28 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         bench_nn1_variants.main(shapes=((4, 8),))
     assert cloud_from_numpy(pts, device="cpu").device.type == "cpu"
+
+
+def _vhm_params():
+    """A parameter tree of what is ported: voxel-hash map, no polar stage."""
+    return lo_params.LidarOdometryParams(
+        scan=lo_params.ScanParams(downsampling=lo_params.DownsamplingParams(
+            polar=lo_params.PolarDownsamplingParams(enable=False))),
+        submap=lo_params.SubmapParams(map_type="VOXEL_HASH_MAP", map_capacity=1 << 8, extract_capacity=1 << 6),
+    )
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: LidarOdometry(_vhm_params(), **kw),
+    lambda **kw: Submap(_vhm_params(), **kw),
+    lambda **kw: PCProcessor(_vhm_params(), **kw),
+    lambda **kw: voxel_hash_map.create(voxel_hash_map.VoxelHashMapConfig(capacity=1 << 8), **kw),
+    lambda **kw: map_state_from_reference(
+        voxel_hash_map.create(voxel_hash_map.VoxelHashMapConfig(capacity=1 << 8), device="cpu"), **kw),
+], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference"])
+def test_lo_entry_points_raise_without_a_card(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make()
+    made = make(device="cpu")
+    assert getattr(made, "device", torch.device("cpu")).type == "cpu"
