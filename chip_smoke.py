@@ -56,6 +56,32 @@
    the ATE exceeds MAX_ATE_M. The same replay at the default capacities on
    the card and on the CPU (plain versions): final poses within
    CPU_TRANS_M / CPU_ROT_DEG of each other.
+10. Drives the LiDAR-inertial frame, ``LidarInertialOdometry.process``, over
+    a 20-frame replay at the full width of the LIO replay deployment
+    (``apps.lio_replay``: 2048 x 64 rays, the planar figure-8 at 0.35 m a
+    frame, a 400 Hz IMU, 5,000-point scans, a 2^17-slot map, a 16,384-row
+    target, Gauss-Newton over the 15-DOF state), with the launch counts set
+    to 0 just before and read just after. Prints every frame, ms a frame,
+    launches and host syncs a frame, the ATE and the final bias errors, and
+    the stage times of a second run whose stages end in a synchronisation.
+    Fails if a frame after the first is not ``success``, if the ATE exceeds
+    MAX_LIO_ATE_M, or if nn1 or knn_k never launched.
+11. Holds nn1 and knn_k against their exact references, bit for bit, at the
+    LIO frame's own shapes, as in 8.
+12. Distorted 512 x 32 sweeps (30 frames at 0.7 m a frame) through the LIO
+    frame with the IMU deskew on and off: fails unless the deskew-on ATE is
+    at most MAX_DESKEW_ATE_M and at most DESKEW_GAIN times the deskew-off
+    ATE. Then ``LidarOdometry`` with the IMU in IMU_SE3 prediction over a
+    12-frame 512 x 32 replay: fails above MAX_ATE_M. Then 150 frames of the
+    3-D-excited figure-8 at 512 x 32 with constant gyro and accel biases
+    injected into the IMU: fails unless the filter recovers at least
+    MIN_GYRO_RECOVERED of the gyro bias and ends nearer the accel bias than
+    it started. Then a 4-frame 512 x 32 LIO replay on the card and on the
+    CPU (plain versions, a 2^12-slot map and a 2^11-row target), every
+    sampling stage taking all the points: final
+    poses within LIO_CPU_TRANS_M / LIO_CPU_ROT_DEG of each other; and, with
+    sampling on, 6 frames on the CPU and on the card with the package's
+    seeds and two more seeds: how far apart the final poses are (printed).
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -66,6 +92,7 @@ an error before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -75,7 +102,7 @@ import time
 import numpy as np
 import torch
 
-from sycl_points_tpu_torch.apps import odometry_replay
+from sycl_points_tpu_torch.apps import lio_replay, odometry_replay
 from sycl_points_tpu_torch.apps.example_registration import (
     PAIR_PARAMS,
     downsample,
@@ -90,6 +117,7 @@ from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_n
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN, KNNResult, self_knn
 from sycl_points_tpu_torch.ops.sampling import random_sampling
 from sycl_points_tpu_torch.ops.transform import transform_points
+from sycl_points_tpu_torch.pipeline.params import MotionPredictionParams
 from sycl_points_tpu_torch.registration.pipeline import align_pipeline
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
@@ -119,6 +147,43 @@ GROWTH_CAPACITIES = (1 << 10, 1 << 9)
 CPU_FRAMES = 6
 CPU_TRANS_M, CPU_ROT_DEG = 0.02, 0.1
 LO_PATH = "LidarOdometry.process"
+# The LiDAR-inertial replays. The full-width bound is about 1.3 x the JAX
+# package's own 0.231 m over 60 frames of the same replay; the deskew bound
+# and the deskew-on-below-off test are those of the JAX package's LIO deskew
+# test, with a margin: on must stay within DESKEW_GAIN of off (the card
+# showed 0.13 against 0.25 m, H100).
+LIO_PATH = "LidarInertialOdometry.process"
+LIO_FRAMES = 20
+LIO_WARMUP = 3
+MAX_LIO_ATE_M = 0.30
+DESKEW_FRAMES = 30
+DESKEW_SPEED = 0.7
+MAX_DESKEW_ATE_M = 0.25
+DESKEW_GAIN = 0.7
+LO_IMU_FRAMES = 12
+# Card against CPU with every point taken: about 12 x the 0.168 mm and
+# 14 x the 0.00072 deg the card showed (H100). With sampling on, the two
+# generators draw different points; that run and two more sampling seeds on
+# the card are printed beside it, unbounded, as the spread that sampling
+# alone makes.
+# The CPU's plain k-NN scans every row of the target, so these replays hold
+# a 2^12-slot map and a 2^11-row target, which keep every voxel they see.
+LIO_CPU_FRAMES = 4
+LIO_CPU_TRANS_M, LIO_CPU_ROT_DEG = 2e-3, 0.01
+LIO_CPU_CAPACITIES = (1 << 12, 1 << 11)
+SAMPLED_FRAMES = 6
+SAMPLING_SEEDS = (7, 11)
+# Bias recovery on the 3-D-excited figure-8 at 512 x 32, the JAX package's
+# CPU-scale setting (benchmarks/REPLAY_LIO_BIAS3D_r5.json: these biases and
+# bias random walks, 150 frames; it recovered 85% of the gyro bias and 73% of
+# the accel bias). The phase fails unless the gyro bias is at least half
+# recovered and the accel bias error ends below the injected bias.
+BIAS_FRAMES = 150
+GYRO_BIAS = (0.02, -0.01, 0.015)  # rad/s
+ACCEL_BIAS = (0.05, 0.03, -0.04)  # m/s^2
+BIAS_RW = (1e-4, 1e-3)  # gyro, accel bias random-walk densities
+MIN_GYRO_RECOVERED = 0.5
+MAX_BIAS_ATE_M = 0.5
 
 
 def nvidia_smi(query: str) -> str:
@@ -569,7 +634,7 @@ def lo_replay(dev) -> dict:
             "targets": {"first frame": (first.submap.submap_cloud, pose0), "last keyframe": (lo.submap.submap_cloud, pose)}}
 
 
-def check_lo_shapes(lo_out) -> list:
+def check_lo_shapes(lo_out, path: str = LO_PATH, tag: str = "LO") -> list:
     """nn1 and knn_k at the odometry frame's shapes: bit-equal to nn1_plain and
     to knn_k_simple (and knn_k_plain in its sets), and timed in turns with
     their plain versions; one row each for the JSON line, at the last
@@ -580,7 +645,8 @@ def check_lo_shapes(lo_out) -> list:
     for label, (target, pose) in lo_out["targets"].items():
         t, m = target.points.contiguous(), target.mask.to(torch.uint8)
         for what, (tt, mm) in {"target": (t, m), "all masked": (t, torch.zeros_like(m))}.items():
-            check_equal("nn1", cuda_knn.nn1(tt, mm, q, pose), cuda_knn.nn1_plain(tt, mm, q, pose), f"LO {label}, {what}")
+            check_equal("nn1", cuda_knn.nn1(tt, mm, q, pose), cuda_knn.nn1_plain(tt, mm, q, pose),
+                        f"{tag} {label}, {what}")
         pr = cuda_knn.prep_target(t, m)
         turns = in_turns({"plain_ms": lambda: cuda_knn.nn1_plain(t, m, q, pose),
                           "ms": lambda: cuda_knn.nn1_prepped(pr, q, pose)})
@@ -589,11 +655,11 @@ def check_lo_shapes(lo_out) -> list:
         sb = nn1_bound(q.shape[0], t.shape[0], int(m.sum()))
         shapes[label] = {"Q": q.shape[0], "M": t.shape[0], "valid": int(m.sum()), **turns, "library_ms": lib,
                          "bound_ms": sb[0], "bound_by": sb[1]}
-        print(f"nn1 at the LO frame's shape, {label} target (Q={q.shape[0]}, M={t.shape[0]}, valid {int(m.sum())}): "
+        print(f"nn1 at the {tag} frame's shape, {label} target (Q={q.shape[0]}, M={t.shape[0]}, valid {int(m.sum())}): "
               f"equal to nn1_plain bit for bit (all masked too); kernel {turns['ms']:.4f} ms, plain "
               f"{turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
     last = shapes["last keyframe"]
-    rows.append(row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", LO_PATH, 0.0,
+    rows.append(row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", path, 0.0,
                     (last["ms"], last["plain_ms"], last["library_ms"]), (last["bound_ms"], last["bound_by"]),
                     shapes=shapes))
 
@@ -602,14 +668,14 @@ def check_lo_shapes(lo_out) -> list:
     for label, cloud in clouds.items():
         pts, mask = cloud.points.contiguous(), cloud.mask
         got = cuda_knn.knn_k(pts, mask, pts, K)
-        check_equal("knn_k", got, cuda_knn.knn_k_simple(pts, mask, pts, K), f"LO {label}")
+        check_equal("knn_k", got, cuda_knn.knn_k_simple(pts, mask, pts, K), f"{tag} {label}")
         check_equal("knn_k", cuda_knn.knn_k(pts, torch.zeros_like(mask), pts, K),
-                    cuda_knn.knn_k_simple(pts, torch.zeros_like(mask), pts, K), f"LO {label}, all masked")
+                    cuda_knn.knn_k_simple(pts, torch.zeros_like(mask), pts, K), f"{tag} {label}, all masked")
         ref = cuda_knn.knn_k_plain(pts, mask, pts, K)
         torch.cuda.synchronize()
         bad, err = cuda_knn.knn_mismatches(*got, *ref, TIE_TOL), finite_max_abs_err(got[1], ref[1])
         if bad or err > D2_ATOL:
-            raise AssertionError(f"knn_k disagrees with its plain version at the LO {label}'s shape")
+            raise AssertionError(f"knn_k disagrees with its plain version at the {tag} {label}'s shape")
         pr = cuda_knn.prep_target(pts, mask)
         turns = in_turns({"plain_ms": lambda: cuda_knn.knn_k_plain(pts, mask, pts, K),
                           "ms": lambda: cuda_knn.knn_k_prepped(pr, pts, K),
@@ -621,12 +687,12 @@ def check_lo_shapes(lo_out) -> list:
         sb = knn_bound(n, n, int(mask.sum()), K)
         shapes[label] = {"Q": n, "M": n, "valid": int(mask.sum()), **turns, "library_ms": lib, "max_abs_err": err,
                          "bound_ms": sb[0], "bound_by": sb[1]}
-        print(f"knn_k at the LO frame's shape, {label} (k={K}, Q=M={n}, valid {int(mask.sum())}): equal to "
+        print(f"knn_k at the {tag} frame's shape, {label} (k={K}, Q=M={n}, valid {int(mask.sum())}): equal to "
               f"knn_k_simple bit for bit (all masked too), max |d2 - plain| = {err:.3g}; kernel {turns['ms']:.4f} ms, "
               f"with prep {turns['public_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+topk {lib:.4f}, "
               f"bound {sb[0]:.4f} ({sb[1]})")
     scan = shapes["scan"]
-    rows.append(row("knn_k", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", LO_PATH, scan["max_abs_err"],
+    rows.append(row("knn_k", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", path, scan["max_abs_err"],
                     (scan["ms"], scan["plain_ms"], scan["library_ms"]), (scan["bound_ms"], scan["bound_by"]),
                     shapes=shapes))
     for r in rows:
@@ -663,6 +729,172 @@ def small_replays(dev) -> None:
           f"{rot:.5f} deg apart")
     if not (trans <= CPU_TRANS_M and rot <= CPU_ROT_DEG):
         raise AssertionError("the card and the CPU disagree on the small replay")
+
+
+def print_lio_frames(out) -> None:
+    for r in out["rows"]:
+        print(f"  frame {r['frame']:2d}: {r['result']:<12s} {r['ms']:8.3f} ms, {r['iterations']:2d} iterations, "
+              f"keyframe {int(r['keyframe'])}, launches nn1 {r['launches']['nn1']} knn_k {r['launches']['knn_k']}, "
+              f"host syncs {r['syncs']}")
+
+
+def check_lio(name: str, out, max_ate: float) -> None:
+    bad = [r["frame"] for r in out["rows"][1:] if r["result"] != "success"]
+    print(f"{name}: ATE {out['ate_m']:.4f} m over {len(out['rows'])} frames (bound {max_ate} m), final bias errors "
+          f"gyro {out['gyro_bias_err']:.6f} rad/s, accel {out['accel_bias_err']:.6f} m/s^2, "
+          f"{len(out['odometry'].get_keyframe_poses())} keyframes, {out['map_voxels']} map voxels")
+    if out["rows"][0]["result"] != "first_frame" or bad:
+        raise AssertionError(f"{name}: frames {bad} did not succeed")
+    if not out["ate_m"] <= max_ate:
+        raise AssertionError(f"{name}: ATE {out['ate_m']:.4f} m above {max_ate} m")
+    if not all(np.isfinite(T).all() for T in out["poses"]):
+        raise AssertionError(f"{name}: a pose is not finite")
+
+
+def lio_replay_phase(dev) -> dict:
+    """The full-width LIO replay: frames, ATE, bias errors, frame times,
+    launches and syncs a frame, the stage split, and what the kernel checks
+    at the frame's shapes need."""
+    t0 = time.perf_counter()
+    inputs = lio_replay.make_lio_inputs(LIO_FRAMES, device=dev)
+    params = lio_replay.lio_params(inputs.poses[0])
+    print(f"LIO replay: {LIO_FRAMES} scans of {inputs.scans[0].capacity} rays ({int(inputs.scans[0].count())} "
+          f"returns in the first) and a {odometry_replay.IMU_HZ} Hz IMU, made in {time.perf_counter() - t0:.2f} s")
+    lio_replay.run_lio_replay(params, inputs._replace(scans=inputs.scans[:LIO_WARMUP + 1],
+                                                      poses=inputs.poses[:LIO_WARMUP + 1]), device=dev)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = lio_replay.run_lio_replay(params, inputs, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    print_lio_frames(out)
+    check_lio("LIO replay (2048 x 64, full width)", out, MAX_LIO_ATE_M)
+    odo = out["odometry"]
+    rows = out["rows"][LIO_WARMUP:]
+    ms = [r["ms"] for r in rows]
+    final_t, final_r = pose_error(out["poses"][-1], inputs.poses[-1])
+    print(f"LIO frame after {LIO_WARMUP} warm-up frames: median {statistics.median(ms):.3f} ms, max {max(ms):.3f} ms "
+          f"(keyframes median {median_of(rows, lambda r: r['ms'], lambda r: r['keyframe']):.3f}, others "
+          f"{median_of(rows, lambda r: r['ms'], lambda r: not r['keyframe']):.3f}); iterations a frame median "
+          f"{median_of(rows, lambda r: r['iterations'])}; final pose error {final_t * 100:.3f} cm, {final_r:.4f} deg")
+    n = len(out["rows"]) - 1
+    print(f"LIO launches over {n} frames after the first: nn1 {launches['nn1']} ({launches['nn1'] / n:.2f} a frame), "
+          f"knn_k {launches['knn_k']} ({launches['knn_k'] / n:.2f} a frame); host syncs a frame: median "
+          f"{median_of(rows, lambda r: r['syncs'])}, max {max(r['syncs'] for r in rows)}")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the LIO frame never launched: {launches}")
+    check_on_device(odo.get_state()._asdict(), dev)
+    check_on_device({"P_post": odo.P_post}, dev)
+    check_on_device(vars(odo.preprocessed), dev)
+
+    staged = lio_replay.run_lio_replay(params, inputs, device=dev, sync_stage_times=True)
+    srows = staged["rows"][LIO_WARMUP:]
+    for stage in sorted(srows[-1]["stages_ms"]):
+        get = lambda r, stage=stage: r["stages_ms"].get(stage, 0.0)
+        print(f"LIO stage {stage}: median {median_of(srows, get):.3f} ms, keyframes "
+              f"{median_of(srows, get, lambda r: r['keyframe']):.3f}, others "
+              f"{median_of(srows, get, lambda r: not r['keyframe']):.3f}")
+    print(f"LIO frame with synchronised stages: median {statistics.median(r['ms'] for r in srows):.3f} ms, "
+          f"ATE {staged['ate_m']:.4f} m")
+
+    first = lio_replay.run_lio_replay(params, inputs._replace(scans=inputs.scans[:1], poses=inputs.poses[:1]),
+                                      device=dev)["odometry"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    queries = random_sampling(odo.preprocessed, N_QUERIES, gen).points.contiguous()
+    pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
+    pose0 = torch.as_tensor(out["poses"][1], dtype=torch.float32, device=dev).contiguous()
+    return {"launches": launches, "scan": odo.preprocessed, "queries": queries,
+            "targets": {"first frame": (first.submap.submap_cloud, pose0),
+                        "last keyframe": (odo.submap.submap_cloud, pose)}}
+
+
+def cpu_sized(params):
+    """``params`` on the map and target sizes of the card-vs-CPU replays."""
+    return dataclasses.replace(params, submap=dataclasses.replace(
+        params.submap, map_capacity=LIO_CPU_CAPACITIES[0], extract_capacity=LIO_CPU_CAPACITIES[1]))
+
+
+def every_point(params):
+    """``params`` with every sampling stage taking all the points."""
+    down = dataclasses.replace(params.scan.downsampling, random=dataclasses.replace(
+        params.scan.downsampling.random, enable=False))
+    return dataclasses.replace(
+        params, scan=dataclasses.replace(params.scan, downsampling=down),
+        registration_sampling=dataclasses.replace(params.registration_sampling, enable=False),
+        submap=dataclasses.replace(params.submap, point_random_sampling_num=params.scan_capacity))
+
+
+def small_lio_replays(dev) -> None:
+    """IMU deskew on distorted sweeps, LidarOdometry with the IMU, bias
+    recovery on the 3-D-excited figure-8, and the card against the CPU, on
+    512 x 32 scans."""
+    n_az, n_rings = SMALL_RAYS
+    inputs = lio_replay.make_lio_inputs(DESKEW_FRAMES, n_az, n_rings, speed=DESKEW_SPEED, distort=True, device=dev)
+    ate = {}
+    for deskew in (True, False):
+        out = lio_replay.run_lio_replay(lio_replay.lio_params(inputs.poses[0], deskew=deskew), inputs, device=dev)
+        name = f"distorted LIO replay ({n_az} x {n_rings}, {DESKEW_SPEED} m a frame), deskew {'on' if deskew else 'off'}"
+        check_lio(name, out, float("inf"))
+        ate[deskew] = out["ate_m"]
+        if deskew:
+            print(f"deskew on: invented gyro bias {out['gyro_bias_err']:.6f} rad/s")
+    print(f"deskew on / off ATE: {ate[True] / ate[False]:.4f} (bound {DESKEW_GAIN})")
+    if not (ate[True] <= MAX_DESKEW_ATE_M and ate[True] <= DESKEW_GAIN * ate[False]):
+        raise AssertionError(f"deskew on: ATE {ate[True]:.4f} m, off: {ate[False]:.4f} m "
+                             f"(on must be <= {MAX_DESKEW_ATE_M} m and <= {DESKEW_GAIN} x off)")
+
+    inputs = lio_replay.make_lio_inputs(LO_IMU_FRAMES, n_az, n_rings, device=dev)
+    params = dataclasses.replace(odometry_replay.replay_params(inputs.poses[0]),
+                                 imu=lio_replay.lio_params(inputs.poses[0]).imu,
+                                 motion_prediction=MotionPredictionParams(mode="IMU_SE3"))
+    out = odometry_replay.run_replay(params, inputs.poses, inputs.scans, device=dev, imu=inputs.imu)
+    torch.cuda.synchronize()
+    print_frames(out)
+    check_replay(f"LO with the IMU, IMU_SE3 ({n_az} x {n_rings})", out, 1, MAX_ATE_M)
+
+    inputs = lio_replay.make_lio_inputs(BIAS_FRAMES, n_az, n_rings, excite3d=True, gyro_bias=GYRO_BIAS,
+                                        accel_bias=ACCEL_BIAS, device=dev)
+    out = lio_replay.run_lio_replay(lio_replay.lio_params(inputs.poses[0], *BIAS_RW), inputs, device=dev)
+    check_lio(f"3-D-excited LIO replay with injected biases ({n_az} x {n_rings}, {BIAS_FRAMES} frames)", out,
+              MAX_BIAS_ATE_M)
+    g0, a0 = float(np.linalg.norm(GYRO_BIAS)), float(np.linalg.norm(ACCEL_BIAS))
+    g_rec, a_rec = 1 - out["gyro_bias_err"] / g0, 1 - out["accel_bias_err"] / a0
+    print(f"bias recovery: gyro {g0:.4f} -> {out['gyro_bias_err']:.4f} rad/s ({g_rec:.1%} recovered, bound "
+          f"{MIN_GYRO_RECOVERED:.0%}), accel {a0:.4f} -> {out['accel_bias_err']:.4f} m/s^2 ({a_rec:.1%} recovered, "
+          f"bound above 0%)")
+    for key, true in (("gyro_bias", GYRO_BIAS), ("accel_bias", ACCEL_BIAS)):
+        errs = [float(np.linalg.norm(np.subtract(r[key], true))) for r in out["rows"][::30]]
+        print(f"  {key} error every 30 frames: " + ", ".join(f"{e:.4f}" for e in errs))
+    if not (g_rec >= MIN_GYRO_RECOVERED and a_rec > 0):
+        raise AssertionError("the filter did not recover the injected biases")
+
+    # The LIO filter follows its sampled points, so the card against the CPU
+    # takes every point; the sampled runs show the spread sampling makes.
+    finals = {}
+    for device in (torch.device("cpu"), dev):
+        inp = lio_replay.make_lio_inputs(LIO_CPU_FRAMES, n_az, n_rings, device=device)
+        o = lio_replay.run_lio_replay(cpu_sized(every_point(lio_replay.lio_params(inp.poses[0]))), inp,
+                                      device=device)
+        check_lio(f"{LIO_CPU_FRAMES}-frame LIO replay on {device.type}, every point", o, MAX_LIO_ATE_M)
+        finals[device.type] = o["poses"][-1]
+    trans, rot = pose_error(finals["cuda"], finals["cpu"])
+    print(f"LIO card vs CPU plain path after {LIO_CPU_FRAMES} frames ({n_az} x {n_rings}, every point): "
+          f"{trans * 1e3:.3f} mm, {rot:.5f} deg apart (bound {LIO_CPU_TRANS_M * 1e3:.0f} mm, {LIO_CPU_ROT_DEG} deg)")
+    if not (trans <= LIO_CPU_TRANS_M and rot <= LIO_CPU_ROT_DEG):
+        raise AssertionError("the card and the CPU disagree on the small LIO replay")
+    sampled = {}
+    for device, seed in ((torch.device("cpu"), None), (dev, None)) + tuple((dev, s) for s in SAMPLING_SEEDS):
+        inp = lio_replay.make_lio_inputs(SAMPLED_FRAMES, n_az, n_rings, device=device)
+        o = lio_replay.run_lio_replay(cpu_sized(lio_replay.lio_params(inp.poses[0])), inp, device=device, seed=seed)
+        check_lio(f"{SAMPLED_FRAMES}-frame LIO replay on {device.type}, sampling seed {seed or 'fixed'}", o,
+                  MAX_LIO_ATE_M)
+        sampled[f"{device.type}/{seed or 'fixed'}"] = o["poses"][-1]
+    names = list(sampled)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            trans, rot = pose_error(sampled[a], sampled[b])
+            print(f"LIO final poses after {SAMPLED_FRAMES} sampled frames ({n_az} x {n_rings}), {a} vs {b}: "
+                  f"{trans * 1e3:.3f} mm, {rot:.5f} deg apart")
 
 
 def main() -> None:
@@ -757,6 +989,10 @@ def main() -> None:
     # --- the LiDAR-odometry frame ------------------------------------------------
     results += check_lo_shapes(lo_replay(dev))
     small_replays(dev)
+
+    # --- the LiDAR-inertial frame -------------------------------------------------
+    results += check_lo_shapes(lio_replay_phase(dev), LIO_PATH, "LIO")
+    small_lio_replays(dev)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of sycl_points_tpu: the scan-pair registration path and
-the LiDAR-odometry frame (``pipeline.lidar_odometry.LidarOdometry``).
+"""PyTorch + CUDA port of sycl_points_tpu: the scan-pair registration path,
+the LiDAR-odometry frame (``pipeline.lidar_odometry.LidarOdometry``) and the
+LiDAR-inertial frame (``pipeline.lidar_inertial_odometry.LidarInertialOdometry``).
 
 The JAX package :mod:`sycl_points_tpu` is the reference: every module here has
 its counterpart at the same relative path there. Plain tensor code is

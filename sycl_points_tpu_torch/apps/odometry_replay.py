@@ -13,16 +13,23 @@ HDL-64 sweeps (:mod:`..utils.synthetic`) along a figure-8 at 10 Hz.
     poses, scans = make_scans(20)                      # 2048 x 64 rays a scan, on the card
     out = run_replay(replay_params(poses[0]), poses, scans)
     print(out["ate_m"], out["frame_ms"])
+
+With ``run_replay(..., imu=...)`` the odometry also gets an IMU stream (for
+parameters with ``imu.enable``); :func:`..apps.lio_replay.make_lio_inputs`
+makes one that flies the same figure-8. Both replays feed it through
+:func:`feed_imu` and time a frame with :func:`timed_process`.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.imu.preintegration import IMUMeasurement
 from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry, ResultType
 from sycl_points_tpu_torch.pipeline.params import (
@@ -39,6 +46,8 @@ from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, scan_at
 
 FRAME_DT = 0.1  # a 10 Hz sensor
+IMU_HZ = 400
+FRAME_SPAN = "replay.frame"  # the profiler span around each timed frame
 
 
 def replay_params(initial_pose: np.ndarray, map_capacity: int = 1 << 17,
@@ -81,27 +90,59 @@ def ate(estimated, truth) -> float:
     return float(np.sqrt(np.mean(np.square(err))))
 
 
-def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device | str = "cuda",
-               sync_stage_times: bool = False) -> dict:
-    """Drive ``LidarOdometry.process`` over ``scans`` at 10 Hz. Each frame is
-    timed on the host clock around work that ends in a device
-    synchronisation. Returns the odometry object, per-frame rows (result,
-    ms, iterations, inliers, keyframe flag, map load, target size, kernel
-    launches, host syncs, stage times), the estimated poses and the ATE."""
-    device = require_device(device)
-    lo = LidarOdometry(params, device=device)
-    lo.sync_stage_times = sync_stage_times
+def feed_imu(add: Callable, imu: Callable, fed_to: Optional[float], s_to: float,
+             clock_offset: float = 0.0) -> Optional[float]:
+    """Hand ``add`` the IMU measurements of ``imu`` (``s -> (gyro, accel)`` on
+    the trajectory's clock, frame ``i`` at ``s = 0.1 i``) at ``IMU_HZ`` from
+    ``fed_to`` (half a frame before the first frame when None) up to ``s_to``,
+    both ends included, as the JAX package's LIO replay benchmark feeds them;
+    each measurement is stamped ``s + clock_offset``. Returns the new
+    ``fed_to``."""
+    start = -FRAME_DT * 0.5 if fed_to is None else fed_to
+    if s_to <= start:
+        return fed_to
+    n = max(int(round((s_to - start) * IMU_HZ)), 1)
+    for k in range(n + 1):
+        s = start + (s_to - start) * k / n
+        g, a = imu(s)
+        add(IMUMeasurement(timestamp=s + clock_offset, gyro=g, accel=a))
+    return s_to
+
+
+def timed_process(odo, scan: PointCloud, t: float, device: torch.device):
+    """``odo.process(scan, t)`` timed on the host clock around work that ends
+    in a device synchronisation, inside the profiler span ``FRAME_SPAN``.
+    Returns the result, its ms and the ``nn1`` / ``knn_k`` launches it made."""
     cuda = device.type == "cuda"
-    rows, estimated = [], []
-    for i, scan in enumerate(scans):
-        before = dict(cuda_knn.launch_counts)
-        if cuda:
-            torch.cuda.synchronize(device)
+    before = dict(cuda_knn.launch_counts)
+    if cuda:
+        torch.cuda.synchronize(device)
+    with torch.profiler.record_function(FRAME_SPAN):  # what scripts/profile_lio.py reads
         t0 = time.perf_counter()
-        result = lo.process(scan, FRAME_DT * (i + 1))
+        result = odo.process(scan, t)
         if cuda:
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t0) * 1e3
+    return result, ms, {k: cuda_knn.launch_counts[k] - before[k] for k in ("nn1", "knn_k")}
+
+
+def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device | str = "cuda",
+               sync_stage_times: bool = False, imu: Optional[Callable] = None) -> dict:
+    """Drive ``LidarOdometry.process`` over ``scans`` at 10 Hz, frame ``i`` at
+    ``t = 0.1 (i + 1)``. ``imu`` (as :func:`feed_imu` takes it), when given,
+    is fed up to each frame's time. Each frame is timed by
+    :func:`timed_process`. Returns the odometry object, per-frame rows
+    (result, ms, iterations, inliers, keyframe flag, map load, target size,
+    kernel launches, host syncs, stage times), the estimated poses and the
+    ATE."""
+    device = require_device(device)
+    lo = LidarOdometry(params, device=device)
+    lo.sync_stage_times = sync_stage_times
+    rows, estimated, fed_to = [], [], None
+    for i, scan in enumerate(scans):
+        if imu is not None:
+            fed_to = feed_imu(lo.add_imu_measurement, imu, fed_to, FRAME_DT * i, clock_offset=FRAME_DT)
+        result, ms, launches = timed_process(lo, scan, FRAME_DT * (i + 1), device)
         reg = lo.reg_result
         rows.append({
             "frame": i, "result": result.value, "ms": ms,
@@ -111,7 +152,7 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
             "load": float(lo.submap.map_state.used.sum()) / lo.submap.map_capacity,
             "map_capacity": lo.submap.map_capacity,
             "target": int(lo.submap.submap_cloud.count()) if lo.submap.submap_cloud is not None else 0,
-            "launches": {k: cuda_knn.launch_counts[k] - before[k] for k in ("nn1", "knn_k")},
+            "launches": launches,
             "syncs": lo.sync_count_last_frame,
             "stages_ms": {k: v * 1e3 for k, v in lo.get_processing_times().items()},
         })

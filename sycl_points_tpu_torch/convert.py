@@ -6,7 +6,10 @@
     dataclasses from the JAX package's by reading field names. Enums map by
     member name; the JAX modules are never imported;
   * :func:`map_state_from_reference`: a JAX ``VoxelHashMapState`` as this
-    package's, so that a map filled by one side can be read by the other.
+    package's, so that a map filled by one side can be read by the other;
+  * :func:`lio_state_from_reference`: a JAX LIO filter state (``State`` and
+    ``P_post``) as this package's, so that both filters can start from one
+    state.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.imu.factor import State
+from sycl_points_tpu_torch.imu.initial_alignment import InitialAlignmentParams
+from sycl_points_tpu_torch.imu.preintegration import IMUPreintegrationParams
+from sycl_points_tpu_torch.lio import lio_registration as lio
 from sycl_points_tpu_torch.mapping.voxel_hash_map import VoxelHashMapConfig, VoxelHashMapState
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.pipeline import params as pipeline_params
@@ -42,14 +49,15 @@ _PARAM_CLASSES = {
         pipeline.RegistrationPipelineParams,
         map_prior.MapPriorParams,
         VoxelHashMapConfig,
+        IMUPreintegrationParams,
+        InitialAlignmentParams,
+        lio.LIORobustScheduleParams,
+        lio.DirectionalIcpWeightingParams,
+        lio.LIORegistrationParams,
         *(cls for cls in vars(pipeline_params).values()
           if dataclasses.is_dataclass(cls) and cls.__module__ == pipeline_params.__name__),
     )
 }
-# Fields of the JAX package's dataclasses that this package does not carry
-# yet (the IMU preintegration and initial-alignment blocks come with the
-# IMU / LIO slice); params_from_reference leaves them out.
-_NOT_PORTED_FIELDS = {"IMUParams": {"preintegration", "initial_alignment"}}
 _ENUMS = {cls.__name__: cls for cls in (RegType, RobustLossType)}
 
 
@@ -80,11 +88,8 @@ def params_from_reference(obj):
     if isinstance(obj, enum.Enum):
         return _ENUMS[type(obj).__name__][obj.name]
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        name = type(obj).__name__
-        skip = _NOT_PORTED_FIELDS.get(name, ())
-        return _PARAM_CLASSES[name](**{
-            f.name: params_from_reference(getattr(obj, f.name))
-            for f in dataclasses.fields(obj) if f.name not in skip
+        return _PARAM_CLASSES[type(obj).__name__](**{
+            f.name: params_from_reference(getattr(obj, f.name)) for f in dataclasses.fields(obj)
         })
     return obj
 
@@ -100,3 +105,16 @@ def map_state_from_reference(state, device: torch.device | str = "cuda") -> Voxe
         f.name: torch.from_numpy(np.array(getattr(state, f.name))).to(dev)
         for f in dataclasses.fields(VoxelHashMapState)
     })
+
+
+def lio_state_from_reference(x, P_post, device: torch.device | str = "cuda"):
+    """``(State, P_post)`` of this package on ``device`` (the card unless the
+    caller asks for the CPU) from a JAX LIO ``State`` and posterior
+    covariance, or any object with fields of the same names that convert
+    with ``numpy.asarray``."""
+    dev = require_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return State(*(t(getattr(x, name)) for name in State._fields)), t(P_post)

@@ -1,11 +1,13 @@
 """LiDAR-only odometry pipeline.
 
 Counterpart of :mod:`sycl_points_tpu.pipeline.lidar_odometry`: the per-frame
-state machine (preprocess, covariances, refine, first-frame bootstrap, motion
-prediction, registration against the submap with an optional MAP prior,
-submap update, velocity / odometry update), per-stage wall-clock timing and
-the frame ``ResultType`` codes. Everything on the device stays there from
-the raw scan to the pose.
+state machine (initial-alignment handshake, IMU deskew, preprocess,
+covariances, refine, first-frame bootstrap, IMU window integration, motion
+prediction, registration against the submap with an optional MAP prior and
+the optional constant-velocity (VICP) deskew, submap update, velocity /
+odometry update and IMU reset), per-stage wall-clock timing and the frame
+``ResultType`` codes. Everything on the device stays there from the raw scan
+to the pose.
 
 A frame has two parts, as in the JAX package. The registration step (the
 min-points gate, the MAP prior, the whole align pipeline, the keyframe
@@ -16,10 +18,9 @@ finalize; :mod:`.fused_submap`) runs on keyframes and ends in the fetch of
 ``stats2``. Where the JAX package runs one jitted program per part and waits
 on the device once a frame, eager PyTorch also waits at every data-dependent
 loop exit (the solver's convergence test, the hash table's probe loops);
-``sync_count_last_frame`` counts all of them.
-
-Not ported yet: the IMU branches and the constant-velocity deskew of
-``lo_velocity_update`` (ROADMAP Queue 1 item 8); both raise at construction.
+``sync_count_last_frame`` counts all of them; with the IMU on, so are the
+reads of the preintegrated deltas that the motion prediction and the
+velocity corrector take.
 """
 
 from __future__ import annotations
@@ -27,13 +28,17 @@ from __future__ import annotations
 import enum
 import math
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.deskew.constant_velocity import deskew_constant_velocity
+from sycl_points_tpu_torch.imu.initial_alignment import InitialAlignmentEstimator
+from sycl_points_tpu_torch.imu.preintegration import IMUMeasurement, IMUPreintegration, build_measurement_window
+from sycl_points_tpu_torch.imu.velocity_corrector import IMUVelocityCorrector
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.pipeline.fused_submap import make_submap_step
 from sycl_points_tpu_torch.pipeline.motion_predictor import MotionPredictor
@@ -68,11 +73,6 @@ class LidarOdometry:
                  map_prior_params: MapPriorParams = MapPriorParams(),
                  device: torch.device | str = "cuda"):
         self.device = require_device(device)
-        if params.imu.enable:
-            raise NotImplementedError("the IMU branches of LidarOdometry are not ported yet (ROADMAP Queue 1 item 8)")
-        if params.lo_velocity_update.enable:
-            raise NotImplementedError(
-                "lo_velocity_update (constant-velocity deskew) is not ported yet (ROADMAP Queue 1 item 8)")
         self.params = params
         self.map_prior_params = map_prior_params
         self.pc_processor = PCProcessor(params, self.device)
@@ -111,6 +111,28 @@ class LidarOdometry:
         self._prev_inlier = 0
         self._dropped_seen = 0
 
+        # IMU machinery
+        self.imu_buffer: deque = deque()
+        self.imu_bias_gyro = np.asarray(params.imu.gyro_bias, np.float32)
+        self.imu_bias_accel = np.asarray(params.imu.accel_bias, np.float32)
+        self.imu_preintegration = (
+            IMUPreintegration(params.imu.preintegration, self.device) if params.imu.enable else None
+        )
+        self.imu_velocity_corrector = IMUVelocityCorrector()
+        self.imu_R_world_at_reset = np.eye(3, dtype=np.float32)
+        self.imu_v_world_at_reset = np.zeros(3, np.float32)
+        self.last_imu_reset_timestamp = -1.0
+        self.imu_window_complete = False
+        self.alignment_estimator = (
+            InitialAlignmentEstimator(
+                params.imu.initial_alignment,
+                np.asarray(params.imu.preintegration.gravity, np.float32),
+                params.imu.T_imu_to_lidar_matrix(),
+            )
+            if params.imu.enable and params.imu.initial_alignment.enable
+            else None
+        )
+
     def precompile_growth(self, max_capacity: int, wait: bool = True) -> int:
         """Returns 0: there is nothing to compile. The JAX package compiles
         the submap programs of every map capacity up to ``max_capacity``
@@ -126,9 +148,37 @@ class LidarOdometry:
         self.processing_times[name] += now - t0
         return now
 
+    # -- IMU input -------------------------------------------------------------
+    def add_imu_measurement(self, meas: IMUMeasurement):
+        self.imu_buffer.append(meas)
+        horizon = meas.timestamp - self.params.imu.buffer_duration_sec
+        while self.imu_buffer and self.imu_buffer[0].timestamp < horizon:
+            self.imu_buffer.popleft()
+
     # -- frame processing ----------------------------------------------------
     def process(self, scan: PointCloud, timestamp: float, scan_duration_sec: float = 0.1) -> ResultType:
         self.error_message = ""
+        # initial-alignment handshake
+        if (
+            self.is_first_frame
+            and self.alignment_estimator is not None
+            and self.alignment_estimator.enabled()
+            and not self.alignment_estimator.is_done()
+        ):
+            ok, R_gl, gyro_bias, diag = self.alignment_estimator.try_align(
+                timestamp, list(self.imu_buffer), self.imu_bias_gyro, self.imu_bias_accel)
+            if not ok:
+                self.error_message = f"initial_alignment: {diag.error_message}"
+                return ResultType.waiting_initial_alignment
+            # gravity-aligned rotation, the user's yaw kept, and the gyro bias
+            user_R = self.odom[:3, :3]
+            yaw = float(np.arctan2(user_R[1, 0], user_R[0, 0]))
+            cz, sz = np.cos(yaw), np.sin(yaw)
+            Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]], np.float32)
+            self.odom[:3, :3] = Rz @ R_gl
+            self.prev_odom = self.odom.copy()
+            self.imu_bias_gyro = gyro_bias
+
         if self.last_frame_time > 0.0:
             dt = timestamp - self.last_frame_time
             if dt > 0.0:
@@ -141,15 +191,23 @@ class LidarOdometry:
         syncs_before = sync_counts["host_syncs"]
         self.is_keyframe_last_frame = False
         try:
-            return self._process(scan, timestamp)
+            return self._process(scan, timestamp, scan_duration_sec)
         finally:
             self.sync_count_last_frame = sync_counts["host_syncs"] - syncs_before
 
-    def _process(self, scan: PointCloud, timestamp: float) -> ResultType:
+    def _process(self, scan: PointCloud, timestamp: float, scan_duration_sec: float) -> ResultType:
         p = self.params
         # preprocess: queued on the device, nothing read back
         t0 = time.perf_counter()
-        pre = self.pc_processor.prefilter(scan)
+        cloud = scan
+        if self._imu_deskew_enabled():
+            # initial-velocity compensation from the constant-velocity
+            # estimate; without it only the rotation is deskewed
+            v_world = (self.odom[:3, :3] @ self.linear_velocity).astype(np.float32)
+            cloud, _status = self.pc_processor.deskew_with_imu(
+                cloud, list(self.imu_buffer), self.odom, timestamp, scan_duration_sec,
+                self.imu_bias_gyro, self.imu_bias_accel, v_world_body=v_world)
+        pre = self.pc_processor.prefilter(cloud)
         ctx = None
         if self._needs_covariances():
             ctx = self.pc_processor.prepare_context(pre)
@@ -168,7 +226,25 @@ class LidarOdometry:
             self._stage_end("4. build submap", t0)
             self.is_first_frame = False
             self.last_frame_time = timestamp
+            if self.imu_preintegration is not None:
+                T_il = p.imu.T_imu_to_lidar_matrix()
+                self.imu_R_world_at_reset = self.odom[:3, :3] @ T_il[:3, :3]
+                self.imu_v_world_at_reset = np.zeros(3, np.float32)
+                self.imu_preintegration.reset(self.imu_bias_gyro, self.imu_bias_accel,
+                                              R_world_body=self.imu_R_world_at_reset)
+                self.last_imu_reset_timestamp = timestamp
             return ResultType.first_frame
+
+        # IMU window integration
+        if self.imu_preintegration is not None:
+            window = build_measurement_window(list(self.imu_buffer), self.last_imu_reset_timestamp, timestamp)
+            tol = 1e-6
+            self.imu_window_complete = (
+                len(window) >= 2
+                and abs(window[0].timestamp - self.last_imu_reset_timestamp) <= tol
+                and abs(window[-1].timestamp - timestamp) <= tol
+            )
+            self.imu_preintegration.integrate_batch(window)
 
         return self._process_frame(pre, timestamp)
 
@@ -203,7 +279,7 @@ class LidarOdometry:
 
         out = align_pipeline(
             pre, self.submap.submap_cloud, self.submap.submap_knn, self.pipeline_params,
-            initial_guess=init_T, map_prior=prior,
+            initial_guess=init_T, map_prior=prior, prev_pose=prev_odom, dt=self.dt,
         )
         result = out.result
         # a too-small frame must not move the odometry
@@ -237,10 +313,26 @@ class LidarOdometry:
 
         # ---- motion prediction (host math on the previous frame's stats) ---
         t0 = time.perf_counter()
+        mode = p.motion_prediction.mode.upper()
+        gyro_delta = imu_pose = None
+        if (self.imu_preintegration is not None and self.imu_window_complete
+                and self.imu_preintegration.get_dt_total() > 0.0):
+            delta_R_imu = np.asarray(to_host(self.imu_preintegration.get_corrected(
+                self.imu_bias_gyro, self.imu_bias_accel).Delta_R), np.float32)
+            R_il = p.imu.T_imu_to_lidar_matrix()[:3, :3]
+            gyro_delta = R_il @ delta_R_imu @ R_il.T
+            if mode == "IMU_SE3":
+                imu_pose = self._imu_motion_prediction()
         init_T = self.motion_predictor.predict(
             self.linear_velocity, self.angular_velocity, self.odom, self.dt,
-            self._prev_Hraw_np, self._prev_inlier, self.registrated, None, None,
+            self._prev_Hraw_np, self._prev_inlier, self.registrated, gyro_delta, imu_pose,
         )
+        v_reset = np.zeros(3, np.float32)
+        if self.imu_preintegration is not None and mode == "IMU_SE3":
+            v_reset = self.imu_velocity_corrector.get_reset_velocity(
+                self.imu_preintegration, self.imu_bias_gyro, self.imu_bias_accel,
+                self.prev_odom[:3, :3] @ self.linear_velocity,
+            )
         kf_dt_exceeded = (
             self.submap.last_keyframe_time <= 0.0
             or (timestamp - self.submap.last_keyframe_time) >= p.submap.keyframe.time_threshold_seconds
@@ -302,6 +394,12 @@ class LidarOdometry:
             self.submap.resolve_extract_overflow(T_np)
         self._stage_end("4. build submap", t0)
 
+        # the full-resolution constant-velocity deskew, for publishing
+        if (self.pipeline_params.velocity_update.enable and not self._imu_deskew_enabled()
+                and self.preprocessed.timestamp_offsets is not None):
+            prev_T, cur_T = torch.from_numpy(np.stack([self.odom, T_np]).astype(np.float32)).to(self.device)
+            self.preprocessed = deskew_constant_velocity(self.preprocessed, prev_T, cur_T, self.dt)
+
         # velocity / odometry update
         self.prev_odom = self.odom.copy()
         self.odom = T_np.copy()
@@ -311,11 +409,35 @@ class LidarOdometry:
         self.linear_velocity = (delta[:3, 3] / self.dt).astype(np.float32)
         self.angular_velocity = (tw[:3] / self.dt).astype(np.float32)
 
+        if self.imu_preintegration is not None:
+            T_il = p.imu.T_imu_to_lidar_matrix()
+            self.imu_R_world_at_reset = T_np[:3, :3] @ T_il[:3, :3]
+            self.imu_v_world_at_reset = v_reset
+            self.imu_preintegration.reset(self.imu_bias_gyro, self.imu_bias_accel,
+                                          R_world_body=self.imu_R_world_at_reset)
+            self.last_imu_reset_timestamp = timestamp
+            if mode == "IMU_SE3":
+                R_world_imu_prev = self.prev_odom[:3, :3] @ T_il[:3, :3]
+                self.imu_velocity_corrector.update(
+                    self.odom[:3, 3] - self.prev_odom[:3, 3], R_world_imu_prev,
+                    np.asarray(p.imu.preintegration.gravity, np.float32))
+
         self.registrated = True
         self.frame_count += 1
         return ResultType.success
 
     # ------------------------------------------------------------------
+    def _imu_deskew_enabled(self) -> bool:
+        return self.params.imu.enable and self.params.imu.deskew.enable
+
+    def _imu_motion_prediction(self) -> np.ndarray:
+        """The absolute pose predicted by the preintegrated window."""
+        T_imu_rel = np.asarray(to_host(self.imu_preintegration.predict_relative_transform(
+            self.imu_R_world_at_reset, self.imu_v_world_at_reset, self.imu_bias_gyro, self.imu_bias_accel,
+        )), np.float32)
+        T_il = self.params.imu.T_imu_to_lidar_matrix()
+        return (self.odom @ (T_il @ T_imu_rel @ np.linalg.inv(T_il))).astype(np.float32)
+
     def _needs_covariances(self) -> bool:
         p = self.params
         return (

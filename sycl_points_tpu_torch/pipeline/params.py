@@ -1,12 +1,8 @@
 """Odometry parameter tree (dataclasses) and its YAML loader.
 
 Counterpart of :mod:`sycl_points_tpu.pipeline.params`: the same names and
-defaults, loadable from a nested dict or YAML with :func:`load_params`.
-
-Not in this package yet: the IMU preintegration and initial-alignment
-blocks of ``IMUParams`` and ``LidarInertialOdometryParams`` (they come with
-the IMU / LIO slice, ROADMAP Queue 1 item 8). ``IMUParams`` carries what the
-LiDAR-only pipeline reads.
+defaults, loadable from a nested dict or YAML with :func:`load_params`
+(``cls=LidarInertialOdometryParams`` for the LiDAR-inertial tree).
 """
 
 from __future__ import annotations
@@ -17,6 +13,9 @@ from typing import Tuple
 
 import numpy as np
 
+from sycl_points_tpu_torch.imu.initial_alignment import InitialAlignmentParams
+from sycl_points_tpu_torch.imu.preintegration import IMUPreintegrationParams
+from sycl_points_tpu_torch.lio.lio_registration import LIORegistrationParams
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.registration.factors import RegType
 from sycl_points_tpu_torch.registration.map_prior import MapPriorParams  # noqa: F401 (re-export)
@@ -215,10 +214,12 @@ class IMUDeskewParams:
 class IMUParams:
     enable: bool = False
     T_imu_to_lidar: Tuple[float, ...] = tuple(np.eye(4, dtype=np.float32).ravel().tolist())
+    preintegration: IMUPreintegrationParams = IMUPreintegrationParams()
     gyro_bias: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     accel_bias: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     buffer_duration_sec: float = 1.0
     deskew: IMUDeskewParams = IMUDeskewParams()
+    initial_alignment: InitialAlignmentParams = InitialAlignmentParams()
 
     def T_imu_to_lidar_matrix(self) -> np.ndarray:
         return np.asarray(self.T_imu_to_lidar, np.float32).reshape(4, 4)
@@ -289,6 +290,22 @@ class LidarOdometryParams(CommonParameters):
             robust=self.lo_pipeline_robust,
             velocity_update=self.lo_velocity_update,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class LidarInertialOdometryParams(CommonParameters):
+    motion_prediction: MotionPredictionParams = MotionPredictionParams(mode="IMU_SE3")
+    lio: LIORegistrationParams = LIORegistrationParams()
+    # preintegration reset floors
+    fd_velocity_sigma: float = 0.1
+    icp_rotation_sigma: float = 0.01
+    bias_update_min_dt: float = 0.05
+    max_accel_bias_norm: float = 0.5
+    max_gyro_bias_norm: float = 0.1
+    # initial bias standard deviations, put into P_post once at filter start
+    # so that the bias states can be corrected
+    initial_gyro_bias_sigma: float = 0.02  # [rad/s]
+    initial_accel_bias_sigma: float = 0.1  # [m/s^2]
 
 
 # --- YAML loading ------------------------------------------------------------

@@ -3,13 +3,14 @@
 Counterpart of :mod:`sycl_points_tpu.pipeline.pc_processor`: the prefilter
 chain (box -> voxel grid -> random sampling), the k-NN context, the
 covariance estimation (robust or plain) and the refine filter (angle of
-incidence). Every stage runs on the processor's device and none waits on the
-host. ``prepare_context`` is the ``knn_k`` kernel on the card.
+incidence), and the IMU deskew of the raw scan. Every stage runs on the
+processor's device and none waits on the host. ``prepare_context`` is the
+``knn_k`` kernel on the card.
 
 Not ported yet; each raises ``NotImplementedError`` when its flag asks for
 it: polar downsampling and the raw range-image covariances (ROADMAP Queue 1
-item 10), the intensity ops when the cloud carries intensities (item 10),
-IMU deskew (item 8). ``PolarDownsamplingParams.enable`` defaults to True, as
+item 10), the intensity ops when the cloud carries intensities (item 10).
+``PolarDownsamplingParams.enable`` defaults to True, as
 in the JAX package, so a default parameter tree raises until polar
 downsampling is ported or switched off.
 """
@@ -18,9 +19,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.deskew.imu_deskew import deskew_point_cloud_imu
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, estimate_covariances_robust
 from sycl_points_tpu_torch.ops.filters import angle_incidence_filter, box_filter
 from sycl_points_tpu_torch.ops.knn import KNNResult, self_knn
@@ -106,5 +109,22 @@ class PCProcessor:
         return c
 
     # -- IMU deskew ----------------------------------------------------------
-    def deskew_with_imu(self, *args, **kwargs):
-        raise NotImplementedError("IMU deskew is not ported yet (ROADMAP Queue 1 item 8)")
+    def deskew_with_imu(self, cloud: PointCloud, imu_buffer, current_pose: np.ndarray, scan_start_time_sec: float,
+                        scan_duration_sec: float, gyro_bias=None, accel_bias=None, v_world_body=None,
+                        R_world_imu=None):
+        """IMU deskew of the raw scan; returns ``(cloud, IMUDeskewStatus)``.
+        ``R_world_imu`` overrides the rotation taken from ``current_pose``:
+        pipelines pass the rotation propagated to scan start (``current_pose``
+        is one frame old)."""
+        imu_p = self.params.imu
+        T_il = imu_p.T_imu_to_lidar_matrix()
+        if R_world_imu is None:
+            R_world_imu = np.asarray(current_pose)[:3, :3] @ T_il[:3, :3]
+        return deskew_point_cloud_imu(
+            cloud, imu_buffer, scan_start_time_sec, scan_duration_sec, T_il,
+            np.asarray(imu_p.gyro_bias, np.float32) if gyro_bias is None else gyro_bias,
+            np.asarray(imu_p.accel_bias, np.float32) if accel_bias is None else accel_bias,
+            imu_p.preintegration, R_world_imu,
+            np.zeros(3, np.float32) if v_world_body is None else v_world_body,
+            gyro_only=imu_p.deskew.gyro_only,
+        )

@@ -1,9 +1,10 @@
 """Registration pipeline: input sampling -> robust-scale annealing -> align.
 
-Counterpart of :mod:`sycl_points_tpu.registration.pipeline`. All annealing
-levels run in one :func:`~.registration.align` loop. Velocity-update (VICP)
-deskew and intensity-weighted sampling are not ported yet and raise
-``NotImplementedError``.
+Counterpart of :mod:`sycl_points_tpu.registration.pipeline`. Without the
+velocity update all annealing levels run in one :func:`~.registration.align`
+loop; with it (VICP) each level runs ``iter`` constant-velocity deskew passes,
+each followed by an align from the pose so far. Intensity-weighted sampling
+is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from sycl_points_tpu_torch.deskew.constant_velocity import deskew_constant_velocity
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.ops.sampling import random_sampling, sample_by_scores
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
@@ -60,7 +62,7 @@ class RegistrationPipelineParams:
 class PipelineOutput(NamedTuple):
     result: RegistrationResult
     registration_input: PointCloud  # sampled source actually aligned
-    deskewed: PointCloud  # == registration_input (VICP is not ported)
+    deskewed: PointCloud  # the registration input after the last VICP deskew
 
 
 def _robust_schedule(params: RegistrationPipelineParams) -> tuple[list, list]:
@@ -96,16 +98,18 @@ def align_pipeline(
     generator: Optional[torch.Generator] = None,
     scores: Optional[torch.Tensor] = None,
     map_prior=None,
+    prev_pose: Optional[torch.Tensor] = None,
+    dt: Optional[float] = None,
 ) -> PipelineOutput:
     """Sample the source, then align through the robust schedule;
     ``map_prior`` goes to :func:`~.registration.align`.
 
     The sampling noise comes from ``generator`` (default: seeded with
     :data:`DEFAULT_SEED` on the source's device); ``scores [capacity]``, when
-    given, replace the drawn Gumbel noise.
+    given, replace the drawn Gumbel noise. ``prev_pose`` / ``dt`` feed the
+    VICP deskew (unused when the velocity update is off or the source has no
+    timestamps).
     """
-    if params.velocity_update.enable:
-        raise NotImplementedError("velocity-update (VICP) deskew is not ported yet")
     sp = params.random_sampling
     if sp.enable and sp.num < source.capacity:
         if sp.use_intensities:
@@ -120,12 +124,27 @@ def align_pipeline(
         src = source
 
     geo_scales, rot_scales = _robust_schedule(params)
-    result = align(
-        src, target, target_knn, params.registration,
-        initial_guess=initial_guess, map_prior=map_prior,
-        robust_schedule=tuple(zip(geo_scales, rot_scales)),
-    )
-    return PipelineOutput(result=result, registration_input=src, deskewed=src)
+    vu = params.velocity_update
+    deskew_iters = max(1, vu.iter) if (vu.enable and src.timestamp_offsets is not None) else 0
+    if deskew_iters == 0:
+        result = align(
+            src, target, target_knn, params.registration,
+            initial_guess=initial_guess, map_prior=map_prior,
+            robust_schedule=tuple(zip(geo_scales, rot_scales)),
+        )
+        return PipelineOutput(result=result, registration_input=src, deskewed=src)
+
+    T = torch.eye(4, dtype=torch.float32, device=src.device) if initial_guess is None else initial_guess
+    pp = T if prev_pose is None else prev_pose
+    duration = -1.0 if dt is None else float(dt)
+    deskewed = src
+    for geo_s in geo_scales:
+        for _ in range(deskew_iters):
+            deskewed = deskew_constant_velocity(src, pp, T, duration)
+            result = align(deskewed, target, target_knn, params.registration, initial_guess=T,
+                           robust_scale=geo_s, map_prior=map_prior)
+            T = result.T
+    return PipelineOutput(result=result, registration_input=src, deskewed=deskewed)
 
 
 def inlier_ratio(out: PipelineOutput) -> torch.Tensor:

@@ -82,14 +82,19 @@ def solve_lower3(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 def solve_psd(H: torch.Tensor, b: torch.Tensor):
     """Solve ``H x = b`` for symmetric positive (semi-)definite ``H [..., N, N]``
-    by Cholesky; returns ``(x, ok)``. Where the factorization finds a
+    by Cholesky; ``b`` is ``[..., N]`` or a matrix ``[..., N, m]`` (an inverse
+    for the identity). Returns ``(x, ok)``. Where the factorization finds a
     non-positive pivot or anything is non-finite, ``ok`` is False and ``x`` is
     zero (the zero-step fallback of the reference's LDLT failure)."""
+    vec = b.dim() == H.dim() - 1
     L, info = torch.linalg.cholesky_ex(H)
-    x = torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    x = torch.cholesky_solve(b.unsqueeze(-1) if vec else b, L)
+    if vec:
+        x = x.squeeze(-1)
     ok = (
         (info == 0)
         & torch.isfinite(L).flatten(-2).all(-1)
-        & torch.isfinite(x).all(-1)
+        & torch.isfinite(x).flatten(-1 if vec else -2).all(-1)
     )
-    return torch.where(ok[..., None], x, torch.zeros_like(x)), ok
+    ok_b = ok[..., None] if vec else ok[..., None, None]
+    return torch.where(ok_b, x, torch.zeros_like(x)), ok

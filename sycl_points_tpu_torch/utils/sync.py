@@ -1,4 +1,4 @@
-"""Host reads of device values, counted.
+"""Host reads of device values, counted; host arrays to the device in one copy.
 
 Every place in the package where the host waits for a value computed on the
 device goes through :func:`to_host`, so a caller can report how many such
@@ -10,6 +10,7 @@ drained; in eager PyTorch they stand where the JAX package has a
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Host reads since the last reset_sync_count().
@@ -25,3 +26,18 @@ def to_host(value: torch.Tensor):
     one host sync."""
     counts["host_syncs"] += 1
     return value.tolist()
+
+
+def to_device(device: torch.device, *arrays) -> list:
+    """Host arrays as float32 tensors on ``device``, each with its shape, made
+    by one host-to-device copy (a frame's small host inputs travel
+    together)."""
+    flat = np.concatenate([np.asarray(a, np.float32).ravel() for a in arrays])
+    dev = torch.from_numpy(flat).to(device)
+    out, at = [], 0
+    for a in arrays:
+        shape = np.shape(a)
+        n = int(np.prod(shape))
+        out.append(dev[at : at + n].reshape(shape))
+        at += n
+    return out

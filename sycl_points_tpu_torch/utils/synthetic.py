@@ -2,10 +2,12 @@
 
 The port's own copy of the numpy parts of the JAX package's synthetic
 Velodyne generator (``benchmarks/synthetic_velodyne.py``): the
-:class:`World`, the ray pattern :func:`hdl64_dirs` and the figure-8
-trajectory. :func:`raycast` is the same ground-plane / cylinder-wall /
-box-slab math as the JAX ``World.raycast``, in PyTorch, so a scan pair can be
-made on the card.
+:class:`World`, the ray pattern :func:`hdl64_dirs`, the figure-8 trajectory
+with its velocity and the IMU that flies it (planar and 3-D excited).
+:func:`raycast` is the same ground-plane / cylinder-wall / box-slab math as
+the JAX ``World.raycast``, in PyTorch, so scans can be made on the card; a
+motion-distorted scan (:func:`scan_at_distorted`) casts each azimuth column
+from its own sweep pose.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.utils import lie_np
 
 _RAY_CHUNK = 1 << 15
 
@@ -98,6 +101,55 @@ def figure8_pose_3d(t: float, radius=18.0, speed=0.35, frame_dt=0.1):
     return T
 
 
+def figure8_imu_3d(t: float, radius=18.0, speed=0.35, frame_dt=0.1, gravity=(0.0, 0.0, -9.80665), h=5e-4):
+    """Body-frame ``(gyro[3], accel[3])`` consistent with
+    :func:`figure8_pose_3d`, by central differences of the pose (float64)."""
+    Tm = figure8_pose_3d(t - h, radius, speed, frame_dt)
+    T0 = figure8_pose_3d(t, radius, speed, frame_dt)
+    Tp = figure8_pose_3d(t + h, radius, speed, frame_dt)
+    R0 = T0[:3, :3]
+    dR = (Tp[:3, :3] - Tm[:3, :3]) / (2 * h)
+    W = R0.T @ dR  # skew(omega_body)
+    gyro = np.array([W[2, 1] - W[1, 2], W[0, 2] - W[2, 0], W[1, 0] - W[0, 1]]) * 0.5
+    a_world = (Tp[:3, 3] - 2 * T0[:3, 3] + Tm[:3, 3]) / (h * h)
+    accel = R0.T @ (a_world - np.asarray(gravity))
+    return gyro, accel
+
+
+def figure8_velocity(t: float, radius=18.0, speed=0.35, frame_dt=0.1, excite3d=False, h=5e-4):
+    """World-frame velocity of the figure-8 at ``t``: the state a replay that
+    starts in motion seeds its filter with."""
+    if not excite3d:
+        s_dot = speed / (frame_dt * radius)
+        s = t * s_dot
+        return np.array([radius * np.cos(s) * s_dot, radius * np.cos(2 * s) * s_dot, 0.0])
+    return (
+        figure8_pose_3d(t + h, radius, speed, frame_dt)[:3, 3]
+        - figure8_pose_3d(t - h, radius, speed, frame_dt)[:3, 3]
+    ) / (2 * h)
+
+
+def figure8_imu(t: float, radius=18.0, speed=0.35, frame_dt=0.1, gravity=(0.0, 0.0, -9.80665)):
+    """Body-frame ``(gyro[3], accel[3])`` of the planar figure-8 at ``t``
+    (frame ``i`` sits at ``t = frame_dt * i``), in closed form: the gyro is
+    the yaw rate about z, the accelerometer reads ``R^T (a_world - g)``."""
+    s_dot = speed / (frame_dt * radius)
+    s = t * s_dot
+    x_dd = -radius * np.sin(s) * s_dot**2
+    y_dd = -2.0 * radius * np.sin(2 * s) * s_dot**2
+    a_world = np.array([x_dd, y_dd, 0.0])
+    dx, dy = np.cos(s), np.cos(2 * s)
+    dx_d, dy_d = -np.sin(s) * s_dot, -2.0 * np.sin(2 * s) * s_dot
+    denom = max(dx * dx + dy * dy, 1e-12)
+    yaw_dot = (dy_d * dx - dx_d * dy) / denom
+    yaw = np.arctan2(dy, dx)
+    c, si = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -si, 0.0], [si, c, 0.0], [0.0, 0.0, 1.0]])
+    gyro = np.array([0.0, 0.0, yaw_dot])
+    accel = R.T @ (a_world - np.asarray(gravity))
+    return gyro, accel
+
+
 def figure8_trajectory(n_frames: int, radius=18.0, speed=0.35, excite3d=False):
     """``n_frames`` SE(3) poses (sensor z up at 1.8 m) along a figure-8, one
     per 0.1 s frame; ``excite3d`` samples :func:`figure8_pose_3d`."""
@@ -176,3 +228,30 @@ def scan_at(world, T: np.ndarray, n_az=2048, n_rings=64, max_range=80.0, noise=0
     rng = np.random.default_rng(seed + 1)
     t = t[ok] + rng.normal(scale=noise, size=ok.sum())
     return (dirs_s[ok] * t[:, None].astype(np.float32)).astype(np.float32)
+
+
+def scan_at_distorted(world, T_start: np.ndarray, T_end: np.ndarray, n_az=2048, n_rings=64, max_range=80.0,
+                      noise=0.01, seed=0, scan_duration_ms=100.0, device: torch.device | str = "cuda"):
+    """A motion-distorted scan with per-point timestamps, raycast on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    Azimuth column ``j`` (time fraction ``f = j / n_az``) is cast from the
+    sweep pose ``T_start exp(f log(T_start^-1 T_end))`` and its returns are
+    written in that column's own sensor frame, as a spinning LiDAR's firmware
+    assembles them. Returns ``(points [N, 3], timestamp_offsets_ms [N])``,
+    float32 numpy, with the rays, range gate and noise stream of ``scan_at``.
+    """
+    device = require_device(device)
+    dirs_s = hdl64_dirs(n_az, n_rings, seed)  # azimuth-major: ray = j * n_rings + e
+    xi = lie_np.se3_log(np.linalg.inv(T_start) @ T_end)
+    fracs = np.arange(n_az, dtype=np.float64) / n_az
+    col_T = np.stack([T_start @ lie_np.se3_exp(f * xi) for f in fracs])
+    dirs_w = np.einsum("jab,jrb->jra", col_T[:, :3, :3], dirs_s.reshape(n_az, n_rings, 3)).reshape(-1, 3)
+    origins = np.repeat(col_T[:, :3, 3], n_rings, axis=0)
+    t = raycast(world, origins, torch.from_numpy(dirs_w.astype(np.float32)).to(device)).cpu().numpy()
+    t_ms = np.repeat(fracs * scan_duration_ms, n_rings)
+    ok = np.isfinite(t) & (t > 1.0) & (t < max_range)
+    rng = np.random.default_rng(seed + 1)
+    t = t[ok] + rng.normal(scale=noise, size=ok.sum())
+    pts = (dirs_s[ok] * t[:, None].astype(np.float32)).astype(np.float32)
+    return pts, t_ms[ok].astype(np.float32)

@@ -451,8 +451,7 @@ def _assert_mirrors(ref, port, path="params"):
     elif dataclasses.is_dataclass(ref):
         assert type(port).__name__ == type(ref).__name__, path
         assert type(port).__module__.startswith("sycl_points_tpu_torch."), path
-        skipped = {"preintegration", "initial_alignment"} if type(ref).__name__ == "IMUParams" else set()
-        assert {f.name for f in dataclasses.fields(port)} == {f.name for f in dataclasses.fields(ref)} - skipped, path
+        assert {f.name for f in dataclasses.fields(port)} == {f.name for f in dataclasses.fields(ref)}, path
         for f in dataclasses.fields(port):
             _assert_mirrors(getattr(ref, f.name), getattr(port, f.name), f"{path}.{f.name}")
     else:
@@ -488,7 +487,8 @@ def _full_tree():
 
 
 @pytest.mark.parametrize("make", [j_params.LidarOdometryParams, _full_tree, j_params.CommonParameters,
-                                  j_prior.MapPriorParams], ids=lambda f: f.__name__)
+                                  j_prior.MapPriorParams, j_params.LidarInertialOdometryParams],
+                         ids=lambda f: f.__name__)
 def test_params_from_reference_mirrors_the_tree(make):
     ref = make()
     port = params_from_reference(ref)

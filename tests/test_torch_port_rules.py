@@ -6,8 +6,11 @@
   * the port's own copies equal the originals exactly: the PLY/PCD readers
     on files written by ``sycl_points_tpu.points.io`` (ascii, binary,
     big-endian PLY, binary_compressed PCD), ``finite_filter``, and
-    ``World``, ``hdl64_dirs``, ``figure8_trajectory`` of
-    ``benchmarks/synthetic_velodyne.py``;
+    ``World``, ``hdl64_dirs``, ``figure8_trajectory``, ``figure8_velocity``,
+    ``figure8_imu``, ``figure8_imu_3d`` of
+    ``benchmarks/synthetic_velodyne.py`` (``scan_at_distorted``, raycast in
+    float32, in ``tests/test_torch_deskew.py``; the IMU copies in
+    ``tests/test_torch_imu.py``);
   * the entry points default to ``"cuda"`` and raise without a card.
 """
 
@@ -27,10 +30,17 @@ sys.path.insert(0, str(ROOT / "benchmarks"))
 import synthetic_velodyne as ref_synth  # noqa: E402
 
 from sycl_points_tpu.points import io as ref_io  # noqa: E402
-from sycl_points_tpu_torch.apps import example_registration  # noqa: E402
-from sycl_points_tpu_torch.convert import cloud_from_numpy, map_state_from_reference  # noqa: E402
+from sycl_points_tpu_torch.apps import example_registration, lio_replay  # noqa: E402
+from sycl_points_tpu_torch.convert import (  # noqa: E402
+    cloud_from_numpy,
+    lio_state_from_reference,
+    map_state_from_reference,
+)
+from sycl_points_tpu_torch.imu import factor as imu_factor  # noqa: E402
+from sycl_points_tpu_torch.imu import preintegration  # noqa: E402
 from sycl_points_tpu_torch.mapping import voxel_hash_map  # noqa: E402
 from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
+from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor  # noqa: E402
 from sycl_points_tpu_torch.pipeline.submap import Submap  # noqa: E402
@@ -140,10 +150,25 @@ def test_rays_and_trajectory_equal_the_originals():
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("t", [0.0, 0.37, 1.3, 7.9])
+def test_imu_and_velocity_equal_the_originals(t):
+    for kwargs in ({}, {"speed": 0.7}, {"radius": 12.0}):
+        for ours, theirs in ((synthetic.figure8_imu, ref_synth.figure8_imu),
+                             (synthetic.figure8_imu_3d, ref_synth.figure8_imu_3d)):
+            for a, b in zip(ours(t, **kwargs), theirs(t, **kwargs), strict=True):
+                np.testing.assert_array_equal(a, b)
+        for excite3d in (False, True):
+            np.testing.assert_array_equal(synthetic.figure8_velocity(t, excite3d=excite3d, **kwargs),
+                                          ref_synth.figure8_velocity(t, excite3d=excite3d, **kwargs))
+
+
 @pytest.mark.parametrize("fn", [cloud_from_numpy, PointCloud.from_numpy, synthetic.scan_at,
                                 bench_nn1_tiles.main, bench_nn1_variants.main,
                                 LidarOdometry, Submap, PCProcessor, voxel_hash_map.create,
-                                map_state_from_reference])
+                                map_state_from_reference, synthetic.scan_at_distorted, LidarInertialOdometry,
+                                lio_replay.make_lio_inputs, lio_replay.run_lio_replay, lio_state_from_reference,
+                                preintegration.IMUPreintegration, preintegration.init_state,
+                                imu_factor.State.identity])
 def test_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -178,10 +203,29 @@ def _vhm_params():
     lambda **kw: voxel_hash_map.create(voxel_hash_map.VoxelHashMapConfig(capacity=1 << 8), **kw),
     lambda **kw: map_state_from_reference(
         voxel_hash_map.create(voxel_hash_map.VoxelHashMapConfig(capacity=1 << 8), device="cpu"), **kw),
-], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference"])
+    lambda **kw: LidarInertialOdometry(_lio_params(), **kw),
+    lambda **kw: lio_replay.make_lio_inputs(2, 16, 4, **kw),
+    lambda **kw: lio_replay.run_lio_replay(_lio_params(), lio_replay.make_lio_inputs(1, 16, 4, device="cpu"), **kw),
+    lambda **kw: lio_state_from_reference(imu_factor.State.identity(device="cpu"), np.eye(15), **kw),
+    lambda **kw: preintegration.IMUPreintegration(**kw),
+    lambda **kw: preintegration.init_state(**kw),
+    lambda **kw: imu_factor.State.identity(**kw),
+    lambda **kw: synthetic.scan_at_distorted(synthetic.World(), np.eye(4), np.eye(4), n_az=8, n_rings=2, **kw),
+], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference",
+        "LidarInertialOdometry", "make_lio_inputs", "run_lio_replay", "lio_state_from_reference",
+        "IMUPreintegration", "init_state", "State.identity", "scan_at_distorted"])
 def test_lo_entry_points_raise_without_a_card(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         make()
     made = make(device="cpu")
     assert getattr(made, "device", torch.device("cpu")).type == "cpu"
+
+
+def _lio_params():
+    """The LIO replay's parameters on a small map."""
+    p = lio_replay.lio_params(np.eye(4))
+    return lo_params.LidarInertialOdometryParams(
+        scan=p.scan, imu=p.imu, pose=p.pose,
+        submap=lo_params.SubmapParams(map_type="VOXEL_HASH_MAP", map_capacity=1 << 8, extract_capacity=1 << 6),
+    )

@@ -174,6 +174,35 @@ def test_unported_options_raise(pair):
     ):
         with pytest.raises(NotImplementedError):
             t_reg.align(ts, tt, knn, dataclasses.replace(base, **bad))
-    with pytest.raises(NotImplementedError):
-        t_pipeline.align_pipeline(ts, tt, knn, t_pipeline.RegistrationPipelineParams(
-            velocity_update=t_pipeline.VelocityUpdateParams(enable=True)))
+    # the velocity update (VICP) is ported: on a source without timestamps it
+    # is the plain pipeline, as in the JAX package
+    params = t_pipeline.RegistrationPipelineParams(registration=base)
+    vicp = dataclasses.replace(params, velocity_update=t_pipeline.VelocityUpdateParams(enable=True))
+    scores = np_(jax.random.gumbel(jax.random.key(0), (ts.capacity,)))
+    plain = t_pipeline.align_pipeline(ts, tt, knn, params, scores=both(scores)[1])
+    out = t_pipeline.align_pipeline(ts, tt, knn, vicp, scores=both(scores)[1])
+    assert out.deskewed is out.registration_input
+    np.testing.assert_array_equal(np_(out.result.T), np_(plain.result.T))
+
+
+def test_velocity_update_matches_jax(pair):
+    """VICP on the pair with sweep timestamps, both packages from JAX's own
+    Gumbel scores: the deskewed input within 1e-4 m, the pose within
+    POSE_ATOL."""
+    js, jt, ts, tt, T_gt = pair
+    t_ms = np.linspace(0.0, 100.0, js.capacity, dtype=np.float32)
+    js, ts = js.replace(timestamp_offsets=both(t_ms)[0]), ts.replace(timestamp_offsets=both(t_ms)[1])
+    params = j_pipeline.RegistrationPipelineParams(
+        registration=_params("gauss_newton"),
+        random_sampling=j_pipeline.RandomSamplingParams(enable=True, num=500),
+        velocity_update=j_pipeline.VelocityUpdateParams(enable=True, iter=2),
+    )
+    key = jax.random.key(1234)
+    init, prev = both(T_gt.astype(np.float32)), both(np.eye(4, dtype=np.float32))
+    jout = j_pipeline.align_pipeline(js, jt, JBruteForceKNN.build(jt), params, initial_guess=init[0], key=key,
+                                     prev_pose=prev[0], dt=0.1)
+    scores = np_(jax.random.gumbel(key, (js.capacity,)))
+    tout = t_pipeline.align_pipeline(ts, tt, TBruteForceKNN.build(tt), params_from_reference(params),
+                                     initial_guess=init[1], scores=both(scores)[1], prev_pose=prev[1], dt=0.1)
+    np.testing.assert_allclose(np_(tout.deskewed.points), np_(jout.deskewed.points), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(np_(tout.result.T), np_(jout.result.T), rtol=0, atol=POSE_ATOL)
