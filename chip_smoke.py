@@ -39,7 +39,8 @@
    (``apps.odometry_replay``: 2048 x 64 rays a scan, 5,000-point scans, a
    2^17-slot voxel-hash map, a 16,384-row target), with the launch counts set
    to 0 just before and read just after. Prints every frame, the ATE, ms per
-   frame, launches and host syncs a frame, and the stage times of a second
+   frame, launches a frame after the first (the first builds its target from
+   the scan) and host syncs a frame, and the stage times of a second
    run whose stages end in a synchronisation. Fails if a frame after the
    first is not ``success``, if fewer than 2 keyframes were taken (the first
    frame is the first), if the ATE
@@ -62,7 +63,8 @@
     frame, a 400 Hz IMU, 5,000-point scans, a 2^17-slot map, a 16,384-row
     target, Gauss-Newton over the 15-DOF state), with the launch counts set
     to 0 just before and read just after. Prints every frame, ms a frame,
-    launches and host syncs a frame, the ATE and the final bias errors, and
+    launches a frame after the first and host syncs a frame, the ATE and the
+    final bias errors, and
     the stage times of a second run whose stages end in a synchronisation.
     Fails if a frame after the first is not ``success``, if the ATE exceeds
     MAX_LIO_ATE_M, or if nn1 or knn_k never launched.
@@ -82,6 +84,40 @@
     poses within LIO_CPU_TRANS_M / LIO_CPU_ROT_DEG of each other; and, with
     sampling on, 6 frames on the CPU and on the card with the package's
     seeds and two more seeds: how far apart the final poses are (printed).
+13. Drives ``LidarOdometry.process`` at the parameter tree's defaults
+    (``apps.odometry_replay.default_params``: polar downsampling, the
+    occupancy-grid submap with an insert every frame that passes the inlier
+    gate, intensity correction) over the LO phase's 20 full-width scans
+    with raw return intensities added, after 3 warm-up frames, with the
+    launch counts set to 0 just before and read just after. Prints every
+    frame (result, ms, iterations, inliers, whether the map took an insert,
+    slots used, occupied voxels, target rows, launches, host syncs), the
+    median and maximum ms, launches a frame after the first, the stage split
+    of a second run whose stages end in a synchronisation, the final pose
+    error, the map's counters, and the submap step and its parts (sampling
+    weights, mixed sampling, insert, carve, miss merge, the two resolves,
+    extraction, finalize) timed alone. Fails if a frame after the first is
+    not ``success``, if the ATE exceeds MAX_ATE_M, if the map took an insert
+    on fewer than OG_MIN_INSERTS of the frames after the first, if the last
+    target holds fewer than OG_MIN_TARGET valid rows, if the last scan's
+    corrected intensities are missing or outside the correction's range, or
+    if nn1 or knn_k never launched.
+14. Holds nn1 (on the last, warm target under the last pose) and knn_k (on
+    the polar-downsampled scan and on the target) against their exact
+    references at that path's shapes, as in 8.
+15. ``LidarInertialOdometry`` with the default ``scan`` and ``submap`` trees
+    over 20 frames at 512 x 32 with intensities: fails above MAX_ATE_M, or
+    when a bias error ends above OG_MAX_BIAS_ERR (this replay injects no
+    bias). Then the default tree at 512 x 32 with every random stage off,
+    on one set of scans with intensities, raycast on the card. The first
+    frame's preprocessing on both devices: the points that the refine filter
+    (the angle of incidence) keeps on one side only (printed), the corrected
+    intensities of the points both keep within OG_INTENSITY_RTOL, and the
+    CPU's refined cloud inserted on both devices, maps equal as sets as
+    below. Then 6 frames on the card and on the CPU (a 2^12-slot map and a
+    2^11-row target): final poses within LIO_CPU_TRANS_M / LIO_CPU_ROT_DEG
+    of each other, and the maps equal as sets, log-odds to
+    OG_CPU_LOG_ODDS_ATOL, on all but OG_CPU_MAP_SHARE of their voxels.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -112,15 +148,22 @@ from sycl_points_tpu_torch.apps.example_registration import (
     voxel_capacity,
 )
 from sycl_points_tpu_torch.convert import cloud_from_numpy
+from sycl_points_tpu_torch.mapping import occupancy_grid as og
+from sycl_points_tpu_torch.mapping.hash_table import resolve_slots, resolve_slots_tiered
 from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN, KNNResult, self_knn
-from sycl_points_tpu_torch.ops.sampling import random_sampling
+from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
 from sycl_points_tpu_torch.ops.transform import transform_points
+from sycl_points_tpu_torch.ops.voxel import voxel_coords
 from sycl_points_tpu_torch.pipeline.params import MotionPredictionParams
+from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
+from sycl_points_tpu_torch.pipeline.submap import Submap
 from sycl_points_tpu_torch.registration.pipeline import align_pipeline
+from sycl_points_tpu_torch.registration.registration import compute_icp_robust_weights
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
+from sycl_points_tpu_torch.utils import sync
 from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, scan_at
 
 VOXEL = 0.25
@@ -184,6 +227,22 @@ ACCEL_BIAS = (0.05, 0.03, -0.04)  # m/s^2
 BIAS_RW = (1e-4, 1e-3)  # gyro, accel bias random-walk densities
 MIN_GYRO_RECOVERED = 0.5
 MAX_BIAS_ATE_M = 0.5
+# The parameter tree's defaults. The JAX package on the CPU, on the LO
+# phase's 20 frames: every frame a success, ATE 0.0356 m, an insert on 19 of
+# the 19 frames after the first, a last target of 1,182 rows; its LIO with
+# the default trees at 512 x 32: ATE 0.017 m, bias errors 3e-4 rad/s and
+# 4e-3 m/s^2.
+OG_PATH = "LidarOdometry.process (default tree)"
+OG_MIN_INSERTS = 15
+OG_MIN_TARGET = 600
+OG_LIO_FRAMES = 20
+OG_MAX_BIAS_ERR = (0.01, 0.1)  # gyro rad/s, accel m/s^2
+OG_CPU_FRAMES = 6
+# A point on a voxel edge may move with the last bits of the pose, and with
+# it a hit and the end of its ray's carve.
+OG_CPU_MAP_SHARE = 0.01
+OG_INTENSITY_RTOL = 1e-5  # the corrected intensities, card vs CPU (the CPU tests' bound)
+OG_CPU_LOG_ODDS_ATOL = 1e-5
 
 
 def nvidia_smi(query: str) -> str:
@@ -572,6 +631,16 @@ def check_replay(name: str, out, n_keyframes_min: int, max_ate: float) -> None:
         raise AssertionError(f"{name}: a pose is not finite")
 
 
+def launches_after_first(out) -> str:
+    """The nn1 / knn_k launches of the frames after the first (the first
+    builds its target from the scan), in all and a frame."""
+    after = out["rows"][1:]
+    n = len(after)
+    per = {k: sum(r["launches"][k] for r in after) for k in ("nn1", "knn_k")}
+    return f"over the {n} frames after the first: " + ", ".join(
+        f"{k} {v} ({v / n:.2f} a frame)" for k, v in per.items())
+
+
 def median_of(rows, key, pick=lambda r: True):
     vals = [key(r) for r in rows if pick(r)]
     return statistics.median(vals) if vals else float("nan")
@@ -602,9 +671,8 @@ def lo_replay(dev) -> dict:
           f"{median_of(rows, lambda r: r['ms'], lambda r: not r['keyframe']):.3f}); final pose error "
           f"{final_t * 100:.3f} cm, {final_r:.4f} deg; map load {rows[-1]['load']:.4f}, "
           f"dropped {int(lo.submap.map_state.dropped)}, budget lost {lo.submap.budget_lost}")
-    n = len(out["rows"]) - 1
-    print(f"LO launches over {n} frames after the first: nn1 {launches['nn1']} ({launches['nn1'] / n:.2f} a frame), "
-          f"knn_k {launches['knn_k']} ({launches['knn_k'] / n:.2f} a frame); host syncs a frame: median "
+    print(f"LO launches {launches} in all {len(out['rows'])} frames; {launches_after_first(out)}; host syncs a "
+          f"frame: median "
           f"{median_of(rows, lambda r: r['syncs'])}, keyframes {median_of(rows, lambda r: r['syncs'], lambda r: r['keyframe'])}, "
           f"others {median_of(rows, lambda r: r['syncs'], lambda r: not r['keyframe'])}")
     if min(launches["nn1"], launches["knn_k"]) <= 0:
@@ -637,8 +705,8 @@ def lo_replay(dev) -> dict:
 def check_lo_shapes(lo_out, path: str = LO_PATH, tag: str = "LO") -> list:
     """nn1 and knn_k at the odometry frame's shapes: bit-equal to nn1_plain and
     to knn_k_simple (and knn_k_plain in its sets), and timed in turns with
-    their plain versions; one row each for the JSON line, at the last
-    keyframe's target (nn1) and the scan's self-search (knn_k)."""
+    their plain versions; one row each for the JSON line, at the last of the
+    targets (nn1) and the scan's self-search (knn_k)."""
     dev = lo_out["queries"].device
     q = lo_out["queries"]
     rows, shapes = [], {}
@@ -658,13 +726,13 @@ def check_lo_shapes(lo_out, path: str = LO_PATH, tag: str = "LO") -> list:
         print(f"nn1 at the {tag} frame's shape, {label} target (Q={q.shape[0]}, M={t.shape[0]}, valid {int(m.sum())}): "
               f"equal to nn1_plain bit for bit (all masked too); kernel {turns['ms']:.4f} ms, plain "
               f"{turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
-    last = shapes["last keyframe"]
+    last = shapes[list(shapes)[-1]]
     rows.append(row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", path, 0.0,
                     (last["ms"], last["plain_ms"], last["library_ms"]), (last["bound_ms"], last["bound_by"]),
                     shapes=shapes))
 
     shapes = {}
-    clouds = {"scan": lo_out["scan"], "submap target": lo_out["targets"]["last keyframe"][0]}
+    clouds = {"scan": lo_out["scan"], "submap target": list(lo_out["targets"].values())[-1][0]}
     for label, cloud in clouds.items():
         pts, mask = cloud.points.contiguous(), cloud.mask
         got = cuda_knn.knn_k(pts, mask, pts, K)
@@ -777,9 +845,8 @@ def lio_replay_phase(dev) -> dict:
           f"(keyframes median {median_of(rows, lambda r: r['ms'], lambda r: r['keyframe']):.3f}, others "
           f"{median_of(rows, lambda r: r['ms'], lambda r: not r['keyframe']):.3f}); iterations a frame median "
           f"{median_of(rows, lambda r: r['iterations'])}; final pose error {final_t * 100:.3f} cm, {final_r:.4f} deg")
-    n = len(out["rows"]) - 1
-    print(f"LIO launches over {n} frames after the first: nn1 {launches['nn1']} ({launches['nn1'] / n:.2f} a frame), "
-          f"knn_k {launches['knn_k']} ({launches['knn_k'] / n:.2f} a frame); host syncs a frame: median "
+    print(f"LIO launches {launches} in all {len(out['rows'])} frames; {launches_after_first(out)}; host syncs a "
+          f"frame: median "
           f"{median_of(rows, lambda r: r['syncs'])}, max {max(r['syncs'] for r in rows)}")
     if min(launches["nn1"], launches["knn_k"]) <= 0:
         raise AssertionError(f"a kernel of the LIO frame never launched: {launches}")
@@ -897,6 +964,224 @@ def small_lio_replays(dev) -> None:
                   f"{trans * 1e3:.3f} mm, {rot:.5f} deg apart")
 
 
+def og_replay(dev) -> dict:
+    """The full-width replay at the parameter tree's defaults: frames, ATE,
+    inserts, map growth, frame times, launches and syncs a frame, the stage
+    split, and what the kernel checks at the path's shapes need."""
+    t0 = time.perf_counter()
+    poses, scans = odometry_replay.make_scans(LO_FRAMES, device=dev, intensities=True)
+    print(f"OG replay: the LO phase's {LO_FRAMES} scans with raw return intensities, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    params = odometry_replay.default_params(poses[0])
+    odometry_replay.run_replay(params, poses[:LO_WARMUP + 1], scans[:LO_WARMUP + 1], device=dev)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = odometry_replay.run_replay(params, poses, scans, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    for r in out["rows"]:
+        print(f"  frame {r['frame']:2d}: {r['result']:<12s} {r['ms']:8.3f} ms, {r['iterations']:2d} iterations, "
+              f"{r['inliers']:4d} inliers, inserted {int(r['keyframe'])}, {r['voxels']} of {r['map_capacity']} "
+              f"slots used, {r['occupied']} occupied, target {r['target']}, launches nn1 {r['launches']['nn1']} "
+              f"knn_k {r['launches']['knn_k']}, host syncs {r['syncs']}")
+    lo = out["odometry"]
+    st = lo.submap.map_state
+    after = out["rows"][1:]
+    n_inserts = sum(r["keyframe"] for r in after)
+    bad = [r["frame"] for r in after if r["result"] != "success"]
+    rows = out["rows"][LO_WARMUP:]
+    ms = [r["ms"] for r in rows]
+    final_t, final_r = pose_error(out["poses"][-1], poses[-1])
+    pre = lo.preprocessed
+    ic = params.scan.intensity_correction
+    inten = None if pre.intensities is None else pre.intensities[pre.mask]
+    print(f"OG replay (2048 x 64, default tree): ATE {out['ate_m']:.4f} m over {len(out['rows'])} frames; inserts on "
+          f"{n_inserts} of {len(after)} frames after the first; slots used {out['rows'][0]['voxels']} -> "
+          f"{rows[-1]['voxels']}, occupied {out['rows'][0]['occupied']} -> {rows[-1]['occupied']}, map capacity "
+          f"{lo.submap.map_capacity}; target {after[0]['target']} -> {rows[-1]['target']} valid rows of "
+          f"{lo.submap.extract_capacity}")
+    print(f"OG frame after {LO_WARMUP} warm-up frames: median {statistics.median(ms):.3f} ms, max {max(ms):.3f} ms; "
+          f"final pose error {final_t * 100:.3f} cm, {final_r:.4f} deg; dropped {int(st.dropped)}, budget lost "
+          f"{int(st.budget_lost)}, clamped rays {int(st.clamped_rays)}, truncated rays {int(st.truncated_rays)}")
+    print(f"OG launches {launches} in all {len(out['rows'])} frames; {launches_after_first(out)}; host syncs a "
+          f"frame: median {median_of(rows, lambda r: r['syncs'])}, max {max(r['syncs'] for r in rows)}")
+    if out["rows"][0]["result"] != "first_frame" or bad:
+        raise AssertionError(f"OG replay: frames {bad} did not succeed")
+    if not out["ate_m"] <= MAX_ATE_M or not all(np.isfinite(T).all() for T in out["poses"]):
+        raise AssertionError(f"OG replay: ATE {out['ate_m']:.4f} m above {MAX_ATE_M} m, or a pose not finite")
+    if n_inserts < OG_MIN_INSERTS:
+        raise AssertionError(f"OG replay: inserts on {n_inserts} frames, fewer than {OG_MIN_INSERTS}")
+    if rows[-1]["target"] < OG_MIN_TARGET:
+        raise AssertionError(f"OG replay: the last target has {rows[-1]['target']} rows, fewer than {OG_MIN_TARGET}")
+    if inten is None or not bool(((inten >= ic.min_intensity) & (inten <= ic.max_intensity)).all()):
+        raise AssertionError("OG replay: the last scan's intensities are missing or were not corrected")
+    print(f"OG last scan: {inten.numel()} corrected intensities, mean {float(inten.mean()):.4f}, in "
+          f"[{float(inten.min()):.4f}, {float(inten.max()):.4f}]")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the OG frame never launched: {launches}")
+    check_on_device(vars(lo.submap.submap_cloud), dev)
+    check_on_device(vars(st), dev)
+    check_on_device(vars(pre), dev)
+
+    staged = odometry_replay.run_replay(params, poses, scans, device=dev, sync_stage_times=True)
+    srows = staged["rows"][LO_WARMUP:]
+    for stage in sorted(srows[-1]["stages_ms"]):
+        print(f"OG stage {stage}: median {median_of(srows, lambda r, stage=stage: r['stages_ms'].get(stage, 0.0)):.3f} ms")
+    print(f"OG frame with synchronised stages: median {statistics.median(r['ms'] for r in srows):.3f} ms, "
+          f"ATE {staged['ate_m']:.4f} m")
+
+    pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
+    og_step_split(lo, pose)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    queries = random_sampling(pre, N_QUERIES, gen).points.contiguous()
+    return {"launches": launches, "scan": pre, "queries": queries,
+            "targets": {"last (warm)": (lo.submap.submap_cloud, pose)}}
+
+
+def host_ms(fn, runs: int = 5) -> tuple[float, int]:
+    """Median host-clock ms of ``fn()`` between two synchronisations, and
+    the host syncs of one call."""
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        syncs = sync.counts["host_syncs"]
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        syncs = sync.counts["host_syncs"] - syncs
+    return statistics.median(times[1:]), syncs
+
+
+def og_step_split(lo, pose) -> None:
+    """The default tree's submap step (stage 4a) and its parts, each timed
+    alone on the last frame's registration input and pose against the warm
+    map and target: the robust sampling weights (an nn1 against the target),
+    the mixed sampler, the insert and its carve, miss merge and two resolves,
+    the extraction, the target's finalize."""
+    submap, p = lo.submap, lo.params
+    cfg, st, target, knn = submap.map_config, submap.map_state, submap.submap_cloud, submap.submap_knn
+    deskewed = align_pipeline(lo.preprocessed, target, knn, lo.pipeline_params, initial_guess=pose).deskewed
+    n_desk = int(deskewed.count())
+    gen = torch.Generator(device=pose.device).manual_seed(SEED)
+    num, ratio = p.submap.point_random_sampling_num, p.submap.weighted_sampling_ratio
+    weights = lambda: compute_icp_robust_weights(deskewed, target, knn, pose, p.registration.factor,
+                                                 lo._submap_robust_scale)
+    w = weights()
+    sampled = mixed_sampling(deskewed, num, w, gen, ratio)
+    pts = transform_points(sampled.points, pose)
+    coords, ok = voxel_coords(pts, sampled.mask, cfg.voxel_size)
+    carve = lambda: og._ray_carve_keys(pose[:3, 3], pts, ok, cfg.voxel_size, cfg.ray_axis_budget,
+                                       cfg.max_ray_distance)
+    keys, _, _, base, B, *_ = carve()
+    merged = og._merge_miss_keys(keys.reshape(-1), cfg.miss_merge_budget, B, base)
+    seg_keys, cnt, _, _ = og._segment_merge(coords, ok.float(), pts)
+    parts = {
+        "submap step (all of stage 4a's work)":
+            lambda: lo._submap_step(st, target, deskewed, pose, True, gen, knn_prev=knn, n_desk=n_desk),
+        "sampling weights (nn1 against the target)": weights,
+        "mixed sampling": lambda: mixed_sampling(deskewed, num, w, gen, ratio),
+        "insert_extract": lambda: submap.insert_extract(st, sampled, pose),
+        "add_point_cloud": lambda: og.add_point_cloud(st, cfg, sampled, pose),
+        "carve keys": carve,
+        "miss merge": lambda: og._merge_miss_keys(keys.reshape(-1), cfg.miss_merge_budget, B, base),
+        "resolve, hits": lambda: resolve_slots(st.coords, st.used, seg_keys, cnt > 0, cfg.capacity, cfg.max_probes),
+        "resolve, misses (tiered)": lambda: resolve_slots_tiered(st.coords, st.used, merged[0], merged[1] > 0,
+                                                                 cfg.capacity, cfg.max_probes),
+        "extract occupied": lambda: submap._extract(st, pose[:3, 3]),
+        "finalize target (self-k-NN, covariances)":
+            lambda: submap.finalize_traced(target.replace(covs=None, normals=None)),
+    }
+    n_keys = int((keys != 2**31 - 1).sum())
+    print(f"OG submap step split on the last frame ({n_desk} registration points sampled to {int(sampled.count())}, "
+          f"{n_keys} carve keys, {int((merged[1] > 0).sum())} unique missed voxels, {int((cnt > 0).sum())} hit "
+          f"voxels; host clock between synchronisations, median of 5):")
+    for name, fn in parts.items():
+        ms, syncs = host_ms(fn)
+        print(f"  {name}: {ms:.3f} ms, {syncs} host syncs")
+
+
+def moved(cloud, device):
+    return cloud.replace(**{k: v.to(device) for k, v in vars(cloud).items() if isinstance(v, torch.Tensor)})
+
+
+def map_as_set(state) -> dict:
+    """voxel coordinates -> log-odds, on the host."""
+    used = state.used.cpu().numpy()
+    return dict(zip(map(tuple, state.coords.cpu().numpy()[used]), state.log_odds.cpu().numpy()[used]))
+
+
+def check_maps(what: str, a: dict, b: dict) -> None:
+    """The CPU's map ``a`` and the card's ``b`` equal as sets, log-odds to
+    OG_CPU_LOG_ODDS_ATOL, on all but OG_CPU_MAP_SHARE of their voxels."""
+    only = len(a.keys() ^ b.keys())
+    log_odds = sum(abs(float(a[k]) - float(b[k])) > OG_CPU_LOG_ODDS_ATOL for k in a.keys() & b.keys())
+    n = len(a.keys() | b.keys())
+    print(f"{what}: maps {len(a)} / {len(b)} voxels, {only} in one only, {log_odds} with log-odds more than "
+          f"{OG_CPU_LOG_ODDS_ATOL} apart ({(only + log_odds) / n:.4%} of {n}, bound {OG_CPU_MAP_SHARE:.0%})")
+    if only + log_odds > OG_CPU_MAP_SHARE * n:
+        raise AssertionError(f"{what}: the card's and the CPU's maps differ on more voxels than the bound")
+
+
+def og_first_frame(params, pose, scan, dev) -> None:
+    """The default tree's first-frame preprocessing (polar grid, angle of
+    incidence, intensity correction) on the CPU and on the card, and the
+    CPU's refined cloud inserted into the occupancy grid on both."""
+    def refined(device):
+        pc = PCProcessor(params, device=device)
+        pre = pc.prefilter(moved(scan, device))
+        ctx = pc.prepare_context(pre)
+        return moved(pc.refine_filter(pc.compute_covariances(pre, ctx), ctx), "cpu")
+
+    a, b = refined(torch.device("cpu")), refined(dev)
+    both = a.mask & b.mask
+    ia, ib = a.intensities[both], b.intensities[both]
+    rel = float(((ia - ib).abs() / ia.abs().clamp_min(1e-30)).max())
+    print(f"default tree, first frame card vs CPU: the refine filter keeps {int((a.mask != b.mask).sum())} of "
+          f"{int(a.mask.sum())} points on one side only; corrected intensities of the {int(both.sum())} kept by "
+          f"both: largest relative difference {rel:.3g} (bound {OG_INTENSITY_RTOL})")
+    if not torch.allclose(ia, ib, rtol=OG_INTENSITY_RTOL, atol=0.0):
+        raise AssertionError("the card's and the CPU's corrected intensities disagree")
+    cfg = Submap(params, device="cpu").og_config
+    T = torch.from_numpy(np.asarray(pose, np.float32))
+    maps = [map_as_set(og.add_point_cloud(og.create(cfg, d), cfg, moved(a, d), T.to(d)))
+            for d in (torch.device("cpu"), dev)]
+    check_maps("the CPU's refined first frame inserted on the CPU and on the card", *maps)
+
+
+def og_small_replays(dev) -> None:
+    """The LIO frame at the default trees, and the default tree's card
+    against its CPU, on 512 x 32 scans with intensities."""
+    n_az, n_rings = SMALL_RAYS
+    inputs = lio_replay.make_lio_inputs(OG_LIO_FRAMES, n_az, n_rings, device=dev, intensities=True)
+    out = lio_replay.run_lio_replay(lio_replay.lio_params(inputs.poses[0], default_trees=True), inputs, device=dev)
+    print_lio_frames(out)
+    check_lio(f"LIO replay at the default scan and submap trees ({n_az} x {n_rings})", out, MAX_ATE_M)
+    if not (out["gyro_bias_err"] <= OG_MAX_BIAS_ERR[0] and out["accel_bias_err"] <= OG_MAX_BIAS_ERR[1]):
+        raise AssertionError(f"LIO at the default trees: bias errors above {OG_MAX_BIAS_ERR}")
+    if out["odometry"].preprocessed.intensities is None:
+        raise AssertionError("LIO at the default trees: the scan lost its intensities")
+
+    # one set of scans, raycast on the card, for both sides
+    poses, scans = odometry_replay.make_scans(OG_CPU_FRAMES, n_az, n_rings, device=dev, intensities=True)
+    og_first_frame(every_point(odometry_replay.default_params(poses[0])), poses[0], scans[0], dev)
+    on = {dev.type: scans, "cpu": [moved(c, "cpu") for c in scans]}
+    finals, maps = {}, {}
+    for device in (torch.device("cpu"), dev):
+        o = odometry_replay.run_replay(cpu_sized(every_point(odometry_replay.default_params(poses[0]))), poses,
+                                       on[device.type], device=device)
+        check_replay(f"{OG_CPU_FRAMES}-frame default-tree replay on {device.type}, every point", o, 1, MAX_ATE_M)
+        finals[device.type] = o["poses"][-1]
+        maps[device.type] = map_as_set(o["odometry"].submap.map_state)
+    trans, rot = pose_error(finals["cuda"], finals["cpu"])
+    print(f"default tree, card vs CPU plain path after {OG_CPU_FRAMES} frames ({n_az} x {n_rings}, every point): "
+          f"{trans * 1e3:.3f} mm, {rot:.5f} deg apart (bound {LIO_CPU_TRANS_M * 1e3:.0f} mm, {LIO_CPU_ROT_DEG} deg)")
+    if not (trans <= LIO_CPU_TRANS_M and rot <= LIO_CPU_ROT_DEG):
+        raise AssertionError("the card and the CPU disagree on the default-tree replay")
+    check_maps(f"default tree, card vs CPU after {OG_CPU_FRAMES} frames", maps["cpu"], maps["cuda"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -987,12 +1272,17 @@ def main() -> None:
     run_studies(results)
 
     # --- the LiDAR-odometry frame ------------------------------------------------
-    results += check_lo_shapes(lo_replay(dev))
+    lo_out = lo_replay(dev)
+    results += check_lo_shapes(lo_out)
     small_replays(dev)
 
     # --- the LiDAR-inertial frame -------------------------------------------------
     results += check_lo_shapes(lio_replay_phase(dev), LIO_PATH, "LIO")
     small_lio_replays(dev)
+
+    # --- the odometry at the parameter tree's defaults ----------------------------
+    results += check_lo_shapes(og_replay(dev), OG_PATH, "OG")
+    og_small_replays(dev)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

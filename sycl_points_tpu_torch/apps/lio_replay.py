@@ -47,22 +47,26 @@ from sycl_points_tpu_torch.utils.synthetic import (
     figure8_imu_3d,
     figure8_trajectory,
     figure8_velocity,
+    return_intensities,
     scan_at,
     scan_at_distorted,
 )
 
 
 def lio_params(initial_pose: np.ndarray, deskew: bool = False, gyro_bias_rw: float = 1e-5,
-               accel_bias_rw: float = 1e-4) -> LidarInertialOdometryParams:
+               accel_bias_rw: float = 1e-4, default_trees: bool = False) -> LidarInertialOdometryParams:
     """The replay deployment, starting at ``initial_pose``; ``deskew`` turns
-    the IMU deskew on. Every value not named here is the tree's default."""
+    the IMU deskew on; ``default_trees`` takes the tree's default ``scan``
+    and ``submap`` (polar downsampling, the occupancy-grid submap) in place
+    of the replay's. Every value not named here is the tree's default."""
+    scan = ScanParams() if default_trees else ScanParams(downsampling=DownsamplingParams(
+        voxel=VoxelDownsamplingParams(enable=True, size=1.0),
+        polar=PolarDownsamplingParams(enable=False),
+        random=RandomDownsamplingParams(enable=True, num=5000),
+    ))
     return LidarInertialOdometryParams(
-        scan=ScanParams(downsampling=DownsamplingParams(
-            voxel=VoxelDownsamplingParams(enable=True, size=1.0),
-            polar=PolarDownsamplingParams(enable=False),
-            random=RandomDownsamplingParams(enable=True, num=5000),
-        )),
-        submap=SubmapParams(map_type="VOXEL_HASH_MAP", voxel_size=1.0),
+        scan=scan,
+        submap=SubmapParams() if default_trees else SubmapParams(map_type="VOXEL_HASH_MAP", voxel_size=1.0),
         pose=PoseParams(initial=tuple(np.asarray(initial_pose, np.float32).ravel().tolist())),
         imu=IMUParams(enable=True, preintegration=IMUPreintegrationParams(
             gyro_noise_density=1e-3, accel_noise_density=1e-2,
@@ -82,11 +86,13 @@ class LIOInputs(NamedTuple):
 
 def make_lio_inputs(n_frames: int, n_az: int = 2048, n_rings: int = 64, speed: float = 0.35,
                     excite3d: bool = False, distort: bool = False, gyro_bias=(0.0, 0.0, 0.0),
-                    accel_bias=(0.0, 0.0, 0.0), device: torch.device | str = "cuda") -> LIOInputs:
+                    accel_bias=(0.0, 0.0, 0.0), device: torch.device | str = "cuda",
+                    intensities: bool = False) -> LIOInputs:
     """The figure-8 (3-D excited when asked), a scan a frame raycast on
     ``device`` (the card unless the caller asks for the CPU), motion-distorted
-    over the sweep to the next frame's pose when asked, and the IMU that
-    reads the true motion plus the injected constant biases."""
+    over the sweep to the next frame's pose when asked, with raw return
+    intensities when asked, and the IMU that reads the true motion plus the
+    injected constant biases."""
     device = require_device(device)
     world = World()
     poses = figure8_trajectory(n_frames, speed=speed, excite3d=excite3d)
@@ -98,7 +104,9 @@ def make_lio_inputs(n_frames: int, n_az: int = 2048, n_rings: int = 64, speed: f
             pts, t_ms = scan_at_distorted(world, T, T_end, n_az=n_az, n_rings=n_rings, seed=i, device=device)
         else:
             pts, t_ms = scan_at(world, T, n_az=n_az, n_rings=n_rings, seed=i, device=device), None
-        scans.append(PointCloud.from_numpy(pts, timestamp_offsets=t_ms, capacity=cap, device=device))
+        scans.append(PointCloud.from_numpy(pts, timestamp_offsets=t_ms,
+                                           intensities=return_intensities(pts, i) if intensities else None,
+                                           capacity=cap, device=device))
     gb = np.asarray(gyro_bias, np.float64)
     ab = np.asarray(accel_bias, np.float64)
 

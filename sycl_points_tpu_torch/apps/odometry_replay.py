@@ -14,6 +14,11 @@ HDL-64 sweeps (:mod:`..utils.synthetic`) along a figure-8 at 10 Hz.
     out = run_replay(replay_params(poses[0]), poses, scans)
     print(out["ate_m"], out["frame_ms"])
 
+:func:`default_params` is the parameter tree's defaults (polar
+downsampling, the occupancy-grid submap, intensity correction) with only
+the initial pose set; ``make_scans(..., intensities=True)`` gives the scans
+the intensities that the correction works on.
+
 With ``run_replay(..., imu=...)`` the odometry also gets an IMU stream (for
 parameters with ``imu.enable``); :func:`..apps.lio_replay.make_lio_inputs`
 makes one that flies the same figure-8. Both replays feed it through
@@ -43,7 +48,7 @@ from sycl_points_tpu_torch.pipeline.params import (
     VoxelDownsamplingParams,
 )
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
-from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, scan_at
+from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, return_intensities, scan_at
 
 FRAME_DT = 0.1  # a 10 Hz sensor
 IMU_HZ = 400
@@ -67,19 +72,28 @@ def replay_params(initial_pose: np.ndarray, map_capacity: int = 1 << 17,
     )
 
 
+def default_params(initial_pose: np.ndarray) -> LidarOdometryParams:
+    """The parameter tree's defaults, starting at ``initial_pose``: polar
+    downsampling, the occupancy-grid submap (an insert every frame that
+    passes the inlier gate), intensity correction."""
+    return LidarOdometryParams(pose=PoseParams(initial=tuple(np.asarray(initial_pose, np.float32).ravel().tolist())))
+
+
 def make_scans(n_frames: int, n_az: int = 2048, n_rings: int = 64, speed: float = 0.35,
-               device: torch.device | str = "cuda"):
+               device: torch.device | str = "cuda", intensities: bool = False):
     """Ground-truth poses of a figure-8 and the scans seen from them, as
     clouds of capacity ``n_az * n_rings`` on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU); ``intensities`` gives each scan raw return
+    intensities (:func:`..utils.synthetic.return_intensities`, seeded by the
+    frame's index)."""
     device = require_device(device)
     world = World()
     poses = figure8_trajectory(n_frames, speed=speed)
-    scans = [
-        PointCloud.from_numpy(scan_at(world, T, n_az=n_az, n_rings=n_rings, device=device),
-                              capacity=n_az * n_rings, device=device)
-        for T in poses
-    ]
+    scans = []
+    for i, T in enumerate(poses):
+        pts = scan_at(world, T, n_az=n_az, n_rings=n_rings, device=device)
+        scans.append(PointCloud.from_numpy(pts, intensities=return_intensities(pts, i) if intensities else None,
+                                           capacity=n_az * n_rings, device=device))
     return poses, scans
 
 
@@ -133,8 +147,8 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
     is fed up to each frame's time. Each frame is timed by
     :func:`timed_process`. Returns the odometry object, per-frame rows
     (result, ms, iterations, inliers, keyframe flag, map load, target size,
-    kernel launches, host syncs, stage times), the estimated poses and the
-    ATE."""
+    slots used, occupied voxels, kernel launches, host syncs, stage times),
+    the estimated poses and the ATE."""
     device = require_device(device)
     lo = LidarOdometry(params, device=device)
     lo.sync_stage_times = sync_stage_times
@@ -150,6 +164,8 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
             "inliers": int(reg.inlier) if reg is not None and result is ResultType.success else 0,
             "keyframe": bool(lo.is_keyframe_last_frame),
             "load": float(lo.submap.map_state.used.sum()) / lo.submap.map_capacity,
+            "voxels": int(lo.submap.map_state.used.sum()),
+            "occupied": lo.submap.occupied_voxels(),
             "map_capacity": lo.submap.map_capacity,
             "target": int(lo.submap.submap_cloud.count()) if lo.submap.submap_cloud is not None else 0,
             "launches": launches,

@@ -7,6 +7,8 @@
     member name; the JAX modules are never imported;
   * :func:`map_state_from_reference`: a JAX ``VoxelHashMapState`` as this
     package's, so that a map filled by one side can be read by the other;
+  * :func:`og_state_from_reference`: a JAX ``OccupancyGridState`` as this
+    package's, likewise;
   * :func:`lio_state_from_reference`: a JAX LIO filter state (``State`` and
     ``P_post``) as this package's, so that both filters can start from one
     state.
@@ -26,6 +28,7 @@ from sycl_points_tpu_torch.imu.factor import State
 from sycl_points_tpu_torch.imu.initial_alignment import InitialAlignmentParams
 from sycl_points_tpu_torch.imu.preintegration import IMUPreintegrationParams
 from sycl_points_tpu_torch.lio import lio_registration as lio
+from sycl_points_tpu_torch.mapping.occupancy_grid import OccupancyGridConfig, OccupancyGridState
 from sycl_points_tpu_torch.mapping.voxel_hash_map import VoxelHashMapConfig, VoxelHashMapState
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.pipeline import params as pipeline_params
@@ -49,6 +52,7 @@ _PARAM_CLASSES = {
         pipeline.RegistrationPipelineParams,
         map_prior.MapPriorParams,
         VoxelHashMapConfig,
+        OccupancyGridConfig,
         IMUPreintegrationParams,
         InitialAlignmentParams,
         lio.LIORobustScheduleParams,
@@ -100,10 +104,23 @@ def map_state_from_reference(state, device: torch.device | str = "cuda") -> Voxe
     attributes of the same names convert with ``numpy.asarray``. Slots keep
     their places: both packages hash alike, so either can go on inserting
     into and reading from the other's table."""
+    return _state_from_reference(VoxelHashMapState, state, device)
+
+
+def og_state_from_reference(state, device: torch.device | str = "cuda") -> OccupancyGridState:
+    """This package's occupancy-grid state on ``device`` (the card unless
+    the caller asks for the CPU) from a JAX ``OccupancyGridState``, or any
+    object whose attributes of the same names convert with
+    ``numpy.asarray``; slots keep their places, as with
+    :func:`map_state_from_reference`."""
+    return _state_from_reference(OccupancyGridState, state, device)
+
+
+def _state_from_reference(cls, state, device):
     dev = require_device(device)
-    return VoxelHashMapState(**{
+    return cls(**{
         f.name: torch.from_numpy(np.array(getattr(state, f.name))).to(dev)
-        for f in dataclasses.fields(VoxelHashMapState)
+        for f in dataclasses.fields(cls)
     })
 
 

@@ -160,6 +160,12 @@ def resolve_slots(coords_tbl, used, keys, valid, capacity: int, max_probes: int)
     number) at its first free probe slot, the lowest ticket wins the slot,
     and the losers probe on.
     """
+    return _resolve(coords_tbl, used, keys, valid, capacity, max_probes)[:4]
+
+
+def _resolve(coords_tbl, used, keys, valid, capacity: int, max_probes: int, also=None):
+    """:func:`resolve_slots`, and the host value of the 0-dim bool ``also``,
+    fetched with the claim phase's first exit test (no read of its own)."""
     M = keys.shape[0]
     dev = keys.device
     h1, h2 = hash_coords(keys, capacity)
@@ -173,8 +179,9 @@ def resolve_slots(coords_tbl, used, keys, valid, capacity: int, max_probes: int)
     unresolved = valid & ~found
     claimed = torch.zeros_like(valid)
     tickets = torch.arange(M, device=dev)
+    pending, also_h = to_host(torch.stack([unresolved.any(), valid.new_zeros(()) if also is None else also]))
     probe = 0
-    while probe < max_probes and to_host(unresolved.any()):
+    while probe < max_probes and pending:
         for _ in range(min(ROUNDS_PER_CHECK, max_probes - probe)):
             cand = probe_slots(h1, h2, probe, capacity)
             try_claim = unresolved & (table[cand] == _EMPTY)
@@ -186,13 +193,35 @@ def resolve_slots(coords_tbl, used, keys, valid, capacity: int, max_probes: int)
             claimed = claimed | winner
             unresolved = unresolved & ~winner
             probe += 1
+        pending = probe < max_probes and to_host(unresolved.any())
 
     w_idx = torch.where(claimed, slot, capacity)
     coords_out = torch.cat([coords_tbl, coords_tbl.new_full((1, 3), _SENTINEL)])
     coords_out.index_copy_(0, w_idx, keys)
     used_out = torch.cat([used, used.new_zeros(1)])
     used_out.index_fill_(0, w_idx, True)
-    return coords_out[:capacity], used_out[:capacity], slot, valid & ~unresolved
+    return coords_out[:capacity], used_out[:capacity], slot, valid & ~unresolved, also_h
+
+
+def resolve_slots_tiered(coords_tbl, used, keys, valid, capacity: int, max_probes: int, tier: int = 16384):
+    """:func:`resolve_slots` whose cost follows the count of valid keys, not
+    the width of the batch, for batches whose valid keys form a prefix (the
+    occupancy map's merged miss keys are rank-ordered).
+
+    The front ``tier`` rows are resolved; the tail only when it holds a valid
+    key. The tail test travels with the front's first claim-phase read, so
+    it costs no host read of its own (JAX decides it in a ``lax.cond``)."""
+    M = keys.shape[0]
+    if M <= tier:
+        return resolve_slots(coords_tbl, used, keys, valid, capacity, max_probes)
+    vt = valid[tier:]
+    c, u, s1, r1, tail = _resolve(coords_tbl, used, keys[:tier], valid[:tier], capacity, max_probes,
+                                  also=vt.any())
+    if tail:
+        c, u, s2, r2 = resolve_slots(c, u, keys[tier:], vt, capacity, max_probes)
+    else:
+        s2, r2 = s1.new_full((M - tier,), -1), torch.zeros_like(vt)
+    return c, u, torch.cat([s1, s2]), torch.cat([r1, r2])
 
 
 def lookup_slots(coords_tbl, used, keys, valid, capacity: int, max_probes: int):

@@ -17,9 +17,10 @@ last update for staleness pruning.
 
 The state is a frozen dataclass of tensors and every function returns a new
 one: the odometry keeps the state from before an insert so that an insert
-that dropped contributions can be retried on a grown table. ``index_add_``
-sums in no fixed order on the card, so the float sums of two runs may differ
-in their last bits; the set of voxels and their counts do not.
+that dropped contributions can be retried on a grown table. The frame's
+segment sums are taken in row order (``ops.voxel.segment_sum_sorted``) and
+each voxel then takes one ``index_add_`` row, so an insert gives the same
+bits on the card and on the CPU.
 
 Capacity is fixed per state; :func:`grow` re-inserts the table into one
 ``factor`` times larger, and :func:`add_point_cloud_auto` wraps insertion
@@ -41,7 +42,13 @@ from sycl_points_tpu_torch.mapping.hash_table import (
     resolve_slots,
 )
 from sycl_points_tpu_torch.ops.transform import rotate_covs, transform_points
-from sycl_points_tpu_torch.ops.voxel import _SENTINEL, sort_by_cell, voxel_coords, voxel_coords_counted
+from sycl_points_tpu_torch.ops.voxel import (
+    _SENTINEL,
+    segment_sum_sorted,
+    sort_by_cell,
+    voxel_coords,
+    voxel_coords_counted,
+)
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.utils import eigh3
 from sycl_points_tpu_torch.utils.sync import to_host
@@ -152,8 +159,7 @@ def add_point_cloud(
 
     # Frame-local pre-aggregation: packed-key sort, one segment sum.
     order, coords_s, ok_s, seg_id, _, n_extent_lost = sort_by_cell(coords, ok)
-    agg = torch.zeros((N, payload.shape[1]), dtype=_F32, device=dev)
-    agg.index_add_(0, seg_id, payload[order] * ok_s.to(_F32)[:, None])
+    agg = segment_sum_sorted(payload[order] * ok_s.to(_F32)[:, None], seg_id, N)
     agg_cnt = agg[:, 3]
 
     # A segment's key is that of its first sorted row.

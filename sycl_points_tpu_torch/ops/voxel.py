@@ -3,8 +3,9 @@
 Counterpart of :mod:`sycl_points_tpu.ops.voxel`, in plain PyTorch: integer
 voxel coordinates, one stable sort on a packed int32 cell key (3 x 10 bits,
 rebased to the per-frame minimum), segment ids from the key boundaries, and
-one ``[N, C]`` segment sum with ``index_add_`` for every mean channel plus the
-count. Voxels come out compacted to the front at a static capacity.
+one ``[N, C]`` segment sum (:func:`segment_sum_sorted`, the same bits on the
+card and the CPU) for every mean channel plus the count. Voxels come out
+compacted to the front at a static capacity.
 """
 
 from __future__ import annotations
@@ -72,6 +73,21 @@ def cell_sort_ids(coords: torch.Tensor, ok: torch.Tensor):
     return order, ok_s, seg_id, new_seg, n_extent_lost
 
 
+def segment_sum_sorted(vals: torch.Tensor, seg_id: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment sums of the rows of ``vals``, whose segment ids ``seg_id``
+    (in ``[0, len(vals))``) do not decrease: ``[num_segments, ...]``, 0 for
+    an empty segment, segments from ``num_segments`` on dropped. Each
+    segment is summed in row order from zero on every device, so the card
+    and the CPU give the same bits (``index_add_`` sums in no fixed order on
+    the card)."""
+    n = vals.shape[0]
+    lengths = torch.zeros(n, dtype=torch.int64, device=vals.device).index_add_(0, seg_id, torch.ones_like(seg_id))
+    sums = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0, unsafe=True)
+    if num_segments <= n:
+        return sums[:num_segments]
+    return torch.cat([sums, sums.new_zeros((num_segments - n,) + sums.shape[1:])])
+
+
 def sort_by_cell(coords: torch.Tensor, ok: torch.Tensor):
     """:func:`cell_sort_ids` plus the gathered sorted coordinates: ``(order,
     coords_sorted, ok_sorted, seg_id, new_seg, n_extent_lost)``."""
@@ -125,11 +141,9 @@ def downsample_by_coords(
         cols.append(cloud.normals)
     vals = torch.cat(cols + [torch.ones_like(cloud.points[:, :1])], dim=1)[order] * w[:, None]
 
-    # Segment sum; segments at or beyond out_cap land in one spare row that
-    # is cut off (segment_sum(num_segments=out_cap) drops them).
-    moments = torch.zeros((out_cap + 1, vals.shape[1]), dtype=vals.dtype, device=dev)
-    moments.index_add_(0, torch.clamp_max(seg_id, out_cap), vals)
-    moments = moments[:out_cap]
+    # Segment sum; segments at or beyond out_cap are dropped
+    # (segment_sum(num_segments=out_cap)).
+    moments = segment_sum_sorted(vals, seg_id, out_cap)
     counts = moments[:, -1]
     means = moments[:, :-1] / torch.clamp_min(counts, 1.0)[:, None]
     voxel_ok = counts >= float(min_voxel_count)

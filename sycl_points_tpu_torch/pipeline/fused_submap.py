@@ -17,7 +17,6 @@ from typing import Optional
 
 import torch
 
-from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
@@ -28,15 +27,16 @@ _F32 = torch.float32
 
 
 def make_submap_step(params, submap, robust_scale: Optional[float] = None):
-    """The submap update for ``submap``'s current map config and extract
-    capacity (both are read at call time, so one step serves a map that
-    grows).
+    """The submap update for ``submap``'s backend at its current map config
+    and extract capacity (all read at call time, so one step serves a map
+    that grows).
 
     Returns ``step(map_state, submap_prev, deskewed, T_eff, is_kf, generator,
     knn_prev=None, n_desk=None) -> (new_map_state, target, sampled, stats2)``
     with ``stats2 = [load, extract_overflow, extract_ok, dropped,
     budget_lost, n_extracted]`` (float32, on the device). ``is_kf`` is a host
-    bool; off a keyframe the map and the target pass through and ``sampled``
+    bool (on the occupancy grid, every frame that passes the inlier gate is
+    one); off a keyframe the map and the target pass through and ``sampled``
     is None. ``knn_prev`` is the prepared search structure of
     ``submap_prev`` when the caller has one; ``n_desk`` the valid count of
     ``deskewed`` when the host knows it (else it is fetched).
@@ -54,10 +54,9 @@ def make_submap_step(params, submap, robust_scale: Optional[float] = None):
     def submap_step(map_state, submap_prev: PointCloud, deskewed: PointCloud, T_eff: torch.Tensor,
                     is_kf: bool, generator: torch.Generator,
                     knn_prev: Optional[BruteForceKNN] = None, n_desk: Optional[int] = None):
-        cfg = submap.vhm_config
         zero = torch.zeros((), dtype=_F32, device=T_eff.device)
         if not is_kf:
-            stats2 = stats(vhm.load_factor(map_state, cfg), zero, zero,
+            stats2 = stats(submap.map_module.load_factor(map_state, submap.map_config), zero, zero,
                            map_state.dropped, map_state.budget_lost, zero)
             return map_state, submap_prev, None, stats2
 

@@ -14,8 +14,8 @@ decision. The window and the host-side scalars go up in one copy; the
 filter state (``State``, ``P_post``) stays on the device. A frame reads the
 device as the LiDAR-only frame does: the ``stats1`` fetch after the step,
 the ``stats2`` fetch after the submap step, one read an iteration for the
-solver's exit test, the hash table's probe loops on a keyframe; all are
-counted in ``sync_count_last_frame``.
+solver's exit test, the hash table's probe loops on a keyframe (every frame
+on the occupancy grid); all are counted in ``sync_count_last_frame``.
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ from sycl_points_tpu_torch.imu.preintegration import (
     unpack_steps,
 )
 from sycl_points_tpu_torch.lio import lio_registration as lio
-from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.ops.sampling import random_sampling
 from sycl_points_tpu_torch.pipeline.fused_submap import make_submap_step
 from sycl_points_tpu_torch.pipeline.params import LidarInertialOdometryParams
@@ -216,6 +215,8 @@ class LidarInertialOdometry:
         dist = torch.linalg.vector_norm(delta[:3, 3])
         angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[:3]) * (180.0 / math.pi)
         geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees) | kf_dt_exceeded
+        if self.submap.inserts_every_frame:
+            geom_kf = torch.ones_like(geom_kf)
         is_kf = (~small) & inlier_ok & geom_kf & finite_ok
 
         stats1 = torch.cat([
@@ -388,13 +389,7 @@ class LidarInertialOdometry:
         self.submap.budget_lost = int(budget_lost)
         self.is_keyframe_last_frame = is_kf
         if is_kf:
-            self.submap.submap_cloud = new_submap
-            self.submap.submap_knn = BruteForceKNN.build(new_submap).prepped()
-            self.submap.extract_overflow = int(overflow)
-            self.submap.last_keyframe_cloud = sampled
-            self.submap.last_keyframe_pose = T_np.copy()
-            self.submap.last_keyframe_time = timestamp
-            self.submap.keyframe_poses.append(self.submap.last_keyframe_pose)
+            self.submap.commit_insert(new_submap, sampled, overflow, T_np, timestamp)
 
         if int(dropped) - self._dropped_seen > 0:
             self.submap.map_state = prev_map_state  # the retry loses nothing

@@ -14,8 +14,8 @@ min-points gate, the MAP prior, the whole align pipeline, the keyframe
 decision) ends in one fetch of the 62-entry ``stats1`` vector: pose, counts,
 keyframe flag and the raw Hessian for the next frame's motion prediction. The
 submap step (robust-weighted sampling, map insert, extraction, covariance
-finalize; :mod:`.fused_submap`) runs on keyframes and ends in the fetch of
-``stats2``. Where the JAX package runs one jitted program per part and waits
+finalize; :mod:`.fused_submap`) runs on keyframes (on the occupancy grid,
+every frame past the inlier gate) and ends in the fetch of ``stats2``. Where the JAX package runs one jitted program per part and waits
 on the device once a frame, eager PyTorch also waits at every data-dependent
 loop exit (the solver's convergence test, the hash table's probe loops);
 ``sync_count_last_frame`` counts all of them; with the IMU on, so are the
@@ -39,7 +39,6 @@ from sycl_points_tpu_torch.deskew.constant_velocity import deskew_constant_veloc
 from sycl_points_tpu_torch.imu.initial_alignment import InitialAlignmentEstimator
 from sycl_points_tpu_torch.imu.preintegration import IMUMeasurement, IMUPreintegration, build_measurement_window
 from sycl_points_tpu_torch.imu.velocity_corrector import IMUVelocityCorrector
-from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.pipeline.fused_submap import make_submap_step
 from sycl_points_tpu_torch.pipeline.motion_predictor import MotionPredictor
 from sycl_points_tpu_torch.pipeline.params import LidarOdometryParams
@@ -294,7 +293,7 @@ class LidarOdometry:
         dist = torch.linalg.vector_norm(delta[:3, 3])
         angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[:3]) * (180.0 / math.pi)
         geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees)
-        if kf_dt_exceeded:
+        if kf_dt_exceeded or self.submap.inserts_every_frame:
             geom_kf = torch.ones_like(geom_kf)
         is_kf = (~small) & inlier_ok & geom_kf
 
@@ -370,14 +369,7 @@ class LidarOdometry:
         self.submap.budget_lost = int(budget_lost)
         self.is_keyframe_last_frame = is_kf
         if is_kf:
-            # The target changed: prepare its search structure once, here.
-            self.submap.submap_cloud = new_submap
-            self.submap.submap_knn = BruteForceKNN.build(new_submap).prepped()
-            self.submap.extract_overflow = int(overflow)
-            self.submap.last_keyframe_cloud = sampled
-            self.submap.last_keyframe_pose = T_np.copy()
-            self.submap.last_keyframe_time = timestamp
-            self.submap.keyframe_poses.append(self.submap.last_keyframe_pose)
+            self.submap.commit_insert(new_submap, sampled, overflow, T_np, timestamp)
 
         # growth policy (rare slow path; reads the device only when it fires)
         if int(dropped) - self._dropped_seen > 0:

@@ -1,18 +1,15 @@
 """Scan preprocessing (PCProcessor).
 
 Counterpart of :mod:`sycl_points_tpu.pipeline.pc_processor`: the prefilter
-chain (box -> voxel grid -> random sampling), the k-NN context, the
-covariance estimation (robust or plain) and the refine filter (angle of
-incidence), and the IMU deskew of the raw scan. Every stage runs on the
-processor's device and none waits on the host. ``prepare_context`` is the
-``knn_k`` kernel on the card.
+chain (box -> polar grid -> voxel grid -> random sampling), the k-NN context,
+the covariance estimation (robust or plain), the refine filter (angle of
+incidence, intensity correction, directional Gaussian smoothing, local-mean
+normalization; the last two reuse the k-NN context), and the IMU deskew of
+the raw scan. Every stage runs on the processor's device and none waits on
+the host. ``prepare_context`` is the ``knn_k`` kernel on the card.
 
-Not ported yet; each raises ``NotImplementedError`` when its flag asks for
-it: polar downsampling and the raw range-image covariances (ROADMAP Queue 1
-item 10), the intensity ops when the cloud carries intensities (item 10).
-``PolarDownsamplingParams.enable`` defaults to True, as
-in the JAX package, so a default parameter tree raises until polar
-downsampling is ported or switched off.
+Not ported yet: the raw range-image covariances (ROADMAP Queue 1 item 10),
+which raise ``NotImplementedError`` when the flag asks for them.
 """
 
 from __future__ import annotations
@@ -24,9 +21,11 @@ import torch
 
 from sycl_points_tpu_torch import require_device
 from sycl_points_tpu_torch.deskew.imu_deskew import deskew_point_cloud_imu
+from sycl_points_tpu_torch.ops import intensity as intensity_ops
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, estimate_covariances_robust
 from sycl_points_tpu_torch.ops.filters import angle_incidence_filter, box_filter
 from sycl_points_tpu_torch.ops.knn import KNNResult, self_knn
+from sycl_points_tpu_torch.ops.polar import CoordinateSystem, polar_downsample
 from sycl_points_tpu_torch.ops.sampling import random_sampling
 from sycl_points_tpu_torch.ops.voxel import voxel_downsample
 from sycl_points_tpu_torch.pipeline.params import CommonParameters
@@ -46,16 +45,9 @@ class PCProcessor:
         self.params = params
         self.device = require_device(device)
         self._generator = torch.Generator(device=self.device).manual_seed(SEED)
-        p = params.scan
-        if p.downsampling.polar.enable:
-            raise NotImplementedError(
-                "polar downsampling is not ported yet (ROADMAP Queue 1 item 10); it is on by default "
-                "(PolarDownsamplingParams.enable): pass PolarDownsamplingParams(enable=False)")
         if params.covariance_estimation.raw_range_image:
             raise NotImplementedError(
                 "the raw range-image covariance path is not ported yet (ROADMAP Queue 1 item 10)")
-        if p.intensity_gaussian.enable or p.intensity_local_mean_norm.enable:
-            raise NotImplementedError("the intensity ops are not ported yet (ROADMAP Queue 1 item 10)")
 
     # -- prefilter ----------------------------------------------------------
     def prefilter(self, cloud: PointCloud) -> PointCloud:
@@ -64,9 +56,18 @@ class PCProcessor:
         if p.preprocess.box_filter.enable:
             c = box_filter(c, p.preprocess.box_filter.min, p.preprocess.box_filter.max)
         cap = min(self.params.scan_capacity, c.capacity)
+        polar = p.downsampling.polar
+        if polar.enable:
+            # The last grid stage emits its bins from slot 0 on, so it writes
+            # straight into the scan capacity: no compaction pass.
+            c = polar_downsample(
+                c, polar.distance_size, polar.elevation_size, polar.azimuth_size,
+                CoordinateSystem.from_string(polar.coord_system),
+                out_capacity=None if p.downsampling.voxel.enable else cap,
+            )
         if p.downsampling.voxel.enable:
             c = voxel_downsample(c, p.downsampling.voxel.size, out_capacity=cap)
-        else:
+        elif not polar.enable:
             c = compact_device(c, out_capacity=cap)
         if p.downsampling.random.enable and p.downsampling.random.num < c.capacity:
             c = random_sampling(c, p.downsampling.random.num, self._generator)
@@ -74,11 +75,16 @@ class PCProcessor:
 
     # -- covariance context --------------------------------------------------
     def prepare_context(self, cloud: PointCloud) -> ProcessingContext:
-        """The exact self-k-NN of the preprocessed cloud."""
-        if cloud.covs is not None:
+        """The exact self-k-NN of the preprocessed cloud; none when the
+        covariances are there and no refine op needs neighbours."""
+        if cloud.covs is not None and not self._refine_needs_knn():
             return ProcessingContext(knn=None)
         k = self.params.covariance_estimation.neighbor_num
         return ProcessingContext(knn=self_knn(cloud.points.contiguous(), cloud.mask, k))
+
+    def _refine_needs_knn(self) -> bool:
+        p = self.params.scan
+        return p.intensity_gaussian.enable or p.intensity_local_mean_norm.enable
 
     def compute_covariances(self, cloud: PointCloud, ctx: ProcessingContext) -> PointCloud:
         if cloud.covs is not None:
@@ -101,11 +107,20 @@ class PCProcessor:
                 c, p.preprocess.angle_incidence_filter.min_angle,
                 p.preprocess.angle_incidence_filter.max_angle,
             )
-        if (c.intensities is not None and p.intensity_correction.enable
-                and not p.enhanced_reflectivity.enable):
-            raise NotImplementedError(
-                "intensity correction of a cloud with intensities is not ported yet "
-                "(ROADMAP Queue 1 item 10): pass IntensityCorrectionParams(enable=False)")
+        if c.intensities is None:
+            return c
+        if p.intensity_correction.enable and not p.enhanced_reflectivity.enable:
+            ic = p.intensity_correction
+            c = intensity_ops.correct_intensity(c, ic.exp, ic.scale, ic.min_intensity, ic.max_intensity,
+                                                ic.ref_distance, ic.angle_exponent)
+        if p.intensity_gaussian.enable:
+            g, knn = p.intensity_gaussian, ctx.knn
+            c = intensity_ops.smooth_intensity(c, knn, g.sigma_azimuth, g.sigma_elevation, g.sigma_range,
+                                               k_limit=min(g.neighbor_num, knn.indices.shape[1]))
+        if p.intensity_local_mean_norm.enable:
+            m, knn = p.intensity_local_mean_norm, ctx.knn
+            c = intensity_ops.local_mean_normalize(c, knn, m.sigma_azimuth, m.sigma_elevation, m.sigma_range,
+                                                   m.mean_min, k_limit=min(m.neighbor_num, knn.indices.shape[1]))
         return c
 
     # -- IMU deskew ----------------------------------------------------------

@@ -1,21 +1,22 @@
 """Submap management: keyframing, map insertion and target preparation.
 
-Counterpart of :mod:`sycl_points_tpu.pipeline.submap` on the voxel-hash-map
-backend: the keyframe policy (distance >= 2 m or angle >= 20 deg or dt >= 1 s
-by default, behind an inlier-ratio gate), per-keyframe weighted or uniform
-sampling to ``point_random_sampling_num`` points, insertion into the map with
-the growth policy, extraction of the target within range, and the target's
-search structure and covariances / normals as the registration type needs.
+Counterpart of :mod:`sycl_points_tpu.pipeline.submap` on both map backends,
+the occupancy grid (``OCCUPANCY_GRID_MAP``, the default) and the voxel-hash
+map: the keyframe policy (distance >= 2 m or angle >= 20 deg or dt >= 1 s by
+default, behind an inlier-ratio gate; the occupancy grid inserts every frame
+that passes the gate), per-insert weighted or uniform sampling to
+``point_random_sampling_num`` points, insertion into the map with the growth
+policy, extraction of the target within range (the occupied voxels, on the
+occupancy grid), and the target's search structure and covariances /
+normals as the registration type needs.
 
 The search structure (``submap_knn``) holds the target prepared for the
-``nn1`` kernel; it is rebuilt only when the target changes (keyframes,
-growth), never per frame.
+``nn1`` kernel; it is rebuilt only when the target changes (inserts,
+growth), never per registration iteration.
 
-Not ported yet: the occupancy-grid backend (ROADMAP Queue 1 item 9; it is
-the dataclass default of ``SubmapParams.map_type`` and raises here) and the
-pipelined server's ``make_reapply_chain`` / ``reconcile_chain`` (item 11).
-The JAX class's jit caches and compile log have nothing to hold in eager
-PyTorch.
+Not ported yet: the pipelined server's ``make_reapply_chain`` /
+``reconcile_chain`` (ROADMAP Queue 1 item 11). The JAX class's jit caches
+and compile log have nothing to hold in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
+from sycl_points_tpu_torch.mapping import occupancy_grid as og
 from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn
@@ -48,18 +50,29 @@ class Submap:
         self.params = params
         self.device = require_device(device)
         sp = params.submap
-        if sp.map_type.upper() == "OCCUPANCY_GRID_MAP":
-            raise NotImplementedError(
-                "the occupancy-grid map is not ported yet (ROADMAP Queue 1 item 9); it is the default "
-                "SubmapParams.map_type: pass map_type=\"VOXEL_HASH_MAP\"")
-        if sp.map_type.upper() != "VOXEL_HASH_MAP":
+        map_type = sp.map_type.upper()
+        if map_type not in ("OCCUPANCY_GRID_MAP", "VOXEL_HASH_MAP"):
             raise ValueError(f"unknown map_type {sp.map_type!r}")
-        self.vhm_config = vhm.VoxelHashMapConfig(
-            voxel_size=sp.voxel_size, capacity=sp.map_capacity,
-            max_staleness=sp.max_staleness,
-            remove_old_data_cycle=sp.remove_old_data_cycle,
-        )
-        self.map_state = vhm.create(self.vhm_config, self.device)
+        self.is_occupancy = map_type == "OCCUPANCY_GRID_MAP"
+        if self.is_occupancy:
+            ogp = sp.occupancy_grid_map
+            self.og_config = og.OccupancyGridConfig(
+                voxel_size=sp.voxel_size, capacity=sp.map_capacity,
+                log_odds_hit=ogp.log_odds_hit, log_odds_miss=ogp.log_odds_miss,
+                min_log_odds=ogp.log_odds_limits_min, max_log_odds=ogp.log_odds_limits_max,
+                occupancy_threshold_log_odds=og.probability_to_log_odds(ogp.occupied_threshold),
+                stale_frame_threshold=ogp.stale_frame_threshold,
+                free_space_updates_enabled=ogp.enable_free_space_updates,
+                free_space_update_cycle=ogp.free_space_update_cycle,
+                voxel_pruning_enabled=ogp.enable_pruning,
+            )
+        else:
+            self.vhm_config = vhm.VoxelHashMapConfig(
+                voxel_size=sp.voxel_size, capacity=sp.map_capacity,
+                max_staleness=sp.max_staleness,
+                remove_old_data_cycle=sp.remove_old_data_cycle,
+            )
+        self.map_state = self.map_module.create(self.map_config, self.device)
 
         initial = np.asarray(params.pose.initial_matrix())
         self.last_keyframe_pose = initial
@@ -93,12 +106,38 @@ class Submap:
 
     # ------------------------------------------------------------------
     @property
-    def map_config(self) -> vhm.VoxelHashMapConfig:
-        return self.vhm_config
+    def map_module(self):
+        """The backend's module: :mod:`.occupancy_grid` or :mod:`.voxel_hash_map`."""
+        return og if self.is_occupancy else vhm
+
+    @property
+    def map_config(self):
+        return self.og_config if self.is_occupancy else self.vhm_config
+
+    @map_config.setter
+    def map_config(self, cfg) -> None:
+        if self.is_occupancy:
+            self.og_config = cfg
+        else:
+            self.vhm_config = cfg
 
     @property
     def map_capacity(self) -> int:
-        return self.vhm_config.capacity
+        return self.map_config.capacity
+
+    @property
+    def inserts_every_frame(self) -> bool:
+        """The occupancy grid takes every frame that passes the inlier gate
+        and keeps no keyframes; the voxel-hash map takes keyframes only."""
+        return self.is_occupancy
+
+    def occupied_voxels(self) -> int:
+        """The voxels extraction may take (a host read): on the occupancy
+        grid, those hit with log-odds at or above the threshold; on the
+        voxel-hash map, every voxel."""
+        if self.is_occupancy:
+            return int(og._occupied_mask(self.map_state, self.og_config).sum())
+        return int(self.map_state.used.sum())
 
     def _pose_tensor(self, pose) -> torch.Tensor:
         if isinstance(pose, torch.Tensor):
@@ -106,6 +145,11 @@ class Submap:
         return torch.from_numpy(np.ascontiguousarray(pose, dtype=np.float32)).to(self.device)
 
     def _extract(self, state, origin: torch.Tensor):
+        if self.is_occupancy:
+            return og.extract_occupied_points(
+                state, self.og_config, origin, self.params.submap.max_distance_range,
+                out_capacity=self.extract_capacity, with_overflow=True,
+            )
         return vhm.extract(
             state, self.vhm_config, origin, self.params.submap.max_distance_range,
             out_capacity=self.extract_capacity, with_covs=False, with_overflow=True,
@@ -113,13 +157,14 @@ class Submap:
 
     def insert_extract(self, state, cloud: PointCloud, pose: torch.Tensor):
         """Insert ``cloud`` at ``pose`` into ``state`` (left as it was), prune
-        stale voxels every ``remove_old_data_cycle`` inserts, and extract the
-        target around the pose at the current map config and extract
+        stale voxels (the voxel-hash map every ``remove_old_data_cycle``
+        inserts; the occupancy grid prunes inside its insert), and extract
+        the target around the pose at the current map config and extract
         capacity: ``(new_state, extracted, load, extract_overflow)``, the last
         two on the device."""
-        cfg = self.vhm_config
-        ns = vhm.add_point_cloud(state, cfg, cloud, pose)
-        if cfg.remove_old_data_cycle > 0:
+        cfg = self.map_config
+        ns = self.map_module.add_point_cloud(state, cfg, cloud, pose)
+        if not self.is_occupancy and cfg.remove_old_data_cycle > 0:
             # Both sides of the JAX lax.cond, selected on the device: pruning
             # is a dozen elementwise kernels, a host branch would be a sync.
             pruned = vhm.remove_old_data(ns, cfg)
@@ -130,7 +175,7 @@ class Submap:
                           "sum_intensity", "last_update")
             })
         extracted, overflow = self._extract(ns, pose[:3, 3])
-        return ns, extracted, vhm.load_factor(ns, cfg), overflow
+        return ns, extracted, self.map_module.load_factor(ns, cfg), overflow
 
     def _set_target(self, target: PointCloud) -> None:
         """Finalize ``target`` and prepare its search structure."""
@@ -151,8 +196,9 @@ class Submap:
         so that the next keyframe can select between the new extraction and
         the kept target. Callers whose own loop extracts right after pass
         ``reextract=False``. ``origin`` (a [3] position or [4,4] pose)
-        centres the re-extraction; the default is the last keyframe pose."""
-        self.map_state, self.vhm_config = vhm.grow(self.map_state, self.vhm_config)
+        centres the re-extraction; the default is the last keyframe pose,
+        which the occupancy grid never moves: its callers pass the frame's."""
+        self.map_state, self.map_config = self.map_module.grow(self.map_state, self.map_config)
         old_ext = self.extract_capacity
         self.extract_capacity = self.extract_tier_for(self.map_capacity)
         if reextract and self.extract_capacity != old_ext and self.submap_cloud is not None:
@@ -208,18 +254,36 @@ class Submap:
 
     def add_frame(self, cloud: PointCloud, reg_T: np.ndarray, inlier_ratio: float, timestamp: float,
                   sampling_weights: Optional[torch.Tensor] = None) -> bool:
-        """Inlier gate, keyframe policy, insertion; True when the frame
-        became a keyframe."""
+        """Inlier gate, keyframe policy, insertion; True when the frame was
+        inserted. The occupancy grid inserts every frame that passes the
+        gate, with no keyframe bookkeeping."""
         kf = self.params.submap.keyframe
         if kf.inlier_ratio_threshold > 0.0 and inlier_ratio <= kf.inlier_ratio_threshold:
             return False
-        if not self._is_keyframe(reg_T, timestamp):
+        if not (self.inserts_every_frame or self._is_keyframe(reg_T, timestamp)):
             return False
-        self.last_keyframe_pose = np.asarray(reg_T)
-        self.last_keyframe_time = timestamp
-        self.keyframe_poses.append(self.last_keyframe_pose)
+        self._record_keyframe(reg_T, timestamp)
         self._build_submap(cloud, reg_T, False, sampling_weights)
         return True
+
+    def _record_keyframe(self, pose, timestamp: float) -> None:
+        """Keyframe bookkeeping (pose, time, list), on the voxel-hash map only."""
+        if self.inserts_every_frame:
+            return
+        self.last_keyframe_pose = np.array(pose)
+        self.last_keyframe_time = timestamp
+        self.keyframe_poses.append(self.last_keyframe_pose)
+
+    def commit_insert(self, target: PointCloud, sampled: PointCloud, extract_overflow, pose,
+                      timestamp: float) -> None:
+        """Commit a frame that the fused submap step inserted: the new target
+        and its search structure (prepared once, here), the insert's sample
+        and extraction overflow, and the keyframe bookkeeping."""
+        self.submap_cloud = target
+        self.submap_knn = BruteForceKNN.build(target).prepped()
+        self.extract_overflow = int(extract_overflow)
+        self.last_keyframe_cloud = sampled
+        self._record_keyframe(pose, timestamp)
 
     def _is_keyframe(self, T: np.ndarray, timestamp: float) -> bool:
         delta = np.linalg.inv(self.last_keyframe_pose) @ np.asarray(T)

@@ -7,7 +7,8 @@ with its velocity and the IMU that flies it (planar and 3-D excited).
 :func:`raycast` is the same ground-plane / cylinder-wall / box-slab math as
 the JAX ``World.raycast``, in PyTorch, so scans can be made on the card; a
 motion-distorted scan (:func:`scan_at_distorted`) casts each azimuth column
-from its own sweep pose.
+from its own sweep pose. :func:`return_intensities` gives a scan 8-bit return
+intensities (the JAX generator makes none).
 """
 
 from __future__ import annotations
@@ -228,6 +229,17 @@ def scan_at(world, T: np.ndarray, n_az=2048, n_rings=64, max_range=80.0, noise=0
     rng = np.random.default_rng(seed + 1)
     t = t[ok] + rng.normal(scale=noise, size=ok.sum())
     return (dirs_s[ok] * t[:, None].astype(np.float32)).astype(np.float32)
+
+
+def return_intensities(points: np.ndarray, seed: int = 0) -> np.ndarray:
+    """8-bit raw return intensities of sensor-frame ``points`` ``[N, 3]``,
+    float32: a seeded surface reflectivity in [0.05, 1] times
+    ``1000 / range^2``, capped at 255, so that the parameter tree's default
+    intensity correction (``1e-3 range^2``) gives the reflectivity back
+    beyond 2 m."""
+    r2 = np.maximum((np.asarray(points, np.float64) ** 2).sum(1), 1e-12)
+    refl = np.random.default_rng(seed + 2).uniform(0.05, 1.0, len(r2))
+    return np.minimum(refl * 1000.0 / r2, 255.0).astype(np.float32)
 
 
 def scan_at_distorted(world, T_start: np.ndarray, T_end: np.ndarray, n_az=2048, n_rings=64, max_range=80.0,

@@ -21,9 +21,11 @@
     0.1 m / 0.05 rad of the truth (the JAX test's own bound), the two final
     poses within 0.05 m / 0.02 rad of each other;
   * the ``old_timestamp``, ``small_number_of_points`` and ``first_frame``
-    results, map growth from 2^10 slots, the MAP prior switched on, every
-    ``NotImplementedError`` of the slice by its message, and the branches
-    ported since (the IMU, the velocity update, the IMU deskew) running.
+    results, map growth from 2^10 slots, the MAP prior switched on, the
+    ``NotImplementedError`` of the raw range-image path by its message, the
+    branches ported since (the default parameter tree, polar downsampling,
+    the occupancy grid, the IMU, the velocity update, the intensity ops, the
+    IMU deskew) running, and intensity correction against JAX's (rtol 1e-5).
 """
 
 import dataclasses
@@ -546,25 +548,65 @@ def _run_imu_deskew():
     return status is IMUDeskewStatus.success and bool(torch.allclose(out.points, cloud.points, atol=1e-4))
 
 
+def _run_default_params():
+    """LidarOdometry at the parameter tree's defaults: the first frame goes
+    through the polar grid into the occupancy grid."""
+    lo = t_lo.LidarOdometry(TP.LidarOdometryParams(), device="cpu")
+    pts = scan_at(make_world(), np.eye(4, dtype=np.float32))
+    ok = lo.process(t_cloud(pts), 0.1) is t_lo.ResultType.first_frame
+    return ok and lo.submap.is_occupancy and 0 < int(lo.preprocessed.count()) < len(pts)
+
+
+def _run_polar():
+    """PCProcessor's prefilter at its defaults (box, polar grid, random
+    stage) keeps one point a polar bin, at the random stage's capacity."""
+    pts = scan_at(make_world(), np.eye(4, dtype=np.float32))
+    out = TPCProcessor(TP.CommonParameters(), device="cpu").prefilter(t_cloud(pts, cap=1 << 14))
+    return out.capacity == TP.RandomDownsamplingParams().num and 0 < int(out.count()) < len(pts)
+
+
+def _run_occupancy():
+    """The default Submap is the occupancy grid: an insert carves free space
+    and extracts the hit voxels."""
+    sm = TSubmap(TP.CommonParameters(), device="cpu")
+    pts = scan_at(make_world(), np.eye(4, dtype=np.float32))
+    state, extracted, load, overflow = sm.insert_extract(sm.map_state, t_cloud(pts), torch.eye(4))
+    lo = state.log_odds[state.used]
+    return sm.is_occupancy and bool((lo < 0).any() and (lo > 0).any()) and int(extracted.count()) > 100 \
+        and int(overflow) == 0 and 0 < float(load) < 0.7
+
+
+def _run_intensity_ops():
+    """The Gaussian smoothing and the local-mean normalization run on the
+    k-NN context."""
+    params = _tp(scan=dataclasses.replace(
+        _tp().scan, intensity_gaussian=TP.IntensityGaussianParams(enable=True),
+        intensity_local_mean_norm=TP.IntensityLocalMeanNormParams(enable=True)))
+    pts = scan_at(make_world(), np.eye(4, dtype=np.float32))
+    inten = np.random.default_rng(0).uniform(0, 100, len(pts)).astype(np.float32)
+    pc = TPCProcessor(params, device="cpu")
+    pre = pc.prefilter(cloud_from_numpy({"points": pts, "intensities": inten}, capacity=4096, device="cpu"))
+    ctx = pc.prepare_context(pre)
+    out = pc.refine_filter(pc.compute_covariances(pre, ctx), ctx)
+    return ctx.knn is not None and not torch.allclose(out.intensities, pre.intensities)
+
+
 @pytest.mark.parametrize("make,message", [
-    (lambda: t_lo.LidarOdometry(TP.LidarOdometryParams(), device="cpu"),
-     r"polar downsampling is not ported yet \(ROADMAP Queue 1 item 10\); it is on by default"),
-    (lambda: TPCProcessor(TP.CommonParameters(), device="cpu"), r"polar downsampling is not ported yet"),
-    (lambda: TSubmap(TP.CommonParameters(), device="cpu"),
-     r"occupancy-grid map is not ported yet \(ROADMAP Queue 1 item 9\)"),
+    (_run_default_params, None),
+    (_run_polar, None),
+    (_run_occupancy, None),
     (_run_imu_branch, None),
     (_run_velocity_update, None),
     (lambda: TPCProcessor(_tp(covariance_estimation=TP.CovarianceEstimationParams(raw_range_image=True)), device="cpu"),
      r"raw range-image covariance path is not ported yet \(ROADMAP Queue 1 item 10\)"),
-    (lambda: TPCProcessor(_tp(scan=dataclasses.replace(
-        _tp().scan, intensity_gaussian=TP.IntensityGaussianParams(enable=True))), device="cpu"),
-     r"intensity ops are not ported yet \(ROADMAP Queue 1 item 10\)"),
+    (_run_intensity_ops, None),
     (_run_imu_deskew, None),
 ], ids=["default-params", "polar", "occupancy", "imu", "velocity-update", "raw-range-image", "intensity-ops",
         "imu-deskew"])
 def test_not_ported_yet(make, message):
-    """What is not ported raises by its message; the IMU branches, the
-    velocity update and the IMU deskew, ported since, run their branch."""
+    """What is not ported raises by its message; the branches ported since
+    (the default parameter tree, polar downsampling, the occupancy grid, the
+    IMU, the velocity update, the intensity ops, the IMU deskew) run."""
     if message is None:
         assert make()
         return
@@ -573,16 +615,26 @@ def test_not_ported_yet(make, message):
 
 
 def test_intensity_correction_of_a_cloud_with_intensities_raises():
+    """Intensity correction, on by default, corrects a cloud that carries
+    intensities as the JAX package does (rtol 1e-5); switched off, it leaves
+    them."""
     pts = scan_at(make_world(), np.eye(4, dtype=np.float32))
-    cloud = cloud_from_numpy({"points": pts, "intensities": np.ones(len(pts), np.float32)}, capacity=4096, device="cpu")
+    inten = np.random.default_rng(1).uniform(0, 1000, len(pts)).astype(np.float32)
+    jc, _ = clouds(pts, capacity=4096, intensities=inten)
+    jpc = JPCProcessor(small_params())
+    jpre = jpc.prefilter(jc)
+    jctx = jpc.prepare_context(jpre)
+    jcov = jpc.compute_covariances(jpre, jctx)
+    jout = jpc.refine_filter(jcov, jctx)
+    tin = cloud_from_numpy(jcov.to_numpy(compacted=False), capacity=jcov.capacity,
+                           device="cpu").replace(mask=both(np_(jcov.mask))[1])
     pc = TPCProcessor(_tp(), device="cpu")
-    pre = pc.prefilter(cloud)
-    ctx = pc.prepare_context(pre)
-    with pytest.raises(NotImplementedError, match=r"intensity correction .* \(ROADMAP Queue 1 item 10\)"):
-        pc.refine_filter(pc.compute_covariances(pre, ctx), ctx)
+    tout = pc.refine_filter(tin, None)
+    m = np_(jout.mask)
+    np.testing.assert_allclose(np_(tout.intensities)[m], np_(jout.intensities)[m], rtol=1e-5)
+    assert not np.allclose(np_(tout.intensities)[m], np_(tin.intensities)[m])
     off = _tp(scan=dataclasses.replace(_tp().scan, intensity_correction=TP.IntensityCorrectionParams(enable=False)))
-    pc = TPCProcessor(off, device="cpu")
-    assert pc.refine_filter(pc.compute_covariances(pre, ctx), ctx).intensities is not None
+    assert torch.equal(TPCProcessor(off, device="cpu").refine_filter(tin, None).intensities, tin.intensities)
 
 
 def test_unknown_map_type_raises():
