@@ -118,6 +118,49 @@
     2^11-row target): final poses within LIO_CPU_TRANS_M / LIO_CPU_ROT_DEG
     of each other, and the maps equal as sets, log-odds to
     OG_CPU_LOG_ODDS_ATOL, on all but OG_CPU_MAP_SHARE of their voxels.
+16. Drives ``PipelinedLidarOdometry.process`` (then ``flush``) over phase
+    7's 20 scans at the replay deployment, with the launch counts set to 0
+    just before and read just after, the device not drained between
+    frames. Prints every frame, ms a frame beside the synchronous frame of
+    phase 7, host reads a frame by the ``file:line`` that made them (the
+    synchronous frame's too), blocking fetches, the frames left in flight
+    when a call returned, launches a frame. Fails unless every deferred
+    result is ``success`` with 19 resolved poses, the ATE is within
+    MAX_ATE_M, every pose is within PIPE_TRANS_M / PIPE_ROT (rotation
+    entries) of phase 7's, nothing was dropped, and nn1 and knn_k launched.
+    Then nn1 and knn_k bit-equal at this path's shapes, as in 8.
+17. The same over phase 13's scans at the tree's defaults; also fails
+    unless the occupied voxels are within max(3, PIPE_VOXEL_SHARE) of phase
+    13's and phase 13's bounds on inserts and target rows hold. Prints what
+    PIPE_MAX_IN_FLIGHT stashed map states of the default tree's 2^17-slot
+    grid take on the card.
+18. A pipelined replay (512 x 32, DROP_VOXEL voxels) from a map of
+    DROP_CAPACITIES slots: fails unless the drop-retry reconcile fires, its
+    map equals as a set (counts exactly, summed positions to DROP_POS_ATOL)
+    the map of the sequential ``retry_insert_after_drop`` on the same
+    stashed clouds from the same rolled-back state, and the replay ends
+    with every result ``success`` and nothing dropped.
+19. ``PipelinedLidarInertialOdometry`` over phase 10's inputs, as in 16:
+    every deferred result ``success``, ATE within MAX_LIO_ATE_M,
+    translations within PIPE_TRANS_M of phase 10's, equal keyframe counts.
+20. Checkpoint: ``LidarOdometry`` at the tree's defaults with every
+    sampling stage taking all the points, CKPT_FRAMES[0] of phase 13's
+    scans, ``save_checkpoint``, CKPT_FRAMES[1] more; the checkpoint loaded
+    into a fresh ``LidarOdometry`` and a fresh ``PipelinedLidarOdometry``,
+    which run the same frames: fails unless their poses are within
+    CKPT_MAX_M of the uninterrupted run's.
+21. ``OdometryStreamServer`` (``lo_pipelined``, the replay deployment, the
+    default queue depths) on localhost, fed phase 7's 20 scans by
+    ``OdometryStreamClient`` at SERVER_HZ: fails unless the 19 poses after
+    the bootstrap come back, no scan is dropped, the ATE is within
+    MAX_ATE_M. Prints the pose rate and latency (scan sent to pose
+    received). Then the same scans closed loop (each sent after the pose of
+    the one before): fails unless every pose comes back and the server
+    reaches SERVER_HZ frames a second or more; prints the rate reached and
+    the latency.
+22. ``kitti_odometry.main --pipelined`` on KITTI_FRAMES of phase 13's scans
+    written as KITTI ``.bin`` files: fails unless the TUM file has a line a
+    frame and the ATE (in the first frame's frame) is within MAX_ATE_M.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -133,12 +176,14 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from sycl_points_tpu_torch.apps import lio_replay, odometry_replay
+from sycl_points_tpu_torch.apps import kitti_odometry, lio_replay, odometry_replay, stream_protocol
 from sycl_points_tpu_torch.apps.example_registration import (
     PAIR_PARAMS,
     downsample,
@@ -156,14 +201,18 @@ from sycl_points_tpu_torch.ops.knn import BruteForceKNN, KNNResult, self_knn
 from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
 from sycl_points_tpu_torch.ops.transform import transform_points
 from sycl_points_tpu_torch.ops.voxel import voxel_coords
+from sycl_points_tpu_torch.apps.stream_odometry import OdometryStreamClient, OdometryStreamServer, StreamServerConfig
+from sycl_points_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
+from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry
 from sycl_points_tpu_torch.pipeline.params import MotionPredictionParams
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
+from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry
 from sycl_points_tpu_torch.pipeline.submap import Submap
 from sycl_points_tpu_torch.registration.pipeline import align_pipeline
 from sycl_points_tpu_torch.registration.registration import compute_icp_robust_weights
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
-from sycl_points_tpu_torch.utils import sync
+from sycl_points_tpu_torch.utils import lie, sync
 from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, scan_at
 
 VOXEL = 0.25
@@ -243,6 +292,26 @@ OG_CPU_FRAMES = 6
 OG_CPU_MAP_SHARE = 0.01
 OG_INTENSITY_RTOL = 1e-5  # the corrected intensities, card vs CPU (the CPU tests' bound)
 OG_CPU_LOG_ODDS_ATOL = 1e-5
+# The serving path. The pipelined frames are held to the synchronous run of
+# the same call with the JAX package's bounds (tests/test_pipelined_odometry.py:
+# translation 0.02 m, rotation entries 0.01; tests/test_pipelined_lio.py:
+# translation 0.02 m) and their occupied-voxel count to max(3, 2%).
+PIPE_TRANS_M, PIPE_ROT = 0.02, 0.01
+PIPE_VOXEL_SHARE = 0.02
+PIPE_MAX_IN_FLIGHT = 16
+LO_PIPE_PATH = "PipelinedLidarOdometry.process"
+OG_PIPE_PATH = "PipelinedLidarOdometry.process (default tree)"
+LIO_PIPE_PATH = "PipelinedLidarInertialOdometry.process"
+# The drop retry: the JAX test's 128 slots; 0.5 m voxels, so that a keyframe
+# brings more new voxels than the table can probe for.
+DROP_FRAMES = 12
+DROP_CAPACITIES = (128, 64)
+DROP_VOXEL = 0.5
+DROP_POS_ATOL = 1e-3  # summed positions of a voxel, chain vs sequential (sums of up to ~100 points)
+CKPT_FRAMES = (10, 10)
+CKPT_MAX_M = 1e-5
+SERVER_HZ = 10.0  # the sensor's scan rate
+KITTI_FRAMES = 10
 
 
 def nvidia_smi(query: str) -> str:
@@ -699,7 +768,8 @@ def lo_replay(dev) -> dict:
     pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
     pose0 = torch.as_tensor(out["poses"][1], dtype=torch.float32, device=dev).contiguous()
     return {"launches": launches, "scan": lo.preprocessed, "queries": queries,
-            "targets": {"first frame": (first.submap.submap_cloud, pose0), "last keyframe": (lo.submap.submap_cloud, pose)}}
+            "targets": {"first frame": (first.submap.submap_cloud, pose0), "last keyframe": (lo.submap.submap_cloud, pose)},
+            "replay": (params, poses, scans, out)}
 
 
 def check_lo_shapes(lo_out, path: str = LO_PATH, tag: str = "LO") -> list:
@@ -872,7 +942,8 @@ def lio_replay_phase(dev) -> dict:
     pose0 = torch.as_tensor(out["poses"][1], dtype=torch.float32, device=dev).contiguous()
     return {"launches": launches, "scan": odo.preprocessed, "queries": queries,
             "targets": {"first frame": (first.submap.submap_cloud, pose0),
-                        "last keyframe": (odo.submap.submap_cloud, pose)}}
+                        "last keyframe": (odo.submap.submap_cloud, pose)},
+            "replay": (params, inputs, out)}
 
 
 def cpu_sized(params):
@@ -1036,7 +1107,8 @@ def og_replay(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     queries = random_sampling(pre, N_QUERIES, gen).points.contiguous()
     return {"launches": launches, "scan": pre, "queries": queries,
-            "targets": {"last (warm)": (lo.submap.submap_cloud, pose)}}
+            "targets": {"last (warm)": (lo.submap.submap_cloud, pose)},
+            "replay": (params, poses, scans, out)}
 
 
 def host_ms(fn, runs: int = 5) -> tuple[float, int]:
@@ -1182,6 +1254,364 @@ def og_small_replays(dev) -> None:
     check_maps(f"default tree, card vs CPU after {OG_CPU_FRAMES} frames", maps["cpu"], maps["cuda"])
 
 
+def valid_points(cloud, with_intensities: bool = False) -> dict:
+    """A cloud's valid rows on the host, as a sensor message carries them."""
+    m = cloud.mask
+    out = {"points": cloud.points[m].cpu().numpy()}
+    if with_intensities and cloud.intensities is not None:
+        out["intensities"] = cloud.intensities[m].cpu().numpy()
+    return out
+
+
+def print_pipelined(tag: str, out, sync_out) -> None:
+    """Every pipelined frame, then its ms beside the synchronous frame's of
+    the same call, host reads a frame by source, blocking fetches, the window
+    and launches a frame after the first."""
+    rows = out["rows"]
+    for r in rows:
+        print(f"  frame {r['frame']:2d}: {r['result']:<12s} {r['ms']:8.3f} ms, launches nn1 {r['launches']['nn1']} "
+              f"knn_k {r['launches']['knn_k']}, host reads {sum(r['reads'].values())}, blocking fetches "
+              f"{r['blocking']}, in flight {r['in_flight']}")
+    after = rows[1:]
+    n = len(after)
+    warm = [r["ms"] for r in rows[LO_WARMUP:]]
+    sync_warm = [r["ms"] for r in sync_out["rows"][LO_WARMUP:]]
+    print(f"{tag} pipelined frame after {LO_WARMUP} warm-up frames (host clock, no drain between frames): median "
+          f"{statistics.median(warm):.3f} ms, max {max(warm):.3f} ms, flush {out['flush_ms']:.3f} ms; the "
+          f"synchronous frame in this call: median {statistics.median(sync_warm):.3f} ms, max {max(sync_warm):.3f} ms")
+    for what, rs in (("pipelined", after), ("synchronous", sync_out["rows"][1:])):
+        reads = {}
+        for r in rs:
+            for src, k in r["reads"].items():
+                reads[src] = reads.get(src, 0) + k
+        print(f"{tag} {what} host reads a frame after the first ({sum(reads.values()) / len(rs):.2f} in all): "
+              + ", ".join(f"{src} {k / len(rs):.2f}" for src, k in sorted(reads.items(), key=lambda kv: -kv[1])))
+    odo = out["odometry"]
+    depths = {d: sum(r["in_flight"] == d for r in rows) for d in sorted({r["in_flight"] for r in rows})}
+    print(f"{tag} pipelined: blocking fetches {sum(r['blocking'] for r in rows)} in {len(rows)} frames; frames left "
+          f"in flight when a call returned: {depths} (frames a depth), at most {odo.in_flight_peak} of "
+          f"{odo.max_in_flight}; launches a frame after the first: nn1 "
+          f"{sum(r['launches']['nn1'] for r in after) / n:.2f}, knn_k "
+          f"{sum(r['launches']['knn_k'] for r in after) / n:.2f}"
+          f" (synchronous: {launches_after_first(sync_out)})")
+
+
+def check_pipelined(tag: str, out, sync_out, truth, max_ate: float, trans_m: float, rot: float | None) -> None:
+    """Every deferred result a success, a resolved pose for every frame
+    after the first, the ATE, every pose within the bounds of the
+    synchronous run's, nothing dropped."""
+    odo = out["odometry"]
+    n = len(truth)
+    gaps = [(float(np.abs(a[:3, 3] - b[:3, 3]).max()), float(np.abs(a[:3, :3] - b[:3, :3]).max()))
+            for a, b in zip(out["poses"], sync_out["poses"], strict=True)]
+    worst_t, worst_r = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    print(f"{tag} pipelined: {len(odo.pose_log)} resolved poses, ATE {out['ate_m']:.4f} m (bound {max_ate} m; "
+          f"synchronous {sync_out['ate_m']:.4f}); apart from the synchronous run by at most {worst_t * 1e3:.3f} mm "
+          f"(bound {trans_m * 1e3:.0f} mm), rotation entries {worst_r:.2e}"
+          + (f" (bound {rot})" if rot is not None else "") + f"; dropped {int(odo.submap.map_state.dropped)}")
+    if out["results"] != ["success"] * (n - 1) or len(odo.pose_log) != n - 1:
+        raise AssertionError(f"{tag} pipelined: deferred results {out['results']}")
+    if not out["ate_m"] <= max_ate or not all(np.isfinite(T).all() for T in out["poses"]):
+        raise AssertionError(f"{tag} pipelined: ATE {out['ate_m']:.4f} m above {max_ate} m, or a pose not finite")
+    if worst_t > trans_m or (rot is not None and worst_r > rot):
+        raise AssertionError(f"{tag} pipelined: a pose is farther from the synchronous run's than the bounds")
+    if int(odo.submap.map_state.dropped):
+        raise AssertionError(f"{tag} pipelined: contributions were dropped")
+
+
+def pipelined_lo_phase(replay, dev, tag: str) -> dict:
+    """``PipelinedLidarOdometry`` over the scans of a synchronous phase of
+    this call (``tag`` "LO": the voxel-hash replay tree; "OG": the default
+    tree), with the launch counts set to 0 just before and read just after,
+    held to that phase's synchronous run."""
+    params, poses, scans, sync_out = replay
+    odometry_replay.run_pipelined_replay(params, poses[:LO_WARMUP + 1], scans[:LO_WARMUP + 1], device=dev)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = odometry_replay.run_pipelined_replay(params, poses, scans, device=dev, max_in_flight=PIPE_MAX_IN_FLIGHT)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    print_pipelined(tag, out, sync_out)
+    check_pipelined(tag, out, sync_out, poses, MAX_ATE_M, PIPE_TRANS_M, PIPE_ROT)
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the pipelined {tag} frame never launched: {launches}")
+    lo, sync_lo = out["odometry"], sync_out["odometry"]
+    if tag == "OG":
+        occ, sync_occ = lo.submap.occupied_voxels(), sync_lo.submap.occupied_voxels()
+        inserts = int(lo.submap.map_state.frame) - 1  # the first frame's insert is the first
+        target = int(lo.submap.submap_cloud.count())
+        print(f"OG pipelined: occupied voxels {occ} against {sync_occ} synchronous (bound max(3, "
+              f"{PIPE_VOXEL_SHARE:.0%})); inserts on {inserts} of {len(poses) - 1} frames after the first; last target "
+              f"{target} valid rows")
+        if abs(occ - sync_occ) > max(3, PIPE_VOXEL_SHARE * sync_occ):
+            raise AssertionError("OG pipelined: occupied voxels differ from the synchronous run's")
+        if inserts < OG_MIN_INSERTS or target < OG_MIN_TARGET:
+            raise AssertionError(f"OG pipelined: {inserts} inserts or {target} target rows under the OG bounds")
+    else:
+        n_kf, sync_kf = len(lo.get_keyframe_poses()), len(sync_lo.get_keyframe_poses())
+        print(f"LO pipelined: {n_kf} keyframes ({sync_kf} synchronous), map voxels "
+              f"{int(lo.submap.map_state.used.sum())}"
+              f" ({int(sync_lo.submap.map_state.used.sum())} synchronous)")
+    check_on_device(vars(lo.submap.map_state), dev)
+    check_on_device(vars(lo.submap.submap_cloud), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    queries = random_sampling(lo.preprocessed, N_QUERIES, gen).points.contiguous()
+    pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
+    return {"launches": launches, "scan": lo.preprocessed, "queries": queries,
+            "targets": {"last": (lo.submap.submap_cloud, pose)}}
+
+
+def stash_memory(params, dev) -> None:
+    """What PIPE_MAX_IN_FLIGHT stashed map states cost at the default tree's
+    map capacity: their bytes, and the device memory that as many distinct
+    states take."""
+    sm = Submap(params, device=dev)
+    st = sm.map_state
+    per = sum(t.numel() * t.element_size() for t in vars(st).values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = [dataclasses.replace(st, **{k: v.clone() for k, v in vars(st).items()}) for _ in range(PIPE_MAX_IN_FLIGHT)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"stashes: one {sm.map_capacity}-slot occupancy-grid state holds {per / 2**20:.3f} MiB; "
+          f"{len(held)} distinct states take {peak / 2**20:.3f} MiB of device memory at peak")
+
+
+def vhm_as_set(state) -> dict:
+    """voxel coordinates -> (count, summed position), on the host."""
+    used = state.used.cpu().numpy()
+    return dict(zip(map(tuple, state.coords.cpu().numpy()[used]),
+                    zip(state.count.cpu().numpy()[used], map(tuple, state.sum_pos.cpu().numpy()[used]))))
+
+
+def drop_retry_phase(dev) -> None:
+    """A pipelined replay on a map too small for its inserts: the drop-retry
+    reconcile must fire, end with nothing dropped, and leave the map that
+    the sequential retry leaves on the same stashed clouds."""
+    n_az, n_rings = SMALL_RAYS
+    poses, scans = odometry_replay.make_scans(DROP_FRAMES, n_az, n_rings, device=dev)
+    params = odometry_replay.replay_params(poses[0], *DROP_CAPACITIES)
+    params = dataclasses.replace(params, submap=dataclasses.replace(params.submap, voxel_size=DROP_VOXEL))
+    lo = PipelinedLidarOdometry(params, device=dev)
+    sm, chains = lo.submap, []
+    real = sm.reconcile_chain
+
+    def reconcile_and_compare(clouds, poses_in, window, grow_first=True):
+        ref = Submap(params, device=dev)
+        ref.map_state, ref.map_config, ref.extract_capacity, ref.submap_cloud = (
+            sm.map_state, sm.map_config, sm.extract_capacity, sm.submap_cloud)
+        host = [torch.as_tensor(T).cpu().numpy().astype(np.float32) for T in poses_in]
+        ref.retry_insert_after_drop(clouds[0], host[0])
+        for c, T in zip(clouds[1:], host[1:]):
+            if c is not None:  # a frame off a keyframe inserted nothing
+                ref.retry_insert_after_drop(c, T, grow_first=False)
+        real(clouds, poses_in, window, grow_first)
+        chains.append((len(clouds), sm.map_capacity, ref.map_capacity, vhm_as_set(sm.map_state),
+                       vhm_as_set(ref.map_state), int(sm.map_state.dropped)))
+
+    sm.reconcile_chain = reconcile_and_compare
+    odometry_replay.pipelined_rows(lo, scans, [odometry_replay.FRAME_DT * (i + 1) for i in range(len(scans))], dev)
+    results = [r.value for _, r in lo.deferred_results]
+    print(f"drop-retry replay ({n_az} x {n_rings}, {DROP_VOXEL} m voxels, from {DROP_CAPACITIES[0]} slots): "
+          f"{len(chains)} reconciles, map {DROP_CAPACITIES[0]} -> {sm.map_capacity} slots, dropped "
+          f"{int(sm.map_state.dropped)}, deepest window {lo.in_flight_peak}")
+    for k, (w, cap, ref_cap, got, want, dropped) in enumerate(chains):
+        same_keys = got.keys() == want.keys()
+        count_gap = max((abs(float(got[v][0]) - float(want[v][0])) for v in got.keys() & want.keys()), default=0.0)
+        pos_gap = max((max(abs(a - b) for a, b in zip(got[v][1], want[v][1])) for v in got.keys() & want.keys()),
+                      default=0.0)
+        print(f"  reconcile {k}: {w} frames re-applied, chain at {cap} slots, sequential retry at {ref_cap}; maps "
+              f"{len(got)} / {len(want)} voxels, the same set {same_keys}, counts apart {count_gap}, summed "
+              f"positions apart {pos_gap:.3g}, dropped {dropped}")
+        if not same_keys or count_gap or pos_gap > DROP_POS_ATOL or dropped:
+            raise AssertionError("the reconcile chain's map differs from the sequential retry's")
+    if not chains:
+        raise AssertionError("the drop-retry reconcile never fired")
+    if results != ["success"] * (DROP_FRAMES - 1) or int(sm.map_state.dropped):
+        raise AssertionError(f"drop-retry replay: results {results}, dropped {int(sm.map_state.dropped)}")
+
+
+def pipelined_lio_phase(replay, dev) -> dict:
+    """``PipelinedLidarInertialOdometry`` over the LIO phase's inputs, with
+    the launch counts set to 0 just before and read just after, held to that
+    phase's synchronous run."""
+    params, inputs, sync_out = replay
+    n = len(inputs.scans)
+    lio_replay.run_pipelined_lio_replay(
+        params, inputs._replace(scans=inputs.scans[:LIO_WARMUP + 1], poses=inputs.poses[:LIO_WARMUP + 1]), device=dev)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = lio_replay.run_pipelined_lio_replay(params, inputs, device=dev, max_in_flight=PIPE_MAX_IN_FLIGHT)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    print_pipelined("LIO", out, sync_out)
+    check_pipelined("LIO", out, sync_out, inputs.poses, MAX_LIO_ATE_M, PIPE_TRANS_M, None)
+    odo, sync_odo = out["odometry"], sync_out["odometry"]
+    n_kf, sync_kf = len(odo.get_keyframe_poses()), len(sync_odo.get_keyframe_poses())
+    print(f"LIO pipelined: {n_kf} keyframes ({sync_kf} synchronous), final bias errors gyro "
+          f"{out['gyro_bias_err']:.6f} rad/s, accel {out['accel_bias_err']:.6f} m/s^2 ({n} frames)")
+    if n_kf != sync_kf:
+        raise AssertionError("LIO pipelined: the keyframe count differs from the synchronous run's")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the pipelined LIO frame never launched: {launches}")
+    check_on_device(odo.get_state()._asdict(), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    queries = random_sampling(odo.preprocessed, N_QUERIES, gen).points.contiguous()
+    pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
+    return {"launches": launches, "scan": odo.preprocessed, "queries": queries,
+            "targets": {"last": (odo.submap.submap_cloud, pose)}}
+
+
+def checkpoint_phase(replay, dev) -> None:
+    """The default tree with every point taken: CKPT_FRAMES[0] frames, a
+    checkpoint, then CKPT_FRAMES[1] more; the checkpoint loaded into a fresh
+    LidarOdometry and a fresh PipelinedLidarOdometry, which run the same
+    frames: their poses within CKPT_MAX_M of the uninterrupted run's."""
+    params, poses, scans, _ = replay
+    params = every_point(params)
+    n0, n1 = CKPT_FRAMES
+    t = [odometry_replay.FRAME_DT * (i + 1) for i in range(n0 + n1)]
+    lo = LidarOdometry(params, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/state.npz"
+        for i in range(n0):
+            lo.process(scans[i], t[i])
+        save_checkpoint(path, lo)
+        full = []
+        for i in range(n0, n0 + n1):
+            lo.process(scans[i], t[i])
+            full.append(lo.get_odometry())
+        for cls in (LidarOdometry, PipelinedLidarOdometry):
+            o = cls(params, device=dev)
+            load_checkpoint(path, o)
+            cuda_knn.reset_launch_counts()
+            got = []
+            for i in range(n0, n0 + n1):
+                r = o.process(scans[i], t[i])
+                got.append(o.get_odometry())
+            if cls is PipelinedLidarOdometry:
+                o.flush()
+                got = [T for _, _, T, _ in o.pose_log]
+            launches = dict(cuda_knn.launch_counts)
+            gap = max(float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(got, full, strict=True))
+            print(f"checkpoint (default tree, every point, {scans[0].capacity} rays a scan): resumed {cls.__name__} "
+                  f"after {n0} frames, "
+                  f"{n1} frames on: at most {gap:.3g} m from the uninterrupted run (bound {CKPT_MAX_M}); "
+                  f"launches {launches}")
+            if not gap <= CKPT_MAX_M or min(launches["nn1"], launches["knn_k"]) <= 0 or r.value != "success":
+                raise AssertionError(f"checkpoint: the resumed {cls.__name__} left the uninterrupted run")
+
+
+def server_phase(replay, dev) -> None:
+    """``OdometryStreamServer`` with the lo_pipelined kind, fed the LO phase's
+    scans over localhost by ``OdometryStreamClient``: paced at SERVER_HZ, then
+    closed loop (each scan after the pose of the one before)."""
+    params, poses, scans, _ = replay
+    clouds = [valid_points(s) for s in scans]
+    period = 1.0 / SERVER_HZ
+
+    def run(paced: bool):
+        server = OdometryStreamServer(params, StreamServerConfig(pipeline="lo_pipelined"), device=dev)
+        server.start()
+        try:
+            client = OdometryStreamClient("127.0.0.1", server.port, timeout=300.0)
+            got, sent = {}, {}
+            done = threading.Event()
+
+            def receive():
+                while True:
+                    msg = client.recv()
+                    if msg is None or msg.msg_type == stream_protocol.MSG_BYE:
+                        break
+                    if msg.msg_type == stream_protocol.MSG_POSE:
+                        got[msg.seq] = (time.perf_counter(), stream_protocol.decode_pose_payload(msg.payload))
+                        done.set()
+            reader = threading.Thread(target=receive, daemon=True)
+            reader.start()
+            cuda_knn.reset_launch_counts()
+            t0 = time.perf_counter()
+            for i, c in enumerate(clouds):
+                if paced:
+                    time.sleep(max(0.0, t0 + i * period - time.perf_counter()))
+                done.clear()
+                sent[i + 1] = time.perf_counter()
+                seq = client.send_cloud(c, odometry_replay.FRAME_DT * (i + 1))
+                if not paced and i > 0 and not done.wait(60.0) and seq not in got:
+                    raise AssertionError(f"server: no pose for scan {seq} within 60 s")
+            stream_protocol.write_message(client.sock, stream_protocol.Message(
+                msg_type=stream_protocol.MSG_BYE, seq=0, timestamp=0.0, payload=b""))
+            reader.join(120.0)
+            client.sock.close()
+            return got, sent, server.telemetry(), dict(cuda_knn.launch_counts)
+        finally:
+            server.stop()
+
+    got, sent, tele, launches = run(paced=True)
+    seqs = sorted(got)
+    lat = [(got[k][0] - sent[k]) * 1e3 for k in seqs]
+    t_pose = [got[k][0] for k in seqs]
+    rate = (len(seqs) - 1) / (t_pose[-1] - t_pose[0]) if len(seqs) > 1 else 0.0
+    est = [np.asarray(poses[0])] + [pose_from(*got[k][1][3:5]) for k in seqs]
+    ate = odometry_replay.ate(est, poses[:len(est)])
+    print(f"server (lo_pipelined, replay tree, {scans[0].capacity} rays a scan, paced at {SERVER_HZ} Hz): "
+          f"{len(seqs)} poses for {len(clouds)} scans (the first scan bootstraps), seqs {seqs[0]}..{seqs[-1]}; pose "
+          f"rate {rate:.3f} a second; "
+          f"pose latency (scan sent -> pose received) median {statistics.median(lat):.3f} ms, max {max(lat):.3f} ms; "
+          f"scan queue dropped {tele['scan_queue_dropped']}; ATE {ate:.4f} m; launches {launches}; server queue wait "
+          f"{tele['queue_wait_ms']}, process {tele['process_ms']} ms")
+    if seqs != list(range(2, len(clouds) + 1)) or tele["scan_queue_dropped"]:
+        raise AssertionError("server: a pose did not come back, or a scan was dropped")
+    if not ate <= MAX_ATE_M:
+        raise AssertionError(f"server: ATE {ate:.4f} m above {MAX_ATE_M} m")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"server: a kernel never launched: {launches}")
+    got, sent, tele, _ = run(paced=False)
+    seqs = sorted(got)
+    span = got[seqs[-1]][0] - sent[2]
+    closed = len(seqs) / span
+    lat = [(got[k][0] - sent[k]) * 1e3 for k in seqs]
+    print(f"server closed loop (each scan after the pose of the one before): {len(seqs)} poses in {span:.3f} s, "
+          f"{closed:.3f} frames a second (bound {SERVER_HZ}); pose latency median {statistics.median(lat):.3f} ms, "
+          f"max {max(lat):.3f} ms")
+    if seqs != list(range(2, len(clouds) + 1)) or closed < SERVER_HZ:
+        raise AssertionError(f"server: {SERVER_HZ} Hz not sustained: closed loop reached {closed:.3f} frames a second")
+
+
+def pose_from(t, q) -> np.ndarray:
+    """A [4, 4] pose from a translation and an xyzw quaternion."""
+    T = np.eye(4)
+    T[:3, :3] = lie.quat_to_matrix(torch.as_tensor(np.asarray(q, np.float64))).numpy()
+    T[:3, 3] = t
+    return T
+
+
+def kitti_phase(replay, dev) -> None:
+    """KITTI_FRAMES full-width scans of the default-tree phase written as
+    KITTI ``.bin`` files and run through ``kitti_odometry.main --pipelined``:
+    a TUM line a frame, ATE within MAX_ATE_M in the first frame's frame."""
+    _, poses, scans, _ = replay
+    with tempfile.TemporaryDirectory() as d:
+        for i, scan in enumerate(scans[:KITTI_FRAMES]):
+            c = valid_points(scan, with_intensities=True)
+            raw = np.concatenate([c["points"], c["intensities"][:, None] / 255.0], axis=1).astype(np.float32)
+            raw.tofile(f"{d}/{i:06d}.bin")
+        cuda_knn.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = kitti_odometry.main([d, "--out", f"{d}/traj.tum", "--pipelined"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(cuda_knn.launch_counts)
+        traj = np.loadtxt(f"{d}/traj.tum", ndmin=2)
+    T0_inv = np.linalg.inv(poses[0])
+    truth = [T0_inv @ T for T in poses[:KITTI_FRAMES]]
+    est = [pose_from(r[1:4], r[4:8]) for r in traj]
+    ate = odometry_replay.ate(est, truth) if len(est) == KITTI_FRAMES else float("inf")
+    print(f"KITTI runner (--pipelined, {KITTI_FRAMES} full-width .bin scans): rc {rc}, {len(traj)} TUM lines, ATE "
+          f"{ate:.4f} m (bound {MAX_ATE_M}), {ms:.1f} ms in all, launches {launches}")
+    if rc != 0 or len(traj) != KITTI_FRAMES or not ate <= MAX_ATE_M or min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError("KITTI runner: wrong trajectory")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -1277,12 +1707,24 @@ def main() -> None:
     small_replays(dev)
 
     # --- the LiDAR-inertial frame -------------------------------------------------
-    results += check_lo_shapes(lio_replay_phase(dev), LIO_PATH, "LIO")
+    lio_out = lio_replay_phase(dev)
+    results += check_lo_shapes(lio_out, LIO_PATH, "LIO")
     small_lio_replays(dev)
 
     # --- the odometry at the parameter tree's defaults ----------------------------
-    results += check_lo_shapes(og_replay(dev), OG_PATH, "OG")
+    og_out = og_replay(dev)
+    results += check_lo_shapes(og_out, OG_PATH, "OG")
     og_small_replays(dev)
+
+    # --- the serving path: pipelined frames, checkpoint, server, KITTI runner -------
+    results += check_lo_shapes(pipelined_lo_phase(lo_out["replay"], dev, "LO"), LO_PIPE_PATH, "pipelined LO")
+    results += check_lo_shapes(pipelined_lo_phase(og_out["replay"], dev, "OG"), OG_PIPE_PATH, "pipelined OG")
+    stash_memory(og_out["replay"][0], dev)
+    drop_retry_phase(dev)
+    results += check_lo_shapes(pipelined_lio_phase(lio_out["replay"], dev), LIO_PIPE_PATH, "pipelined LIO")
+    checkpoint_phase(og_out["replay"], dev)
+    server_phase(lo_out["replay"], dev)
+    kitti_phase(og_out["replay"], dev)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

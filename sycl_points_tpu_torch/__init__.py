@@ -1,6 +1,10 @@
 """PyTorch + CUDA port of sycl_points_tpu: the scan-pair registration path,
-the LiDAR-odometry frame (``pipeline.lidar_odometry.LidarOdometry``) and the
-LiDAR-inertial frame (``pipeline.lidar_inertial_odometry.LidarInertialOdometry``).
+the LiDAR-odometry frame (``pipeline.lidar_odometry.LidarOdometry``), the
+LiDAR-inertial frame (``pipeline.lidar_inertial_odometry.LidarInertialOdometry``)
+and their serving path: the pipelined frames (``pipeline.pipelined_odometry``,
+``pipeline.pipelined_lio``), checkpoints (``pipeline.checkpoint``), the live
+socket server (``apps.stream_odometry``) and the KITTI runner
+(``apps.kitti_odometry``).
 
 The JAX package :mod:`sycl_points_tpu` is the reference: every module here has
 its counterpart at the same relative path there. Plain tensor code is

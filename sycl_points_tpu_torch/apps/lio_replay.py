@@ -15,19 +15,24 @@ seeded with the true initial velocity.
     inputs = make_lio_inputs(20)                          # 2048 x 64 rays a scan, on the card
     out = run_lio_replay(lio_params(inputs.poses[0]), inputs)
     print(out["ate_m"], out["frame_ms"], out["gyro_bias_err"])
+
+:func:`run_pipelined_lio_replay` drives ``PipelinedLidarInertialOdometry``
+over the same inputs.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, List, NamedTuple
 
 import numpy as np
 import torch
 
 from sycl_points_tpu_torch import require_device
-from sycl_points_tpu_torch.apps.odometry_replay import FRAME_DT, ate, feed_imu, timed_process
+from sycl_points_tpu_torch.apps.odometry_replay import FRAME_DT, ate, feed_imu, pipelined_rows, timed_process
 from sycl_points_tpu_torch.imu.preintegration import IMUPreintegrationParams
 from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry
+from sycl_points_tpu_torch.pipeline.pipelined_lio import PipelinedLidarInertialOdometry
 from sycl_points_tpu_torch.pipeline.params import (
     DownsamplingParams,
     IMUDeskewParams,
@@ -41,6 +46,7 @@ from sycl_points_tpu_torch.pipeline.params import (
     VoxelDownsamplingParams,
 )
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, pad_capacity_for
+from sycl_points_tpu_torch.utils import sync
 from sycl_points_tpu_torch.utils.synthetic import (
     World,
     figure8_imu,
@@ -127,7 +133,8 @@ def run_lio_replay(params: LidarInertialOdometryParams, inputs: LIOInputs, devic
     given, reseeds the scan, registration and submap samplers (another
     sampling stream than the package's fixed seeds). Returns the odometry
     object, per-frame rows (result, ms, iterations run, keyframe flag, kernel
-    launches, host syncs, stage times, bias estimates), the estimated poses,
+    launches, host syncs and their sources, stage times, bias estimates), the
+    estimated poses,
     the ATE and the final bias errors."""
     device = require_device(device)
     odo = LidarInertialOdometry(params, device=device)
@@ -135,19 +142,18 @@ def run_lio_replay(params: LidarInertialOdometryParams, inputs: LIOInputs, devic
     if seed is not None:
         for k, gen in enumerate((odo.pc_processor._generator, odo._generator, odo.submap._generator)):
             gen.manual_seed(seed + k)
-    odo.x = odo.x._replace(velocity=torch.as_tensor(inputs.v0, dtype=torch.float32, device=device))
-    odo.velocity_np = inputs.v0.copy()
-    odo.imu_v_world_at_reset = inputs.v0.copy()
+    _seed_velocity(odo, inputs.v0, device)
     ahead = FRAME_DT if params.imu.deskew.enable else 0.0
     rows, estimated, fed_to = [], [], None
     for i, scan in enumerate(inputs.scans):
         ts = FRAME_DT * i
         fed_to = feed_imu(odo.add_imu_measurement, inputs.imu, fed_to, ts + ahead)
+        reads = Counter(sync.by_source)
         result, ms, launches = timed_process(odo, scan, ts, device)
         rows.append({
             "frame": i, "result": result.value, "ms": ms, "iterations": odo.iterations_last_frame,
             "keyframe": bool(odo.is_keyframe_last_frame), "launches": launches,
-            "syncs": odo.sync_count_last_frame,
+            "syncs": odo.sync_count_last_frame, "reads": dict(Counter(sync.by_source) - reads),
             "stages_ms": {k: v * 1e3 for k, v in odo.get_processing_times().items()},
             "gyro_bias": odo.gyro_bias_np.tolist(), "accel_bias": odo.accel_bias_np.tolist(),
         })
@@ -159,3 +165,37 @@ def run_lio_replay(params: LidarInertialOdometryParams, inputs: LIOInputs, devic
         "accel_bias_err": float(np.linalg.norm(odo.accel_bias_np - inputs.accel_bias)),
         "map_voxels": int(odo.submap.map_state.used.sum()),
     }
+
+
+def _seed_velocity(odo, v0: np.ndarray, device: torch.device) -> None:
+    """The filter's initial velocity: the true one at t = 0."""
+    odo.x = odo.x._replace(velocity=torch.as_tensor(v0, dtype=torch.float32, device=device))
+    odo.velocity_np = v0.copy()
+    odo.imu_v_world_at_reset = v0.copy()
+
+
+def run_pipelined_lio_replay(params: LidarInertialOdometryParams, inputs: LIOInputs,
+                             device: torch.device | str = "cuda", max_in_flight: int = 16) -> dict:
+    """:func:`run_lio_replay` through ``PipelinedLidarInertialOdometry``: the
+    IMU fed up to each scan's start ahead of the frame, the frames not drained
+    between them, the window flushed at the end. Returns the odometry, the
+    per-frame rows (:func:`..apps.odometry_replay.pipelined_rows`), the
+    flush's ms, the resolved poses (the first frame's pose first), the
+    deferred results, the ATE and the final bias errors."""
+    device = require_device(device)
+    odo = PipelinedLidarInertialOdometry(params, max_in_flight=max_in_flight, device=device)
+    _seed_velocity(odo, inputs.v0, device)
+    times = [FRAME_DT * i for i in range(len(inputs.scans))]
+    fed_to = None
+
+    def feed(i):
+        nonlocal fed_to
+        fed_to = feed_imu(odo.add_imu_measurement, inputs.imu, fed_to, times[i])
+
+    rows, flush_ms = pipelined_rows(odo, inputs.scans, times, device, before=feed)
+    estimated = [params.pose.initial_matrix()] + [T for _, _, T, _ in odo.pose_log]
+    return {"odometry": odo, "rows": rows, "flush_ms": flush_ms, "poses": estimated,
+            "results": [r.value for _, r in odo.deferred_results], "ate_m": ate(estimated, inputs.poses),
+            "frame_ms": [r["ms"] for r in rows],
+            "gyro_bias_err": float(np.linalg.norm(odo.gyro_bias_np - inputs.gyro_bias)),
+            "accel_bias_err": float(np.linalg.norm(odo.accel_bias_np - inputs.accel_bias))}

@@ -19,6 +19,9 @@ downsampling, the occupancy-grid submap, intensity correction) with only
 the initial pose set; ``make_scans(..., intensities=True)`` gives the scans
 the intensities that the correction works on.
 
+:func:`run_pipelined_replay` drives ``PipelinedLidarOdometry`` over the same
+scans, without draining the device between frames.
+
 With ``run_replay(..., imu=...)`` the odometry also gets an IMU stream (for
 parameters with ``imu.enable``); :func:`..apps.lio_replay.make_lio_inputs`
 makes one that flies the same figure-8. Both replays feed it through
@@ -28,6 +31,7 @@ makes one that flies the same figure-8. Both replays feed it through
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Callable, Optional
 
 import numpy as np
@@ -47,7 +51,9 @@ from sycl_points_tpu_torch.pipeline.params import (
     SubmapParams,
     VoxelDownsamplingParams,
 )
+from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.utils import sync
 from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, return_intensities, scan_at
 
 FRAME_DT = 0.1  # a 10 Hz sensor
@@ -123,21 +129,65 @@ def feed_imu(add: Callable, imu: Callable, fed_to: Optional[float], s_to: float,
     return s_to
 
 
-def timed_process(odo, scan: PointCloud, t: float, device: torch.device):
-    """``odo.process(scan, t)`` timed on the host clock around work that ends
-    in a device synchronisation, inside the profiler span ``FRAME_SPAN``.
+def timed_process(odo, scan: PointCloud, t: float, device: torch.device, synchronize: bool = True):
+    """``odo.process(scan, t)`` timed on the host clock, inside the profiler
+    span ``FRAME_SPAN``; with ``synchronize`` the device is drained before
+    and after, so the time is the frame's whole device work (a pipelined
+    frame is timed without: its work may run on under the next frame).
     Returns the result, its ms and the ``nn1`` / ``knn_k`` launches it made."""
-    cuda = device.type == "cuda"
+    sync_dev = synchronize and device.type == "cuda"
     before = dict(cuda_knn.launch_counts)
-    if cuda:
+    if sync_dev:
         torch.cuda.synchronize(device)
     with torch.profiler.record_function(FRAME_SPAN):  # what scripts/profile_lio.py reads
         t0 = time.perf_counter()
         result = odo.process(scan, t)
-        if cuda:
+        if sync_dev:
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t0) * 1e3
     return result, ms, {k: cuda_knn.launch_counts[k] - before[k] for k in ("nn1", "knn_k")}
+
+
+def pipelined_rows(odo, scans, times, device: torch.device, before: Optional[Callable] = None) -> tuple[list, float]:
+    """Drive a pipelined odometry over ``scans`` at ``times`` without draining
+    the device between frames, then :meth:`flush` it; ``before(i)``, when
+    given, runs ahead of frame ``i``, outside its time. Returns a row a frame
+    (ms from the call to its return, launches, host reads by the
+    ``file:line`` that made them, blocking fetches, frames in flight after
+    the call) and the ms of the flush."""
+    rows = []
+    for i, (scan, t) in enumerate(zip(scans, times, strict=True)):
+        if before is not None:
+            before(i)
+        reads, blocking = Counter(sync.by_source), sync.counts["blocking_fetches"]
+        result, ms, launches = timed_process(odo, scan, t, device, synchronize=False)
+        rows.append({
+            "frame": i, "result": result.value, "ms": ms, "launches": launches,
+            "reads": dict(Counter(sync.by_source) - reads),
+            "blocking": sync.counts["blocking_fetches"] - blocking,
+            "in_flight": len(odo._pending),
+        })
+    t0 = time.perf_counter()
+    odo.flush()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return rows, (time.perf_counter() - t0) * 1e3
+
+
+def run_pipelined_replay(params: LidarOdometryParams, poses, scans, device: torch.device | str = "cuda",
+                         max_in_flight: int = 16) -> dict:
+    """:func:`run_replay` through ``PipelinedLidarOdometry``: frame ``i`` at
+    ``t = 0.1 (i + 1)``, the frames not drained between them, the window
+    flushed at the end. Returns the odometry, per-frame rows
+    (:func:`pipelined_rows`), the flush's ms, the resolved poses (the first
+    frame's pose first), the deferred results and the ATE."""
+    device = require_device(device)
+    lo = PipelinedLidarOdometry(params, max_in_flight=max_in_flight, device=device)
+    rows, flush_ms = pipelined_rows(lo, scans, [FRAME_DT * (i + 1) for i in range(len(scans))], device)
+    estimated = [params.pose.initial_matrix()] + [T for _, _, T, _ in lo.pose_log]
+    return {"odometry": lo, "rows": rows, "flush_ms": flush_ms, "poses": estimated,
+            "results": [r.value for _, r in lo.deferred_results], "ate_m": ate(estimated, poses),
+            "frame_ms": [r["ms"] for r in rows]}
 
 
 def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device | str = "cuda",
@@ -147,7 +197,8 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
     is fed up to each frame's time. Each frame is timed by
     :func:`timed_process`. Returns the odometry object, per-frame rows
     (result, ms, iterations, inliers, keyframe flag, map load, target size,
-    slots used, occupied voxels, kernel launches, host syncs, stage times),
+    slots used, occupied voxels, kernel launches, host syncs and their
+    sources, stage times),
     the estimated poses and the ATE."""
     device = require_device(device)
     lo = LidarOdometry(params, device=device)
@@ -156,6 +207,7 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
     for i, scan in enumerate(scans):
         if imu is not None:
             fed_to = feed_imu(lo.add_imu_measurement, imu, fed_to, FRAME_DT * i, clock_offset=FRAME_DT)
+        reads = Counter(sync.by_source)
         result, ms, launches = timed_process(lo, scan, FRAME_DT * (i + 1), device)
         reg = lo.reg_result
         rows.append({
@@ -170,6 +222,7 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
             "target": int(lo.submap.submap_cloud.count()) if lo.submap.submap_cloud is not None else 0,
             "launches": launches,
             "syncs": lo.sync_count_last_frame,
+            "reads": dict(Counter(sync.by_source) - reads),
             "stages_ms": {k: v * 1e3 for k, v in lo.get_processing_times().items()},
         })
         estimated.append(lo.get_odometry())

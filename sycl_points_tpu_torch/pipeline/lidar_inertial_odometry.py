@@ -70,6 +70,7 @@ class ResultType(enum.Enum):
 # stats1, 34 entries: T_eff (16) | inlier, n_pre, n_reg, is_kf, small,
 # finite_ok, iterations, error, dt_total (9) | gyro_bias (3) | accel_bias (3)
 # | velocity (3)
+_S1 = 34
 
 
 def _clamp_norm(v: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -157,9 +158,11 @@ class LidarInertialOdometry:
                   imu_pack: torch.Tensor, misc: torch.Tensor):
         """The inertial step, on the device: preintegration with the reset
         covariance floors -> prediction -> 15-DOF align -> bias clamps ->
-        IMU-only select (small clouds) -> keyframe decision -> ``stats1``.
-        ``misc`` is the last keyframe pose (16) and the update-bias and
-        keyframe-time flags."""
+        IMU-only select (small clouds) -> the hold of a non-finite
+        propagation -> keyframe decision -> ``stats1``. ``misc`` is the last
+        keyframe pose (16) and the update-bias and keyframe-time flags.
+        Returns ``(x_new, P_new, source, T_eff, is_kf, stats1, iterations
+        run, debug)``."""
         p = self.params
         pp = p.imu.preintegration
         kfp = p.submap.keyframe
@@ -202,9 +205,13 @@ class LidarInertialOdometry:
         # ---- IMU-only select for small clouds -------------------------------
         x_new = select(small, pred, x_reg)
         P_new = torch.where(small, P_pred, result.posterior_covariance)
-        T_eff = x_new.pose()
-        finite_ok = (torch.isfinite(T_eff).all() & torch.isfinite(x_new.velocity).all()
+        finite_ok = (torch.isfinite(x_new.pose()).all() & torch.isfinite(x_new.velocity).all()
                      & torch.isfinite(P_new).all())
+        # a non-finite propagation holds the state: the synchronous frame
+        # refuses the commit on the host, the pipelined frame commits blind
+        x_new = select(finite_ok, x_new, x)
+        P_new = torch.where(finite_ok, P_new, P_post)
+        T_eff = x_new.pose()
 
         # ---- keyframe decision ------------------------------------------------
         n_reg = source.count()
@@ -234,7 +241,7 @@ class LidarInertialOdometry:
                 "innovation_trans": torch.linalg.vector_norm(innov[3:]),
                 "v_pred": v_pred, "dv_update": torch.linalg.vector_norm(x_reg.velocity - v_pred),
             }
-        return x_new, P_new, source, T_eff, stats1, result.executed, debug
+        return x_new, P_new, source, T_eff, is_kf, stats1, result.executed, debug
 
     # ------------------------------------------------------------------
     def add_imu_measurement(self, meas: IMUMeasurement):
@@ -336,7 +343,7 @@ class LidarInertialOdometry:
             np.asarray([self._imu_bias_observable(), kf_dt_exceeded], np.float32),
         ])
         imu_pack_d, misc_d = to_device(self.device, imu_pack, misc)  # one host-to-device copy a frame
-        x_new, P_new, reg_input, T_eff, s1, executed, debug = self._lio_step(
+        x_new, P_new, reg_input, T_eff, _, s1, executed, debug = self._lio_step(
             pre, self.submap.submap_cloud, self.submap.submap_knn, self.x, self.P_post, imu_pack_d, misc_d)
         self.iterations_last_frame = executed
         if debug is not None:

@@ -65,6 +65,7 @@ class ResultType(enum.Enum):
 
 # stats1, 62 entries: T_eff (16) | inlier, n_pre, n_reg, n_desk, is_kf, small,
 # converged, iterations, error (9) | H_raw (36) | error_raw (1)
+_S1 = 62
 
 
 class LidarOdometry:
@@ -248,33 +249,25 @@ class LidarOdometry:
         return self._process_frame(pre, timestamp)
 
     # ------------------------------------------------------------------
-    def _reg_step(self, pre: PointCloud, init_T_np: np.ndarray, kf_dt_exceeded: bool):
+    def _reg_step(self, pre: PointCloud, init_T: torch.Tensor, prev_odom: torch.Tensor,
+                  last_kf_pose: torch.Tensor, kf_dt_exceeded, prior_in, registrated):
         """The registration step: the min-points gate, the MAP prior, the
         align pipeline, the keyframe decision and ``stats1``, all on the
-        device."""
+        device. ``prior_in`` is the previous raw result ``(T, H_raw,
+        error_raw, inlier)`` that the MAP prior starts from (None when the
+        prior is off); ``kf_dt_exceeded`` and ``registrated`` are host bools
+        (the synchronous frame) or device bools (the pipelined frame).
+        Returns ``(result, deskewed, T_eff, is_kf, small, stats1)``."""
         p = self.params
         dev = self.device
         kfp = p.submap.keyframe
-        host = torch.from_numpy(np.stack([
-            np.asarray(init_T_np, np.float32), np.asarray(self.odom, np.float32),
-            np.asarray(self.submap.last_keyframe_pose, np.float32),
-        ])).to(dev)
-        init_T, prev_odom, last_kf_pose = host[0], host[1], host[2]
         n_pre = pre.count()
         small = n_pre <= p.registration.min_num_points
 
         prior = None
         if self.map_prior_params.enabled:
-            if self.reg_result is not None:
-                r = self.reg_result
-                prior = map_prior_update(self.map_prior_params, r.T, r.H_raw, r.error_raw, r.inlier, init_T)
-            else:
-                prior = map_prior_update(
-                    self.map_prior_params, torch.eye(4, dtype=_F32, device=dev),
-                    torch.zeros((6, 6), dtype=_F32, device=dev), torch.zeros((), dtype=_F32, device=dev),
-                    torch.zeros((), dtype=torch.int32, device=dev), init_T)
-            if not self.registrated:
-                prior = prior._replace(active=torch.zeros_like(prior.active))
+            prior = map_prior_update(self.map_prior_params, *prior_in, init_T)
+            prior = prior._replace(active=prior.active & registrated)
 
         out = align_pipeline(
             pre, self.submap.submap_cloud, self.submap.submap_knn, self.pipeline_params,
@@ -292,8 +285,8 @@ class LidarOdometry:
         delta = lie.transform_inverse(last_kf_pose) @ T_eff
         dist = torch.linalg.vector_norm(delta[:3, 3])
         angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[:3]) * (180.0 / math.pi)
-        geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees)
-        if kf_dt_exceeded or self.submap.inserts_every_frame:
+        geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees) | kf_dt_exceeded
+        if self.submap.inserts_every_frame:
             geom_kf = torch.ones_like(geom_kf)
         is_kf = (~small) & inlier_ok & geom_kf
 
@@ -305,7 +298,20 @@ class LidarOdometry:
             result.H_raw.reshape(-1),
             result.error_raw.to(_F32)[None],
         ])
-        return result, out.deskewed, T_eff, stats1
+        return result, out.deskewed, T_eff, is_kf, small, stats1
+
+    def _prior_inputs(self):
+        """The MAP prior's start, ``(T, H_raw, error_raw, inlier)`` of the
+        last committed result (identity and zeros before the first); None
+        when the prior is off."""
+        if not self.map_prior_params.enabled:
+            return None
+        r = self.reg_result
+        if r is not None:
+            return r.T, r.H_raw, r.error_raw, r.inlier
+        dev = self.device
+        return (torch.eye(4, dtype=_F32, device=dev), torch.zeros((6, 6), dtype=_F32, device=dev),
+                torch.zeros((), dtype=_F32, device=dev), torch.zeros((), dtype=torch.int32, device=dev))
 
     def _process_frame(self, pre: PointCloud, timestamp: float) -> ResultType:
         p = self.params
@@ -338,7 +344,12 @@ class LidarOdometry:
         )
 
         # ---- registration + keyframe decision, then the first fetch ---------
-        result, deskewed, T_eff, s1 = self._reg_step(pre, init_T, kf_dt_exceeded)
+        init_T_d, prev_odom, last_kf_pose = torch.from_numpy(np.stack([
+            np.asarray(init_T, np.float32), np.asarray(self.odom, np.float32),
+            np.asarray(self.submap.last_keyframe_pose, np.float32),
+        ])).to(self.device)
+        result, deskewed, T_eff, _, _, s1 = self._reg_step(
+            pre, init_T_d, prev_odom, last_kf_pose, kf_dt_exceeded, self._prior_inputs(), self.registrated)
         stats = np.asarray(to_host(s1), np.float64)
         t0 = self._stage_end("3. registration", t0)
 

@@ -14,9 +14,9 @@ The search structure (``submap_knn``) holds the target prepared for the
 ``nn1`` kernel; it is rebuilt only when the target changes (inserts,
 growth), never per registration iteration.
 
-Not ported yet: the pipelined server's ``make_reapply_chain`` /
-``reconcile_chain`` (ROADMAP Queue 1 item 11). The JAX class's jit caches
-and compile log have nothing to hold in eager PyTorch.
+The pipelined frames' drop-retry reconcile re-applies a window of stashed
+inserts in one call (:meth:`Submap.reconcile_chain`). The JAX class's jit
+caches and compile log have nothing to hold in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -144,25 +144,26 @@ class Submap:
             return pose.to(device=self.device, dtype=torch.float32)
         return torch.from_numpy(np.ascontiguousarray(pose, dtype=np.float32)).to(self.device)
 
-    def _extract(self, state, origin: torch.Tensor):
+    def _extract(self, state, origin: torch.Tensor, cfg=None, ext_cap: Optional[int] = None):
+        """The target around ``origin``, at ``cfg`` and ``ext_cap`` (default:
+        the current map config and extract capacity)."""
+        cfg = self.map_config if cfg is None else cfg
+        ext_cap = self.extract_capacity if ext_cap is None else ext_cap
         if self.is_occupancy:
             return og.extract_occupied_points(
-                state, self.og_config, origin, self.params.submap.max_distance_range,
-                out_capacity=self.extract_capacity, with_overflow=True,
+                state, cfg, origin, self.params.submap.max_distance_range,
+                out_capacity=ext_cap, with_overflow=True,
             )
         return vhm.extract(
-            state, self.vhm_config, origin, self.params.submap.max_distance_range,
-            out_capacity=self.extract_capacity, with_covs=False, with_overflow=True,
+            state, cfg, origin, self.params.submap.max_distance_range,
+            out_capacity=ext_cap, with_covs=False, with_overflow=True,
         )
 
-    def insert_extract(self, state, cloud: PointCloud, pose: torch.Tensor):
-        """Insert ``cloud`` at ``pose`` into ``state`` (left as it was), prune
-        stale voxels (the voxel-hash map every ``remove_old_data_cycle``
-        inserts; the occupancy grid prunes inside its insert), and extract
-        the target around the pose at the current map config and extract
-        capacity: ``(new_state, extracted, load, extract_overflow)``, the last
-        two on the device."""
-        cfg = self.map_config
+    def _insert(self, state, cfg, cloud: PointCloud, pose: torch.Tensor):
+        """Insert ``cloud`` at ``pose`` into ``state`` (left as it was) and
+        prune stale voxels: the voxel-hash map every
+        ``remove_old_data_cycle`` inserts, the occupancy grid inside its
+        insert."""
         ns = self.map_module.add_point_cloud(state, cfg, cloud, pose)
         if not self.is_occupancy and cfg.remove_old_data_cycle > 0:
             # Both sides of the JAX lax.cond, selected on the device: pruning
@@ -174,6 +175,15 @@ class Submap:
                 for f in ("coords", "used", "sum_pos", "count", "sum_logcov", "sum_rgba",
                           "sum_intensity", "last_update")
             })
+        return ns
+
+    def insert_extract(self, state, cloud: PointCloud, pose: torch.Tensor):
+        """Insert ``cloud`` at ``pose`` into ``state`` (left as it was), prune
+        stale voxels, and extract the target around the pose at the current
+        map config and extract capacity: ``(new_state, extracted, load,
+        extract_overflow)``, the last two on the device."""
+        cfg = self.map_config
+        ns = self._insert(state, cfg, cloud, pose)
         extracted, overflow = self._extract(ns, pose[:3, 3])
         return ns, extracted, self.map_module.load_factor(ns, cfg), overflow
 
@@ -346,12 +356,14 @@ class Submap:
         if load > MAX_LOAD:
             self._grow_map(origin=np.asarray(pose))
 
-    def retry_insert_after_drop(self, sampled: PointCloud, pose_np) -> None:
+    def retry_insert_after_drop(self, sampled: PointCloud, pose_np, grow_first: bool = True) -> None:
         """Slow-path growth retry of the frame step: the caller restored the
         state from before the insert after seeing probe-exhaustion drops, so
-        growing and running the same insert again loses nothing."""
+        growing and running the same insert again loses nothing.
+        ``grow_first=False`` tries the current capacity first (a stashed
+        insert re-applied after an earlier one has grown the table)."""
         extracted, load, n_ext = self._insert_with_growth(
-            sampled, self._pose_tensor(pose_np), grow_first=True, attempts=MAX_GROW)
+            sampled, self._pose_tensor(pose_np), grow_first=grow_first, attempts=MAX_GROW)
         if n_ext >= self.params.registration.min_num_points:
             self._set_target(PointCloud(points=extracted.points, mask=extracted.mask))
         elif self.submap_cloud is not None and self.submap_cloud.capacity != self.extract_capacity:
@@ -360,6 +372,83 @@ class Submap:
             self.resolve_extract_overflow(pose_np)
         if load > MAX_LOAD:
             self._grow_map(origin=np.asarray(pose_np))
+
+    # -- the pipelined drop-retry reconcile --------------------------------
+    def make_reapply_chain(self, cfg, window: int, ext_cap: Optional[int] = None):
+        """The reconcile of the pipelined frames as one function: re-apply a
+        window of ``window`` stashed inserts (oldest first) to a map state at
+        ``cfg``, then extract once around the newest real pose, at
+        ``ext_cap`` rows (default: the current extract capacity).
+
+        Returns ``chain(state, clouds, poses, valid) -> (new_state, extracted,
+        load, extract_overflow)``; the slots whose host flag ``valid`` is
+        False are padding: they insert nothing, so the map's ``frame``
+        counter advances only on real inserts. The JAX package compiles one
+        program per (capacity, window, extract capacity) and caches it
+        (``chain_fn_for``); eager PyTorch compiles nothing, so there is no
+        cache, and the loop over the slots is a host loop."""
+        ext = self.extract_capacity if ext_cap is None else ext_cap
+        if not 0 < window:
+            raise ValueError(f"window must be positive, got {window}")
+
+        def chain(state, clouds, poses, valid):
+            if len(clouds) != window or len(poses) != window or len(valid) != window:
+                raise ValueError(f"the chain takes {window} slots")
+            real = [i for i, v in enumerate(valid) if v]
+            for i in real:
+                state = self._insert(state, cfg, clouds[i], poses[i])
+            origin = poses[real[-1] if real else 0][:3, 3]
+            extracted, overflow = self._extract(state, origin, cfg, ext)
+            return state, extracted, self.map_module.load_factor(state, cfg), overflow
+
+        return chain
+
+    def reconcile_chain(self, clouds, poses, window: int, grow_first: bool = True) -> None:
+        """The pipelined frames' slow path after a drop: the caller has rolled
+        ``map_state`` back to the state before the oldest of ``clouds``;
+        re-apply them all (the frame that dropped and every later frame in
+        flight, oldest first, ``poses`` as [4, 4] arrays or device tensors; a
+        frame that inserted nothing stashed ``None``, which takes a padding
+        slot) through :meth:`make_reapply_chain`, padded to ``window`` slots, and
+        retry from the rolled-back state on a grown table until nothing is
+        dropped (at most ``MAX_GROW`` growths). Then commit as
+        :meth:`retry_insert_after_drop` does: the target, the telemetry, the
+        extract backstop and the load growth. Fixed-budget losses
+        (``budget_lost``) never trigger growth."""
+        W = len(clouds)
+        if W == 0:
+            return
+        if W > window:
+            raise ValueError(f"reconcile window {W} > chain capacity {window}")
+        pad = window - W
+        clouds_t = list(clouds) + [None] * pad
+        poses_t = [self._pose_tensor(T) for T in poses]
+        poses_t += [poses_t[-1]] * pad
+        valid = [c is not None for c in clouds] + [False] * pad
+        for attempt in range(MAX_GROW + 1):
+            if grow_first or attempt > 0:
+                self._grow_map(reextract=False)
+            ns, extracted, load, overflow = self.make_reapply_chain(self.map_config, window)(
+                self.map_state, clouds_t, poses_t, valid)
+            fetched = to_host(torch.cat([
+                torch.stack([ns.dropped, self.map_state.dropped, overflow, ns.budget_lost,
+                             extracted.count()]).to(torch.float32),
+                load.reshape(1).to(torch.float32), poses_t[W - 1].reshape(-1)]))
+            dropped, before, overflow_h, lost, n_ext, load_h = fetched[:6]
+            if dropped == before or attempt == MAX_GROW:
+                break
+        last_pose = np.asarray(fetched[6:], np.float32).reshape(4, 4)
+        self.map_state = ns
+        self.extract_overflow = int(overflow_h)
+        self.budget_lost = int(lost)
+        if n_ext >= self.params.registration.min_num_points:
+            self._set_target(PointCloud(points=extracted.points, mask=extracted.mask))
+        elif self.submap_cloud is not None and self.submap_cloud.capacity != self.extract_capacity:
+            self._reextract_target(last_pose)
+        if self.extract_overflow > 0:
+            self.resolve_extract_overflow(last_pose)
+        if load_h > MAX_LOAD:
+            self._grow_map(origin=last_pose)
 
     # ------------------------------------------------------------------
     def finalize_traced(self, cloud: PointCloud) -> PointCloud:

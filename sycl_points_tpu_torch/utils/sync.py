@@ -2,29 +2,50 @@
 
 Every place in the package where the host waits for a value computed on the
 device goes through :func:`to_host`, so a caller can report how many such
-waits a piece of work cost (``LidarOdometry.sync_count_last_frame``). On the
+waits a piece of work cost (``LidarOdometry.sync_count_last_frame``), and
+from where (:data:`by_source`, keyed by the calling ``file:line``). On the
 card each one is a device-to-host copy that blocks until the stream has
 drained; in eager PyTorch they stand where the JAX package has a
 ``lax.while_loop`` condition or a ``lax.cond``.
+
+:class:`DeferredFetch` is the one read that does not block at once: the
+counterpart of ``copy_to_host_async`` + ``jax.Array.is_ready``, which the
+pipelined frames use for their per-frame stats.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import threading
+from collections import Counter
+
 import numpy as np
 import torch
 
-# Host reads since the last reset_sync_count().
-counts = {"host_syncs": 0}
+# Host reads since the last reset_sync_count(); ``blocking_fetches`` counts
+# the DeferredFetch.get() calls that had to wait (each is a host read too).
+counts = {"host_syncs": 0, "blocking_fetches": 0}
+# Host reads since the last reset_sync_count(), by the file:line that asked.
+by_source: Counter = Counter()
 
 
 def reset_sync_count() -> None:
-    counts["host_syncs"] = 0
+    for k in counts:
+        counts[k] = 0
+    by_source.clear()
+
+
+def _count(depth: int) -> None:
+    frame = sys._getframe(depth + 1)
+    counts["host_syncs"] += 1
+    by_source[f"{os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno}"] += 1
 
 
 def to_host(value: torch.Tensor):
     """``value.tolist()`` (a Python scalar for a 0-dim tensor), counted as
     one host sync."""
-    counts["host_syncs"] += 1
+    _count(1)
     return value.tolist()
 
 
@@ -41,3 +62,47 @@ def to_device(device: torch.device, *arrays) -> list:
         out.append(dev[at : at + n].reshape(shape))
         at += n
     return out
+
+
+class DeferredFetch:
+    """A device tensor on its way to the host.
+
+    On the card the copy goes into a pinned host buffer without blocking (a
+    copy into pageable memory would be synchronous), and a CUDA event recorded
+    after it on the current stream says when the buffer holds the value:
+    :meth:`ready` asks the event and never waits; :meth:`get` returns the
+    value, and waits only if the copy has not landed, which it counts as one
+    host sync and one blocking fetch. The buffer is not read before its event
+    has completed. Streams are per thread, so a fetch is used only on the
+    thread that made it.
+
+    On the CPU the copy is made at once and :meth:`ready` is always true.
+    """
+
+    def __init__(self, value: torch.Tensor):
+        self._thread = threading.get_ident()
+        if value.device.type == "cuda":
+            self._host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+            self._host.copy_(value, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(value.device))
+        else:
+            self._host = value.detach().clone()
+            self._event = None
+
+    def _check_thread(self) -> None:
+        if threading.get_ident() != self._thread:
+            raise RuntimeError("a DeferredFetch is used on another thread than the one that made it")
+
+    def ready(self) -> bool:
+        """Whether :meth:`get` would return without waiting."""
+        self._check_thread()
+        return self._event is None or self._event.query()
+
+    def get(self) -> np.ndarray:
+        """The value on the host, as a numpy array."""
+        if not self.ready():
+            _count(1)
+            counts["blocking_fetches"] += 1
+            self._event.synchronize()
+        return self._host.numpy()

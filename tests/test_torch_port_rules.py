@@ -11,6 +11,10 @@
     ``benchmarks/synthetic_velodyne.py`` (``scan_at_distorted``, raycast in
     float32, in ``tests/test_torch_deskew.py``; the IMU copies in
     ``tests/test_torch_imu.py``);
+  * ``points/conversion.py`` and ``apps/stream_protocol.py`` equal their
+    originals: the same constants, and the same outputs (arrays and bytes)
+    on PointCloud2 buffers with every field kind, unaligned offsets, and
+    every message type;
   * the entry points default to ``"cuda"`` and raise without a card.
 """
 
@@ -29,8 +33,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "benchmarks"))
 import synthetic_velodyne as ref_synth  # noqa: E402
 
+from sycl_points_tpu.apps import stream_protocol as ref_sp  # noqa: E402
+from sycl_points_tpu.points import conversion as ref_conv  # noqa: E402
 from sycl_points_tpu.points import io as ref_io  # noqa: E402
-from sycl_points_tpu_torch.apps import example_registration, lio_replay  # noqa: E402
+from sycl_points_tpu_torch.apps import example_registration, kitti_odometry, lio_replay, odometry_replay  # noqa: E402
+from sycl_points_tpu_torch.apps import stream_odometry  # noqa: E402
+from sycl_points_tpu_torch.apps import stream_protocol as port_sp  # noqa: E402
 from sycl_points_tpu_torch.convert import (  # noqa: E402
     cloud_from_numpy,
     lio_state_from_reference,
@@ -43,7 +51,10 @@ from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor  # noqa: E402
+from sycl_points_tpu_torch.pipeline.pipelined_lio import PipelinedLidarInertialOdometry  # noqa: E402
+from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.submap import Submap  # noqa: E402
+from sycl_points_tpu_torch.points import conversion as port_conv  # noqa: E402
 from sycl_points_tpu_torch.points import io as port_io  # noqa: E402
 from sycl_points_tpu_torch.points.point_cloud import PointCloud  # noqa: E402
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants  # noqa: E402
@@ -133,6 +144,84 @@ def test_finite_filter_equals_the_original():
     _assert_same(port_io.finite_filter(cloud), ref_io._finite_filter(cloud))
 
 
+def _pc2_cloud(n=37, seed=2):
+    rng = np.random.default_rng(seed)
+    return {
+        "points": rng.normal(size=(n, 3)).astype(np.float32),
+        "intensities": rng.uniform(0, 255, n).astype(np.float32),
+        "timestamp_offsets": np.linspace(0, 95, n).astype(np.float32),
+        "rgb": np.concatenate([rng.uniform(size=(n, 3)), np.ones((n, 1))], 1).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("keys", [("points",), ("points", "intensities"), ("points", "timestamp_offsets"),
+                                  ("points", "intensities", "timestamp_offsets", "rgb")])
+def test_pointcloud2_packing_equals_the_original(keys):
+    cloud = {k: v for k, v in _pc2_cloud().items() if k in keys}
+    np.testing.assert_array_equal(port_conv.to_structured_array(cloud), ref_conv.to_structured_array(cloud))
+    ours, theirs = port_conv.to_pointcloud2_bytes(cloud), ref_conv.to_pointcloud2_bytes(cloud)
+    assert ours == theirs
+    _assert_same(port_conv.from_pointcloud2_bytes(*ours), ref_conv.from_pointcloud2_bytes(*theirs))
+
+
+@pytest.mark.parametrize("time_field,scale", [("t", 1e-3), ("time", 1.0), ("timestamp", 1e6), ("time_offset", 1.0)])
+def test_pointcloud2_parsing_equals_the_original(time_field, scale):
+    """Unaligned offsets, packed rgba, ring, ambient, every time unit."""
+    n = 29
+    rng = np.random.default_rng(7)
+    rec = np.zeros(n, np.dtype({"names": ["x", "y", "z", "reflectivity", "rgba", time_field, "ring", "ambient"],
+                                "formats": [np.float32] * 4 + [np.uint32, np.float64, np.uint16, np.uint16],
+                                "offsets": [0, 4, 8, 13, 17, 21, 29, 31], "itemsize": 34}))
+    for c in "xyz":
+        rec[c] = rng.normal(size=n)
+    rec["reflectivity"] = rng.uniform(0, 100, n)
+    rec["rgba"] = rng.integers(0, 2**24, n)
+    rec[time_field] = (1e3 + np.arange(n)) * scale
+    rec["ring"] = rng.integers(0, 64, n)
+    rec["ambient"] = rng.integers(0, 500, n)
+    fields = [(name, rec.dtype.fields[name][1], code) for name, code in zip(
+        rec.dtype.names, (7, 7, 7, 7, 6, 8, 4, 4))]
+    _assert_same(port_conv.from_pointcloud2_bytes(rec.tobytes(), fields, 34),
+                 ref_conv.from_pointcloud2_bytes(rec.tobytes(), fields, 34))
+
+
+def test_read_kitti_bin_equals_the_original(tmp_path):
+    raw = np.random.default_rng(1).normal(size=(101, 4)).astype(np.float32)
+    raw.tofile(tmp_path / "000000.bin")
+    _assert_same(port_conv.read_kitti_bin(str(tmp_path / "000000.bin")),
+                 ref_conv.read_kitti_bin(str(tmp_path / "000000.bin")))
+
+
+def test_stream_protocol_equals_the_original():
+    for name in ("MAGIC", "HEADER_SIZE", "MSG_POINTCLOUD", "MSG_IMU", "MSG_POSE", "MSG_MAP", "MSG_STATUS", "MSG_BYE",
+                 "FLAG_WANT_MAP", "DATATYPE_OF"):
+        assert getattr(port_sp, name) == getattr(ref_sp, name), name
+    cloud = _pc2_cloud()
+    payloads = {
+        port_sp.MSG_POINTCLOUD: (port_sp.cloud_to_payload(cloud), ref_sp.cloud_to_payload(cloud)),
+        port_sp.MSG_IMU: (port_sp.encode_imu_payload([0.1, -0.2, 0.3], [0.0, 0.5, 9.81]),
+                          ref_sp.encode_imu_payload([0.1, -0.2, 0.3], [0.0, 0.5, 9.81])),
+        port_sp.MSG_POSE: (port_sp.encode_pose_payload(9, 6, 0.75, [1, 2, 3], [0, 0, 0.6, 0.8]),
+                           ref_sp.encode_pose_payload(9, 6, 0.75, [1, 2, 3], [0, 0, 0.6, 0.8])),
+        port_sp.MSG_STATUS: (port_sp.encode_status_payload({"a": [1, 2.5]}),
+                             ref_sp.encode_status_payload({"a": [1, 2.5]})),
+        port_sp.MSG_BYE: (b"", b""),
+    }
+    for msg_type, (ours, theirs) in payloads.items():
+        assert ours == theirs, msg_type
+        raw = port_sp.encode(port_sp.Message(msg_type=msg_type, seq=3, timestamp=1.25, payload=ours, flags=1))
+        assert raw == ref_sp.encode(ref_sp.Message(msg_type=msg_type, seq=3, timestamp=1.25, payload=theirs, flags=1))
+        assert port_sp.decode_header(raw[:port_sp.HEADER_SIZE]) == ref_sp.decode_header(raw[:ref_sp.HEADER_SIZE])
+    _assert_same(port_sp.payload_to_cloud(payloads[port_sp.MSG_POINTCLOUD][0]),
+                 ref_sp.payload_to_cloud(payloads[port_sp.MSG_POINTCLOUD][1]))
+    pose = payloads[port_sp.MSG_POSE][0]
+    for a, b in zip(port_sp.decode_pose_payload(pose), ref_sp.decode_pose_payload(pose), strict=True):
+        np.testing.assert_array_equal(a, b)
+    imu = payloads[port_sp.MSG_IMU][0]
+    for a, b in zip(port_sp.decode_imu_payload(imu), ref_sp.decode_imu_payload(imu), strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("kwargs", [{}, {"seed": 3, "n_boxes": 60}, {"seed": 5, "hard": True}])
 def test_world_equals_the_original(kwargs):
     ours, theirs = synthetic.World(**kwargs), ref_synth.World(**kwargs)
@@ -168,7 +257,9 @@ def test_imu_and_velocity_equal_the_originals(t):
                                 map_state_from_reference, synthetic.scan_at_distorted, LidarInertialOdometry,
                                 lio_replay.make_lio_inputs, lio_replay.run_lio_replay, lio_state_from_reference,
                                 preintegration.IMUPreintegration, preintegration.init_state,
-                                imu_factor.State.identity])
+                                imu_factor.State.identity, PipelinedLidarOdometry, PipelinedLidarInertialOdometry,
+                                stream_odometry.OdometryStreamServer, odometry_replay.run_pipelined_replay,
+                                lio_replay.run_pipelined_lio_replay])
 def test_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -184,6 +275,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         synthetic.scan_at(synthetic.World(), np.eye(4), n_az=8, n_rings=2)
     with pytest.raises(RuntimeError, match="is_available"):
         bench_nn1_variants.main(shapes=((4, 8),))
+    with pytest.raises(RuntimeError, match="is_available"):
+        kitti_odometry.main(["velodyne"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        stream_odometry.main(["--port", "0"])
     assert cloud_from_numpy(pts, device="cpu").device.type == "cpu"
 
 
@@ -211,9 +306,13 @@ def _vhm_params():
     lambda **kw: preintegration.init_state(**kw),
     lambda **kw: imu_factor.State.identity(**kw),
     lambda **kw: synthetic.scan_at_distorted(synthetic.World(), np.eye(4), np.eye(4), n_az=8, n_rings=2, **kw),
+    lambda **kw: PipelinedLidarOdometry(_vhm_params(), **kw),
+    lambda **kw: PipelinedLidarInertialOdometry(_lio_params(), **kw),
+    lambda **kw: stream_odometry.OdometryStreamServer(_vhm_params(), **kw),
 ], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference",
         "LidarInertialOdometry", "make_lio_inputs", "run_lio_replay", "lio_state_from_reference",
-        "IMUPreintegration", "init_state", "State.identity", "scan_at_distorted"])
+        "IMUPreintegration", "init_state", "State.identity", "scan_at_distorted", "PipelinedLidarOdometry",
+        "PipelinedLidarInertialOdometry", "OdometryStreamServer"])
 def test_lo_entry_points_raise_without_a_card(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
