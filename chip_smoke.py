@@ -161,6 +161,40 @@
 22. ``kitti_odometry.main --pipelined`` on KITTI_FRAMES of phase 13's scans
     written as KITTI ``.bin`` files: fails unless the TUM file has a line a
     frame and the ATE (in the first frame's frame) is within MAX_ATE_M.
+23. The fleet at the JAX fleet benchmark's deployment (``apps.fleet_replay``:
+    8 streams of 1024 x 32 rays, 40 frames, the figure-8 at 0.35 m a frame
+    from turned and shifted starts, the voxel-hash map at 2^16 slots):
+    ``FleetOdometry.process_batch`` with the launch counts and host reads
+    set to 0 just before and read just after; then, in the same call, the
+    single-stream ``PipelinedLidarOdometry`` on stream 0's scans. Prints ms a fleet frame
+    (median, max) and a stream frame, stream-frames a second, host reads a
+    fleet frame by ``file:line``, batched launches a fleet frame, each
+    stream's ATE, the result histogram with every frame that is not a
+    success, frames with no result, the final capacity, drops and growth.
+    Fails on a frame with no result, more than FLEET_MAX_NOT_OK of the
+    stream-frames not a success, a drop, a mean ATE above
+    FLEET_MAX_MEAN_ATE_M or a stream's above FLEET_MAX_ATE_M, stream 0 more
+    than FLEET_STREAM0_M / FLEET_STREAM0_DEG from the single-stream run at
+    any frame, or a batched kernel that never launched.
+24. The fleet's kernels at its shapes, from that run: the batched ``nn1``
+    (8 x 1,000 queries against the 8 fleet targets of 16,384 rows and their
+    own valid counts, under each stream's pose) and the batched ``knn_k``
+    (8 x 5,000 scan rows and 8 x 16,384 target rows searched in
+    themselves), each bit-equal to 8 single-stream launches and to its plain
+    version, also with stream 1's target all masked, on an odd row count
+    and with exact ties (each stream's first half twice over);
+    each timed (marginal CUDA-event ms, in turns) beside the 8 single
+    launches, its plain version, the library call (``torch.cdist`` over the
+    stacked streams, then ``min`` / ``topk``) and its bound (the streams'
+    valid rows).
+25. ``apps.fleet_odometry.run_fleet`` at the tree's defaults
+    (``default_kitti_params()``: the occupancy grid at 2^17 slots) over 8
+    sequences of FLEET_KITTI_FRAMES KITTI ``.bin`` scans (1024 x 32 rays)
+    written from the synthetic world, one sequence FLEET_KITTI_SHORT scans
+    long, so the padding path runs: fails unless every TUM file has a pose
+    a real scan and every stream's ATE (in its first frame's frame) is
+    within FLEET_KITTI_MAX_ATE_M, or if a batched kernel never launched.
+    Prints the timing lines of 23.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -183,7 +217,14 @@ import time
 import numpy as np
 import torch
 
-from sycl_points_tpu_torch.apps import kitti_odometry, lio_replay, odometry_replay, stream_protocol
+from sycl_points_tpu_torch.apps import (
+    fleet_odometry,
+    fleet_replay,
+    kitti_odometry,
+    lio_replay,
+    odometry_replay,
+    stream_protocol,
+)
 from sycl_points_tpu_torch.apps.example_registration import (
     PAIR_PARAMS,
     downsample,
@@ -194,17 +235,19 @@ from sycl_points_tpu_torch.apps.example_registration import (
 )
 from sycl_points_tpu_torch.convert import cloud_from_numpy
 from sycl_points_tpu_torch.mapping import occupancy_grid as og
+from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
 from sycl_points_tpu_torch.mapping.hash_table import resolve_slots, resolve_slots_tiered
 from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN, KNNResult, self_knn
-from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
+from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling, random_sampling_streams
 from sycl_points_tpu_torch.ops.transform import transform_points
 from sycl_points_tpu_torch.ops.voxel import voxel_coords
 from sycl_points_tpu_torch.apps.stream_odometry import OdometryStreamClient, OdometryStreamServer, StreamServerConfig
 from sycl_points_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry
-from sycl_points_tpu_torch.pipeline.params import MotionPredictionParams
+from sycl_points_tpu_torch.parallel.fleet import stream_seeds
+from sycl_points_tpu_torch.pipeline.params import MotionPredictionParams, PoseParams
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry
 from sycl_points_tpu_torch.pipeline.submap import Submap
@@ -212,8 +255,9 @@ from sycl_points_tpu_torch.registration.pipeline import align_pipeline
 from sycl_points_tpu_torch.registration.registration import compute_icp_robust_weights
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
-from sycl_points_tpu_torch.utils import lie, sync
-from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, scan_at
+from sycl_points_tpu_torch.utils import lie, lie_np, sync
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, pad_capacity_for
+from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, fleet_trajectories, scan_at
 
 VOXEL = 0.25
 K = 10
@@ -312,6 +356,21 @@ CKPT_FRAMES = (10, 10)
 CKPT_MAX_M = 1e-5
 SERVER_HZ = 10.0  # the sensor's scan rate
 KITTI_FRAMES = 10
+# The fleet at the JAX fleet benchmark's deployment. The JAX package's record
+# of it is a mean ATE of 0.211 m and a worst stream of 0.431 m, one
+# stream-frame of 312 not a success (benchmarks/FLEET_r4.json); the bounds
+# give it room. Stream 0 and the single-stream replay of its scans share
+# their generators' seeds (parallel.fleet.stream_seeds).
+FLEET_PATH = "FleetOdometry.process_batch"
+FLEET_RUNNER_PATH = "fleet_odometry.run_fleet (default tree)"
+FLEET_MAX_MEAN_ATE_M = 0.30
+FLEET_MAX_ATE_M = 0.60
+FLEET_MAX_NOT_OK = 0.01
+FLEET_STREAM0_M, FLEET_STREAM0_DEG = 1e-3, 0.01
+FLEET_KITTI_FRAMES = 20
+FLEET_KITTI_SHORT = 14
+FLEET_KITTI_MAX_ATE_M = 0.30
+FLEET_CDIST_MAX_PAIRS = 1 << 30  # the batched cdist yardstick launches up to here
 
 
 def nvidia_smi(query: str) -> str:
@@ -1148,7 +1207,8 @@ def og_step_split(lo, pose) -> None:
                                        cfg.max_ray_distance)
     keys, _, _, base, B, *_ = carve()
     merged = og._merge_miss_keys(keys.reshape(-1), cfg.miss_merge_budget, B, base)
-    seg_keys, cnt, _, _ = og._segment_merge(coords, ok.float(), pts)
+    seg_keys, agg, _ = vhm._segments(torch.cat([pts, torch.ones_like(pts[:, :1])], 1), coords, ok)
+    cnt = agg[:, -1]
     parts = {
         "submap step (all of stage 4a's work)":
             lambda: lo._submap_step(st, target, deskewed, pose, True, gen, knn_prev=knn, n_desk=n_desk),
@@ -1612,6 +1672,272 @@ def kitti_phase(replay, dev) -> None:
         raise AssertionError("KITTI runner: wrong trajectory")
 
 
+# --- the fleet -------------------------------------------------------------------
+
+
+def per_fleet_frame(rows) -> tuple[dict, dict]:
+    """Host reads by ``file:line`` and batched launches, a fleet frame, over
+    ``rows``."""
+    reads, launches = {}, {}
+    for r in rows:
+        for src, k in r["reads"].items():
+            reads[src] = reads.get(src, 0) + k
+        for name, k in r["launches"].items():
+            launches[name] = launches.get(name, 0) + k
+    n = len(rows)
+    return {k: v / n for k, v in reads.items()}, {k: v / n for k, v in launches.items()}
+
+
+def print_fleet_timing(tag: str, frame_ms, n_streams: int, rows=None) -> float:
+    """ms a fleet frame (median, max), a stream frame and stream-frames a
+    second over ``frame_ms``; reads and launches a fleet frame over
+    ``rows``. Returns the median."""
+    med = statistics.median(frame_ms)
+    print(f"{tag}: ms a fleet frame median {med:.3f}, max {max(frame_ms):.3f}, mean {statistics.mean(frame_ms):.3f} "
+          f"(host clock, {len(frame_ms)} frames after the warm-up); ms a stream frame {med / n_streams:.3f}; "
+          f"stream-frames a second {1e3 * n_streams / med:.1f}")
+    if rows is not None:
+        reads, launches = per_fleet_frame(rows)
+        print(f"{tag}: host reads a fleet frame {sum(reads.values()):.2f}: "
+              + ", ".join(f"{src} {k:.2f}" for src, k in sorted(reads.items(), key=lambda kv: -kv[1])))
+        print(f"{tag}: batched launches a fleet frame: " + ", ".join(f"{k} {v:.2f}" for k, v in launches.items()))
+    return med
+
+
+def fleet_phase(dev) -> dict:
+    """Phase 23: the fleet at the JAX fleet benchmark's deployment, held to
+    its bounds and to the single-stream replay of stream 0."""
+    t0 = time.perf_counter()
+    trajs, scans = fleet_replay.make_fleet_scans(device=dev)
+    B, n_frames, warm = fleet_replay.FLEET_STREAMS, fleet_replay.FLEET_FRAMES, fleet_replay.FLEET_WARMUP
+    cap = pad_capacity_for(fleet_replay.FLEET_RAYS[0] * fleet_replay.FLEET_RAYS[1])
+    print(f"fleet: {n_frames} x {B} scans of {cap} rays ({len(scans[0][0])} returns in stream 0's first), made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    params = fleet_replay.fleet_params()
+    torch.cuda.synchronize()
+    sync.reset_sync_count()
+    cuda_knn.reset_launch_counts()
+    out = fleet_replay.run_fleet_replay(params, trajs, scans, device=dev, capacity=cap)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    fleet = out["fleet"]
+    rows = out["rows"][warm:]
+    med = print_fleet_timing("fleet", [r["ms"] for r in rows], B, rows)
+    print(f"fleet: flush {out['flush_ms']:.3f} ms; launches in all {launches}; processing times of the last frame "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in sorted(fleet.processing_times.items())))
+
+    # the single-stream pipeline on stream 0's scans, its generators seeded as stream 0's
+    p0 = dataclasses.replace(params, pose=PoseParams(initial=tuple(np.asarray(trajs[0][0], np.float32).ravel())))
+    assert stream_seeds(0, 0) == (1234, 4321)  # the single-stream pipeline's own seeds
+    single = odometry_replay.run_pipelined_replay(
+        p0, trajs[0], [PointCloud.from_numpy(scans[i][0], capacity=cap, device=dev) for i in range(n_frames)],
+        device=dev)
+    s_ms = [r["ms"] for r in single["rows"][warm:]]
+    print(f"single-stream PipelinedLidarOdometry on stream 0's scans: ms a frame median {statistics.median(s_ms):.3f}, "
+          f"max {max(s_ms):.3f}; the fleet's frame is {med / statistics.median(s_ms):.2f} single frames for {B} "
+          f"streams; ATE {single['ate_m']:.4f} m")
+    gaps = [(float(np.abs(a[:3, 3] - b[:3, 3]).max()),
+             float(np.degrees(np.linalg.norm(lie_np.se3_log(np.linalg.inv(b) @ a)[:3]))))
+            for a, b in zip(out["poses"][0], single["poses"], strict=True)]
+    worst_m, worst_deg = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    print(f"fleet stream 0 against the single-stream run: at most {worst_m * 1e3:.4f} mm and {worst_deg:.5f} deg "
+          f"apart (bounds {FLEET_STREAM0_M * 1e3:.0f} mm, {FLEET_STREAM0_DEG} deg)")
+
+    print(f"fleet: keyframes a stream {fleet.keyframe_counts.tolist()} of {n_frames - 1} frames; align "
+          f"iterations a stream-frame mean {statistics.mean(i for its in fleet.align_iterations for i in its):.2f}, "
+          f"the fleet's loop (the slowest stream) mean "
+          f"{statistics.mean(max(its) for its in zip(*fleet.align_iterations)):.2f}")
+
+    ates = out["ates"]
+    n_sf = B * (n_frames - 1)
+    not_ok = len(out["not_ok"])
+    dropped = int(fleet.map_state.dropped.sum())
+    print(f"fleet: ATE a stream {[round(a, 4) for a in ates]}, mean {statistics.mean(ates):.4f} m, max "
+          f"{max(ates):.4f} m (bounds {FLEET_MAX_MEAN_ATE_M}, {FLEET_MAX_ATE_M}); results {out['histogram']}, not a "
+          f"success: {out['not_ok']}; frames with no result {out['unaccounted']}; final capacity "
+          f"{fleet.map_capacity}, dropped {dropped}, budget lost {int(fleet.budget_lost.sum())}, extraction "
+          f"overflow {fleet.extract_overflow.tolist()}, growth events {fleet.growth_events}")
+    check_on_device(vars(fleet.map_state), dev)
+    check_on_device(vars(fleet.submap_cloud), dev)
+    if out["unaccounted"] or not_ok > FLEET_MAX_NOT_OK * n_sf or dropped:
+        raise AssertionError("fleet: a frame with no result, too many frames not a success, or a drop")
+    if not statistics.mean(ates) <= FLEET_MAX_MEAN_ATE_M or not max(ates) <= FLEET_MAX_ATE_M:
+        raise AssertionError(f"fleet: ATE {ates} above the bounds")
+    if worst_m > FLEET_STREAM0_M or worst_deg > FLEET_STREAM0_DEG:
+        raise AssertionError("fleet: stream 0 strays from the single-stream run")
+    if min(launches["nn1_batched"], launches["knn_k_batched"]) <= 0:
+        raise AssertionError(f"a kernel of the fleet never launched: {launches}")
+
+    # the fleet's kernel inputs: its targets, 1,000 queries a stream from the
+    # last frame's preprocessed scans, the final poses
+    gens = [torch.Generator(device=dev).manual_seed(SEED + s) for s in range(B)]
+    pre = fleet._t.pc_processor.preprocess_streams(fleet_replay.stack_frame(scans[-1], cap, dev), gens,
+                                                   need_covs=False)
+    queries = random_sampling_streams(pre, N_QUERIES, gens).points.contiguous()
+    poses = torch.as_tensor(np.stack([fleet.get_odometry(s) for s in range(B)]), device=dev).contiguous()
+    return {"launches": launches, "scan": pre, "target": fleet.submap_cloud, "queries": queries, "poses": poses}
+
+
+def fleet_cases(points, mask) -> dict:
+    """The fleet's bit-equality cases: its targets, stream 1's masked, the
+    first odd number of rows, and each stream's first half twice over (every
+    point has an exact tie, in another slice)."""
+    one_masked = mask.clone()
+    one_masked[1] = False
+    n_odd = (points.shape[1] - 1) | 1
+    h = points.shape[1] // 2
+    return {"path": (points, mask), "stream 1 all masked": (points, one_masked),
+            f"first {n_odd} rows": (points[:, :n_odd].contiguous(), mask[:, :n_odd].contiguous()),
+            "halves duplicated (ties)": (torch.cat([points[:, :h], points[:, :h]], 1).contiguous(),
+                                         torch.cat([mask[:, :h], mask[:, :h]], 1).contiguous())}
+
+
+def check_fleet_kernels(f) -> list:
+    """Phase 24: the batched nn1 and knn_k at the fleet's shapes."""
+    dev = f["queries"].device
+    B = f["queries"].shape[0]
+    rows = []
+    tgt, q, poses = f["target"], f["queries"], f["poses"]
+    t, m = tgt.points.contiguous(), tgt.mask
+    for what, (tt, mm) in fleet_cases(t, m).items():
+        prep = cuda_knn.prep_targets(tt, mm)
+        got = cuda_knn.nn1_prepped_batched(prep, q, poses)
+        singles = [cuda_knn.nn1_prepped(cuda_knn.prep_target(tt[b], mm[b]), q[b], poses[b]) for b in range(B)]
+        check_equal("nn1_batched", got, (torch.stack([s[0] for s in singles]), torch.stack([s[1] for s in singles])),
+                    f"fleet, {what}, against {B} single launches")
+        check_equal("nn1_batched", got, cuda_knn.nn1_batched_plain(tt, mm, q, poses), f"fleet, {what}, against plain")
+    valid = [int(v) for v in m.sum(-1)]
+    prep = cuda_knn.prep_targets(t, m)
+    preps = [cuda_knn.prep_target(t[b], m[b]) for b in range(B)]
+    turns = in_turns({
+        "ms": lambda: cuda_knn.nn1_prepped_batched(prep, q, poses),
+        "single_ms": lambda: [cuda_knn.nn1_prepped(preps[b], q[b], poses[b]) for b in range(B)],
+        "plain_ms": lambda: cuda_knn.nn1_batched_plain(t, m, q, poses),
+    })
+    moved = transform_points(q, poses[:, None]).contiguous()
+    t_inf = torch.where(m[..., None], t, torch.inf).contiguous()
+    lib = marginal_ms(lambda: torch.cdist(moved, t_inf, compute_mode="donot_use_mm_for_euclid_dist").min(dim=-1), dev)
+    Q, M = q.shape[1], t.shape[1]
+    sb = bound(Q * sum(valid), B * (13 * M + 20 * Q))
+    print(f"nn1_batched at the fleet's shape (B={B}, Q={Q}, M={M}, valid {valid}): equal to {B} single launches and "
+          f"to its plain version bit for bit ({', '.join(fleet_cases(t, m))}); kernel {turns['ms']:.4f} ms, {B} single "
+          f"launches {turns['single_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} "
+          f"({sb[1]})")
+    rows.append(row("nn1_batched", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", FLEET_PATH, 0.0,
+                    (turns["ms"], turns["plain_ms"], lib), sb, single_ms=turns["single_ms"],
+                    shapes={"fleet target": {"B": B, "Q": Q, "M": M, "valid": valid}}))
+
+    shapes = {}
+    for label, cloud in (("scan", f["scan"]), ("target", tgt)):
+        pts, mask = cloud.points.contiguous(), cloud.mask
+        for what, (pp, mm) in fleet_cases(pts, mask).items():
+            prep = cuda_knn.prep_targets(pp, mm)
+            got = cuda_knn.knn_k_batched(prep, pp, K)
+            singles = [cuda_knn.knn_k_prepped(cuda_knn.prep_target(pp[b], mm[b]), pp[b], K) for b in range(B)]
+            check_equal("knn_k_batched", got, (torch.stack([s[0] for s in singles]),
+                                               torch.stack([s[1] for s in singles])),
+                        f"fleet {label}, {what}, against {B} single launches")
+            for b in range(B):
+                check_equal("knn_k_batched", (got[0][b], got[1][b]), cuda_knn.knn_k_simple(pp[b], mm[b], pp[b], K),
+                            f"fleet {label}, {what}, stream {b} against knn_k_simple")
+        ref = cuda_knn.knn_k_batched_plain(pts, mask, pts, K)
+        got = cuda_knn.knn_k_batched(cuda_knn.prep_targets(pts, mask), pts, K)
+        torch.cuda.synchronize()
+        bad = cuda_knn.knn_mismatches(got[0].reshape(-1, K), got[1].reshape(-1, K), ref[0].reshape(-1, K),
+                                      ref[1].reshape(-1, K), TIE_TOL)
+        err = finite_max_abs_err(got[1], ref[1])
+        if bad or err > D2_ATOL:
+            raise AssertionError(f"knn_k_batched disagrees with its plain version at the fleet's {label}")
+        prep = cuda_knn.prep_targets(pts, mask)
+        preps = [cuda_knn.prep_target(pts[b], mask[b]) for b in range(B)]
+        turns = in_turns({
+            "ms": lambda: cuda_knn.knn_k_batched(prep, pts, K),
+            "single_ms": lambda: [cuda_knn.knn_k_prepped(preps[b], pts[b], K) for b in range(B)],
+            "plain_ms": lambda: cuda_knn.knn_k_batched_plain(pts, mask, pts, K),
+        })
+        t_inf = torch.where(mask[..., None], pts, torch.inf).contiguous()
+        n = pts.shape[1]
+        # one batched cdist over 8 x 16,384^2 pairs exceeds its launch grid on
+        # the card (cudaErrorInvalidConfiguration): no library time there
+        lib = None if B * n * n > FLEET_CDIST_MAX_PAIRS else marginal_ms(
+            lambda: torch.cdist(pts, t_inf, compute_mode="donot_use_mm_for_euclid_dist").topk(K, largest=False), dev)
+        valid = [int(v) for v in mask.sum(-1)]
+        sb = bound(n * sum(valid), B * (13 * n + 12 * n + 8 * n * K))
+        shapes[label] = {"B": B, "Q": n, "M": n, "valid": valid, **turns, "library_ms": lib, "max_abs_err": err,
+                         "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"knn_k_batched at the fleet's {label} (B={B}, k={K}, Q=M={n}, valid {valid}): equal to {B} single "
+              f"launches and to knn_k_simple bit for bit ({', '.join(fleet_cases(pts, mask))}), {bad} set mismatches "
+              f"against its plain version, max |d2 - plain| = {err:.3g}; kernel {turns['ms']:.4f} ms, {B} single "
+              f"launches {turns['single_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+topk "
+              f"{'not timed' if lib is None else f'{lib:.4f}'}, bound {sb[0]:.4f} ({sb[1]})")
+    scan = shapes["scan"]
+    rows.append(row("knn_k_batched", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", FLEET_PATH, scan["max_abs_err"],
+                    (scan["ms"], scan["plain_ms"], scan["library_ms"]), (scan["bound_ms"], scan["bound_by"]),
+                    single_ms=scan["single_ms"], shapes=shapes))
+    for r in rows:
+        r["launches"] = f["launches"][r["name"]]
+    return rows
+
+
+def fleet_kitti_phase(dev) -> None:
+    """Phase 25: the fleet runner at the tree's defaults over KITTI .bin
+    sequences of unequal length."""
+    B = fleet_replay.FLEET_STREAMS
+    n_az, n_rings = fleet_replay.FLEET_RAYS
+    trajs, _ = fleet_trajectories(B, FLEET_KITTI_FRAMES)
+    lengths = [FLEET_KITTI_SHORT if s == B - 1 else FLEET_KITTI_FRAMES for s in range(B)]
+    world = World()
+    with tempfile.TemporaryDirectory() as d:
+        files = []
+        for s, n in enumerate(lengths):
+            seq = []
+            for i in range(n):
+                pts = scan_at(world, trajs[s][i], n_az=n_az, n_rings=n_rings, seed=1000 * s + i, device=dev)
+                path = f"{d}/s{s}_{i:06d}.bin"
+                np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1).astype(np.float32).tofile(path)
+                seq.append(path)
+            files.append(seq)
+        torch.cuda.synchronize()
+        sync.reset_sync_count()
+        cuda_knn.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = fleet_odometry.run_fleet(files, kitti_odometry.default_kitti_params(), f"{d}/fleet", device=dev)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(cuda_knn.launch_counts)
+        reads = dict(sync.by_source)
+        ates, lines = [], []
+        for s, path in enumerate(outs):
+            traj = np.loadtxt(path, ndmin=2)
+            lines.append(len(traj))
+            T0_inv = np.linalg.inv(trajs[s][0])
+            truth = [T0_inv @ T for T in trajs[s][: lengths[s]]]
+            est = [pose_from(r[1:4], r[4:8]) for r in traj]
+            ates.append(odometry_replay.ate(est, truth) if len(est) == lengths[s] else float("inf"))
+    fleet = outs.fleet
+    frame_ms = outs.frame_ms[fleet_replay.FLEET_WARMUP:]
+    print(f"fleet runner ({B} KITTI sequences of {lengths} .bin scans of {n_az} x {n_rings} rays, "
+          f"default_kitti_params: {fleet._t.submap.map_config.__class__.__name__} at "
+          f"{fleet.map_capacity} slots): {total_ms:.1f} ms in all with the file reads")
+    print_fleet_timing("fleet runner", frame_ms, B)
+    n = len(outs.frame_ms)
+    print(f"fleet runner: host reads a fleet frame {sum(reads.values()) / n:.2f}: "
+          + ", ".join(f"{src} {k / n:.2f}" for src, k in sorted(reads.items(), key=lambda kv: -kv[1])[:8])
+          + f"; launches a fleet frame: nn1_batched {launches['nn1_batched'] / n:.2f}, knn_k_batched "
+          f"{launches['knn_k_batched'] / n:.2f}")
+    hist = {}
+    for s in range(B):
+        for _, rt in fleet.deferred_results[s]:
+            hist[rt.value] = hist.get(rt.value, 0) + 1
+    print(f"fleet runner: TUM lines a stream {lines} (a pose a real scan: {lengths}); ATE a stream "
+          f"{[round(a, 4) for a in ates]} (bound {FLEET_KITTI_MAX_ATE_M} m); results {hist}; final capacity "
+          f"{fleet.map_capacity}, dropped {int(fleet.map_state.dropped.sum())}, growth events {fleet.growth_events}")
+    if lines != lengths or not max(ates) <= FLEET_KITTI_MAX_ATE_M:
+        raise AssertionError("fleet runner: wrong trajectories")
+    if min(launches["nn1_batched"], launches["knn_k_batched"]) <= 0:
+        raise AssertionError(f"a kernel of the fleet runner never launched: {launches}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -1725,6 +2051,11 @@ def main() -> None:
     checkpoint_phase(og_out["replay"], dev)
     server_phase(lo_out["replay"], dev)
     kitti_phase(og_out["replay"], dev)
+
+    # --- the fleet: the benchmark deployment, its kernels, the runner ---------------
+    fleet_out = fleet_phase(dev)
+    results += check_fleet_kernels(fleet_out)
+    fleet_kitti_phase(dev)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

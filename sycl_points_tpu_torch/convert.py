@@ -11,7 +11,13 @@
     package's, likewise;
   * :func:`lio_state_from_reference`: a JAX LIO filter state (``State`` and
     ``P_post``) as this package's, so that both filters can start from one
-    state.
+    state;
+  * :func:`carry_from_reference`: a JAX pipelined ``OdomCarry`` as this
+    package's.
+
+The map states and the carry convert a fleet's stacked arrays (a leading
+stream axis ``[B, ...]``, as the JAX ``FleetOdometry`` holds them) as they
+convert a single stream's.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from sycl_points_tpu_torch.mapping.occupancy_grid import OccupancyGridConfig, Oc
 from sycl_points_tpu_torch.mapping.voxel_hash_map import VoxelHashMapConfig, VoxelHashMapState
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.pipeline import params as pipeline_params
+from sycl_points_tpu_torch.pipeline.pipelined_odometry import OdomCarry
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration import map_prior, pipeline, registration
 from sycl_points_tpu_torch.registration.factors import RegType
@@ -103,7 +110,8 @@ def map_state_from_reference(state, device: torch.device | str = "cuda") -> Voxe
     asks for the CPU) from a JAX ``VoxelHashMapState``, or any object whose
     attributes of the same names convert with ``numpy.asarray``. Slots keep
     their places: both packages hash alike, so either can go on inserting
-    into and reading from the other's table."""
+    into and reading from the other's table. A fleet's stacked state
+    converts to a stacked state."""
     return _state_from_reference(VoxelHashMapState, state, device)
 
 
@@ -114,6 +122,23 @@ def og_state_from_reference(state, device: torch.device | str = "cuda") -> Occup
     ``numpy.asarray``; slots keep their places, as with
     :func:`map_state_from_reference`."""
     return _state_from_reference(OccupancyGridState, state, device)
+
+
+def carry_from_reference(carry, device: torch.device | str = "cuda") -> OdomCarry:
+    """This package's :class:`OdomCarry` on ``device`` from a JAX pipelined
+    ``OdomCarry`` (one stream's, or a fleet's stacked ``[B, ...]``), or any
+    object with fields of the same names that convert with
+    ``numpy.asarray``. The keyframe time becomes float64, as this package
+    carries it."""
+    dev = require_device(device)
+
+    def t(name):
+        a = np.array(getattr(carry, name))
+        if name == "last_kf_time":
+            a = a.astype(np.float64)
+        return torch.from_numpy(a).to(dev)
+
+    return OdomCarry(*(t(name) for name in OdomCarry._fields))
 
 
 def _state_from_reference(cls, state, device):

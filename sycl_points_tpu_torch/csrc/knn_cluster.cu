@@ -59,6 +59,13 @@
 // with no valid neighbour stay idx 0, d2 = +inf: an +inf distance never
 // enters a list, and (inf, 0) loses to any finite entry in the merge.
 //
+// The stream axis: a fleet of B independent streams runs as one launch, the
+// grid's z dimension numbering the streams. Block z offsets its target
+// (3 * Mp floats a stream), queries (3 * Q), pose (16) and outputs (Q * K)
+// by z; a cluster stays inside one stream, so every block computes what it
+// computes in a single-stream launch, and the result equals B single-stream
+// launches bit for bit. The single-stream entries are the B = 1 case.
+//
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns the first error of cudaFuncSetAttribute, cudaLaunchKernelEx or
 // cudaGetLastError, so a refused cluster launch raises in the wrapper.
@@ -86,6 +93,7 @@ constexpr int kTile = 512;         // targets a staged tile; prep_target pads to
 constexpr int kMaxSlices = 16;     // blocks a cluster; above 8 is a non-portable size
 constexpr int kSampleStride = 16;  // knn_k's pruning sample: every 16th target
 constexpr int kMaxQueryTiles = 65535;
+constexpr int kMaxStreams = 65535;  // the grid's z extent
 
 template <int K, int QW, bool kPrune>
 struct Cfg {
@@ -116,6 +124,13 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
   const int g = (threadIdx.x / 32) / QW;
   const int slot = threadIdx.x % C::QT;  // the thread's query in the block's tile
   const int qbase = blockIdx.y * C::QT;
+  // this block's stream
+  const size_t z = blockIdx.z;
+  tgt += z * 3 * static_cast<size_t>(Mp);
+  queries += z * 3 * static_cast<size_t>(Q);
+  if constexpr (kPose) pose += z * 16;
+  out_idx += z * static_cast<size_t>(Q) * K;
+  out_d2 += z * static_cast<size_t>(Q) * K;
 
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (qbase + slot < Q) {
@@ -262,13 +277,13 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
 }
 
 template <int K, int QW, bool kPose, bool kPrune>
-int launch(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int slices,
+int launch(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices,
            int* out_idx, float* out_d2, void* stream) {
   using C = Cfg<K, QW, kPrune>;
-  if (Q <= 0) return static_cast<int>(cudaSuccess);
+  if (Q <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   const int n_qtiles = (Q + C::QT - 1) / C::QT;
   const bool pow2 = slices > 0 && (slices & (slices - 1)) == 0;
-  if (Mp % kTile != 0 || n_qtiles > kMaxQueryTiles || !pow2 || slices > kMaxSlices)
+  if (Mp % kTile != 0 || n_qtiles > kMaxQueryTiles || B > kMaxStreams || !pow2 || slices > kMaxSlices)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = knn_cluster_kernel<K, QW, kPose, kPrune>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -282,7 +297,7 @@ int launch(const float* tgt, int Mp, const float* queries, int Q, const float* p
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(slices, n_qtiles, 1);
+  cfg.gridDim = dim3(slices, n_qtiles, B);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = C::kSmemBytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -294,42 +309,51 @@ int launch(const float* tgt, int Mp, const float* queries, int Q, const float* p
 }
 
 template <int QW>
-int launch_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int slices,
+int launch_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices,
                int* out_idx, float* out_d2, void* stream) {
   if (pose != nullptr)
-    return launch<1, QW, true, false>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
-  return launch<1, QW, false, false>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+    return launch<1, QW, true, false>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
+  return launch<1, QW, false, false>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
 }
 
 }  // namespace
 
-// Exact 1-NN of queries [Q,3] (moved by pose [4,4] row-major if not null)
-// against a prepared target [3, Mp]. The wrapper chooses from Q the queries
-// a cluster (query_tile: 32, 64 or 128) and the target slices, blocks a
-// cluster (slices: 1, 2, 4, 8 or 16).
-extern "C" int spt_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose,
-                       int query_tile, int slices, int* out_idx, float* out_d2, void* stream) {
+// Exact 1-NN of the queries [B,Q,3] of B streams (moved by their poses
+// [B,4,4] row-major if not null) against their prepared targets [B,3,Mp]:
+// stream b's queries search stream b's target only. The wrapper chooses from
+// B * Q the queries a cluster (query_tile: 32, 64 or 128) and the target
+// slices, blocks a cluster (slices: 1, 2, 4, 8 or 16).
+extern "C" int spt_nn1_batched(const float* tgt, int Mp, const float* queries, int Q, const float* pose,
+                               int B, int query_tile, int slices, int* out_idx, float* out_d2,
+                               void* stream) {
   switch (query_tile) {
     case 32:
-      return launch_nn1<1>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+      return launch_nn1<1>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
     case 64:
-      return launch_nn1<2>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+      return launch_nn1<2>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
     case 128:
-      return launch_nn1<4>(tgt, Mp, queries, Q, pose, slices, out_idx, out_d2, stream);
+      return launch_nn1<4>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// Exact 1-NN of queries [Q,3] (moved by pose [4,4] row-major if not null)
+// against a prepared target [3, Mp]: the one-stream fleet.
+extern "C" int spt_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose,
+                       int query_tile, int slices, int* out_idx, float* out_d2, void* stream) {
+  return spt_nn1_batched(tgt, Mp, queries, Q, pose, 1, query_tile, slices, out_idx, out_d2, stream);
+}
+
 #define SPT_KNN_CLUSTER_CASE(KV) \
   case KV:                       \
-    return launch<KV, 4, false, true>(tgt, Mp, queries, Q, nullptr, slices, out_idx, out_d2, stream);
+    return launch<KV, 4, false, true>(tgt, Mp, queries, Q, nullptr, B, slices, out_idx, out_d2, stream);
 
-// Exact k-NN (1 <= k <= 16) of queries [Q,3] against a prepared target
-// [3, Mp], ascending by (d, idx): 128 queries a cluster and the slices the
-// wrapper chooses from Q (as for nn1).
-extern "C" int spt_knn_k(const float* tgt, int Mp, const float* queries, int Q, int k, int slices,
-                         int* out_idx, float* out_d2, void* stream) {
+// Exact k-NN (1 <= k <= 16) of the queries [B,Q,3] of B streams against
+// their prepared targets [B,3,Mp], ascending by (d, idx): 128 queries a
+// cluster and the slices the wrapper chooses from B * Q (as for nn1).
+extern "C" int spt_knn_k_batched(const float* tgt, int Mp, const float* queries, int Q, int B, int k,
+                                 int slices, int* out_idx, float* out_d2, void* stream) {
   switch (k) {
     SPT_KNN_CLUSTER_CASE(1)
     SPT_KNN_CLUSTER_CASE(2)
@@ -350,4 +374,11 @@ extern "C" int spt_knn_k(const float* tgt, int Mp, const float* queries, int Q, 
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Exact k-NN of queries [Q,3] against a prepared target [3, Mp]: the
+// one-stream fleet.
+extern "C" int spt_knn_k(const float* tgt, int Mp, const float* queries, int Q, int k, int slices,
+                         int* out_idx, float* out_d2, void* stream) {
+  return spt_knn_k_batched(tgt, Mp, queries, Q, 1, k, slices, out_idx, out_d2, stream);
 }

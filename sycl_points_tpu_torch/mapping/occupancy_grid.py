@@ -28,6 +28,14 @@ card differ), so every float-to-int conversion of the carve clamps in float
 first (:func:`_floor_int`); the values that differ from XLA's lie only in
 rows that emit nothing. ``lax.cond`` on the carve cycle becomes a counted
 host read, made only when ``free_space_update_cycle > 1``.
+
+A fleet's grids are stacked as the voxel-hash map's are
+(:func:`~.voxel_hash_map.stack_streams`): :func:`add_point_cloud` takes
+clouds ``[B, N]`` and poses ``[B, 4, 4]`` and carves, merges and resolves
+every stream at once (the carve keys are relative to each stream's own
+origin; the merge sorts each stream's row); :func:`extract_occupied_points`,
+:func:`grow`, :func:`load_factor` and :func:`prune_stale_voxels` take the
+stacked state. Stream ``b``'s result equals a single-stream call bit for bit.
 """
 
 from __future__ import annotations
@@ -45,14 +53,21 @@ from sycl_points_tpu_torch.mapping.hash_table import (
     resolve_slots,
     resolve_slots_tiered,
 )
-from sycl_points_tpu_torch.mapping.voxel_hash_map import _set_rows, _tri_pack, _tri_unpack
+from sycl_points_tpu_torch.mapping.voxel_hash_map import (
+    _add_rows,
+    _flat_rows,
+    _segments,
+    _set_rows,
+    _taker,
+    _tri_pack,
+    _tri_unpack,
+    stack_streams,
+)
 from sycl_points_tpu_torch.ops.transform import rotate_covs, transform_points
 from sycl_points_tpu_torch.ops.voxel import (
     _SENTINEL,
     COORD_MASK,
     COORD_OFFSET,
-    segment_sum_sorted,
-    sort_by_cell,
     voxel_coords,
     voxel_coords_counted,
 )
@@ -261,66 +276,71 @@ def _ray_carve_keys(origin: torch.Tensor, targets: torch.Tensor, valid: torch.Te
 
     Returns ``(keys [N, 3 Sa] int32 (_SENTINEL when not emitted),
     origin_emit [N], origin_coord [3], base_coord [3], B, n_clamped,
-    n_range_lost, n_truncated)``."""
+    n_range_lost, n_truncated)``. A fleet's ``origin [B, 3]`` and ``targets
+    [B, N, 3]`` give each stream's keys relative to its own origin, and the
+    counts ``[B]``."""
     Sa = axis_budget
     B = 2 * Sa + 2
-    N = targets.shape[0]
+    N = targets.shape[-2]
+    lead = targets.shape[:-2]
     dev = targets.device
+    if lead:
+        origin = origin[:, None, :]
 
     d = targets - origin
     L = torch.sqrt((d * d).sum(-1))
     clamped = valid & (L > max_len)
     scale = torch.where(L > max_len, max_len / torch.clamp_min(L, _EPS), 1.0)
-    tgt = origin + d * scale[:, None]
+    tgt = origin + d * scale[..., None]
     i0, it, step, t0, dt = _ray_setup(origin, tgt, voxel_size)
     nmax = (it - i0).abs()  # [N, 3] the exact crossing count of each axis
 
     ar = torch.arange(Sa, device=dev)
-    t = t0[:, :, None] + dt[:, :, None] * ar.to(_F32)  # [N, 3, Sa]
-    exists = ar < nmax[:, :, None]
+    t = t0[..., None] + dt[..., None] * ar.to(_F32)  # [N, 3, Sa]
+    exists = ar < nmax[..., None]
 
     # crossings of axis b at or before t (a tie counts iff b <= a); b == a is j + 1
-    x = (t[..., None] - t0[:, None, None, :]) / dt[:, None, None, :]  # [N, 3, Sa, 3]
+    x = (t[..., None] - t0[..., None, None, :]) / dt[..., None, None, :]  # [N, 3, Sa, 3]
     a_idx = torch.arange(3, device=dev)[None, :, None, None]
     b_idx = torch.arange(3, device=dev)[None, None, None, :]
     n = torch.where(b_idx < a_idx, _floor_int(x) + 1, _ceil_int(x))
     n = torch.where(b_idx == a_idx, (ar + 1).to(_I32)[None, None, :, None], n)
-    n = torch.minimum(torch.clamp_min(n, 0), nmax[:, None, None, :])
-    pos = i0 + step[:, None, None, :] * n  # [N, 3, Sa, 3]
+    n = torch.minimum(torch.clamp_min(n, 0), nmax[..., None, None, :])
+    pos = i0[..., None, None, :] + step[..., None, None, :] * n  # [N, 3, Sa, 3]
 
-    reached = (pos == it[:, None, None, :]).all(-1)
-    emit = valid[:, None, None] & exists & ~reached
+    reached = (pos == it[..., None, None, :]).all(-1)
+    emit = valid[..., None, None] & exists & ~reached
 
     # A manual step limit suppresses the crossings past it in merged order:
     # a crossing's rank is the count of crossings at or before it, sum_b n_b.
-    n_truncated = torch.zeros((), dtype=_I32, device=dev)
+    n_truncated = torch.zeros(lead, dtype=_I32, device=dev)
     if step_limit > 0:
         rank = n.sum(-1) - 1
-        over = exists & valid[:, None, None] & (rank >= step_limit)
-        n_truncated = over.flatten(1).any(1).sum(dtype=_I32)
+        over = exists & valid[..., None, None] & (rank >= step_limit)
+        n_truncated = over.flatten(-2).any(-1).sum(-1, dtype=_I32)
         emit = emit & (rank < step_limit)
 
     base = i0 + COORD_OFFSET - (Sa + 1)  # carved cells lie in [base, base + B)
-    window_ok = ((base >= 0) & (base + B <= COORD_MASK)).all()
-    rel = pos + COORD_OFFSET - base
-    in_b = ((rel >= 0) & (rel < B)).all(-1) & window_ok
-    n_range_lost = (emit & ~in_b).sum(dtype=_I32)
+    window_ok = ((base >= 0) & (base + B <= COORD_MASK)).all(-1)
+    rel = pos + COORD_OFFSET - base[..., None, None, :]
+    in_b = ((rel >= 0) & (rel < B)).all(-1) & window_ok[..., None, None]
+    n_range_lost = (emit & ~in_b).flatten(-3).sum(-1, dtype=_I32)
     emit = emit & in_b
     key = torch.where(emit, (rel[..., 0] * B + rel[..., 1]) * B + rel[..., 2], _SENTINEL)
 
     origin_coord = i0 + COORD_OFFSET
     origin_differs = (origin_coord != it + COORD_OFFSET).any(-1)
-    origin_in_range = ((origin_coord >= 0) & (origin_coord <= COORD_MASK)).all()
+    origin_in_range = ((origin_coord >= 0) & (origin_coord <= COORD_MASK)).all(-1)
     origin_emit = valid & origin_differs & origin_in_range
-    return (key.reshape(N, 3 * Sa), origin_emit, origin_coord, base, B, clamped.sum(dtype=_I32), n_range_lost,
-            n_truncated)
+    return (key.reshape(lead + (N, 3 * Sa)), origin_emit, origin_coord.reshape(lead + (3,)),
+            base.reshape(lead + (3,)), B, clamped.sum(-1, dtype=_I32), n_range_lost, n_truncated)
 
 
 def _decode_keys(rep: torch.Tensor, valid: torch.Tensor, B: int, base_coord: torch.Tensor) -> torch.Tensor:
     """Packed carve keys -> voxel coordinates ``[M, 3]`` int32, _SENTINEL
     where not ``valid``."""
-    keys = torch.stack([rep // (B * B), (rep // B) % B, rep % B], dim=-1).to(_I32) + base_coord
-    return torch.where(valid[:, None], keys, _SENTINEL)
+    keys = torch.stack([rep // (B * B), (rep // B) % B, rep % B], dim=-1).to(_I32) + base_coord[..., None, :]
+    return torch.where(valid[..., None], keys, _SENTINEL)
 
 
 def _merge_miss_keys(keys_flat, capacity: int, B: int, base_coord):
@@ -337,7 +357,7 @@ def _sorted_runs(keys_flat):
     key_s = torch.sort(keys_flat).values
     okr = key_s != _SENTINEL
     new_seg = torch.ones_like(okr)
-    new_seg[1:] = key_s[1:] != key_s[:-1]
+    new_seg[..., 1:] = key_s[..., 1:] != key_s[..., :-1]
     return key_s, okr, new_seg
 
 
@@ -346,20 +366,21 @@ def _merge_miss_keys_rle(keys_flat, capacity: int, B: int, base_coord):
     a run and the sentinels are the tail; a second sort of the run-start
     positions (every other entry the sentinel) gives run ``r``'s start as its
     ``r``-th entry, and the run lengths are the differences of the starts."""
-    K = keys_flat.shape[0]
+    K = keys_flat.shape[-1]
+    lead = keys_flat.shape[:-1]
     dev = keys_flat.device
     key_s, okr, new_seg = _sorted_runs(keys_flat)
-    n_valid = okr.sum()
+    n_valid = okr.sum(-1)[..., None]
     pos = torch.where(new_seg & okr, torch.arange(K, device=dev), _SENTINEL)
     pos_s = torch.sort(pos).values
     take = min(capacity + 1, K)
-    starts = torch.minimum(pos_s[:take], n_valid)
+    starts = torch.minimum(pos_s[..., :take], n_valid)
     if take < capacity + 1:
-        starts = torch.cat([starts, n_valid.expand(capacity + 1 - take)])
-    cnt = (starts[1:] - starts[:-1]).to(_F32)
+        starts = torch.cat([starts, n_valid.expand(lead + (capacity + 1 - take,))], -1)
+    cnt = (starts[..., 1:] - starts[..., :-1]).to(_F32)
     valid = cnt > 0.0
-    rep = torch.where(valid, key_s[torch.clamp_max(starts[:-1], K - 1)].to(torch.int64), 0)
-    return _decode_keys(rep, valid, B, base_coord), cnt, (n_valid - starts[capacity]).to(_I32)
+    rep = torch.where(valid, torch.gather(key_s, -1, torch.clamp_max(starts[..., :-1], K - 1)).to(torch.int64), 0)
+    return _decode_keys(rep, valid, B, base_coord), cnt, (n_valid - starts[..., capacity:])[..., 0].to(_I32)
 
 
 def _merge_miss_keys_sort(keys_flat, capacity: int, B: int, base_coord):
@@ -399,29 +420,6 @@ def _merge_miss_keys_dense(keys_flat, capacity: int, B: int, base_coord):
     return _decode_keys(torch.where(filled, rep, 0), filled, B, base_coord), cnt, n_lost
 
 
-def _segment_merge(coords: torch.Tensor, w: torch.Tensor, payload: torch.Tensor):
-    """Sort + segment sum of weighted payload rows ``[N, P]`` by voxel:
-    ``(seg_keys [N, 3], cnt [N], agg [N, P], n_extent_lost)``; segments past
-    the last one hold nothing (``cnt`` 0)."""
-    N = coords.shape[0]
-    dev = coords.device
-    order, coords_s, ok_s, seg_id, _, n_extent_lost = sort_by_cell(coords, w > 0)
-    w_s = w[order] * ok_s.to(w.dtype)
-    rows = torch.cat([payload[order], torch.ones_like(w_s)[:, None]], dim=1) * w_s[:, None]
-    agg = segment_sum_sorted(rows, seg_id, N)
-    first = torch.full((N,), N - 1, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, seg_id, torch.arange(N, device=dev), "amin")
-    return coords_s[first], agg[:, -1], agg[:, :-1], n_extent_lost
-
-
-def _add_rows(table: torch.Tensor, tgt: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """A copy of ``table`` with ``values`` added at rows ``tgt``; rows equal
-    to the table's length are dropped (they land in a spare row)."""
-    out = torch.cat([table, table.new_zeros((1,) + table.shape[1:])])
-    out.index_add_(0, tgt, values.to(table.dtype))
-    return out[:-1]
-
-
 def add_point_cloud(
     state: OccupancyGridState,
     config: OccupancyGridConfig,
@@ -429,64 +427,77 @@ def add_point_cloud(
     sensor_pose: torch.Tensor,
 ) -> OccupancyGridState:
     """Insert a sensor-frame cloud seen from ``sensor_pose``: hits, the
-    free-space carve, the pending log-odds with the clamp, pruning."""
+    free-space carve, the pending log-odds with the clamp, pruning (a
+    fleet's clouds from their poses)."""
+    lead = cloud.points.shape[:-2]
     N = cloud.capacity
     C = config.capacity
     dev = cloud.device
-    origin = sensor_pose[:3, 3]
-    pts_map = transform_points(cloud.points, sensor_pose)
+    origin = sensor_pose[..., :3, 3]
+    pose = sensor_pose[:, None] if lead else sensor_pose
+    pts_map = transform_points(cloud.points, pose)
     coords, ok, n_range_lost = voxel_coords_counted(pts_map, cloud.mask, config.voxel_size)
-    ok = ok & (((pts_map - origin) ** 2).sum(-1) > _EPS)  # a return at the sensor carves nothing
+    o = origin[..., None, :]
+    ok = ok & (((pts_map - o) ** 2).sum(-1) > _EPS)  # a return at the sensor carves nothing
+
+    def zeros(*tail):
+        return torch.zeros(lead + (N,) + tail, dtype=_F32, device=dev)
 
     if cloud.covs is not None:
-        logcov = _tri_pack(eigh3.spd_log(rotate_covs(cloud.covs, sensor_pose)))
+        logcov = _tri_pack(eigh3.spd_log(rotate_covs(cloud.covs, pose)))
     else:
-        logcov = torch.zeros((N, 6), dtype=_F32, device=dev)
-    rgba = cloud.rgb if cloud.rgb is not None else torch.zeros((N, 4), dtype=_F32, device=dev)
-    inten = cloud.intensities if cloud.intensities is not None else torch.zeros(N, dtype=_F32, device=dev)
-    payload = torch.cat([pts_map, logcov, rgba, inten[:, None]], dim=1)  # [N, 14]
+        logcov = zeros(6)
+    rgba = cloud.rgb if cloud.rgb is not None else zeros(4)
+    inten = cloud.intensities if cloud.intensities is not None else zeros()
+    payload = torch.cat([pts_map, logcov, rgba, inten[..., None], torch.ones_like(inten[..., None])], dim=-1)
 
     # ---- hits -----------------------------------------------------------------
-    seg_keys, hit_cnt, agg, n_extent_lost = _segment_merge(coords, ok.to(_F32), payload)
+    seg_keys, agg, n_extent_lost = _segments(payload, coords, ok)
+    hit_cnt = agg[..., -1]
     seg_valid = hit_cnt > 0.0
     coords_tbl, used, slot, resolved = resolve_slots(
         state.coords, state.used, seg_keys, seg_valid, C, config.max_probes)
-    tgt = torch.where(resolved, slot, C)
-    pending = _add_rows(torch.zeros(C, dtype=_F32, device=dev), tgt, hit_cnt * config.log_odds_hit)
+    tgt = _flat_rows(slot, resolved, C)
+    pending = _add_rows(torch.zeros(lead + (C,), dtype=_F32, device=dev), tgt, hit_cnt * config.log_odds_hit, lead)
     fields = {
-        "sum_pos": _add_rows(state.sum_pos, tgt, agg[:, 0:3]),
-        "hit_count": _add_rows(state.hit_count, tgt, hit_cnt),
-        "sum_logcov": _add_rows(state.sum_logcov, tgt, agg[:, 3:9]),
-        "sum_rgba": _add_rows(state.sum_rgba, tgt, agg[:, 9:13]),
-        "sum_intensity": _add_rows(state.sum_intensity, tgt, agg[:, 13]),
+        "sum_pos": _add_rows(state.sum_pos, tgt, agg[..., 0:3], lead),
+        "hit_count": _add_rows(state.hit_count, tgt, hit_cnt, lead),
+        "sum_logcov": _add_rows(state.sum_logcov, tgt, agg[..., 3:9], lead),
+        "sum_rgba": _add_rows(state.sum_rgba, tgt, agg[..., 9:13], lead),
+        "sum_intensity": _add_rows(state.sum_intensity, tgt, agg[..., 13], lead),
     }
-    last_update = _set_rows(state.last_update, tgt, state.frame.expand(N))
-    n_dropped = (seg_valid & ~resolved).sum(dtype=_I32)
+    last_update = _set_rows(state.last_update, tgt, state.frame[..., None].expand(lead + (N,)), lead)
+    n_dropped = (seg_valid & ~resolved).sum(-1, dtype=_I32)
     n_budget_lost = n_range_lost + n_extent_lost
-    n_truncated = n_clamped = torch.zeros((), dtype=_I32, device=dev)
+    n_truncated = n_clamped = torch.zeros(lead, dtype=_I32, device=dev)
 
     # ---- free space (misses) -----------------------------------------------
     cycle = config.free_space_update_cycle
+    if config.free_space_updates_enabled and config.log_odds_miss != 0.0:
+        # every stream carves on its cycle; the read is made only for a cycle
+        due = torch.ones(lead, dtype=torch.bool, device=dev) if cycle <= 1 else state.frame % cycle == 0
     if (config.free_space_updates_enabled and config.log_odds_miss != 0.0
-            and (cycle <= 1 or to_host(state.frame % cycle == 0))):
+            and (cycle <= 1 or to_host(due.any()))):
+        carve = ok & due[..., None]
         (miss_keys, origin_emit, origin_coord, base, B, n_clamped, carve_lost,
-         n_truncated) = _ray_carve_keys(origin, pts_map, ok, config.voxel_size, config.ray_axis_budget,
+         n_truncated) = _ray_carve_keys(origin, pts_map, carve, config.voxel_size, config.ray_axis_budget,
                                         config.max_ray_distance, step_limit=config.max_ray_steps)
         # Every ray misses the origin's voxel unless a point hit it this
         # frame; the N misses of that one voxel join the merged keys as one
         # row, first (the carve never emits the origin's voxel).
-        origin_hit = (ok & (coords == origin_coord).all(-1)).any()
-        origin_cnt = torch.where(origin_hit, 0.0, origin_emit.sum(dtype=_F32))
-        m_keys, m_cnt, m_lost = _merge_miss_keys(miss_keys.reshape(-1), config.miss_merge_budget, B, base)
-        m_keys = torch.cat([origin_coord[None], m_keys])
-        m_cnt = torch.cat([origin_cnt[None], m_cnt])
+        origin_hit = (ok & (coords == origin_coord[..., None, :]).all(-1)).any(-1)
+        origin_cnt = torch.where(origin_hit, 0.0, origin_emit.sum(-1, dtype=_F32))
+        m_keys, m_cnt, m_lost = _merge_miss_keys(miss_keys.reshape(lead + (-1,)), config.miss_merge_budget, B,
+                                                 base)
+        m_keys = torch.cat([origin_coord[..., None, :], m_keys], -2)
+        m_cnt = torch.cat([origin_cnt[..., None], m_cnt], -1)
         m_valid = m_cnt > 0.0
         coords_tbl, used, m_slot, m_resolved = resolve_slots_tiered(
             coords_tbl, used, m_keys, m_valid, C, config.max_probes)
-        m_tgt = torch.where(m_resolved, m_slot, C)
-        pending = _add_rows(pending, m_tgt, m_cnt * config.log_odds_miss)
-        last_update = _set_rows(last_update, m_tgt, state.frame.expand(m_keys.shape[0]))
-        n_dropped = n_dropped + (m_valid & ~m_resolved).sum(dtype=_I32)
+        m_tgt = _flat_rows(m_slot, m_resolved, C)
+        pending = _add_rows(pending, m_tgt, m_cnt * config.log_odds_miss, lead)
+        last_update = _set_rows(last_update, m_tgt, state.frame[..., None].expand(m_cnt.shape), lead)
+        n_dropped = n_dropped + (m_valid & ~m_resolved).sum(-1, dtype=_I32)
         n_budget_lost = n_budget_lost + carve_lost + m_lost
 
     # ---- the frame's log-odds, clamped --------------------------------------
@@ -510,17 +521,17 @@ def add_point_cloud(
 
 def prune_stale_voxels(state: OccupancyGridState, config: OccupancyGridConfig) -> OccupancyGridState:
     """Clear the voxels not updated within ``stale_frame_threshold`` frames."""
-    keep = ~(state.used & (state.frame - state.last_update > config.stale_frame_threshold))
+    keep = ~(state.used & (state.frame[..., None] - state.last_update > config.stale_frame_threshold))
     kf = keep.to(_F32)
     return dataclasses.replace(
         state,
-        coords=torch.where(keep[:, None], state.coords, _SENTINEL),
+        coords=torch.where(keep[..., None], state.coords, _SENTINEL),
         used=state.used & keep,
         log_odds=state.log_odds * kf,
-        sum_pos=state.sum_pos * kf[:, None],
+        sum_pos=state.sum_pos * kf[..., None],
         hit_count=state.hit_count * kf,
-        sum_logcov=state.sum_logcov * kf[:, None],
-        sum_rgba=state.sum_rgba * kf[:, None],
+        sum_logcov=state.sum_logcov * kf[..., None],
+        sum_rgba=state.sum_rgba * kf[..., None],
         sum_intensity=state.sum_intensity * kf,
         last_update=torch.where(keep, state.last_update, 0),
     )
@@ -531,23 +542,28 @@ def voxel_count(state: OccupancyGridState) -> torch.Tensor:
 
 
 def load_factor(state: OccupancyGridState, config: OccupancyGridConfig) -> torch.Tensor:
-    """Occupied fraction of the table (the growth policy rehashes above 0.7)."""
-    return state.used.sum(dtype=_F32) / config.capacity
+    """Occupied fraction of the table (the growth policy rehashes above 0.7);
+    ``[B]`` for a fleet."""
+    return state.used.sum(-1, dtype=_F32) / config.capacity
 
 
 def grow(
     state: OccupancyGridState, config: OccupancyGridConfig, factor: int = 2
 ) -> tuple[OccupancyGridState, OccupancyGridConfig]:
-    """Re-insert every used slot into a ``factor``-times-larger table."""
+    """Re-insert every used slot into a ``factor``-times-larger table (every
+    stream's, for a fleet)."""
+    lead = state.frame.shape
     new_config = dataclasses.replace(config, capacity=config.capacity * factor)
     new = create(new_config, state.device)
+    if lead:
+        new = stack_streams(new, lead[0])
     coords_tbl, used, slot, resolved = resolve_slots(
         new.coords, new.used, state.coords, state.used, new_config.capacity, new_config.max_probes)
-    tgt = torch.where(resolved, slot, new_config.capacity)
+    tgt = _flat_rows(slot, resolved, new_config.capacity)
     moved = dataclasses.replace(
         state, coords=coords_tbl, used=used,
-        dropped=state.dropped + (state.used & ~resolved).sum(dtype=_I32),
-        **{f: _set_rows(getattr(new, f), tgt, getattr(state, f)) for f in _TABLE_FIELDS},
+        dropped=state.dropped + (state.used & ~resolved).sum(-1, dtype=_I32),
+        **{f: _set_rows(getattr(new, f), tgt, getattr(state, f), lead) for f in _TABLE_FIELDS},
     )
     return moved, new_config
 
@@ -607,17 +623,19 @@ def extract_occupied_points(
     the sensor are kept, and with ``with_overflow`` the count of the others
     is returned too: ``(cloud, n_overflow)``."""
     cnt_safe = torch.clamp_min(state.hit_count, 1.0)
-    centroid = state.sum_pos / cnt_safe[:, None]
+    centroid = state.sum_pos / cnt_safe[..., None]
+    sensor_position = sensor_position[..., None, :]
     inside = ((centroid - sensor_position).abs() <= max_distance).all(-1)
     keep = _occupied_mask(state, config) & inside
     dist_sq = ((centroid - sensor_position) ** 2).sum(-1)
     order, mask, n_overflow = compact_indices_ranked(keep, dist_sq, out_capacity)
-    cnt = cnt_safe[order]
-    covs = eigh3.spd_exp(_tri_unpack(state.sum_logcov[order] / cnt[:, None])) if with_covs else None
+    take = _taker(order)
+    cnt = take(cnt_safe)
+    covs = eigh3.spd_exp(_tri_unpack(take(state.sum_logcov) / cnt[..., None])) if with_covs else None
     out = PointCloud(
-        points=centroid[order], mask=mask, covs=covs,
-        rgb=state.sum_rgba[order] / cnt[:, None] if with_rgb else None,
-        intensities=state.sum_intensity[order] / cnt if with_intensity else None,
+        points=take(centroid), mask=mask, covs=covs,
+        rgb=take(state.sum_rgba) / cnt[..., None] if with_rgb else None,
+        intensities=take(state.sum_intensity) / cnt if with_intensity else None,
     )
     if with_overflow:
         return out, n_overflow

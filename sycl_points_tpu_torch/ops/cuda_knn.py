@@ -11,6 +11,11 @@ target prepared once by :func:`prep_target`:
   * ``knn_k`` exact k-NN, k <= 16; replaces ``_approx_knn_single``, which
               rests on the TPU-only ``lax.approx_max_k``.
 
+Both take a leading stream axis in one launch (``nn1_prepped_batched``,
+``knn_k_batched`` on targets made by :func:`prep_targets`): stream ``b``'s
+queries search stream ``b``'s target only, and the result equals ``B``
+single-stream launches bit for bit. The fleet runs its streams through them.
+
 In ``csrc/knn.cu``, the first designs, one thread a query on the raw target
 and its mask: ``nn1_tiled``, the 1-NN at a chosen (threads per block, target
 tile) instance, which replaces the tile sweep's ``make_nn1``
@@ -75,7 +80,7 @@ NN1_LANES = (8, 32)
 
 # Kernel launches per wrapper; reset with reset_launch_counts().
 launch_counts = {
-    "nn1": 0, "knn_k": 0, "knn_k_simple": 0,
+    "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
     "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0,
 }
 
@@ -145,12 +150,15 @@ def load_library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.spt_nn1.argtypes = [p, i, p, i, p, i, i, p, p, p]
             lib.spt_knn_k.argtypes = [p, i, p, i, i, i, p, p, p]
+            lib.spt_nn1_batched.argtypes = [p, i, p, i, p, i, i, i, p, p, p]
+            lib.spt_knn_k_batched.argtypes = [p, i, p, i, i, i, i, p, p, p]
             lib.spt_knn_k_simple.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_tiled.argtypes = [p, p, i, p, i, i, i, p, p, p]
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
-            for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_knn_k_simple, lib.spt_nn1_tiled,
+            for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_batched, lib.spt_knn_k_batched,
+                       lib.spt_knn_k_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2):
                 fn.restype = i
             _lib = lib
@@ -216,14 +224,15 @@ def _check_rc(rc: int, name: str) -> None:
 class PreppedTarget(NamedTuple):
     """A kernel-ready target: ``xyz [3, Mp]`` float32, the x, y and z rows,
     with masked rows and the padding up to ``Mp`` (a multiple of
-    :data:`TARGET_TILE`) at +inf; ``M`` is the true target count."""
+    :data:`TARGET_TILE`) at +inf; ``M`` is the true target count. A fleet's
+    targets (:func:`prep_targets`) are ``xyz [B, 3, Mp]``, one a stream."""
 
     xyz: torch.Tensor
     M: int
 
     def points(self) -> torch.Tensor:
-        """``[M, 3]`` coordinates, +inf on masked rows (a view)."""
-        return self.xyz[:, : self.M].T
+        """``[M, 3]`` (``[B, M, 3]``) coordinates, +inf on masked rows (a view)."""
+        return self.xyz[..., : self.M].transpose(-1, -2)
 
 
 def prep_target(points: torch.Tensor, mask: torch.Tensor) -> PreppedTarget:
@@ -232,12 +241,28 @@ def prep_target(points: torch.Tensor, mask: torch.Tensor) -> PreppedTarget:
     has an +inf distance, which no strict ``<`` takes, so the kernels read
     whole aligned tiles with no mask and no edge test."""
     _check_target(points, mask)
+    return _prep(points, mask)
+
+
+def _prep(points, mask) -> PreppedTarget:
     if points.device != mask.device:
         raise ValueError(f"inputs on more than one device: {points.device}, {mask.device}")
-    M = points.shape[0]
+    M = points.shape[-2]
     Mp = -(-M // TARGET_TILE) * TARGET_TILE
-    xyz = torch.where(mask.bool()[None, :], points.T, torch.inf)
+    xyz = torch.where(mask.bool()[..., None, :], points.transpose(-1, -2), torch.inf)
     return PreppedTarget(torch.nn.functional.pad(xyz, (0, Mp - M), value=torch.inf).contiguous(), M)
+
+
+def prep_targets(points: torch.Tensor, mask: torch.Tensor) -> PreppedTarget:
+    """The targets of ``B`` streams, ``points [B, M, 3]`` and ``mask [B, M]``,
+    as the batched kernels read them: ``xyz [B, 3, Mp]``, stream ``b`` equal
+    to ``prep_target(points[b], mask[b])``."""
+    if points.dim() != 3 or points.shape[-1] != 3 or mask.shape != points.shape[:2]:
+        raise ValueError(f"expected [B,M,3] targets and a [B,M] mask, got {tuple(points.shape)}, "
+                         f"{tuple(mask.shape)}")
+    if points.dtype != torch.float32:
+        raise TypeError(f"expected float32 coordinates, got {points.dtype}")
+    return _prep(points, mask)
 
 
 def _check_prepped(prep: PreppedTarget, queries, pose):
@@ -248,6 +273,28 @@ def _check_prepped(prep: PreppedTarget, queries, pose):
     if xyz.dtype != torch.float32:
         raise TypeError(f"expected float32 coordinates, got {xyz.dtype}")
     return _check_queries(queries, pose, xyz)
+
+
+def _check_prepped_batched(prep: PreppedTarget, queries, poses):
+    """Check a fleet's prepared targets ``[B, 3, Mp]``, queries ``[B, Q, 3]``
+    and poses ``[B, 4, 4]`` (or None); returns their device."""
+    xyz = prep.xyz
+    if xyz.dim() != 3 or xyz.shape[1] != 3 or xyz.shape[2] % TARGET_TILE or not 0 <= prep.M <= xyz.shape[2]:
+        raise ValueError(f"expected prepared [B, 3, Mp] targets, Mp a multiple of {TARGET_TILE}, "
+                         f"got {tuple(xyz.shape)} with M={prep.M}")
+    B = xyz.shape[0]
+    if queries.dim() != 3 or queries.shape[0] != B or queries.shape[2] != 3:
+        raise ValueError(f"expected [{B},Q,3] queries, got {tuple(queries.shape)}")
+    if poses is not None and poses.shape != (B, 4, 4):
+        raise ValueError(f"expected [{B},4,4] poses, got {tuple(poses.shape)}")
+    tensors = [xyz, queries] + ([] if poses is None else [poses])
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on more than one device: {devices}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"expected float32 coordinates, got {t.dtype}")
+    return devices.pop()
 
 
 # --------------------------------------------------------------------------
@@ -312,6 +359,23 @@ def knn_k_plain(target_xyz, target_mask, queries, k: int):
     return _knn_k_plain(target_xyz, target_mask.bool(), queries, k)
 
 
+def nn1_batched_plain(target_xyz, target_mask, queries, poses=None):
+    """:func:`nn1_plain` of every stream: ``target_xyz [B,M,3]``,
+    ``target_mask [B,M]``, ``queries [B,Q,3]``, ``poses [B,4,4]`` (or None)
+    -> ``(idx [B,Q] int32, d2 [B,Q] f32)``."""
+    out = [_nn1_plain(target_xyz[b], None if target_mask is None else target_mask[b].bool(), queries[b],
+                      None if poses is None else poses[b]) for b in range(queries.shape[0])]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+def knn_k_batched_plain(target_xyz, target_mask, queries, k: int):
+    """:func:`knn_k_plain` of every stream: ``(idx [B,Q,k] int32, d2
+    [B,Q,k] f32)``."""
+    out = [_knn_k_plain(target_xyz[b], None if target_mask is None else target_mask[b].bool(), queries[b], k)
+           for b in range(queries.shape[0])]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
 def nn1_mismatches(idx, d2, ref_idx, ref_d2, tie_tol: float = 1e-6) -> int:
     """Rows whose 1-NN index differs from the reference's without the two
     distances lying within ``tie_tol`` (both +inf counts as a tie)."""
@@ -350,15 +414,18 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def cluster_shape(Q: int, query_tiles, n_sm: int) -> tuple[int, int]:
-    """``(queries a cluster, slices a cluster)`` for ``Q`` queries: the
-    largest query tile, then the fewest slices, that give the grid
-    ``BLOCKS_PER_SM`` blocks an SM, else the smallest tile and the most
-    slices. On the H100 (132 SMs) Q=1000 runs 32 x 16 = 512 blocks and
-    Q=24,576 runs 192 x 4 = 768: few queries take many slices, many take
-    few, as a merge costs more than a block saves there."""
+def cluster_shape(Q: int, query_tiles, n_sm: int, streams: int = 1) -> tuple[int, int]:
+    """``(queries a cluster, slices a cluster)`` for ``Q`` queries in each of
+    ``streams`` streams: the largest query tile, then the fewest slices, that
+    give the grid ``BLOCKS_PER_SM`` blocks an SM, else the smallest tile and
+    the most slices. On the H100 (132 SMs) Q=1000 runs 32 x 16 = 512 blocks
+    and Q=24,576 runs 192 x 4 = 768: few queries take many slices, many take
+    few, as a merge costs more than a block saves there. A fleet's query
+    tiles are counted over all its streams: 8 streams of 1000 queries run
+    64 tiles of 128 queries x 16 slices, where one stream alone runs 32 x
+    16."""
     want = BLOCKS_PER_SM * n_sm
-    tiles = lambda qt: -(-Q // qt)
+    tiles = lambda qt: streams * -(-Q // qt)
     qt = next((qt for qt in sorted(query_tiles, reverse=True) if tiles(qt) * CLUSTER_SLICES[-1] >= want),
               min(query_tiles))
     slices = next((s for s in CLUSTER_SLICES if tiles(qt) * s >= want), CLUSTER_SLICES[-1])
@@ -440,6 +507,43 @@ def knn_k(target_xyz, target_mask, queries, k: int):
     see :func:`knn_k_prepped`."""
     _check_inputs(target_xyz, target_mask, queries)
     return knn_k_prepped(prep_target(target_xyz, target_mask), queries, k)
+
+
+def nn1_prepped_batched(prep: PreppedTarget, queries, poses=None):
+    """Exact 1-NN of the queries ``[B,Q,3]`` of ``B`` streams (moved by
+    ``poses [B,4,4]`` if given) against their targets made by
+    :func:`prep_targets`, in one launch: ``(idx [B,Q] int32, d2 [B,Q]
+    f32)``, equal to :func:`nn1_prepped` of each stream.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    device = _check_prepped_batched(prep, queries, poses)
+    if device.type == "cpu":
+        return nn1_batched_plain(prep.points(), None, queries, poses)
+    _check_prepped_cuda(prep, queries, poses, device, "nn1_batched")
+    B, Q = queries.shape[:2]
+    qt, slices = cluster_shape(Q, NN1_QUERY_TILES, _sm_count(device.index), B)
+    pose_ptr = None if poses is None else poses.data_ptr()
+    return _launch("nn1_batched", device, (B, Q), lambda lib, i, d, s: lib.spt_nn1_batched(
+        prep.xyz.data_ptr(), prep.xyz.shape[2], queries.data_ptr(), Q, pose_ptr, B, qt, slices, i, d, s))
+
+
+def knn_k_batched(prep: PreppedTarget, queries, k: int):
+    """Exact k nearest neighbours (``1 <= k <= 16``) of the queries
+    ``[B,Q,3]`` of ``B`` streams in their targets made by
+    :func:`prep_targets`, in one launch: ``(idx [B,Q,k] int32, d2 [B,Q,k]
+    f32)``, equal to :func:`knn_k_prepped` of each stream.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
+    device = _check_prepped_batched(prep, queries, None)
+    if device.type == "cpu":
+        return knn_k_batched_plain(prep.points(), None, queries, k)
+    _check_prepped_cuda(prep, queries, None, device, "knn_k_batched")
+    B, Q = queries.shape[:2]
+    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), B)
+    return _launch("knn_k_batched", device, (B, Q, k), lambda lib, i, d, s: lib.spt_knn_k_batched(
+        prep.xyz.data_ptr(), prep.xyz.shape[2], queries.data_ptr(), Q, B, k, slices, i, d, s))
 
 
 def _raw_launch(name, entry, target_xyz, target_mask, queries, shape, extra):

@@ -10,6 +10,11 @@
     ``lax.approx_max_k`` exists only on a TPU and lowers to an exact top-k
     everywhere else.
 
+A fleet's clouds (``[B, N, 3]``) go through the batched kernels in one
+launch: :func:`self_knn_streams`, and :class:`BruteForceKNN` built on
+``[B, M, 3]`` targets, whose ``search(k=1)`` takes queries ``[B, Q, 3]`` and
+poses ``[B, 4, 4]``.
+
 The wrappers in :mod:`.cuda_knn` run the plain versions for CPU tensors and
 launch the CUDA kernels for CUDA tensors.
 """
@@ -54,6 +59,13 @@ def self_knn(points: torch.Tensor, mask: torch.Tensor, k: int) -> KNNResult:
     return brute_force_knn(points, mask, points, k)
 
 
+def self_knn_streams(points: torch.Tensor, mask: torch.Tensor, k: int) -> KNNResult:
+    """:func:`self_knn` of every stream of ``points [B, N, 3]``, in one
+    launch: ``[B, N, k]`` indices into each stream's own rows."""
+    prep = cuda_knn.prep_targets(points, mask)
+    return KNNResult(*cuda_knn.knn_k_batched(prep, points.contiguous(), k))
+
+
 @dataclasses.dataclass(frozen=True)
 class BruteForceKNN:
     """Correspondence search over a target cloud.
@@ -73,11 +85,18 @@ class BruteForceKNN:
     def prepped(self) -> "BruteForceKNN":
         if self.target is not None:
             return self
-        return dataclasses.replace(self, target=cuda_knn.prep_target(self.points, self.mask))
+        prep = cuda_knn.prep_targets if self.points.dim() == 3 else cuda_knn.prep_target
+        return dataclasses.replace(self, target=prep(self.points, self.mask))
 
     def search(
         self, query_points: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None
     ) -> KNNResult:
+        if self.points.dim() == 3:
+            if k != 1:
+                raise NotImplementedError("a fleet's target searches k = 1 only")
+            i, d = cuda_knn.nn1_prepped_batched(
+                self.prepped().target, query_points.contiguous(), None if pose is None else pose.contiguous())
+            return KNNResult(i[..., None], d[..., None])
         if k == 1:
             i, d = cuda_knn.nn1_prepped(
                 self.prepped().target, query_points.contiguous(),

@@ -6,6 +6,11 @@ points, or weighted (Efraimidis-Spirakis: ``log w`` plus the noise). The
 noise comes from an explicit ``torch.Generator``, or from the caller as
 ``noise``; the top-k sits in :func:`sample_by_scores` so that a caller can
 supply the scores.
+
+Every sampler takes a fleet's cloud (``[B, N, ...]``) too, with scores or
+noise ``[B, N]``: one top-k over the stream axis. The ``*_streams`` forms draw
+stream ``b``'s noise from its own generator, so that stream ``b`` takes what
+a single-stream call with that generator takes.
 """
 
 from __future__ import annotations
@@ -14,18 +19,20 @@ from typing import Optional
 
 import torch
 
-from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, gather_streams
 
 _NEG = -1e30
 
 
 def _take(cloud: PointCloud, idx: torch.Tensor, valid: torch.Tensor) -> PointCloud:
     def g(a):
-        return None if a is None else a[idx]
+        if a is None:
+            return None
+        return a[idx] if idx.dim() == 1 else gather_streams(a, idx)
 
     return PointCloud(
-        points=cloud.points[idx],
-        mask=valid & cloud.mask[idx],
+        points=g(cloud.points),
+        mask=valid & g(cloud.mask),
         covs=g(cloud.covs),
         normals=g(cloud.normals),
         rgb=g(cloud.rgb),
@@ -46,7 +53,7 @@ def _top_eligible(scores: torch.Tensor, eligible: torch.Tensor, num: int):
     descending order, and which of them are real (``num`` may exceed the
     eligible count)."""
     _, idx = torch.topk(torch.where(eligible, scores, _NEG), num, sorted=True)
-    taken = torch.arange(num, device=scores.device) < eligible.sum(dtype=torch.int32)
+    taken = torch.arange(num, device=scores.device) < eligible.sum(-1, dtype=torch.int32)[..., None]
     return idx, taken
 
 
@@ -113,7 +120,22 @@ def mixed_sampling(
                  gumbel_noise(cloud.capacity, generator, cloud.device))
     scores_w, w_ok = _weighted_scores(cloud, weights, noise[0])
     idx_w, w_taken = _top_eligible(scores_w, w_ok, n_weighted)
-    selected = torch.zeros_like(cloud.mask)
-    selected[idx_w] = w_taken
+    selected = torch.zeros_like(cloud.mask).scatter_(-1, idx_w, w_taken)
     idx_u, u_taken = _top_eligible(noise[1], cloud.mask & ~selected, n_uniform)
-    return _take(cloud, torch.cat([idx_w, idx_u]), torch.cat([w_taken, u_taken]))
+    return _take(cloud, torch.cat([idx_w, idx_u], -1), torch.cat([w_taken, u_taken], -1))
+
+
+def stream_noise(generators, n: int, device, draw=None) -> torch.Tensor:
+    """``[B, n]`` Gumbel noise, row ``b`` drawn from ``generators[b]``; a
+    row whose host flag ``draw[b]`` is False draws nothing and is zero."""
+    rows = [gumbel_noise(n, g, device) if draw is None or draw[b] else torch.zeros(n, device=device)
+            for b, g in enumerate(generators)]
+    return torch.stack(rows)
+
+
+def random_sampling_streams(cloud: PointCloud, num: int, generators) -> PointCloud:
+    """:func:`random_sampling` of every stream of a fleet's cloud, stream
+    ``b`` drawing from ``generators[b]``."""
+    if num >= cloud.capacity:
+        return cloud
+    return sample_by_scores(cloud, num, stream_noise(generators, cloud.capacity, cloud.device))

@@ -6,6 +6,12 @@ rebased to the per-frame minimum), segment ids from the key boundaries, and
 one ``[N, C]`` segment sum (:func:`segment_sum_sorted`, the same bits on the
 card and the CPU) for every mean channel plus the count. Voxels come out
 compacted to the front at a static capacity.
+
+A fleet's clouds (``[B, N, ...]``, B streams) take the same path in one
+sort: the stream number sits above the cell key, so stream ``b``'s rows sort
+as they sort alone, its segments follow those of the streams before it, and
+each voxel's sum is taken in the same row order as in a single-stream call:
+the result equals ``B`` single-stream calls bit for bit.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, flatten_streams, unflatten_streams
 
 # 21 bits per axis, offset 2^20.
 COORD_BITS = 21
@@ -38,8 +44,8 @@ def voxel_coords_counted(points: torch.Tensor, valid: torch.Tensor, voxel_size: 
     c = floor.to(torch.int32) + COORD_OFFSET
     in_range = ((c >= 0) & (c <= COORD_MASK)).all(-1)
     ok = finite & in_range
-    n_range_lost = (finite & ~in_range).sum(dtype=torch.int32)
-    c = torch.where(ok[:, None], c, _SENTINEL)
+    n_range_lost = (finite & ~in_range).sum(-1, dtype=torch.int32)
+    c = torch.where(ok[..., None], c, _SENTINEL)
     return c, ok, n_range_lost
 
 
@@ -58,19 +64,44 @@ def cell_sort_ids(coords: torch.Tensor, ok: torch.Tensor):
     Returns ``(order, ok_sorted, seg_id, new_seg, n_extent_lost)``:
     ``seg_id`` (int64) numbers the cells in key order, ``new_seg`` marks each
     cell's first row, ``n_extent_lost`` counts valid rows outside the extent
-    budget."""
-    masked = torch.where(ok[:, None], coords, 2**30)
-    rel = coords - masked.amin(0)
+    budget.
+
+    For a fleet's ``coords [B, N, 3]`` the key of stream ``b`` is rebased to
+    that stream's minimum and offset by ``b * 2^31`` (int64): one sort over
+    the ``B * N`` flattened rows, stream after stream; ``order``, ``ok_sorted``
+    and ``seg_id`` are flat (``seg_id`` numbers the cells of all streams in
+    turn, see :func:`stream_segments`), ``n_extent_lost`` is ``[B]``."""
+    masked = torch.where(ok[..., None], coords, 2**30)
+    rel = coords - masked.amin(-2, keepdim=True)
     in_bound = ok & ((rel >= 0) & (rel < MAX_CELLS_PER_AXIS)).all(-1)
-    n_extent_lost = (ok & ~in_bound).sum(dtype=torch.int32)
-    key = (rel[:, 0] * MAX_CELLS_PER_AXIS + rel[:, 1]) * MAX_CELLS_PER_AXIS + rel[:, 2]
+    n_extent_lost = (ok & ~in_bound).sum(-1, dtype=torch.int32)
+    key = (rel[..., 0] * MAX_CELLS_PER_AXIS + rel[..., 1]) * MAX_CELLS_PER_AXIS + rel[..., 2]
     key = torch.where(in_bound, key, _SENTINEL)
-    key_s, order = torch.sort(key, stable=True)
-    ok_s = key_s != _SENTINEL
+    if key.dim() == 2:
+        stream = torch.arange(key.shape[0], device=key.device)[:, None] << 31
+        key = (key.to(torch.int64) + stream).reshape(-1)
+        key_s, order = torch.sort(key, stable=True)
+        ok_s = (key_s & _SENTINEL) != _SENTINEL
+    else:
+        key_s, order = torch.sort(key, stable=True)
+        ok_s = key_s != _SENTINEL
     new_seg = torch.ones_like(ok_s)
     new_seg[1:] = key_s[1:] != key_s[:-1]
     seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
     return order, ok_s, seg_id, new_seg, n_extent_lost
+
+
+def stream_segments(seg_id: torch.Tensor, streams: int, out_capacity: int):
+    """For the flat ``seg_id`` of :func:`cell_sort_ids` over ``streams``
+    streams of equal row counts: ``(rows, valid)``, both ``[streams,
+    out_capacity]``, the global segment number of each stream's segment
+    ``j`` and whether the stream has that many segments."""
+    n = seg_id.shape[0] // streams
+    ends = seg_id.reshape(streams, n)
+    first, last = ends[:, :1], ends[:, -1:]
+    j = torch.arange(out_capacity, device=seg_id.device)
+    valid = j < last - first + 1
+    return torch.where(valid, first + j, 0), valid
 
 
 def segment_sum_sorted(vals: torch.Tensor, seg_id: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -90,9 +121,10 @@ def segment_sum_sorted(vals: torch.Tensor, seg_id: torch.Tensor, num_segments: i
 
 def sort_by_cell(coords: torch.Tensor, ok: torch.Tensor):
     """:func:`cell_sort_ids` plus the gathered sorted coordinates: ``(order,
-    coords_sorted, ok_sorted, seg_id, new_seg, n_extent_lost)``."""
+    coords_sorted, ok_sorted, seg_id, new_seg, n_extent_lost)`` (flat over a
+    fleet's streams)."""
     order, ok_s, seg_id, new_seg, n_extent_lost = cell_sort_ids(coords, ok)
-    return order, coords[order], ok_s, seg_id, new_seg, n_extent_lost
+    return order, coords.reshape(-1, 3)[order], ok_s, seg_id, new_seg, n_extent_lost
 
 
 def voxel_downsample(
@@ -118,14 +150,26 @@ def downsample_by_coords(
     return_lost: bool = False,
 ):
     """Sort/segment-reduce aggregation over integer bin coordinates: centroid,
-    RGB / timestamp / covariance / normal means, intensity median."""
+    RGB / timestamp / covariance / normal means, intensity median. A fleet's
+    cloud (``[B, N, ...]``) comes out ``[B, out_capacity, ...]``."""
     out_cap = out_capacity or cloud.capacity
-    dev = cloud.device
+    lead = cloud.points.shape[:-2]
+    if lead:
+        cloud = flatten_streams(cloud)
 
     # Invalid points share the maximal key and sort to the tail as one
     # zero-weight segment.
     order, ok_s, seg_id, _, n_extent_lost = cell_sort_ids(coords, ok)
     w = ok_s.to(cloud.points.dtype)
+    if lead:
+        rows, row_ok = stream_segments(seg_id, lead[0], out_cap)
+        rows, row_ok = rows.reshape(-1), row_ok.reshape(-1)
+
+    def segment_sums(vals):
+        if not lead:
+            return segment_sum_sorted(vals, seg_id, out_cap)
+        sums = segment_sum_sorted(vals, seg_id, vals.shape[0])
+        return torch.where(row_ok[:, None], sums[rows], 0.0)
 
     cols = [cloud.points]
     if cloud.rgb is not None:
@@ -143,7 +187,7 @@ def downsample_by_coords(
 
     # Segment sum; segments at or beyond out_cap are dropped
     # (segment_sum(num_segments=out_cap)).
-    moments = segment_sum_sorted(vals, seg_id, out_cap)
+    moments = segment_sums(vals)
     counts = moments[:, -1]
     means = moments[:, :-1] / torch.clamp_min(counts, 1.0)[:, None]
     voxel_ok = counts >= float(min_voxel_count)
@@ -172,7 +216,13 @@ def downsample_by_coords(
         normals = nm / torch.clamp_min(torch.linalg.vector_norm(nm, dim=1, keepdim=True), 1e-9)
         col += 3
     if cloud.intensities is not None:
-        intens = _segment_median(cloud.intensities[order], seg_id, w, counts, out_cap)
+        if lead:
+            n = seg_id.shape[0]
+            all_counts = segment_sum_sorted(w[:, None], seg_id, n)[:, 0]
+            med = _segment_median(cloud.intensities[order], seg_id, w, all_counts, n)
+            intens = torch.where(row_ok, med[rows], 0.0)
+        else:
+            intens = _segment_median(cloud.intensities[order], seg_id, w, counts, out_cap)
 
     out = PointCloud(
         points=means[:, :3],
@@ -183,6 +233,8 @@ def downsample_by_coords(
         intensities=intens,
         timestamp_offsets=ts,
     )
+    if lead:
+        out = unflatten_streams(out, lead[0])
     if return_lost:
         return out, n_extent_lost
     return out

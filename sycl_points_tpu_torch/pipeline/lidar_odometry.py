@@ -47,7 +47,7 @@ from sycl_points_tpu_torch.pipeline.submap import MAX_LOAD, Submap
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration.factors import RegType
 from sycl_points_tpu_torch.registration.map_prior import MapPriorParams, update as map_prior_update
-from sycl_points_tpu_torch.registration.pipeline import align_pipeline
+from sycl_points_tpu_torch.registration.pipeline import align_pipeline, align_pipeline_streams
 from sycl_points_tpu_torch.utils import lie, lie_np
 from sycl_points_tpu_torch.utils.sync import counts as sync_counts, to_host
 
@@ -250,17 +250,22 @@ class LidarOdometry:
 
     # ------------------------------------------------------------------
     def _reg_step(self, pre: PointCloud, init_T: torch.Tensor, prev_odom: torch.Tensor,
-                  last_kf_pose: torch.Tensor, kf_dt_exceeded, prior_in, registrated):
+                  last_kf_pose: torch.Tensor, kf_dt_exceeded, prior_in, registrated, target=None, knn=None):
         """The registration step: the min-points gate, the MAP prior, the
         align pipeline, the keyframe decision and ``stats1``, all on the
         device. ``prior_in`` is the previous raw result ``(T, H_raw,
         error_raw, inlier)`` that the MAP prior starts from (None when the
         prior is off); ``kf_dt_exceeded`` and ``registrated`` are host bools
         (the synchronous frame) or device bools (the pipelined frame).
+        ``target`` / ``knn`` default to the submap's. A fleet's step takes
+        ``pre [B, N]``, its targets and ``[B]``-leading poses and flags
+        (:func:`~..registration.pipeline.align_pipeline_streams`), and gives
+        ``stats1 [B, 62]``.
         Returns ``(result, deskewed, T_eff, is_kf, small, stats1)``."""
         p = self.params
-        dev = self.device
         kfp = p.submap.keyframe
+        target = self.submap.submap_cloud if target is None else target
+        knn = self.submap.submap_knn if knn is None else knn
         n_pre = pre.count()
         small = n_pre <= p.registration.min_num_points
 
@@ -269,35 +274,40 @@ class LidarOdometry:
             prior = map_prior_update(self.map_prior_params, *prior_in, init_T)
             prior = prior._replace(active=prior.active & registrated)
 
-        out = align_pipeline(
-            pre, self.submap.submap_cloud, self.submap.submap_knn, self.pipeline_params,
-            initial_guess=init_T, map_prior=prior, prev_pose=prev_odom, dt=self.dt,
-        )
+        if pre.points.dim() == 3:
+            out = align_pipeline_streams(pre, target, knn, self.pipeline_params, initial_guess=init_T,
+                                         map_prior=prior)
+        else:
+            out = align_pipeline(
+                pre, target, knn, self.pipeline_params,
+                initial_guess=init_T, map_prior=prior, prev_pose=prev_odom, dt=self.dt,
+            )
         result = out.result
         # a too-small frame must not move the odometry
-        T_eff = torch.where(small, prev_odom, result.T)
+        T_eff = torch.where(small[..., None, None], prev_odom, result.T)
 
         n_reg = out.registration_input.count()
         n_desk = out.deskewed.count()
         ratio = result.inlier.to(_F32) / torch.clamp_min(n_reg, 1).to(_F32)
         inlier_ok = ratio > kfp.inlier_ratio_threshold if kfp.inlier_ratio_threshold > 0.0 \
-            else torch.ones((), dtype=torch.bool, device=dev)
-        delta = lie.transform_inverse(last_kf_pose) @ T_eff
-        dist = torch.linalg.vector_norm(delta[:3, 3])
-        angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[:3]) * (180.0 / math.pi)
+            else torch.ones_like(small)
+        delta = lie.compose(lie.transform_inverse(last_kf_pose), T_eff)
+        dist = torch.linalg.vector_norm(delta[..., :3, 3], dim=-1)
+        angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[..., :3], dim=-1) * (180.0 / math.pi)
         geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees) | kf_dt_exceeded
         if self.submap.inserts_every_frame:
             geom_kf = torch.ones_like(geom_kf)
         is_kf = (~small) & inlier_ok & geom_kf
 
+        lead = small.shape
         stats1 = torch.cat([
-            T_eff.reshape(-1),
+            T_eff.reshape(lead + (16,)),
             torch.stack([v.to(_F32) for v in (
                 result.inlier, n_pre, n_reg, n_desk, is_kf, small,
-                result.converged, result.iterations, result.error)]),
-            result.H_raw.reshape(-1),
-            result.error_raw.to(_F32)[None],
-        ])
+                result.converged, result.iterations, result.error)], -1),
+            result.H_raw.reshape(lead + (36,)),
+            result.error_raw.to(_F32)[..., None],
+        ], -1)
         return result, out.deskewed, T_eff, is_kf, small, stats1
 
     def _prior_inputs(self):

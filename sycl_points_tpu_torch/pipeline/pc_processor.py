@@ -8,6 +8,13 @@ normalization; the last two reuse the k-NN context), and the IMU deskew of
 the raw scan. Every stage runs on the processor's device and none waits on
 the host. ``prepare_context`` is the ``knn_k`` kernel on the card.
 
+:meth:`PCProcessor.preprocess_streams` is the fleet's preprocess (the
+JAX fleet's vmapped ``_pre_fn``): the prefilter, the k-NN context,
+covariances and the refine filter for a fleet's clouds ``[B, N]`` in one
+pass, stream ``b``'s random stage drawing from its own generator. The polar
+grid and the intensity ops have no fleet form yet and raise
+``NotImplementedError`` there.
+
 Not ported yet: the raw range-image covariances (ROADMAP Queue 1 item 10),
 which raise ``NotImplementedError`` when the flag asks for them.
 """
@@ -24,9 +31,9 @@ from sycl_points_tpu_torch.deskew.imu_deskew import deskew_point_cloud_imu
 from sycl_points_tpu_torch.ops import intensity as intensity_ops
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, estimate_covariances_robust
 from sycl_points_tpu_torch.ops.filters import angle_incidence_filter, box_filter
-from sycl_points_tpu_torch.ops.knn import KNNResult, self_knn
+from sycl_points_tpu_torch.ops.knn import KNNResult, self_knn, self_knn_streams
 from sycl_points_tpu_torch.ops.polar import CoordinateSystem, polar_downsample
-from sycl_points_tpu_torch.ops.sampling import random_sampling
+from sycl_points_tpu_torch.ops.sampling import random_sampling, random_sampling_streams
 from sycl_points_tpu_torch.ops.voxel import voxel_downsample
 from sycl_points_tpu_torch.pipeline.params import CommonParameters
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, compact_device
@@ -49,8 +56,25 @@ class PCProcessor:
             raise NotImplementedError(
                 "the raw range-image covariance path is not ported yet (ROADMAP Queue 1 item 10)")
 
+    # -- the fleet ----------------------------------------------------------
+    def preprocess_streams(self, clouds: PointCloud, generators, need_covs: bool = True) -> PointCloud:
+        """The prefilter, then (``need_covs``) the k-NN context, covariances
+        and refine filter, for a fleet's clouds ``[B, N]``; stream ``b``'s
+        random stage draws from ``generators[b]``."""
+        if self.params.scan.downsampling.polar.enable:
+            raise NotImplementedError("the fleet's prefilter has no polar grid yet (ROADMAP Queue 1 item 11.2)")
+        if clouds.intensities is not None:
+            raise NotImplementedError("the fleet's preprocess has no intensity ops yet (ROADMAP Queue 1 item 11.2)")
+        c = self.prefilter(clouds, generators)
+        if need_covs:
+            ctx = self.prepare_context(c)
+            c = self.refine_filter(self.compute_covariances(c, ctx), ctx)
+        return c
+
     # -- prefilter ----------------------------------------------------------
-    def prefilter(self, cloud: PointCloud) -> PointCloud:
+    def prefilter(self, cloud: PointCloud, generators=None) -> PointCloud:
+        """The prefilter chain; a fleet's clouds ``[B, N]`` take one
+        generator a stream for the random stage."""
         p = self.params.scan
         c = cloud
         if p.preprocess.box_filter.enable:
@@ -70,7 +94,10 @@ class PCProcessor:
         elif not polar.enable:
             c = compact_device(c, out_capacity=cap)
         if p.downsampling.random.enable and p.downsampling.random.num < c.capacity:
-            c = random_sampling(c, p.downsampling.random.num, self._generator)
+            if generators is not None:
+                c = random_sampling_streams(c, p.downsampling.random.num, generators)
+            else:
+                c = random_sampling(c, p.downsampling.random.num, self._generator)
         return c
 
     # -- covariance context --------------------------------------------------
@@ -80,7 +107,8 @@ class PCProcessor:
         if cloud.covs is not None and not self._refine_needs_knn():
             return ProcessingContext(knn=None)
         k = self.params.covariance_estimation.neighbor_num
-        return ProcessingContext(knn=self_knn(cloud.points.contiguous(), cloud.mask, k))
+        knn = self_knn_streams if cloud.points.dim() == 3 else self_knn
+        return ProcessingContext(knn=knn(cloud.points.contiguous(), cloud.mask, k))
 
     def _refine_needs_knn(self) -> bool:
         p = self.params.scan

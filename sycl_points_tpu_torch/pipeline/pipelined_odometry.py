@@ -60,6 +60,13 @@ Semantics that differ from the synchronous frame, as in the JAX package:
 Constraints: the IMU must be off (its prediction and deskew are host-coupled;
 use :class:`~.lidar_inertial_odometry.LidarInertialOdometry` or the
 synchronous frame), so the prediction is the LiDAR constant-velocity one.
+
+The device prediction (:meth:`PipelinedLidarOdometry._predict`), the
+registration step (:meth:`~.lidar_odometry.LidarOdometry._reg_step`) and the
+carry update (:meth:`PipelinedLidarOdometry._next_carry`) also take an
+:class:`OdomCarry` with a leading stream axis ``[B]``, per-stream ``dt`` and
+timestamps: the fleet (:mod:`sycl_points_tpu_torch.parallel.fleet`) runs its
+streams' registration through them.
 """
 
 from __future__ import annotations
@@ -79,13 +86,15 @@ from sycl_points_tpu_torch.pipeline.submap import MAX_LOAD
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration.map_prior import MapPriorParams
 from sycl_points_tpu_torch.utils import eigh3, lie, lie_np
+from sycl_points_tpu_torch.utils.smallmat import matvec3
 from sycl_points_tpu_torch.utils.sync import DeferredFetch, to_host
 
 _F32 = torch.float32
 
 
 class OdomCarry(NamedTuple):
-    """The frame-to-frame odometry state, on the device."""
+    """The frame-to-frame odometry state, on the device (a fleet's with a
+    leading stream axis)."""
 
     odom: torch.Tensor  # [4, 4] current pose
     lin_vel: torch.Tensor  # [3] velocity from the last successful frame
@@ -117,12 +126,22 @@ class _Pending(NamedTuple):
     frame_index: int
 
 
+def _per_stream(dt, like: torch.Tensor) -> torch.Tensor:
+    """``dt`` (a number, or a fleet's ``[B]``) as a float32 tensor that
+    broadcasts over a ``[..., 3]`` vector: a number becomes a 0-dim tensor
+    made by a fill kernel (no copy from the host), so that a stream divides
+    by a tensor as the fleet does."""
+    if isinstance(dt, torch.Tensor):
+        return dt[..., None]
+    return torch.full((1,), dt, dtype=_F32, device=like.device)
+
+
 def _axis_factor_dev(H_block: torch.Tensor, inlier: torch.Tensor, axis) -> torch.Tensor:
     """The device form of ``motion_predictor._axis_factor``: how much of the
     predicted motion to apply, from the smallest eigenvalue per inlier of
     ``H_block``."""
-    w = eigh3.eigvalsh3(0.5 * (H_block + H_block.T))
-    min_eig_ratio = w.min() / torch.clamp_min(inlier, 1).to(_F32)
+    w = eigh3.eigvalsh3(0.5 * (H_block + H_block.transpose(-1, -2)))
+    min_eig_ratio = w.min(-1).values / torch.clamp_min(inlier, 1).to(_F32)
     lo, hi = axis.min_eigenvalue_low, axis.min_eigenvalue_high
     score = torch.clamp((min_eig_ratio - lo) / max(hi - lo, 1e-6), 0.0, 1.0)
     f = axis.factor_max * (1.0 - score) + axis.factor_min * score
@@ -183,21 +202,53 @@ class PipelinedLidarOdometry(LidarOdometry):
             prev_inlier=torch.full((), self._prev_inlier, dtype=torch.int32, device=dev),
         )
 
-    def _predict(self, c: OdomCarry, dt: float) -> tuple:
-        """The device constant-velocity prediction: ``(init_T, lin_s, ang_s)``."""
+    def _predict(self, c: OdomCarry, dt) -> tuple:
+        """The device constant-velocity prediction: ``(init_T, lin_s,
+        ang_s)``; ``dt`` a number, or a fleet's ``[B]`` tensor."""
         mp = self.params.motion_prediction
         adaptive = c.registrated & (c.prev_inlier > 0)
-        rot_f = torch.where(adaptive, _axis_factor_dev(c.prev_Hraw[:3, :3], c.prev_inlier, mp.rotation),
-                            mp.rotation.factor_max)
-        trans_f = torch.where(adaptive, _axis_factor_dev(c.prev_Hraw[3:, 3:], c.prev_inlier, mp.translation),
-                              mp.translation.factor_max)
+        rot_f = torch.where(adaptive, _axis_factor_dev(c.prev_Hraw[..., :3, :3], c.prev_inlier, mp.rotation),
+                            mp.rotation.factor_max)[..., None]
+        trans_f = torch.where(adaptive, _axis_factor_dev(c.prev_Hraw[..., 3:, 3:], c.prev_inlier, mp.translation),
+                              mp.translation.factor_max)[..., None]
         a = mp.velocity_ema_alpha
-        lin_s = torch.where(c.have_smooth, a * c.lin_vel + (1.0 - a) * c.lin_smooth, c.lin_vel)
-        ang_s = torch.where(c.have_smooth, a * c.ang_vel + (1.0 - a) * c.ang_smooth, c.ang_vel)
+        smooth = c.have_smooth[..., None]
+        lin_s = torch.where(smooth, a * c.lin_vel + (1.0 - a) * c.lin_smooth, c.lin_vel)
+        ang_s = torch.where(smooth, a * c.ang_vel + (1.0 - a) * c.ang_smooth, c.ang_vel)
+        dt = _per_stream(dt, c.odom)
         R_delta = lie.quat_to_matrix(lie.so3_exp(ang_s * dt * rot_f))
-        R = c.odom[:3, :3]
-        init_T = lie.make_transform(R @ R_delta, c.odom[:3, 3] + R @ (lin_s * dt * trans_f))
+        R = c.odom[..., :3, :3]
+        init_T = lie.make_transform(lie.compose(R, R_delta), c.odom[..., :3, 3] + matvec3(R, lin_s * dt * trans_f))
         return init_T, lin_s, ang_s
+
+    def _next_carry(self, c: OdomCarry, result, T_eff, is_kf, small, lin_s, ang_s, dt, timestamp) -> OdomCarry:
+        """The carry after a frame: velocity and odometry update, keyframe
+        bookkeeping, the raw result for the next prediction and prior; a
+        small frame holds. ``dt`` and ``timestamp`` are numbers, or a fleet's
+        ``[B]`` tensors."""
+        delta = lie.compose(lie.transform_inverse(c.odom), T_eff)
+        tw = lie.se3_log(delta)
+        upd = ~small
+        u1, u2 = upd[..., None], upd[..., None, None]
+        dt = _per_stream(dt, T_eff)
+        kf_update = is_kf & (not self.submap.inserts_every_frame)
+        kf2 = kf_update[..., None, None]
+        return OdomCarry(
+            odom=T_eff,
+            lin_vel=torch.where(u1, delta[..., :3, 3] / dt, c.lin_vel),
+            ang_vel=torch.where(u1, tw[..., :3] / dt, c.ang_vel),
+            lin_smooth=lin_s,
+            ang_smooth=ang_s,
+            have_smooth=torch.ones_like(c.have_smooth),
+            registrated=c.registrated | upd,
+            last_kf_pose=torch.where(kf2, T_eff, c.last_kf_pose),
+            last_kf_time=torch.where(kf_update, torch.as_tensor(timestamp, dtype=torch.float64,
+                                                                device=T_eff.device), c.last_kf_time),
+            prev_T=torch.where(u2, result.T, c.prev_T),
+            prev_Hraw=torch.where(u2, result.H_raw, c.prev_Hraw),
+            prev_err_raw=torch.where(upd, result.error_raw, c.prev_err_raw),
+            prev_inlier=torch.where(upd, result.inlier, c.prev_inlier),
+        )
 
     # -- the pipelined frame --------------------------------------------------
     def _process_frame(self, pre: PointCloud, timestamp: float) -> ResultType:
@@ -216,25 +267,7 @@ class PipelinedLidarOdometry(LidarOdometry):
             (c.prev_T, c.prev_Hraw, c.prev_err_raw, c.prev_inlier), c.registrated)
 
         # ---- the carry: velocity / odometry update, a small frame holds -----
-        delta = lie.transform_inverse(c.odom) @ T_eff
-        tw = lie.se3_log(delta)
-        upd = ~small
-        kf_update = is_kf & (not self.submap.inserts_every_frame)
-        self._carry = OdomCarry(
-            odom=T_eff,
-            lin_vel=torch.where(upd, delta[:3, 3] / dt, c.lin_vel),
-            ang_vel=torch.where(upd, tw[:3] / dt, c.ang_vel),
-            lin_smooth=lin_s,
-            ang_smooth=ang_s,
-            have_smooth=torch.ones_like(c.have_smooth),
-            registrated=c.registrated | upd,
-            last_kf_pose=torch.where(kf_update, T_eff, c.last_kf_pose),
-            last_kf_time=torch.where(kf_update, torch.full_like(c.last_kf_time, timestamp), c.last_kf_time),
-            prev_T=torch.where(upd, result.T, c.prev_T),
-            prev_Hraw=torch.where(upd, result.H_raw, c.prev_Hraw),
-            prev_err_raw=torch.where(upd, result.error_raw, c.prev_err_raw),
-            prev_inlier=torch.where(upd, result.inlier, c.prev_inlier),
-        )
+        self._carry = self._next_carry(c, result, T_eff, is_kf, small, lin_s, ang_s, dt, timestamp)
         self.reg_result = result
         t0 = self._stage_end("3. registration", t0)
 

@@ -17,11 +17,15 @@ growth), never per registration iteration.
 The pipelined frames' drop-retry reconcile re-applies a window of stashed
 inserts in one call (:meth:`Submap.reconcile_chain`). The JAX class's jit
 caches and compile log have nothing to hold in eager PyTorch.
+
+:meth:`Submap.insert_extract` and :meth:`Submap.finalize_traced` take a
+fleet's stacked map state (``[B, ...]``), clouds ``[B, N]`` and poses
+``[B, 4, 4]`` as well: the fleet's submap step
+(:func:`.fused_submap.make_submap_step_streams`) runs on them.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -31,7 +35,7 @@ from sycl_points_tpu_torch import require_device
 from sycl_points_tpu_torch.mapping import occupancy_grid as og
 from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
-from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn
+from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn, self_knn_streams
 from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
 from sycl_points_tpu_torch.ops.transform import transform_cloud
 from sycl_points_tpu_torch.pipeline.params import CommonParameters
@@ -169,12 +173,7 @@ class Submap:
             # Both sides of the JAX lax.cond, selected on the device: pruning
             # is a dozen elementwise kernels, a host branch would be a sync.
             pruned = vhm.remove_old_data(ns, cfg)
-            due = ns.frame % cfg.remove_old_data_cycle == 0
-            ns = dataclasses.replace(ns, **{
-                f: torch.where(due, getattr(pruned, f), getattr(ns, f))
-                for f in ("coords", "used", "sum_pos", "count", "sum_logcov", "sum_rgba",
-                          "sum_intensity", "last_update")
-            })
+            ns = vhm.select_streams(ns.frame % cfg.remove_old_data_cycle == 0, pruned, ns)
         return ns
 
     def insert_extract(self, state, cloud: PointCloud, pose: torch.Tensor):
@@ -184,7 +183,7 @@ class Submap:
         extract_overflow)``, the last two on the device."""
         cfg = self.map_config
         ns = self._insert(state, cfg, cloud, pose)
-        extracted, overflow = self._extract(ns, pose[:3, 3])
+        extracted, overflow = self._extract(ns, pose[..., :3, 3])
         return ns, extracted, self.map_module.load_factor(ns, cfg), overflow
 
     def _set_target(self, target: PointCloud) -> None:
@@ -458,7 +457,8 @@ class Submap:
         k = self.params.covariance_estimation.neighbor_num
         covs = cloud.covs
         if covs is None:
-            covs = estimate_covariances(cloud.points, self_knn(cloud.points.contiguous(), cloud.mask, k))
+            knn = self_knn_streams if cloud.points.dim() == 3 else self_knn
+            covs = estimate_covariances(cloud.points, knn(cloud.points.contiguous(), cloud.mask, k))
         normals = cloud.normals
         if self._need_normals and normals is None:
             normals = extract_normals(cloud.points, covs)

@@ -13,6 +13,12 @@ Attribute layout:
   * ``rgb``               ``[N, 4]`` in [0, 1]
   * ``intensities``       ``[N]``
   * ``timestamp_offsets`` ``[N]``  milliseconds from scan start
+
+A fleet of ``B`` streams holds one cloud a stream in one container with a
+leading stream axis (``points [B, N, 3]``, ``mask [B, N]``, ...):
+``capacity`` is then ``N`` and ``count()`` is ``[B]``.
+:func:`flatten_streams` / :func:`unflatten_streams` move between that and
+one ``[B * N]`` cloud, for the row-wise ops that need no stream boundary.
 """
 
 from __future__ import annotations
@@ -57,15 +63,16 @@ class PointCloud:
 
     @property
     def capacity(self) -> int:
-        return self.points.shape[0]
+        return self.points.shape[-2]
 
     @property
     def device(self) -> torch.device:
         return self.points.device
 
     def count(self) -> torch.Tensor:
-        """Number of valid points (0-dim int tensor on the cloud's device)."""
-        return self.mask.sum(dtype=torch.int32)
+        """Number of valid points (0-dim int tensor on the cloud's device;
+        ``[B]`` for a fleet's cloud)."""
+        return self.mask.sum(-1, dtype=torch.int32)
 
     def replace(self, **kwargs) -> "PointCloud":
         return dataclasses.replace(self, **kwargs)
@@ -120,8 +127,38 @@ class PointCloud:
         return out
 
 
+def _fields(cloud: PointCloud) -> dict:
+    return {f.name: getattr(cloud, f.name) for f in dataclasses.fields(cloud)}
+
+
+def flatten_streams(cloud: PointCloud) -> PointCloud:
+    """A fleet's cloud ``[B, N, ...]`` as one ``[B * N, ...]`` cloud (views)."""
+    return PointCloud(**{k: None if v is None else v.reshape((-1,) + v.shape[2:]) for k, v in _fields(cloud).items()})
+
+
+def unflatten_streams(cloud: PointCloud, streams: int) -> PointCloud:
+    """The inverse of :func:`flatten_streams`: ``[B * N, ...]`` as ``[B, N, ...]``."""
+    return PointCloud(**{k: None if v is None else v.reshape((streams, -1) + v.shape[1:])
+                         for k, v in _fields(cloud).items()})
+
+
+def stream_offsets(streams: int, rows: int, device) -> torch.Tensor:
+    """``[B, 1]`` int64: the first flat row of each stream of ``rows`` rows."""
+    return torch.arange(streams, device=device)[:, None] * rows
+
+
+def gather_streams(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx[b, ...]`` of stream ``b`` of ``values [B, M, ...]``:
+    ``values[b][idx[b]]`` for every stream, in one gather."""
+    B, M = values.shape[:2]
+    flat = values.reshape((B * M,) + values.shape[2:])
+    off = stream_offsets(B, M, values.device).reshape((B,) + (1,) * (idx.dim() - 1))
+    return flat[(idx.long() + off).reshape(-1)].reshape(idx.shape + values.shape[2:])
+
+
 def compact_device(cloud: PointCloud, out_capacity: Optional[int] = None) -> PointCloud:
-    """Move valid points to the front, in order, keeping a static capacity.
+    """Move valid points to the front, in order, keeping a static capacity
+    (of every stream, for a fleet's cloud).
 
     Each valid row goes to its exclusive-prefix-sum slot; rows past
     ``out_capacity`` and invalid rows go to one spare row that is cut off,
@@ -129,17 +166,25 @@ def compact_device(cloud: PointCloud, out_capacity: Optional[int] = None) -> Poi
     """
     out_cap = out_capacity or cloud.capacity
     m = cloud.mask.to(torch.int64)
-    csum = torch.cumsum(m, 0)
-    n_valid = torch.clamp_max(csum[-1], out_cap)
+    csum = torch.cumsum(m, -1)
+    n_valid = torch.clamp_max(csum[..., -1:], out_cap)
     new_mask = torch.arange(out_cap, device=cloud.device) < n_valid
     tgt = torch.where(cloud.mask, csum - m, out_cap).clamp_max(out_cap)
+    lead = cloud.mask.shape[:-1]
+    if lead:
+        new_mask = new_mask.reshape(lead + (out_cap,))
+        tgt = (tgt + stream_offsets(lead[0], out_cap + 1, cloud.device)).reshape(-1)
+    else:
+        new_mask = new_mask.reshape(out_cap)
 
     def take(arr):
         if arr is None:
             return None
-        out = torch.zeros((out_cap + 1,) + arr.shape[1:], dtype=arr.dtype, device=arr.device)
-        out.index_copy_(0, tgt, arr)
-        return out[:out_cap]
+        tail = arr.shape[len(lead) + 1:]
+        rows = (lead[0] if lead else 1) * (out_cap + 1)
+        out = torch.zeros((rows,) + tail, dtype=arr.dtype, device=arr.device)
+        out.index_copy_(0, tgt, arr.reshape((-1,) + tail))
+        return out.reshape(lead + (out_cap + 1,) + tail).narrow(len(lead), 0, out_cap)
 
     return PointCloud(
         points=take(cloud.points),

@@ -8,6 +8,8 @@ twist), residual r = q - T p.
 
 :func:`residual_norms_only` also takes a batch of poses ``T [C, 4, 4]`` and
 returns ``[C, N]``: the LM candidate sweep evaluates all its candidates at once.
+A fleet's streams take leading dimensions: ``T [B, 4, 4]`` with points
+``[B, N, 3]``, or ``T [B, C, 4, 4]`` with points ``[B, 1, N, 3]``.
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def se3_jacobian(T: torch.Tensor, src_pts: torch.Tensor) -> torch.Tensor:
-    """J = [R.skew(p) | -R] per point -> ``[N, 3, 6]``."""
-    R = T[:3, :3]
+    """J = [R.skew(p) | -R] per point -> ``[..., N, 3, 6]``."""
+    R = T[..., :3, :3]
+    if T.dim() > 2:
+        R = R[..., None, :, :]
     Rskew = rot_times_skew(R, src_pts)
     return torch.cat([Rskew, (-R).expand(Rskew.shape)], dim=-1)
 
@@ -63,9 +67,9 @@ def genz_planarity(target_covs: torch.Tensor, threshold: float = 0.2) -> torch.T
 
 
 def _plane_rows(J, r, normals):
-    nj = (normals[:, :, None] * J).sum(-2)  # [N, 6]
+    nj = (normals[..., :, None] * J).sum(-2)  # [N, 6]
     s = (normals * r).sum(-1)
-    return normals[:, :, None] * nj[:, None, :], normals * s[:, None], torch.abs(s)
+    return normals[..., :, None] * nj[..., None, :], normals * s[..., None], torch.abs(s)
 
 
 def _mahalanobis_rows(J, r, sigma):
@@ -106,7 +110,7 @@ def whitened_rows(
     R, p_t = _moved(T, src_pts)
     r = tgt_pts - p_t
     J = se3_jacobian(T, src_pts)
-    ones = torch.ones(src_pts.shape[0], dtype=src_pts.dtype, device=src_pts.device)
+    ones = torch.ones(src_pts.shape[:-1], dtype=src_pts.dtype, device=src_pts.device)
 
     if reg_type is RegType.POINT_TO_POINT:
         return WhitenedRows(J, r, _norm(r), ones)
@@ -120,8 +124,8 @@ def whitened_rows(
     if reg_type is RegType.GENZ:
         A_pl, c_pl, rn_pl = _plane_rows(J, r, tgt_normals)
         gw = torch.where(genz_planar, genz_alpha, 1.0 - genz_alpha)
-        A = torch.where(genz_planar[:, None, None], A_pl, J)
-        c = torch.where(genz_planar[:, None], c_pl, r)
+        A = torch.where(genz_planar[..., None, None], A_pl, J)
+        c = torch.where(genz_planar[..., None], c_pl, r)
         rn = torch.where(genz_planar, rn_pl, _norm(r))
         return WhitenedRows(A, c, rn, gw)
     raise ValueError(reg_type)

@@ -5,6 +5,10 @@ velocity update all annealing levels run in one :func:`~.registration.align`
 loop; with it (VICP) each level runs ``iter`` constant-velocity deskew passes,
 each followed by an align from the pose so far. Intensity-weighted sampling
 is not ported yet and raises ``NotImplementedError``.
+
+:func:`align_pipeline_streams` is the fleet's form: one sampling draw (each
+single-stream call draws the same one from the default seed) and one
+:func:`~.registration.align_streams` loop through the robust schedule.
 """
 
 from __future__ import annotations
@@ -16,12 +20,13 @@ import torch
 
 from sycl_points_tpu_torch.deskew.constant_velocity import deskew_constant_velocity
 from sycl_points_tpu_torch.ops.robust import RobustLossType
-from sycl_points_tpu_torch.ops.sampling import random_sampling, sample_by_scores
+from sycl_points_tpu_torch.ops.sampling import gumbel_noise, random_sampling, sample_by_scores
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration.registration import (
     RegistrationParams,
     RegistrationResult,
     align,
+    align_streams,
 )
 
 DEFAULT_SEED = 1234  # the reference's default sampling seed
@@ -145,6 +150,38 @@ def align_pipeline(
                            robust_scale=geo_s, map_prior=map_prior)
             T = result.T
     return PipelineOutput(result=result, registration_input=src, deskewed=deskewed)
+
+
+def align_pipeline_streams(
+    source: PointCloud,
+    target: PointCloud,
+    target_knn,
+    params: RegistrationPipelineParams = RegistrationPipelineParams(),
+    initial_guess: Optional[torch.Tensor] = None,
+    map_prior=None,
+) -> PipelineOutput:
+    """:func:`align_pipeline` of every stream of a fleet (``source [B, N]``,
+    ``target [B, M]``, ``initial_guess [B, 4, 4]``), with the default
+    sampling seed: stream ``b`` samples and aligns as a single-stream call
+    does. The VICP deskew is single-stream only (the fleet's frames carry no
+    per-point timestamps) and raises here."""
+    sp = params.random_sampling
+    src = source
+    if sp.enable and sp.num < source.capacity:
+        if sp.use_intensities:
+            raise NotImplementedError("intensity-weighted sampling is not ported yet")
+        generator = torch.Generator(device=source.device).manual_seed(DEFAULT_SEED)
+        noise = gumbel_noise(source.capacity, generator, source.device)
+        src = sample_by_scores(source, sp.num, noise.expand(source.mask.shape))
+    if params.velocity_update.enable and src.timestamp_offsets is not None:
+        raise NotImplementedError("the fleet has no per-point-timestamp (VICP) deskew")
+    geo_scales, rot_scales = _robust_schedule(params)
+    result = align_streams(
+        src, target, target_knn, params.registration,
+        initial_guess=initial_guess, map_prior=map_prior,
+        robust_schedule=tuple(zip(geo_scales, rot_scales)),
+    )
+    return PipelineOutput(result=result, registration_input=src, deskewed=src)
 
 
 def inlier_ratio(out: PipelineOutput) -> torch.Tensor:

@@ -8,6 +8,15 @@ convergence test and, for LM, the first candidate's accept flag together),
 plus one more when the LM candidate sweep runs; each read is counted
 (:mod:`sycl_points_tpu_torch.utils.sync`).
 
+:func:`align_streams` runs the loop for a fleet of ``B`` streams at once
+(the counterpart of ``jax.vmap`` over the JAX ``align``): every tensor takes
+a leading stream axis, each stream keeps its own iteration count, robust
+level, LM lambda / trust radius, convergence flag and pose, and a stream that
+is done keeps its carry (a vmapped ``while_loop``'s semantics). The host reads
+one flag an iteration for the whole fleet ("any stream still active"), and
+one more when any stream rejected LM's first candidate; the step choices the
+single-stream loop makes on the host are per-stream selects on the device.
+
 Not ported yet (they raise ``NotImplementedError``): degenerate
 regularization, the rotation constraint and the coarse-to-fine
 correspondence schedule.
@@ -21,7 +30,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from sycl_points_tpu_torch.ops.robust import RobustLossType, compute_error, compute_weight
-from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, gather_streams
 from sycl_points_tpu_torch.registration.factors import (
     RegType,
     genz_planarity,
@@ -156,21 +165,22 @@ class _Targets(NamedTuple):
 def _pack_targets(tgt: _Targets) -> _Targets:
     cols = [tgt.points]
     layout = []
+    lead = tgt.points.shape[:-1]
     if tgt.covs_reg is not None:
-        cols.append(tgt.covs_reg.reshape(-1, 9))
+        cols.append(tgt.covs_reg.reshape(lead + (9,)))
         layout.append(("covs_reg", 9))
     if tgt.covs_raw is not None:
-        cols.append(tgt.covs_raw.reshape(-1, 9))
+        cols.append(tgt.covs_raw.reshape(lead + (9,)))
         layout.append(("covs_raw", 9))
     if tgt.normals is not None:
         cols.append(tgt.normals)
         layout.append(("normals", 3))
     if tgt.planar is not None:
-        cols.append(tgt.planar.to(_F32)[:, None])
+        cols.append(tgt.planar.to(_F32)[..., None])
         layout.append(("planar", 1))
     if not layout:
         return tgt
-    return tgt._replace(packed=torch.cat(cols, dim=1), layout=tuple(layout))
+    return tgt._replace(packed=torch.cat(cols, dim=-1), layout=tuple(layout))
 
 
 def _precompute_targets(params: RegistrationParams, source: PointCloud, target: PointCloud):
@@ -204,22 +214,26 @@ def _gather_correspondences(params, idx, d2, src_mask, tgt: _Targets) -> _Target
     """Target rows for the nearest indices, with the correspondence gate."""
     corr_mask = src_mask & (d2 <= params.max_correspondence_distance**2)
     idx = idx.long()
+
+    def take(a):
+        return a[idx] if idx.dim() == 1 else gather_streams(a, idx)
+
     if tgt.packed is None:
-        return _Targets(tgt.points[idx], corr_mask, None, None, None, None)
-    flat = tgt.packed[idx]
+        return _Targets(take(tgt.points), corr_mask, None, None, None, None)
+    flat = take(tgt.packed)
     out = {}
     col = 3
     for name, width in tgt.layout:
-        block = flat[:, col : col + width]
+        block = flat[..., col : col + width]
         col += width
         if name == "planar":
-            out[name] = block[:, 0] > 0.5
+            out[name] = block[..., 0] > 0.5
         elif width == 9:
-            out[name] = block.reshape(-1, 3, 3)
+            out[name] = block.reshape(block.shape[:-1] + (3, 3))
         else:
             out[name] = block
     return _Targets(
-        points=flat[:, 0:3], mask=corr_mask,
+        points=flat[..., 0:3], mask=corr_mask,
         covs_reg=out.get("covs_reg"), covs_raw=out.get("covs_raw"),
         normals=out.get("normals"), planar=out.get("planar"),
     )
@@ -228,13 +242,13 @@ def _gather_correspondences(params, idx, d2, src_mask, tgt: _Targets) -> _Target
 def _correspondences(params, knn, src_pts, src_mask, T, tgt: _Targets) -> _Targets:
     """One 1-NN search with the pose folded into the queries."""
     res = knn.search(src_pts, 1, pose=T)
-    return _gather_correspondences(params, res.indices[:, 0], res.distances[:, 0], src_mask, tgt)
+    return _gather_correspondences(params, res.indices[..., 0], res.distances[..., 0], src_mask, tgt)
 
 
 def _genz_alpha(corr: _Targets) -> torch.Tensor:
     """Planar fraction among inliers."""
-    inl = corr.mask.sum()
-    pl = (corr.mask & corr.planar).sum()
+    inl = corr.mask.sum(-1)
+    pl = (corr.mask & corr.planar).sum(-1)
     return torch.where(inl > 0, pl.to(_F32) / torch.clamp_min(inl, 1).to(_F32), 1.0)
 
 
@@ -248,12 +262,15 @@ def _linearize(params, T, src_pts, src_covs_reg, corr: _Targets, robust_scale, g
     w_rob = compute_weight(params.robust.type, rows.residual_norm, robust_scale)
     m = corr.mask.to(src_pts.dtype)
     scale = torch.sqrt(w_rob * rows.genz_weight) * m
-    A = (rows.A * scale[:, None, None]).reshape(-1, 6)
-    c = (rows.c * scale[:, None]).reshape(-1)
-    H = A.T @ A
-    b = A.T @ c
-    err = (m * rows.genz_weight * compute_error(params.robust.type, rows.residual_norm, robust_scale)).sum()
-    return LinearizedResult(H, b, err, corr.mask.sum(dtype=torch.int32))
+    lead = src_pts.shape[:-2]
+    A = (rows.A * scale[..., None, None]).reshape(lead + (-1, 6))
+    c = (rows.c * scale[..., None]).reshape(lead + (-1,))
+    # H and b from one product, which gives a fleet's stream the bits of a
+    # single-stream call (a matrix-vector product would not)
+    Hb = A.transpose(-1, -2) @ torch.cat([A, c[..., None]], -1)
+    H, b = Hb[..., :6], Hb[..., 6]
+    err = (m * rows.genz_weight * compute_error(params.robust.type, rows.residual_norm, robust_scale)).sum(-1)
+    return LinearizedResult(H, b, err, corr.mask.sum(-1, dtype=torch.int32))
 
 
 def _error_at(params, T, src_pts, src_covs_reg, corr: _Targets, robust_scale, genz_alpha):
@@ -267,7 +284,7 @@ def _error_at(params, T, src_pts, src_covs_reg, corr: _Targets, robust_scale, ge
     )
     m = corr.mask.to(src_pts.dtype)
     err = (m * gw * compute_error(params.robust.type, rn, robust_scale)).sum(-1)
-    return err, corr.mask.sum(dtype=torch.int32)
+    return err, corr.mask.sum(-1, dtype=torch.int32)
 
 
 def _is_converged(params: RegistrationParams, delta: torch.Tensor) -> torch.Tensor:
@@ -277,43 +294,59 @@ def _is_converged(params: RegistrationParams, delta: torch.Tensor) -> torch.Tens
     return (dt < params.criteria.translation) & (dr < params.criteria.rotation)
 
 
+# Products as broadcast sums: a fleet's stream gets the bits of a
+# single-stream call (a batched matrix product may sum in another order).
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M * v[..., None, :]).sum(-1)
+
+
+def _v(x: torch.Tensor) -> torch.Tensor:
+    """A per-stream (or 0-dim) value broadcast over a vector's last axis."""
+    return x[..., None]
+
+
 def compute_dogleg_step(H, g, radius):
     """Powell dogleg step for ``H p = -g`` inside a trust region; returns
-    ``(p, step_norm, predicted_reduction)``."""
+    ``(p, step_norm, predicted_reduction)``. A fleet's ``H [B, 6, 6]``, ``g
+    [B, 6]`` and ``radius [B]`` give one step a stream."""
     eps = torch.finfo(_F32).eps
     p_gn, gn_ok = solve_psd(H, -g)
-    norm_gn = torch.linalg.vector_norm(p_gn)
+    norm_gn = torch.linalg.vector_norm(p_gn, dim=-1)
     gn_ok = gn_ok & torch.isfinite(norm_gn)
 
-    g_sq = torch.dot(g, g)
-    gHg = torch.dot(g, H @ g)
+    g_sq = _dot(g, g)
+    gHg = _dot(g, _mv(H, g))
     alpha = torch.where(gHg > eps, g_sq / torch.clamp_min(gHg, 1e-30), 1.0)
     alpha = torch.where(torch.isfinite(alpha), alpha, 1.0)
-    p_sd = -alpha * g
-    norm_sd = torch.linalg.vector_norm(p_sd)
+    p_sd = -_v(alpha) * g
+    norm_sd = torch.linalg.vector_norm(p_sd, dim=-1)
 
     diff = p_gn - p_sd
-    a = torch.dot(diff, diff)
-    bq = 2.0 * torch.dot(p_sd, diff)
-    cq = torch.dot(p_sd, p_sd) - radius * radius
+    a = _dot(diff, diff)
+    bq = 2.0 * _dot(p_sd, diff)
+    cq = _dot(p_sd, p_sd) - radius * radius
     disc = torch.clamp_min(bq * bq - 4.0 * a * cq, 0.0)
     tau = torch.where(a > eps, (-bq + torch.sqrt(disc)) / torch.clamp_min(2.0 * a, 1e-30), 0.0)
-    p_blend = p_sd + torch.clamp(tau, 0.0, 1.0) * diff
+    p_blend = p_sd + _v(torch.clamp(tau, 0.0, 1.0)) * diff
 
     sd_clipped = torch.where(
-        norm_sd > 1e-30, (radius / torch.clamp_min(norm_sd, 1e-30)) * p_sd, p_sd * 0.0
+        _v(norm_sd > 1e-30), _v(radius / torch.clamp_min(norm_sd, 1e-30)) * p_sd, p_sd * 0.0
     )
     p = torch.where(
-        gn_ok & (norm_gn <= radius),
+        _v(gn_ok & (norm_gn <= radius)),
         p_gn,
         torch.where(
-            norm_sd >= radius,
+            _v(norm_sd >= radius),
             sd_clipped,
-            torch.where(gn_ok, p_blend, torch.where(norm_sd > radius, sd_clipped, p_sd)),
+            torch.where(_v(gn_ok), p_blend, torch.where(_v(norm_sd > radius), sd_clipped, p_sd)),
         ),
     )
-    pred = -(torch.dot(g, p) + 0.5 * torch.dot(p, H @ p))
-    return p, torch.linalg.vector_norm(p), pred
+    pred = -(_dot(g, p) + 0.5 * _dot(p, _mv(H, p)))
+    return p, torch.linalg.vector_norm(p, dim=-1), pred
 
 
 class _Step(NamedTuple):
@@ -343,7 +376,7 @@ def _lm_step(params, T, H, g, cur_err, inlier, lm_lambda, error_fn) -> _Step:
     eye6 = torch.eye(6, dtype=_F32, device=dev)
 
     delta0, _ = solve_psd(H + lams[0] * eye6, -g)
-    T_c0 = T @ lie.se3_exp(delta0)
+    T_c0 = lie.compose(T, lie.se3_exp(delta0))
     err0, inl0 = error_fn(T_c0)
     accept0, conv0 = to_host(torch.stack([err0 <= cur_err, _is_converged(params, delta0)]))
     if accept0:
@@ -351,7 +384,7 @@ def _lm_step(params, T, H, g, cur_err, inlier, lm_lambda, error_fn) -> _Step:
         return _Step(T_c0, conv0, err0, inl0, lam_next, None, delta0, _scalar(True, dev, torch.bool))
 
     deltas, _ = solve_psd(H[None] + lams[:, None, None] * eye6, -g.expand(C, 6))
-    T_cands = T @ lie.se3_exp(deltas)
+    T_cands = lie.compose(T, lie.se3_exp(deltas))
     errs, inl = error_fn(T_cands)
     accept = errs <= cur_err
     prev_errs = torch.cat([torch.full((1,), torch.finfo(_F32).max, device=dev), errs[:-1]])
@@ -379,7 +412,7 @@ def _dogleg_step(params, T, H, g, cur_err, inlier, trust_radius, error_fn) -> _S
 
     radius = clamp(trust_radius)
     step, step_norm, pred = compute_dogleg_step(H, g, radius)
-    T_c = T @ lie.se3_exp(step)
+    T_c = lie.compose(T, lie.se3_exp(step))
     new_err, new_inl = error_fn(T_c)
     rho = (cur_err - new_err) / torch.clamp_min(pred, 1e-30)
     reject = (pred <= 0.0) | (rho < p.eta1)
@@ -485,7 +518,7 @@ def align(
         if method == "gauss_newton":
             delta, _ = solve_psd(H + params.gn.lambda_ * eye6, -g)
             conv_t = _is_converged(params, delta)
-            step = _Step(T @ lie.se3_exp(delta), to_host(conv_t), cur_err, cur_inl, None, None, delta,
+            step = _Step(lie.compose(T, lie.se3_exp(delta)), to_host(conv_t), cur_err, cur_inl, None, None, delta,
                          _scalar(True, dev, torch.bool))
             damping = _scalar(params.gn.lambda_, dev)
         elif method == "levenberg_marquardt":
@@ -531,6 +564,218 @@ def align(
     if rows:
         buf[: len(rows)] = torch.stack(rows)
     return result, buf
+
+
+# -- the fleet's loop ---------------------------------------------------------
+
+
+def _per(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A ``[B]`` flag shaped to broadcast over ``x [B, ...]``."""
+    return flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
+
+
+def _pick(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stream by stream: ``a`` where ``flag`` holds, else ``b``."""
+    return torch.where(_per(flag, a), a, b)
+
+
+def _lm_step_streams(params, T, H, g, cur_err, inlier, lm_lambda, error_fn, active) -> _Step:
+    """:func:`_lm_step` of every stream, its host choices made by per-stream
+    selects: candidate 0 for all; the sweep of all candidates for all, but
+    only when some active stream rejected candidate 0 (one host read); then
+    each stream takes what its own single-stream step would take."""
+    p = params.lm
+    C = p.max_inner_iterations
+    dev = H.device
+    factors = p.lambda_factor ** torch.arange(C, dtype=_F32, device=dev)
+    lams = torch.clamp(lm_lambda[:, None] * factors, p.min_lambda, p.max_lambda)  # [B, C]
+    eye6 = torch.eye(6, dtype=_F32, device=dev)
+
+    delta0, _ = solve_psd(H + lams[:, 0, None, None] * eye6, -g)
+    T_c0 = lie.compose(T, lie.se3_exp(delta0))
+    err0, inl0 = error_fn(T_c0)
+    accept0 = err0 <= cur_err
+    step0 = _Step(T_c0, _is_converged(params, delta0), err0, inl0,
+                  torch.clamp(lams[:, 0] / p.lambda_factor, p.min_lambda, p.max_lambda), None, delta0,
+                  torch.ones_like(accept0))
+    if not to_host((active & ~accept0).any()):
+        return step0
+
+    B = H.shape[0]
+    deltas, _ = solve_psd(H[:, None] + lams[..., None, None] * eye6, -g[:, None].expand(B, C, 6))
+    T_cands = lie.compose(T[:, None], lie.se3_exp(deltas))
+    errs, inl = error_fn(T_cands)  # [B, C], [B]
+    accept = errs <= cur_err[:, None]
+    prev_errs = torch.cat([torch.full((B, 1), torch.finfo(_F32).max, device=dev), errs[:, :-1]], 1)
+    take = accept | (torch.abs(errs - prev_errs) <= 1e-6)
+    conv = _is_converged(params, deltas)
+    any_take = take.any(-1)
+    i = torch.argmax(take.to(torch.int32), -1)  # the first candidate taken
+    rows = torch.arange(B, device=dev)
+    lam_i = lams[rows, i]
+    lam_take = torch.where(accept[rows, i], torch.clamp(lam_i / p.lambda_factor, p.min_lambda, p.max_lambda),
+                           lam_i)
+    # an exhausted sweep keeps the pose, with the last trial's converged flag
+    lam_none = torch.clamp(lm_lambda * p.lambda_factor**C, p.min_lambda, p.max_lambda)
+    sweep = _Step(
+        T=_pick(any_take, T_cands[rows, i], T),
+        conv=torch.where(any_take, conv[rows, i], conv[:, -1]),
+        err=torch.where(any_take, errs[rows, i], cur_err),
+        inlier=torch.where(any_take, inl, inlier),
+        lam=torch.where(any_take, lam_take, lam_none),
+        trust=None,
+        step=_pick(any_take, deltas[rows, i], torch.zeros_like(delta0)),
+        accepted=any_take,
+    )
+    return _Step(*(None if a is None else _pick(accept0, a, b) for a, b in zip(step0, sweep)))
+
+
+def _dogleg_step_streams(params, T, H, g, cur_err, inlier, trust_radius, error_fn) -> _Step:
+    """:func:`_dogleg_step` of every stream (its choices are selects
+    already); ``conv`` stays on the device."""
+    p = params.dogleg
+
+    def clamp(r):
+        return torch.clamp(r, p.min_trust_region_radius, p.max_trust_region_radius)
+
+    radius = clamp(trust_radius)
+    step, step_norm, pred = compute_dogleg_step(H, g, radius)
+    T_c = lie.compose(T, lie.se3_exp(step))
+    new_err, new_inl = error_fn(T_c)
+    rho = (cur_err - new_err) / torch.clamp_min(pred, 1e-30)
+    reject = (pred <= 0.0) | (rho < p.eta1)
+    grow = (rho > p.eta2) & (step_norm >= radius * 0.99)
+    trust_next = clamp(
+        torch.where(reject, radius * p.gamma_decrease, torch.where(grow, radius * p.gamma_increase, radius))
+    )
+    return _Step(
+        T=_pick(reject, T, T_c),
+        conv=(~reject) & _is_converged(params, step),
+        err=torch.where(reject, cur_err, new_err),
+        inlier=torch.where(reject, inlier, new_inl),
+        lam=None,
+        trust=trust_next,
+        step=_pick(reject, torch.zeros_like(step), step),
+        accepted=~reject,
+    )
+
+
+def align_streams(
+    source: PointCloud,
+    target: PointCloud,
+    target_knn,
+    params: RegistrationParams = RegistrationParams(),
+    initial_guess: Optional[torch.Tensor] = None,
+    map_prior=None,
+    robust_schedule: Optional[tuple] = None,
+) -> RegistrationResult:
+    """:func:`align` of every stream of a fleet: ``source [B, N]`` against
+    ``target [B, M]`` (``target_knn`` a :class:`~..ops.knn.BruteForceKNN`
+    on the ``[B, M, 3]`` targets), from ``initial_guess [B, 4, 4]``
+    (identity by default), with a fleet's ``map_prior`` (``active [B]``) and
+    one ``robust_schedule`` for all. Returns a ``RegistrationResult`` whose
+    every field has the leading stream axis; stream ``b``'s equal what
+    :func:`align` returns for it. Each iteration runs every stream still
+    active through one batched ``nn1`` launch and one linearization, and
+    ends in one host read of "any stream still active"."""
+    if params.degenerate_reg is not None:
+        raise NotImplementedError("degenerate regularization is not ported yet")
+    if params.rotation_constraint.enable:
+        raise NotImplementedError("the rotation constraint is not ported yet")
+    if params.coarse_to_fine_iters > 0:
+        raise NotImplementedError("the coarse-to-fine correspondence schedule is not ported yet")
+    method = params.optimization_method
+    if method not in ("gauss_newton", "levenberg_marquardt", "powell_dogleg"):
+        raise ValueError(method)
+
+    dev = source.device
+    B = source.points.shape[0]
+    T = (torch.eye(4, dtype=_F32, device=dev).expand(B, 4, 4) if initial_guess is None
+         else initial_guess.to(device=dev, dtype=_F32))
+    geo = [g for g, _ in robust_schedule] if robust_schedule else [params.robust.default_scale]
+    geo_scales = torch.tensor(geo, dtype=_F32, device=dev)
+    n_levels = len(geo)
+    max_total = params.max_iterations * n_levels
+
+    src_covs_reg, tgt = _precompute_targets(params, source, target)
+    src_pts, src_mask = source.points, source.mask
+    target_knn = target_knn.prepped()
+
+    def full(value, dtype=_F32):
+        return torch.full((B,), value, dtype=dtype, device=dev)
+
+    lm_lambda = full(params.lm.init_lambda)
+    trust = full(params.dogleg.initial_trust_region_radius)
+    eye6 = torch.eye(6, dtype=_F32, device=dev)
+    H = H_raw = torch.zeros((B, 6, 6), dtype=_F32, device=dev)
+    g = b_raw = torch.zeros((B, 6), dtype=_F32, device=dev)
+    error = error_raw = full(0.0)
+    inlier = full(0, torch.int32)
+    conv = full(False, torch.bool)
+    it = full(0, torch.int64)
+    total_it = full(0, torch.int64)
+    level = full(0, torch.int64)
+    active = full(max_total > 0, torch.bool)
+
+    while max_total > 0:
+        r_scale = geo_scales[level][:, None]
+        corr = _correspondences(params, target_knn, src_pts, src_mask, T, tgt)
+        alpha = (_genz_alpha(corr) if params.reg_type is RegType.GENZ else full(1.0))[:, None]
+        lin = _linearize(params, T, src_pts, src_covs_reg, corr, r_scale, alpha)
+        lin_raw = lin
+        if map_prior is not None:
+            lin = map_prior.apply(lin, T)
+
+        def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale):
+            if T_c.dim() == 4:  # the LM sweep: [B, C, 4, 4] against [B, 1, N, ...]
+                c = _Targets(*(None if f is None else f[:, None] for f in corr[:6]))
+                err, _ = _error_at(params, T_c, src_pts[:, None], None if src_covs_reg is None
+                                   else src_covs_reg[:, None], c, r_scale[:, None], alpha[:, None])
+            else:
+                err, _ = _error_at(params, T_c, src_pts, src_covs_reg, corr, r_scale, alpha)
+            if map_prior is not None:
+                err = err + map_prior.prior_error(T_c)
+            return err, corr.mask.sum(-1, dtype=torch.int32)
+
+        if method == "gauss_newton":
+            delta, _ = solve_psd(lin.H + params.gn.lambda_ * eye6, -lin.b)
+            step = _Step(lie.compose(T, lie.se3_exp(delta)), _is_converged(params, delta), lin.error, lin.inlier,
+                         None, None, delta, None)
+        elif method == "levenberg_marquardt":
+            step = _lm_step_streams(params, T, lin.H, lin.b, lin.error, lin.inlier, lm_lambda, error_fn, active)
+            lm_lambda = torch.where(active, step.lam, lm_lambda)
+        else:
+            step = _dogleg_step_streams(params, T, lin.H, lin.b, lin.error, lin.inlier, trust, error_fn)
+            trust = torch.where(active, step.trust, trust)
+
+        # commit the active streams; a stream that is done keeps its carry
+        T = _pick(active, step.T, T)
+        conv = torch.where(active, step.conv, conv)
+        error = torch.where(active, step.err, error)
+        inlier = torch.where(active, step.inlier, inlier)
+        H, g = _pick(active, lin.H, H), _pick(active, lin.b, g)
+        H_raw, b_raw = _pick(active, lin_raw.H, H_raw), _pick(active, lin_raw.b, b_raw)
+        error_raw = torch.where(active, lin_raw.error, error_raw)
+
+        # robust-level transitions, per stream
+        it = it + active
+        total_it = total_it + active
+        level_end = active & (conv | (it >= params.max_iterations))
+        last = level >= n_levels - 1
+        advance = level_end & ~last
+        level = level + advance
+        it = torch.where(advance, 0, it)
+        lm_lambda = torch.where(advance, params.lm.init_lambda, lm_lambda)
+        trust = torch.where(advance, params.dogleg.initial_trust_region_radius, trust)
+        active = active & ~(level_end & last) & (total_it < max_total)
+        if not to_host(active.any()):
+            break
+
+    return RegistrationResult(
+        T=T, converged=conv, iterations=total_it.to(torch.int32),
+        H=H, b=g, error=error, inlier=inlier,
+        H_raw=H_raw, b_raw=b_raw, error_raw=error_raw,
+    )
 
 
 def _linearization_inputs(params, source, target, target_knn, pose, robust_scale):

@@ -184,6 +184,13 @@ def _so3_left_jacobian_terms(omega: torch.Tensor):
     return theta_sq, Omega, Omega_sq, A, B
 
 
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for square ``[..., n, n]`` operands as a broadcast sum: the
+    same bits for a fleet's stacked poses as for each pose alone (a batched
+    matrix product may sum in another order)."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
+
+
 def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble ``[..., 4, 4]`` homogeneous transforms from R ``[..., 3, 3]``, t ``[..., 3]``."""
     top = torch.cat([R, t[..., :, None]], dim=-1)

@@ -37,7 +37,7 @@ def rot_times_skew(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """``R @ skew(p)`` per point -> ``[..., 3, 3]``: column j is a signed
     combination of R's columns."""
     x, y, z = p[..., 0, None], p[..., 1, None], p[..., 2, None]
-    c0, c1, c2 = R[:, 0], R[:, 1], R[:, 2]
+    c0, c1, c2 = R[..., :, 0], R[..., :, 1], R[..., :, 2]
     col0 = z * c1 - y * c2
     col1 = -z * c0 + x * c2
     col2 = y * c0 - x * c1

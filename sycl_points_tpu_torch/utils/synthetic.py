@@ -3,7 +3,8 @@
 The port's own copy of the numpy parts of the JAX package's synthetic
 Velodyne generator (``benchmarks/synthetic_velodyne.py``): the
 :class:`World`, the ray pattern :func:`hdl64_dirs`, the figure-8 trajectory
-with its velocity and the IMU that flies it (planar and 3-D excited).
+with its velocity and the IMU that flies it (planar and 3-D excited), and
+the fleet benchmark's per-stream trajectories (:func:`fleet_trajectories`).
 :func:`raycast` is the same ground-plane / cylinder-wall / box-slab math as
 the JAX ``World.raycast``, in PyTorch, so scans can be made on the card; a
 motion-distorted scan (:func:`scan_at_distorted`) casts each azimuth column
@@ -165,6 +166,25 @@ def figure8_trajectory(n_frames: int, radius=18.0, speed=0.35, excite3d=False):
         T[:3, 3] = [radius * np.sin(s), radius * np.sin(s) * np.cos(s), 1.8]
         poses.append(T)
     return poses
+
+
+def fleet_trajectories(n_streams: int, n_frames: int, speed: float = 0.35):
+    """The fleet benchmark's per-stream trajectories (the JAX package's
+    ``benchmarks/bench_fleet.py``): the figure-8 of :func:`figure8_trajectory`
+    turned by yaw ``2 pi s / n_streams`` and moved ``3.0 (s mod 4)`` m along
+    x for stream ``s``. Returns ``(trajs [B][n_frames] of [4, 4] float32,
+    the per-stream transforms [B, 4, 4])``."""
+    base = figure8_trajectory(n_frames, speed=speed)
+    trajs, starts = [], []
+    for s in range(n_streams):
+        yaw = 2.0 * np.pi * s / n_streams
+        c, si = np.cos(yaw), np.sin(yaw)
+        R = np.eye(4, dtype=np.float32)
+        R[:3, :3] = np.array([[c, -si, 0], [si, c, 0], [0, 0, 1]], np.float32)
+        R[0, 3] = 3.0 * (s % 4)
+        trajs.append([(R @ T).astype(np.float32) for T in base])
+        starts.append(R)
+    return trajs, np.stack(starts)
 
 
 def raycast(world, origin, dirs: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,13 @@ the [Q,M] reduction order of the plain version). The study kernels
 (nn1_tiled, nn1_bias, nn1_lanes, nn1_unroll2) and ``knn_k_simple`` against
 ``knn_k_plain`` as before.
 
+The batched instances (``nn1_prepped_batched``, ``knn_k_batched``: a
+fleet's streams on the grid's z axis) must equal one single-stream launch
+a stream and their plain versions bit for bit, at the fleet's shapes (8
+streams of 1,000 queries against 16,384-row targets of different valid
+counts, one stream every target masked; 8 x 5,000 and 8 x 16,384 rows
+searched in themselves), on an odd target count, and with exact ties.
+
 The cluster kernels split the target into 1 to 16 slices of whole
 512-target tiles, the count chosen from Q; the cases below put M off both,
 run every slice count, Q below one query tile, a slice with
@@ -250,3 +257,70 @@ def test_wrapper_rejects_bad_inputs():
         cuda_knn.nn1(tgt, mask.cpu(), tgt)
     with pytest.raises(ValueError):
         cuda_knn.nn1_prepped(cuda_knn.PreppedTarget(tgt.T.contiguous(), 100), tgt)
+
+
+# ---- the fleet's batched instances ------------------------------------------
+
+K = 10  # the fleet's self-k-NN (covariance_estimation.neighbor_num)
+
+
+def _fleet_targets(B, m, seed):
+    """``B`` streams' targets [B, m, 3] with their valid rows in front, of
+    different counts; stream 1 has every target masked."""
+    pts = torch.stack([_cloud(m, seed + b)[0] for b in range(B)])
+    valid = torch.tensor([m - 997 * b for b in range(B)], device="cuda")
+    valid[1] = 0
+    return pts, torch.arange(m, device="cuda")[None, :] < valid[:, None]
+
+
+def _ties(pts, mask):
+    """Each stream's first half twice over: every point has an exact tie,
+    in another slice of the cluster."""
+    h = pts.shape[1] // 2
+    return (torch.cat([pts[:, :h], pts[:, :h]], 1).contiguous(),
+            torch.cat([mask[:, :h], mask[:, :h]], 1).contiguous())
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("m", [16384, 4099])
+def test_nn1_batched_equals_single_launches_and_plain(m, ties):
+    B = 8
+    pts, mask = _fleet_targets(B, m, 40)
+    if ties:
+        pts, mask = _ties(pts, mask)
+    qry = torch.stack([_cloud(1000, 60 + b)[0] for b in range(B)])
+    poses = torch.stack([se3_exp(torch.tensor([0.01 * b, 0.0, 0.02, 0.3, -0.1 * b, 0.0])) for b in range(B)]).cuda()
+    prep = cuda_knn.prep_targets(pts, mask)
+    before = cuda_knn.launch_counts["nn1_batched"]
+    i, d = cuda_knn.nn1_prepped_batched(prep, qry, poses)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["nn1_batched"] == before + 1
+    ri, rd = cuda_knn.nn1_batched_plain(pts, mask, qry, poses)
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    for b in range(B):
+        si, sd = cuda_knn.nn1_prepped(cuda_knn.prep_target(pts[b], mask[b]), qry[b], poses[b])
+        assert torch.equal(i[b], si) and torch.equal(d[b], sd)
+    assert bool(torch.isinf(d[1]).all()) and bool((i[1] == 0).all())
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("m,q_self", [(5000, True), (16384, True), (4099, False)])
+def test_knn_k_batched_equals_single_launches_and_plain(m, q_self, ties):
+    B = 8
+    pts, mask = _fleet_targets(B, m, 80)
+    if ties:
+        pts, mask = _ties(pts, mask)
+    qry = pts if q_self else torch.stack([_cloud(700, 90 + b)[0] for b in range(B)])
+    prep = cuda_knn.prep_targets(pts, mask)
+    before = cuda_knn.launch_counts["knn_k_batched"]
+    i, d = cuda_knn.knn_k_batched(prep, qry.contiguous(), K)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k_batched"] == before + 1
+    for b in range(B):
+        si, sd = cuda_knn.knn_k_prepped(cuda_knn.prep_target(pts[b], mask[b]), qry[b].contiguous(), K)
+        assert torch.equal(i[b], si) and torch.equal(d[b], sd)
+        ref = cuda_knn.knn_k_simple(pts[b], mask[b], qry[b].contiguous(), K)
+        assert torch.equal(i[b], ref[0]) and torch.equal(d[b], ref[1])
+    ri, rd = cuda_knn.knn_k_batched_plain(pts, mask, qry, K)
+    assert cuda_knn.knn_mismatches(i.reshape(-1, K), d.reshape(-1, K), ri.reshape(-1, K), rd.reshape(-1, K),
+                                   TIE) == 0

@@ -15,7 +15,10 @@
     originals: the same constants, and the same outputs (arrays and bytes)
     on PointCloud2 buffers with every field kind, unaligned offsets, and
     every message type;
-  * the entry points default to ``"cuda"`` and raise without a card.
+  * the entry points default to ``"cuda"`` and raise without a card, the
+    fleet's among them (``parallel.fleet.FleetOdometry``,
+    ``apps.fleet_odometry.run_fleet`` and ``main``,
+    ``convert.carry_from_reference``).
 """
 
 import ast
@@ -37,9 +40,10 @@ from sycl_points_tpu.apps import stream_protocol as ref_sp  # noqa: E402
 from sycl_points_tpu.points import conversion as ref_conv  # noqa: E402
 from sycl_points_tpu.points import io as ref_io  # noqa: E402
 from sycl_points_tpu_torch.apps import example_registration, kitti_odometry, lio_replay, odometry_replay  # noqa: E402
-from sycl_points_tpu_torch.apps import stream_odometry  # noqa: E402
+from sycl_points_tpu_torch.apps import fleet_odometry, stream_odometry  # noqa: E402
 from sycl_points_tpu_torch.apps import stream_protocol as port_sp  # noqa: E402
 from sycl_points_tpu_torch.convert import (  # noqa: E402
+    carry_from_reference,
     cloud_from_numpy,
     lio_state_from_reference,
     map_state_from_reference,
@@ -47,6 +51,7 @@ from sycl_points_tpu_torch.convert import (  # noqa: E402
 from sycl_points_tpu_torch.imu import factor as imu_factor  # noqa: E402
 from sycl_points_tpu_torch.imu import preintegration  # noqa: E402
 from sycl_points_tpu_torch.mapping import voxel_hash_map  # noqa: E402
+from sycl_points_tpu_torch.parallel.fleet import FleetOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry  # noqa: E402
@@ -259,7 +264,8 @@ def test_imu_and_velocity_equal_the_originals(t):
                                 preintegration.IMUPreintegration, preintegration.init_state,
                                 imu_factor.State.identity, PipelinedLidarOdometry, PipelinedLidarInertialOdometry,
                                 stream_odometry.OdometryStreamServer, odometry_replay.run_pipelined_replay,
-                                lio_replay.run_pipelined_lio_replay])
+                                lio_replay.run_pipelined_lio_replay, FleetOdometry, fleet_odometry.run_fleet,
+                                carry_from_reference])
 def test_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -279,6 +285,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         kitti_odometry.main(["velodyne"])
     with pytest.raises(RuntimeError, match="is_available"):
         stream_odometry.main(["--port", "0"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        fleet_odometry.run_fleet([["scan.bin"]], _vhm_params(), "fleet")
     assert cloud_from_numpy(pts, device="cpu").device.type == "cpu"
 
 
@@ -309,10 +317,11 @@ def _vhm_params():
     lambda **kw: PipelinedLidarOdometry(_vhm_params(), **kw),
     lambda **kw: PipelinedLidarInertialOdometry(_lio_params(), **kw),
     lambda **kw: stream_odometry.OdometryStreamServer(_vhm_params(), **kw),
+    lambda **kw: FleetOdometry(_vhm_params(), n_streams=2, **kw),
 ], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference",
         "LidarInertialOdometry", "make_lio_inputs", "run_lio_replay", "lio_state_from_reference",
         "IMUPreintegration", "init_state", "State.identity", "scan_at_distorted", "PipelinedLidarOdometry",
-        "PipelinedLidarInertialOdometry", "OdometryStreamServer"])
+        "PipelinedLidarInertialOdometry", "OdometryStreamServer", "FleetOdometry"])
 def test_lo_entry_points_raise_without_a_card(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
