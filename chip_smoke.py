@@ -195,6 +195,32 @@
     a real scan and every stream's ATE (in its first frame's frame) is
     within FLEET_KITTI_MAX_ATE_M, or if a batched kernel never launched.
     Prints the timing lines of 23.
+26. ``FleetLIO`` at the JAX fleet benchmark's ``--lio`` deployment
+    (``apps.fleet_replay.run_fleet_lio_replay`` on phase 23's scans: 8
+    streams, 40 frames, the IMU at 200 Hz, each stream's known initial
+    velocity set after frame 0), with the launch counts and host reads set
+    to 0 just before and read just after; then, in the same call, stream 0
+    alone through ``PipelinedLidarInertialOdometry``
+    (``run_stream_lio_replay``, its generators seeded as stream 0's). Prints
+    the timing lines of 23, align iterations a stream-frame and a loop, the
+    bias and velocity mirrors, each stream's ATE and the results. Fails on a
+    frame with no result, more than FLEET_MAX_NOT_OK not a success, a drop,
+    a mean ATE above FLEET_LIO_MAX_MEAN_ATE_M or a stream's above
+    FLEET_LIO_MAX_ATE_M, non-finite mirrors, stream 0 more than
+    FLEET_STREAM0_M / FLEET_STREAM0_DEG from the single-stream run, or a
+    batched kernel that never launched.
+27. The batched ``nn1`` and ``knn_k`` at phase 26's shapes, as in 24.
+28. ``FleetOdometry`` and ``FleetLIO`` at the tree's default ``scan`` and
+    ``submap`` (polar grid, occupancy grid, intensity correction; the LIO
+    with the benchmark's IMU noise), FLEET_DEFAULT_STREAMS streams of
+    512 x 32 rays with raw return intensities, FLEET_DEFAULT_FRAMES frames,
+    each with the counts set to 0 just before and read just after, and
+    stream 0 alone through the single-stream pipeline. Prints the timing
+    lines of 23, inserts and voxels a stream, the last frame's corrected
+    intensities. Fails as 26 does (with FLEET_DEFAULT_MAX_ATE_M for every
+    stream and FLEET_STREAM0_M for stream 0), or when the corrected
+    intensities are missing or outside the correction's range.
+29. The batched ``nn1`` and ``knn_k`` at the shapes of both runs of 28.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -371,6 +397,22 @@ FLEET_KITTI_FRAMES = 20
 FLEET_KITTI_SHORT = 14
 FLEET_KITTI_MAX_ATE_M = 0.30
 FLEET_CDIST_MAX_PAIRS = 1 << 30  # the batched cdist yardstick launches up to here
+# The LIO fleet at the benchmark's --lio deployment: the JAX package's record
+# of it is a mean ATE of 0.145 m and a worst stream of 0.219 m, one
+# stream-frame of 312 not a success (benchmarks/FLEET_LIO_r4.json).
+FLEET_LIO_PATH = "FleetLIO.process_batch"
+FLEET_LIO_MAX_MEAN_ATE_M = 0.30
+FLEET_LIO_MAX_ATE_M = 0.60
+# Both fleets at the tree's defaults: B streams at 512 x 32 (the grid inserts
+# every frame past the inlier gate). In the 4-stream layout stream 1's
+# figure-8 enters one of the world's boxes at frame 13, where its scans
+# come back empty, so the run stops before it.
+FLEET_DEFAULT_PATH = "FleetOdometry.process_batch (default tree)"
+FLEET_LIO_DEFAULT_PATH = "FleetLIO.process_batch (default trees)"
+FLEET_DEFAULT_STREAMS = 4
+FLEET_DEFAULT_FRAMES = 12
+FLEET_DEFAULT_WARMUP = 2
+FLEET_DEFAULT_MAX_ATE_M = 0.15
 
 
 def nvidia_smi(query: str) -> str:
@@ -1736,10 +1778,7 @@ def fleet_phase(dev) -> dict:
     print(f"single-stream PipelinedLidarOdometry on stream 0's scans: ms a frame median {statistics.median(s_ms):.3f}, "
           f"max {max(s_ms):.3f}; the fleet's frame is {med / statistics.median(s_ms):.2f} single frames for {B} "
           f"streams; ATE {single['ate_m']:.4f} m")
-    gaps = [(float(np.abs(a[:3, 3] - b[:3, 3]).max()),
-             float(np.degrees(np.linalg.norm(lie_np.se3_log(np.linalg.inv(b) @ a)[:3]))))
-            for a, b in zip(out["poses"][0], single["poses"], strict=True)]
-    worst_m, worst_deg = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    worst_m, worst_deg = stream0_gap(out["poses"][0], single["poses"])
     print(f"fleet stream 0 against the single-stream run: at most {worst_m * 1e3:.4f} mm and {worst_deg:.5f} deg "
           f"apart (bounds {FLEET_STREAM0_M * 1e3:.0f} mm, {FLEET_STREAM0_DEG} deg)")
 
@@ -1768,14 +1807,20 @@ def fleet_phase(dev) -> dict:
     if min(launches["nn1_batched"], launches["knn_k_batched"]) <= 0:
         raise AssertionError(f"a kernel of the fleet never launched: {launches}")
 
-    # the fleet's kernel inputs: its targets, 1,000 queries a stream from the
-    # last frame's preprocessed scans, the final poses
+    return {**fleet_kernel_inputs(fleet, scans[-1], cap, dev), "launches": launches, "trajs": trajs, "scans": scans}
+
+
+def fleet_kernel_inputs(fleet, frame, cap: int, dev, intensities=None) -> dict:
+    """A fleet's kernel inputs: its targets, 1,000 queries a stream from
+    ``frame`` (the last frame's scans) through its prefilter, its final
+    poses."""
+    B = fleet.B
     gens = [torch.Generator(device=dev).manual_seed(SEED + s) for s in range(B)]
-    pre = fleet._t.pc_processor.preprocess_streams(fleet_replay.stack_frame(scans[-1], cap, dev), gens,
+    pre = fleet._t.pc_processor.preprocess_streams(fleet_replay.stack_frame(frame, cap, dev, intensities), gens,
                                                    need_covs=False)
     queries = random_sampling_streams(pre, N_QUERIES, gens).points.contiguous()
     poses = torch.as_tensor(np.stack([fleet.get_odometry(s) for s in range(B)]), device=dev).contiguous()
-    return {"launches": launches, "scan": pre, "target": fleet.submap_cloud, "queries": queries, "poses": poses}
+    return {"scan": pre, "target": fleet.submap_cloud, "queries": queries, "poses": poses}
 
 
 def fleet_cases(points, mask) -> dict:
@@ -1792,8 +1837,9 @@ def fleet_cases(points, mask) -> dict:
                                          torch.cat([mask[:, :h], mask[:, :h]], 1).contiguous())}
 
 
-def check_fleet_kernels(f) -> list:
-    """Phase 24: the batched nn1 and knn_k at the fleet's shapes."""
+def check_fleet_kernels(f, path: str = FLEET_PATH, tag: str = "fleet") -> list:
+    """Phases 24, 27 and 29: the batched nn1 and knn_k at the shapes of the
+    fleet run ``f`` of ``path``."""
     dev = f["queries"].device
     B = f["queries"].shape[0]
     rows = []
@@ -1804,8 +1850,8 @@ def check_fleet_kernels(f) -> list:
         got = cuda_knn.nn1_prepped_batched(prep, q, poses)
         singles = [cuda_knn.nn1_prepped(cuda_knn.prep_target(tt[b], mm[b]), q[b], poses[b]) for b in range(B)]
         check_equal("nn1_batched", got, (torch.stack([s[0] for s in singles]), torch.stack([s[1] for s in singles])),
-                    f"fleet, {what}, against {B} single launches")
-        check_equal("nn1_batched", got, cuda_knn.nn1_batched_plain(tt, mm, q, poses), f"fleet, {what}, against plain")
+                    f"{tag}, {what}, against {B} single launches")
+        check_equal("nn1_batched", got, cuda_knn.nn1_batched_plain(tt, mm, q, poses), f"{tag}, {what}, against plain")
     valid = [int(v) for v in m.sum(-1)]
     prep = cuda_knn.prep_targets(t, m)
     preps = [cuda_knn.prep_target(t[b], m[b]) for b in range(B)]
@@ -1819,13 +1865,13 @@ def check_fleet_kernels(f) -> list:
     lib = marginal_ms(lambda: torch.cdist(moved, t_inf, compute_mode="donot_use_mm_for_euclid_dist").min(dim=-1), dev)
     Q, M = q.shape[1], t.shape[1]
     sb = bound(Q * sum(valid), B * (13 * M + 20 * Q))
-    print(f"nn1_batched at the fleet's shape (B={B}, Q={Q}, M={M}, valid {valid}): equal to {B} single launches and "
+    print(f"nn1_batched at the {tag}'s shape (B={B}, Q={Q}, M={M}, valid {valid}): equal to {B} single launches and "
           f"to its plain version bit for bit ({', '.join(fleet_cases(t, m))}); kernel {turns['ms']:.4f} ms, {B} single "
           f"launches {turns['single_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} "
           f"({sb[1]})")
-    rows.append(row("nn1_batched", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", FLEET_PATH, 0.0,
+    rows.append(row("nn1_batched", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", path, 0.0,
                     (turns["ms"], turns["plain_ms"], lib), sb, single_ms=turns["single_ms"],
-                    shapes={"fleet target": {"B": B, "Q": Q, "M": M, "valid": valid}}))
+                    shapes={f"{tag} target": {"B": B, "Q": Q, "M": M, "valid": valid}}))
 
     shapes = {}
     for label, cloud in (("scan", f["scan"]), ("target", tgt)):
@@ -1836,10 +1882,10 @@ def check_fleet_kernels(f) -> list:
             singles = [cuda_knn.knn_k_prepped(cuda_knn.prep_target(pp[b], mm[b]), pp[b], K) for b in range(B)]
             check_equal("knn_k_batched", got, (torch.stack([s[0] for s in singles]),
                                                torch.stack([s[1] for s in singles])),
-                        f"fleet {label}, {what}, against {B} single launches")
+                        f"{tag} {label}, {what}, against {B} single launches")
             for b in range(B):
                 check_equal("knn_k_batched", (got[0][b], got[1][b]), cuda_knn.knn_k_simple(pp[b], mm[b], pp[b], K),
-                            f"fleet {label}, {what}, stream {b} against knn_k_simple")
+                            f"{tag} {label}, {what}, stream {b} against knn_k_simple")
         ref = cuda_knn.knn_k_batched_plain(pts, mask, pts, K)
         got = cuda_knn.knn_k_batched(cuda_knn.prep_targets(pts, mask), pts, K)
         torch.cuda.synchronize()
@@ -1847,7 +1893,7 @@ def check_fleet_kernels(f) -> list:
                                       ref[1].reshape(-1, K), TIE_TOL)
         err = finite_max_abs_err(got[1], ref[1])
         if bad or err > D2_ATOL:
-            raise AssertionError(f"knn_k_batched disagrees with its plain version at the fleet's {label}")
+            raise AssertionError(f"knn_k_batched disagrees with its plain version at the {tag}'s {label}")
         prep = cuda_knn.prep_targets(pts, mask)
         preps = [cuda_knn.prep_target(pts[b], mask[b]) for b in range(B)]
         turns = in_turns({
@@ -1865,18 +1911,167 @@ def check_fleet_kernels(f) -> list:
         sb = bound(n * sum(valid), B * (13 * n + 12 * n + 8 * n * K))
         shapes[label] = {"B": B, "Q": n, "M": n, "valid": valid, **turns, "library_ms": lib, "max_abs_err": err,
                          "bound_ms": sb[0], "bound_by": sb[1]}
-        print(f"knn_k_batched at the fleet's {label} (B={B}, k={K}, Q=M={n}, valid {valid}): equal to {B} single "
+        print(f"knn_k_batched at the {tag}'s {label} (B={B}, k={K}, Q=M={n}, valid {valid}): equal to {B} single "
               f"launches and to knn_k_simple bit for bit ({', '.join(fleet_cases(pts, mask))}), {bad} set mismatches "
               f"against its plain version, max |d2 - plain| = {err:.3g}; kernel {turns['ms']:.4f} ms, {B} single "
               f"launches {turns['single_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+topk "
               f"{'not timed' if lib is None else f'{lib:.4f}'}, bound {sb[0]:.4f} ({sb[1]})")
     scan = shapes["scan"]
-    rows.append(row("knn_k_batched", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", FLEET_PATH, scan["max_abs_err"],
+    rows.append(row("knn_k_batched", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", path, scan["max_abs_err"],
                     (scan["ms"], scan["plain_ms"], scan["library_ms"]), (scan["bound_ms"], scan["bound_by"]),
                     single_ms=scan["single_ms"], shapes=shapes))
     for r in rows:
         r["launches"] = f["launches"][r["name"]]
     return rows
+
+
+def stream0_gap(fleet_poses, single_poses) -> tuple[float, float]:
+    """The largest translation (m) and rotation (deg) between stream 0's
+    poses and the single-stream run's, frame by frame."""
+    gaps = [(float(np.abs(a[:3, 3] - b[:3, 3]).max()),
+             float(np.degrees(np.linalg.norm(lie_np.se3_log(np.linalg.inv(b) @ a)[:3]))))
+            for a, b in zip(fleet_poses, single_poses, strict=True)]
+    return max(g[0] for g in gaps), max(g[1] for g in gaps)
+
+
+def print_fleet_results(tag: str, out, n_frames: int) -> list:
+    """Each stream's ATE and the results, with every frame that is not a
+    success; fails on a frame with no result, more than FLEET_MAX_NOT_OK of
+    the stream-frames not a success, or a drop. Returns the ATEs."""
+    fleet = out["fleet"]
+    B = fleet.B
+    ates = out["ates"]
+    dropped = int(fleet.map_state.dropped.sum())
+    print(f"{tag}: ATE a stream {[round(a, 4) for a in ates]}, mean {statistics.mean(ates):.4f} m, max "
+          f"{max(ates):.4f} m; results {out['histogram']}, not a success: {out['not_ok']}; frames with no result "
+          f"{out['unaccounted']}; keyframes (inserts) a stream {fleet.keyframe_counts.tolist()} of {n_frames - 1} "
+          f"frames; final capacity {fleet.map_capacity}, dropped {dropped}, budget lost "
+          f"{int(fleet.budget_lost.sum())}, growth events {fleet.growth_events}")
+    check_on_device(vars(fleet.map_state), fleet.device)
+    check_on_device(vars(fleet.submap_cloud), fleet.device)
+    if out["unaccounted"] or len(out["not_ok"]) > FLEET_MAX_NOT_OK * B * (n_frames - 1) or dropped:
+        raise AssertionError(f"{tag}: a frame with no result, too many frames not a success, or a drop")
+    return ates
+
+
+def print_lio_fleet_state(tag: str, fleet) -> None:
+    """The align iterations a stream-frame and a loop, and the bias and
+    velocity mirrors; fails unless the mirrors are finite."""
+    its = [i for per in fleet.align_iterations for i in per]
+    print(f"{tag}: align iterations a stream-frame mean {statistics.mean(its):.2f}, max {max(its)}; a loop (the "
+          f"slowest stream) mean {statistics.mean(fleet.align_loops):.2f}, max {max(fleet.align_loops)}; gyro bias "
+          f"{np.round(fleet.gyro_bias_np, 5).tolist()}, accel bias {np.round(fleet.accel_bias_np, 4).tolist()}, "
+          f"velocity {np.round(fleet.velocity_np, 3).tolist()}")
+    check_on_device(fleet.x._asdict(), fleet.device)
+    if not all(np.isfinite(a).all() for a in (fleet.gyro_bias_np, fleet.accel_bias_np, fleet.velocity_np)):
+        raise AssertionError(f"{tag}: non-finite bias or velocity mirrors")
+
+
+def fleet_lio_phase(dev, trajs, scans) -> dict:
+    """Phase 26: FleetLIO at the JAX fleet benchmark's ``--lio`` deployment
+    (the fleet phase's scans), held to its bounds and to the single-stream
+    pipelined LIO of stream 0."""
+    B, n_frames, warm = fleet_replay.FLEET_STREAMS, fleet_replay.FLEET_FRAMES, fleet_replay.FLEET_WARMUP
+    cap = pad_capacity_for(fleet_replay.FLEET_RAYS[0] * fleet_replay.FLEET_RAYS[1])
+    params = fleet_replay.fleet_lio_params()
+    torch.cuda.synchronize()
+    sync.reset_sync_count()
+    cuda_knn.reset_launch_counts()
+    out = fleet_replay.run_fleet_lio_replay(params, trajs, scans, device=dev, capacity=cap)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    fleet = out["fleet"]
+    rows = out["rows"][warm:]
+    med = print_fleet_timing("fleet LIO", [r["ms"] for r in rows], B, rows)
+    print(f"fleet LIO: flush {out['flush_ms']:.3f} ms; launches in all {launches}; processing times of the last "
+          f"frame " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in sorted(fleet.processing_times.items())))
+    print_lio_fleet_state("fleet LIO", fleet)
+    ates = print_fleet_results("fleet LIO", out, n_frames)
+
+    assert stream_seeds(0, 0, inertial=True) == (1234, 4321, 99)  # the single-stream pipeline's own seeds
+    single = fleet_replay.run_stream_lio_replay(params, trajs, scans, 0, device=dev, capacity=cap)
+    worst_m, worst_deg = stream0_gap(out["poses"][0], single["poses"])
+    s_ms = single["frame_ms"][warm:]
+    print(f"single-stream PipelinedLidarInertialOdometry on stream 0's scans and IMU: ms a frame median "
+          f"{statistics.median(s_ms):.3f}, max {max(s_ms):.3f}; the fleet's frame is "
+          f"{med / statistics.median(s_ms):.2f} single frames for {B} streams; ATE {single['ate_m']:.4f} m; "
+          f"fleet stream 0 at most {worst_m * 1e3:.4f} mm and {worst_deg:.5f} deg from it (bounds "
+          f"{FLEET_STREAM0_M * 1e3:.0f} mm, {FLEET_STREAM0_DEG} deg)")
+    if not statistics.mean(ates) <= FLEET_LIO_MAX_MEAN_ATE_M or not max(ates) <= FLEET_LIO_MAX_ATE_M:
+        raise AssertionError(f"fleet LIO: ATE {ates} above the bounds")
+    if worst_m > FLEET_STREAM0_M or worst_deg > FLEET_STREAM0_DEG:
+        raise AssertionError("fleet LIO: stream 0 strays from the single-stream run")
+    if min(launches["nn1_batched"], launches["knn_k_batched"]) <= 0:
+        raise AssertionError(f"a kernel of the fleet LIO never launched: {launches}")
+    return {**fleet_kernel_inputs(fleet, scans[-1], cap, dev), "launches": launches}
+
+
+def fleet_defaults_phase(dev) -> list:
+    """Phase 28: FleetOdometry and FleetLIO at the tree's default scan and
+    submap trees (polar grid, occupancy grid, intensity correction), B =
+    FLEET_DEFAULT_STREAMS at 512 x 32, each held to the single-stream
+    pipeline of stream 0; returns the kernel inputs of both runs."""
+    B, n_frames, warm = FLEET_DEFAULT_STREAMS, FLEET_DEFAULT_FRAMES, FLEET_DEFAULT_WARMUP
+    n_az, n_rings = SMALL_RAYS
+    trajs, scans = fleet_replay.make_fleet_scans(B, n_frames, n_az, n_rings, device=dev)
+    inten = fleet_replay.fleet_intensities(scans)
+    cap = pad_capacity_for(n_az * n_rings)
+    runs = []
+    for tag, path, params in (
+            ("fleet LO, default tree", FLEET_DEFAULT_PATH, fleet_replay.fleet_params(default_trees=True)),
+            ("fleet LIO, default trees", FLEET_LIO_DEFAULT_PATH, fleet_replay.fleet_lio_params(default_trees=True))):
+        lio = path == FLEET_LIO_DEFAULT_PATH
+        run = fleet_replay.run_fleet_lio_replay if lio else fleet_replay.run_fleet_replay
+        torch.cuda.synchronize()
+        sync.reset_sync_count()
+        cuda_knn.reset_launch_counts()
+        out = run(params, trajs, scans, device=dev, capacity=cap, intensities=inten)
+        torch.cuda.synchronize()
+        launches = dict(cuda_knn.launch_counts)
+        fleet = out["fleet"]
+        print(f"{tag} ({B} streams of {n_az} x {n_rings} rays, {n_frames} frames, {type(fleet.map_state).__name__} "
+              f"at {fleet.map_capacity} slots, polar grid {fleet.params.scan.downsampling.polar.enable}, intensity "
+              f"correction {fleet.params.scan.intensity_correction.enable}):")
+        print_fleet_timing(tag, [r["ms"] for r in out["rows"][warm:]], B, out["rows"][warm:])
+        voxels = [int(fleet.map_state.used[s].sum()) for s in range(B)]
+        print(f"{tag}: map voxels a stream {voxels}; launches in all {launches}")
+        if lio:
+            print_lio_fleet_state(tag, fleet)
+        ates = print_fleet_results(tag, out, n_frames)
+
+        # the last frame's corrected intensities
+        f = fleet_kernel_inputs(fleet, scans[-1], cap, dev, inten[-1])
+        ic = fleet.params.scan.intensity_correction
+        pre = fleet._t.pc_processor.refine_filter(f["scan"], fleet._t.pc_processor.prepare_context(f["scan"]))
+        if pre.intensities is None or not bool(pre.mask.any()):
+            raise AssertionError(f"{tag}: no corrected intensities")
+        vals = pre.intensities[pre.mask]
+        lo, hi = float(vals.min()), float(vals.max())
+        print(f"{tag}: the last frame's corrected intensities: {vals.numel()} valid, range [{lo:.4f}, {hi:.4f}] "
+              f"(the correction clamps to [{ic.min_intensity}, {ic.max_intensity}])")
+        if not bool(torch.isfinite(vals).all()) or lo < ic.min_intensity or hi > ic.max_intensity:
+            raise AssertionError(f"{tag}: corrected intensities out of range")
+
+        # stream 0 alone, its generators seeded as stream 0's
+        if lio:
+            single = fleet_replay.run_stream_lio_replay(params, trajs, scans, 0, device=dev, capacity=cap,
+                                                        intensities=inten)
+        else:
+            p0 = dataclasses.replace(params, pose=PoseParams(initial=tuple(np.asarray(trajs[0][0], np.float32).ravel())))
+            single = odometry_replay.run_pipelined_replay(
+                p0, trajs[0], [PointCloud.from_numpy(scans[i][0], intensities=inten[i][0], capacity=cap, device=dev)
+                               for i in range(n_frames)], device=dev)
+        worst_m, worst_deg = stream0_gap(out["poses"][0], single["poses"])
+        print(f"{tag}: stream 0 at most {worst_m * 1e3:.4f} mm and {worst_deg:.5f} deg from the single-stream "
+              f"pipeline on its scans (ATE {single['ate_m']:.4f} m; bound {FLEET_STREAM0_M * 1e3:.0f} mm)")
+        if not max(ates) <= FLEET_DEFAULT_MAX_ATE_M:
+            raise AssertionError(f"{tag}: ATE {ates} above {FLEET_DEFAULT_MAX_ATE_M} m")
+        if worst_m > FLEET_STREAM0_M:
+            raise AssertionError(f"{tag}: stream 0 strays from the single-stream run")
+        if min(launches["nn1_batched"], launches["knn_k_batched"]) <= 0:
+            raise AssertionError(f"a kernel of the {tag} never launched: {launches}")
+        runs.append(({**f, "launches": launches}, path, tag))
+    return runs
 
 
 def fleet_kitti_phase(dev) -> None:
@@ -2056,6 +2251,12 @@ def main() -> None:
     fleet_out = fleet_phase(dev)
     results += check_fleet_kernels(fleet_out)
     fleet_kitti_phase(dev)
+
+    # --- the LIO fleet, and both fleets at the parameter tree's defaults ------------
+    results += check_fleet_kernels(fleet_lio_phase(dev, fleet_out["trajs"], fleet_out["scans"]), FLEET_LIO_PATH,
+                                   "fleet LIO")
+    for f, path, tag in fleet_defaults_phase(dev):
+        results += check_fleet_kernels(f, path, tag)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

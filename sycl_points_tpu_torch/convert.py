@@ -38,6 +38,7 @@ from sycl_points_tpu_torch.mapping.occupancy_grid import OccupancyGridConfig, Oc
 from sycl_points_tpu_torch.mapping.voxel_hash_map import VoxelHashMapConfig, VoxelHashMapState
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.pipeline import params as pipeline_params
+from sycl_points_tpu_torch.pipeline.pipelined_lio import LIOCarry
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import OdomCarry
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration import map_prior, pipeline, registration
@@ -160,3 +161,20 @@ def lio_state_from_reference(x, P_post, device: torch.device | str = "cuda"):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     return State(*(t(getattr(x, name)) for name in State._fields)), t(P_post)
+
+
+def fleet_lio_state_from_reference(jax_fleet, device: torch.device | str = "cuda"):
+    """``(State, P, LIOCarry)`` of a port ``FleetLIO`` on ``device`` (the card
+    unless the caller asks for the CPU) from a JAX ``FleetLIO``'s stacked
+    ``x``, ``P`` and ``_carry`` (fields ``[B, ...]``), or any object with
+    those attributes whose fields convert with ``numpy.asarray``; the
+    keyframe time becomes float64, as this package carries it. Assign them
+    to the port fleet's ``x``, ``P`` and ``_carry`` to start it from the JAX
+    fleet's state."""
+    dev = require_device(device)
+    x, P = lio_state_from_reference(jax_fleet.x, jax_fleet.P, device=dev)
+    c = jax_fleet._carry
+    carry = LIOCarry(last_kf_pose=torch.from_numpy(np.array(c.last_kf_pose, np.float32)).to(dev),
+                     last_kf_time=torch.from_numpy(np.array(c.last_kf_time, np.float64)).to(dev))
+    return x, P, carry
+

@@ -5,8 +5,9 @@ Counterpart of :mod:`sycl_points_tpu.imu.factor`. Error-state ordering:
   [6:9] velocity (world) | [9:12] accel bias | [12:15] gyro bias.
 
 Every function takes leading batch dimensions, so the LM step can try all
-its damping candidates as one batch. :func:`select` picks one state or
-another under a device condition without a host read.
+its damping candidates as one batch and a fleet runs its streams as one.
+:func:`select` picks one state or another under a device condition (one a
+stream for a fleet) without a host read.
 """
 
 from __future__ import annotations
@@ -48,9 +49,16 @@ class State(NamedTuple):
         return lie.make_transform(self.rotation, self.position)
 
 
+def per_stream(cond: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A condition over leading axes (``[]``, a fleet's ``[B]``) shaped to
+    broadcast over ``x``'s trailing axes."""
+    return cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim()))
+
+
 def select(cond: torch.Tensor, a: State, b: State) -> State:
-    """``a`` where the device bool ``cond`` holds, else ``b``, field by field."""
-    return State(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+    """``a`` where the device bool ``cond`` holds, else ``b``, field by
+    field; a fleet's ``cond [B]`` picks stream by stream."""
+    return State(*(torch.where(per_stream(cond, x), x, y) for x, y in zip(a, b)))
 
 
 def compute_manifold_residual(x_pred: State, x_op: State) -> torch.Tensor:
@@ -69,10 +77,10 @@ def compute_manifold_residual(x_pred: State, x_op: State) -> torch.Tensor:
 def compute_imu_hessian_gradient(x_pred: State, x_op: State, P_pred: torch.Tensor):
     """(H_imu, b_imu, ok): H = P^-1, b = H r; zero H and b when P_pred is
     not positive definite."""
-    eye = torch.eye(DOF, dtype=_F32, device=P_pred.device)
+    eye = torch.eye(DOF, dtype=_F32, device=P_pred.device).expand(P_pred.shape)
     H, ok = solve_psd(P_pred, eye)
-    b = H @ compute_manifold_residual(x_pred, x_op)
-    return torch.where(ok, H, 0.0), torch.where(ok, b, 0.0), ok
+    b = (H @ compute_manifold_residual(x_pred, x_op)[..., None])[..., 0]
+    return torch.where(per_stream(ok, H), H, 0.0), torch.where(per_stream(ok, b), b, 0.0), ok
 
 
 def compute_imu_gradient(x_pred: State, x_op: State, H_imu: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ A window of S padded steps integrates in the parallel-prefix form
 (:func:`_parallel_prefix_integrate`): every quantity of the recurrence is a
 closed form over prefix products, and the two products that need a scan (the
 rotation prefixes and the covariance's ``(F, Q)`` pairs) run as a log-depth
-doubling scan, ceil(log2 S) rounds of batched ``torch.matmul``. The
+doubling scan, ceil(log2 S) rounds of batched ``torch.matmul``. It takes B
+windows at once (a fleet's ``[B, S]``, each with its own biases and start
+rotation); one window runs as the stream form with one stream, so that a
+window alone and the same window as stream b of a fleet give the same bits. The
 sequential recurrence (:func:`_integrate_scan`, S steps of small ops) is the
 plain reference the parallel form is held to; no pipeline calls it.
 
@@ -30,6 +33,7 @@ import torch
 
 from sycl_points_tpu_torch import require_device
 from sycl_points_tpu_torch.utils import lie
+from sycl_points_tpu_torch.utils.smallmat import matvec3
 from sycl_points_tpu_torch.utils.sync import to_device, to_host
 
 GRAVITY = (0.0, 0.0, -9.80665)
@@ -65,13 +69,15 @@ class PreintegrationState(NamedTuple):
 
 def init_state(initial_covariance: Optional[torch.Tensor] = None,
                device: torch.device | str = "cuda") -> PreintegrationState:
-    """The empty window; on ``initial_covariance``'s device when one is given."""
+    """The empty window; on ``initial_covariance``'s device when one is
+    given, and one a stream for a fleet's covariances ``[B, 15, 15]``."""
     dev = initial_covariance.device if initial_covariance is not None else require_device(device)
-    z3 = torch.zeros(3, dtype=_F32, device=dev)
-    z33 = torch.zeros((3, 3), dtype=_F32, device=dev)
+    lead = () if initial_covariance is None else tuple(initial_covariance.shape[:-2])
+    z3 = torch.zeros(lead + (3,), dtype=_F32, device=dev)
+    z33 = torch.zeros(lead + (3, 3), dtype=_F32, device=dev)
     return PreintegrationState(
-        Delta_R=torch.eye(3, dtype=_F32, device=dev), Delta_v=z3, Delta_p=z3,
-        dt_total=torch.zeros((), dtype=_F32, device=dev),
+        Delta_R=torch.eye(3, dtype=_F32, device=dev).expand(lead + (3, 3)), Delta_v=z3, Delta_p=z3,
+        dt_total=torch.zeros(lead, dtype=_F32, device=dev),
         J_R_bg=z33, J_v_bg=z33, J_v_ba=z33, J_p_bg=z33, J_p_ba=z33,
         covariance=torch.zeros((15, 15), dtype=_F32, device=dev) if initial_covariance is None
         else initial_covariance,
@@ -198,15 +204,15 @@ def _integrate_scan(params: IMUPreintegrationParams, state: PreintegrationState,
     return s, tuple(torch.stack(x) for x in zip(*outs))
 
 
-def inclusive_scan(elems: tuple, combine: Callable) -> tuple:
-    """Inclusive scan along axis 0 by recursive doubling (Hillis-Steele):
+def inclusive_scan(elems: tuple, combine: Callable, dim: int = 0) -> tuple:
+    """Inclusive scan along ``dim`` by recursive doubling (Hillis-Steele):
     ceil(log2 S) rounds, each one batched ``combine(earlier, later)`` over
     the shifted halves. ``combine`` must be associative."""
-    S = elems[0].shape[0]
+    S = elems[0].shape[dim]
     d = 1
     while d < S:
-        new = combine(tuple(e[:-d] for e in elems), tuple(e[d:] for e in elems))
-        elems = tuple(torch.cat([e[:d], n]) for e, n in zip(elems, new))
+        new = combine(tuple(e.narrow(dim, 0, S - d) for e in elems), tuple(e.narrow(dim, d, S - d) for e in elems))
+        elems = tuple(torch.cat([e.narrow(dim, 0, d), n], dim) for e, n in zip(elems, new))
         d *= 2
     return elems
 
@@ -219,7 +225,10 @@ def _compose_transitions(x, y):
 
 def _parallel_prefix_integrate(params: IMUPreintegrationParams, state: PreintegrationState, dt, omega0, omega1,
                                accel0, accel1, valid, gyro_bias, accel_bias, R_world_body=None):
-    """The midpoint recurrence over prefix products.
+    """The midpoint recurrence over prefix products, for B windows at once:
+    ``dt [B, S]``, the readings ``[B, S, 3]``, each window with its own
+    ``state`` (fields ``[B, ...]``), biases ``[B, 3]`` and ``R_world_body
+    [B, 3, 3]``.
 
       * ``Delta_R``: an inclusive scan of the step rotations;
       * ``Delta_v`` / ``Delta_p``: cumsums of prefix-rotated midpoint terms;
@@ -227,81 +236,81 @@ def _parallel_prefix_integrate(params: IMUPreintegrationParams, state: Preintegr
         (one cumsum), the v / p Jacobians cumsums of terms built from it;
       * covariance: an inclusive scan of ``(F, Q)`` pairs.
 
-    Returns ``(final, (Delta_R [S,3,3], Delta_p [S,3], dt_total [S]))`` like
-    :func:`_integrate_scan`.
+    Returns ``(final, (Delta_R [B,S,3,3], Delta_p [B,S,3], dt_total [B,S]))``.
     """
     dev = dt.device
-    R0w = torch.eye(3, dtype=_F32, device=dev) if R_world_body is None else R_world_body
-    S = dt.shape[0]
+    B, S = dt.shape
     eye3 = torch.eye(3, dtype=_F32, device=dev)
+    R0w = eye3.expand(B, 3, 3) if R_world_body is None else R_world_body
+
+    def excl(first, pref):  # the exclusive prefix: the window's start, then all but the last
+        return torch.cat([first[:, None], pref[:, :-1]], 1)
 
     ok = valid & (dt > 1e-9)
     dt = torch.where(ok, dt, 0.0)
-    dtc = dt[:, None, None]
-    omega_mid = 0.5 * (omega0 + omega1) - gyro_bias
-    a_mid = 0.5 * (accel0 + accel1) * params.accel_scale - accel_bias
-    phi_mid = omega_mid * dt[:, None]
+    dtv = dt[..., None]
+    dtc = dt[..., None, None]
+    omega_mid = 0.5 * (omega0 + omega1) - gyro_bias[:, None]
+    a_mid = 0.5 * (accel0 + accel1) * params.accel_scale - accel_bias[:, None]
+    phi_mid = omega_mid * dtv
     phi_half = 0.5 * phi_mid
     R_step, R_half = _rot(phi_mid), _rot(phi_half)  # I where dt = 0
     Jr, Jr_half = right_jacobian_so3(phi_mid), right_jacobian_so3(phi_half)
     skew_a = lie.skew(a_mid)
 
     # rotation prefixes: inclusive M_k = R_1 ... R_k, exclusive E_k
-    (M,) = inclusive_scan((R_step,), lambda a, b: (a[0] @ b[0],))
-    E = torch.cat([eye3[None], M[:-1]])
-    E_full = state.Delta_R @ E
-    M_full = state.Delta_R @ M
+    (M,) = inclusive_scan((R_step,), lambda a, b: (a[0] @ b[0],), dim=1)
+    E = excl(eye3.expand(B, 3, 3), M)
+    E_full = state.Delta_R[:, None] @ E
+    M_full = state.Delta_R[:, None] @ M
     DR_mid = E_full @ R_half  # Delta_R at the midpoint
 
     # velocity / position prefixes
-    a_nav = (E_full @ (R_half @ (a_mid * dt[:, None])[..., None]))[..., 0]
-    v_pref = state.Delta_v + torch.cumsum(a_nav, 0)
-    v_excl = torch.cat([state.Delta_v[None], v_pref[:-1]])
-    p_pref = state.Delta_p + torch.cumsum(v_excl * dt[:, None] + 0.5 * a_nav * dt[:, None], 0)
-    t_pref = state.dt_total + torch.cumsum(dt, 0)
+    a_nav = (E_full @ (R_half @ (a_mid * dtv)[..., None]))[..., 0]
+    v_pref = state.Delta_v[:, None] + torch.cumsum(a_nav, 1)
+    p_pref = state.Delta_p[:, None] + torch.cumsum(excl(state.Delta_v, v_pref) * dtv + 0.5 * a_nav * dtv, 1)
+    t_pref = state.dt_total[:, None] + torch.cumsum(dt, 1)
 
     # bias Jacobians; M_i (-Jr_i dt_i) = E_i R_step_i (-Jr_i) dt_i
-    sum_R = state.J_R_bg + torch.cumsum(E @ (R_step @ -Jr) * dtc, 0)
+    sum_R = state.J_R_bg[:, None] + torch.cumsum(E @ (R_step @ -Jr) * dtc, 1)
     J_R_bg = M.transpose(-1, -2) @ sum_R
-    J_R_bg_excl = torch.cat([state.J_R_bg[None], J_R_bg[:-1]])
-    J_R_mid = R_half.transpose(-1, -2) @ J_R_bg_excl - Jr_half * (0.5 * dtc)
+    J_R_mid = R_half.transpose(-1, -2) @ excl(state.J_R_bg, J_R_bg) - Jr_half * (0.5 * dtc)
     DRSJ = DR_mid @ skew_a @ J_R_mid
-    J_v_bg = state.J_v_bg + torch.cumsum(-DRSJ * dtc, 0)
-    J_v_ba = state.J_v_ba + torch.cumsum(-DR_mid * dtc, 0)
-    J_v_bg_excl = torch.cat([state.J_v_bg[None], J_v_bg[:-1]])
-    J_v_ba_excl = torch.cat([state.J_v_ba[None], J_v_ba[:-1]])
+    J_v_bg = state.J_v_bg[:, None] + torch.cumsum(-DRSJ * dtc, 1)
+    J_v_ba = state.J_v_ba[:, None] + torch.cumsum(-DR_mid * dtc, 1)
     dt2 = dtc * dtc
-    J_p_bg = state.J_p_bg + torch.cumsum(J_v_bg_excl * dtc - 0.5 * DRSJ * dt2, 0)
-    J_p_ba = state.J_p_ba + torch.cumsum(J_v_ba_excl * dtc - 0.5 * DR_mid * dt2, 0)
+    J_p_bg = state.J_p_bg[:, None] + torch.cumsum(excl(state.J_v_bg, J_v_bg) * dtc - 0.5 * DRSJ * dt2, 1)
+    J_p_ba = state.J_p_ba[:, None] + torch.cumsum(excl(state.J_v_ba, J_v_ba) * dtc - 0.5 * DR_mid * dt2, 1)
 
     # covariance: (F, Q) pair scan; invalid steps are identity transitions
-    R_world_mid = R0w @ DR_mid
+    R_world_mid = R0w[:, None] @ DR_mid
     F = _transition(dtc, R_world_mid, skew_a, R_half.transpose(-1, -2), -Jr_half * (0.5 * dtc), R_step, Jr,
-                    (S,), dev)
-    F = torch.where(ok[:, None, None], F, torch.eye(15, dtype=_F32, device=dev))
+                    (B, S), dev)
+    F = torch.where(ok[..., None, None], F, torch.eye(15, dtype=_F32, device=dev))
     if params.has_noise():
-        G = _noise_input(dtc, R_world_mid, skew_a, Jr, Jr_half, (S,), dev)
-        Q = (G * _noise_density(params, dt)[:, None, :]) @ G.transpose(-1, -2)
-        Q = torch.where(ok[:, None, None], Q, 0.0)
+        G = _noise_input(dtc, R_world_mid, skew_a, Jr, Jr_half, (B, S), dev)
+        Q = (G * _noise_density(params, dt)[..., None, :]) @ G.transpose(-1, -2)
+        Q = torch.where(ok[..., None, None], Q, 0.0)
     else:
-        Q = torch.zeros((S, 15, 15), dtype=_F32, device=dev)
-    F_prod, Q_acc = inclusive_scan((F, Q), _compose_transitions)
-    Fp, Qp = F_prod[-1], Q_acc[-1]
-    cov = Fp @ state.covariance @ Fp.T + Qp
-    cov = 0.5 * (cov + cov.T)
+        Q = torch.zeros((B, S, 15, 15), dtype=_F32, device=dev)
+    F_prod, Q_acc = inclusive_scan((F, Q), _compose_transitions, dim=1)
+    Fp, Qp = F_prod[:, -1], Q_acc[:, -1]
+    cov = Fp @ state.covariance @ Fp.transpose(-1, -2) + Qp
+    cov = 0.5 * (cov + cov.transpose(-1, -2))
 
     final = PreintegrationState(
-        Delta_R=M_full[-1], Delta_v=v_pref[-1], Delta_p=p_pref[-1], dt_total=t_pref[-1],
-        J_R_bg=J_R_bg[-1], J_v_bg=J_v_bg[-1], J_v_ba=J_v_ba[-1], J_p_bg=J_p_bg[-1], J_p_ba=J_p_ba[-1],
-        covariance=cov,
+        Delta_R=M_full[:, -1], Delta_v=v_pref[:, -1], Delta_p=p_pref[:, -1], dt_total=t_pref[:, -1],
+        J_R_bg=J_R_bg[:, -1], J_v_bg=J_v_bg[:, -1], J_v_ba=J_v_ba[:, -1], J_p_bg=J_p_bg[:, -1],
+        J_p_ba=J_p_ba[:, -1], covariance=cov,
     )
     return final, (M_full, p_pref, t_pref)
 
 
 def integrate_steps(params, state, dt, omega0, omega1, accel0, accel1, valid, gyro_bias, accel_bias,
                     R_world_body=None, parallel: bool = True) -> PreintegrationState:
-    """Integrate padded step arrays; ``parallel=False`` runs the sequential
-    reference."""
+    """Integrate padded step arrays: one window (``dt [S]``) or B windows
+    (``dt [B, S]``, every other input with the leading ``[B]``);
+    ``parallel=False`` runs the sequential reference (one window)."""
     return integrate_steps_with_outputs(params, state, dt, omega0, omega1, accel0, accel1, valid, gyro_bias,
                                         accel_bias, R_world_body, parallel)[0]
 
@@ -311,8 +320,16 @@ def integrate_steps_with_outputs(params, state, dt, omega0, omega1, accel0, acce
     """Like :func:`integrate_steps`, with the per-step cumulative
     ``(Delta_R [S,3,3], Delta_p [S,3], dt_total [S])``: the trajectory the
     IMU deskew samples."""
-    fn = _parallel_prefix_integrate if parallel else _integrate_scan
-    return fn(params, state, dt, omega0, omega1, accel0, accel1, valid, gyro_bias, accel_bias, R_world_body)
+    args = (dt, omega0, omega1, accel0, accel1, valid, gyro_bias, accel_bias, R_world_body)
+    if not parallel:
+        return _integrate_scan(params, state, *args)
+    if dt.dim() == 2:  # B windows
+        return _parallel_prefix_integrate(params, state, *args)
+    # one window: the stream form with one stream, so that a window and
+    # stream b of B windows run the same kernels
+    one = [None if a is None else a[None] for a in args]
+    final, outs = _parallel_prefix_integrate(params, PreintegrationState(*(f[None] for f in state)), *one)
+    return PreintegrationState(*(f[0] for f in final)), tuple(o[0] for o in outs)
 
 
 def get_corrected(state: PreintegrationState, gyro_bias_lin, accel_bias_lin, gyro_bias_new,
@@ -352,12 +369,13 @@ def predict_transform(params: IMUPreintegrationParams, corrected: Preintegration
 
 def predict_relative_transform(params: IMUPreintegrationParams, corrected: PreintegrationState, R_world_body_i,
                                v_world_i) -> torch.Tensor:
-    """Start-to-end transform ``[4, 4]`` with gravity and initial-velocity
-    compensation: the registration's initial guess."""
+    """Start-to-end transform ``[..., 4, 4]`` with gravity and
+    initial-velocity compensation: the registration's initial guess (a
+    leading ``[B]`` gives one a window)."""
     g = gravity_vector(params, corrected.dt_total.device)
-    dt = corrected.dt_total
-    Rt = R_world_body_i.T
-    dp = corrected.Delta_p + 0.5 * (Rt @ g) * dt * dt + Rt @ v_world_i * dt
+    dt = corrected.dt_total[..., None]
+    Rt = R_world_body_i.transpose(-1, -2)
+    dp = corrected.Delta_p + 0.5 * matvec3(Rt, g) * dt * dt + matvec3(Rt, v_world_i) * dt
     return lie.make_transform(corrected.Delta_R, dp)
 
 
@@ -459,8 +477,10 @@ def pack_steps(dt, w0, w1, a0, a1, valid) -> np.ndarray:
 
 
 def unpack_steps(packed):
-    """Inverse of :func:`pack_steps` (numpy or a tensor)."""
-    return packed[:, 0], packed[:, 1:4], packed[:, 4:7], packed[:, 7:10], packed[:, 10:13], packed[:, 13] > 0.5
+    """Inverse of :func:`pack_steps` (numpy or a tensor; ``[S, 14]``, or
+    B windows ``[B, S, 14]``)."""
+    return (packed[..., 0], packed[..., 1:4], packed[..., 4:7], packed[..., 7:10], packed[..., 10:13],
+            packed[..., 13] > 0.5)
 
 
 class IMUPreintegration:

@@ -2,7 +2,9 @@
 local-mean normalization, z-score.
 
 Counterpart of :mod:`sycl_points_tpu.ops.intensity`; each op is a gather
-over the k-NN neighbourhoods and elementwise work on the cloud's device:
+over the k-NN neighbourhoods and elementwise work on the cloud's device, for
+one cloud ``[N]`` or a fleet's ``[B, N]`` (each stream's neighbours among its
+own rows, as ``self_knn_streams`` gives them):
 
   * correction: I' = clamp(scale I (dist / ref)^exponent |cos|^-angle_exponent,
     min, max), the angle factor from the normals when there are any;
@@ -17,11 +19,17 @@ from __future__ import annotations
 import torch
 
 from sycl_points_tpu_torch.ops.knn import KNNResult
-from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, gather_streams
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((v * v).sum(-1))
+
+
+def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The neighbour rows ``idx [..., N, k]`` of ``values [..., N, ...]``:
+    of each stream's own rows for a fleet's ``[B, N]`` cloud."""
+    return gather_streams(values, idx) if idx.dim() == 3 else values[idx]
 
 
 def _require_intensities(cloud: PointCloud) -> None:
@@ -73,36 +81,36 @@ def _directional_gaussian_mean(
     if sigma_azimuth <= 0 or sigma_elevation <= 0 or sigma_range <= 0:
         raise ValueError("all sigma values must be positive")
     pts, inten = cloud.points, cloud.intensities
-    k_stride = knn.indices.shape[1]
+    k_stride = knn.indices.shape[-1]
     k_use = k_limit if 0 < k_limit < k_stride else k_stride
-    nbr = knn.indices[:, :k_use].to(torch.int64)
+    nbr = knn.indices[..., :k_use].to(torch.int64)
     idx = torch.clamp_min(nbr, 0)
 
     r = _norm(pts)
     r_safe = torch.clamp_min(r, 1e-6)
-    r_hat = pts / r_safe[:, None]
-    rxy = _norm(pts[:, :2])
+    r_hat = pts / r_safe[..., None]
+    rxy = _norm(pts[..., :2])
     near_zenith = rxy < 1e-6
     inv_rxy = 1.0 / torch.clamp_min(rxy, 1e-6)
-    ax = torch.where(near_zenith, 1.0, -pts[:, 1] * inv_rxy)
-    ay = torch.where(near_zenith, 0.0, pts[:, 0] * inv_rxy)
-    ex = torch.where(near_zenith, 0.0, -r_hat[:, 2] * ay)
-    ey = torch.where(near_zenith, 1.0, r_hat[:, 2] * ax)
+    ax = torch.where(near_zenith, 1.0, -pts[..., 1] * inv_rxy)
+    ay = torch.where(near_zenith, 0.0, pts[..., 0] * inv_rxy)
+    ex = torch.where(near_zenith, 0.0, -r_hat[..., 2] * ay)
+    ey = torch.where(near_zenith, 1.0, r_hat[..., 2] * ax)
     ez = torch.where(near_zenith, 0.0, rxy / r_safe)
 
-    dp = pts[idx] - pts[:, None, :]  # [N, k, 3]
-    dp_r = (dp * r_hat[:, None, :]).sum(-1)
-    dp_az = dp[..., 0] * ax[:, None] + dp[..., 1] * ay[:, None]
-    dp_el = dp[..., 0] * ex[:, None] + dp[..., 1] * ey[:, None] + dp[..., 2] * ez[:, None]
+    dp = _gather(pts, idx) - pts[..., None, :]  # [..., N, k, 3]
+    dp_r = (dp * r_hat[..., None, :]).sum(-1)
+    dp_az = dp[..., 0] * ax[..., None] + dp[..., 1] * ay[..., None]
+    dp_el = dp[..., 0] * ex[..., None] + dp[..., 1] * ey[..., None] + dp[..., 2] * ez[..., None]
 
     inv2_az = 0.5 / (sigma_azimuth * sigma_azimuth)
     inv2_el = 0.5 / (sigma_elevation * sigma_elevation)
     inv2_r = 0.5 / (sigma_range * sigma_range)
     w = torch.exp(-(dp_r**2 * inv2_r + dp_az**2 * inv2_az + dp_el**2 * inv2_el))
-    w = torch.where((nbr >= 0) & torch.isfinite(knn.distances[:, :k_use]), w, 0.0)
+    w = torch.where((nbr >= 0) & torch.isfinite(knn.distances[..., :k_use]), w, 0.0)
 
-    sum_w = w.sum(1)
-    mean = torch.where(sum_w > 0.0, (w * inten[idx]).sum(1) / torch.clamp_min(sum_w, 1e-30), inten)
+    sum_w = w.sum(-1)
+    mean = torch.where(sum_w > 0.0, (w * _gather(inten, idx)).sum(-1) / torch.clamp_min(sum_w, 1e-30), inten)
     return torch.where(r >= 1e-6, mean, inten)
 
 
@@ -141,10 +149,10 @@ def intensity_zscore(cloud: PointCloud, knn: KNNResult, sigma_min: float = 0.01)
     """Each intensity's z-score against its k-NN neighbourhood; 0 where the
     neighbourhood's sigma is below ``sigma_min``."""
     _require_intensities(cloud)
-    if knn.indices.shape[1] < 3:
+    if knn.indices.shape[-1] < 3:
         raise ValueError("neighbors.k must be >= 3")
-    nI = cloud.intensities[torch.clamp_min(knn.indices.to(torch.int64), 0)]  # [N, k]
-    mean = nI.mean(1)
-    sigma = torch.sqrt(torch.clamp_min((nI * nI).mean(1) - mean * mean, 0.0))
+    nI = _gather(cloud.intensities, torch.clamp_min(knn.indices.to(torch.int64), 0))  # [..., N, k]
+    mean = nI.mean(-1)
+    sigma = torch.sqrt(torch.clamp_min((nI * nI).mean(-1) - mean * mean, 0.0))
     z = (cloud.intensities - mean) / torch.clamp_min(sigma, 1e-30)
     return cloud.replace(intensities=torch.where(sigma < sigma_min, 0.0, z))

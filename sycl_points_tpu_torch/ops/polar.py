@@ -3,7 +3,8 @@
 Counterpart of :mod:`sycl_points_tpu.ops.polar`: polar coordinates in the
 LIDAR (x forward, z up) or CAMERA (z forward, y down) convention, each axis
 quantized, then the voxel stage's sort / segment-reduce aggregation over the
-bins (:func:`..voxel.downsample_by_coords`). A point within float rounding
+bins (:func:`..voxel.downsample_by_coords`), one stream after another for a
+fleet's ``[B, N]`` cloud. A point within float rounding
 of a bin edge may land in the neighbouring bin on another device or package
 (``atan2`` rounds differently).
 """
@@ -44,8 +45,8 @@ def polar_coords(
     azimuth_size: float,
     coord_system: CoordinateSystem = CoordinateSystem.LIDAR,
 ):
-    """Integer (range, elevation, azimuth) bin coordinates ``[N, 3]``
-    (_SENTINEL for invalid points) and the validity mask."""
+    """Integer (range, elevation, azimuth) bin coordinates ``[..., N, 3]``
+    (_SENTINEL for invalid points) and the validity mask ``[..., N]``."""
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     finite = torch.isfinite(points).all(-1) & valid
     r = torch.sqrt(x * x + y * y + z * z)
@@ -64,7 +65,7 @@ def polar_coords(
                          dim=-1)
     in_range = ((coords >= 0) & (coords <= COORD_MASK)).all(-1)
     ok = finite & (r > 0.0) & (planar_sq > 0.0) & in_range
-    return torch.where(ok[:, None], coords, _SENTINEL), ok
+    return torch.where(ok[..., None], coords, _SENTINEL), ok
 
 
 def polar_downsample(
@@ -78,6 +79,7 @@ def polar_downsample(
 ) -> PointCloud:
     """Polar-grid downsampling: one point a bin (the centroid, and the
     attribute means or median as the voxel stage takes them), compacted to
-    the front at ``out_capacity`` (default: the input capacity)."""
+    the front at ``out_capacity`` (default: the input capacity). A fleet's
+    cloud ``[B, N]`` bins each stream into its own rows ``[B, out_capacity]``."""
     coords, ok = polar_coords(cloud.points, cloud.mask, distance_size, elevation_size, azimuth_size, coord_system)
     return downsample_by_coords(cloud, coords, ok, min_voxel_count, out_capacity)

@@ -35,9 +35,21 @@ all streams with the others masked, as the JAX class does. Gathering the
 keyframe streams' rows, running them alone and scattering the results back
 was measured against it on the H100 and was slower (PERF.md §6).
 
+:class:`FleetLIO` runs B tightly-coupled 15-DOF LIO streams the same way
+(the JAX class ``vmap``s the pipelined LIO step): each stream's IMU window is
+built on the host and padded to the fleet's largest step bucket, all of them
+go up in one ``[B, S, 14]`` copy, and one call of
+:meth:`~..pipeline.lidar_inertial_odometry.LidarInertialOdometry._lio_step_streams`
+integrates, predicts, aligns (one batched ``nn1`` launch and one host read an
+iteration for the fleet), clamps, selects and decides the keyframes of all
+streams. The two fleets differ only in the hooks that the JAX classes name
+(``_make_template``, ``_stats1_len``, ``_run_reg``, ``_init_carry``,
+``_post_bootstrap``, ``_stream_result_types``, ``_kf_col``), plus
+``_upload_inputs`` (a frame's host inputs, sent before the preprocess) and
+``_iter_col`` (where a stream's align iterations sit in the stats).
+
 The JAX class's ``mesh=`` (GSPMD sharding of the stream axis over chips) has
-no use on one card; it raises here (ROADMAP Queue 1 item 12). The LIO fleet
-(``FleetLIO``) is not ported yet (ROADMAP Queue 1 item 11.1b).
+no use on one card; it raises here (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -49,33 +61,46 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from sycl_points_tpu_torch.imu.factor import State
+from sycl_points_tpu_torch.imu.preintegration import (
+    IMUMeasurement,
+    build_measurement_window,
+    pack_steps,
+    padded_steps_from_window,
+)
+from sycl_points_tpu_torch.lio import lio_registration as lio
 from sycl_points_tpu_torch.mapping.voxel_hash_map import select_streams, stack_streams
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.ops.sampling import random_sampling_streams
 from sycl_points_tpu_torch.ops.transform import transform_cloud
+from sycl_points_tpu_torch.pipeline import lidar_inertial_odometry as lio_frame
 from sycl_points_tpu_torch.pipeline import pc_processor, submap
 from sycl_points_tpu_torch.pipeline.fused_submap import make_submap_step_streams, pick_clouds
 from sycl_points_tpu_torch.pipeline.lidar_odometry import _S1, ResultType
-from sycl_points_tpu_torch.pipeline.params import LidarOdometryParams
+from sycl_points_tpu_torch.pipeline.params import LidarInertialOdometryParams, LidarOdometryParams
+from sycl_points_tpu_torch.pipeline.pipelined_lio import LIOCarry, PipelinedLidarInertialOdometry
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import OdomCarry, PipelinedLidarOdometry
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, compact_device
 from sycl_points_tpu_torch.registration.map_prior import MapPriorParams
-from sycl_points_tpu_torch.utils.sync import DeferredFetch, to_host
+from sycl_points_tpu_torch.utils.sync import DeferredFetch, to_device, to_host
 
 _F32 = torch.float32
 
 
-def stream_seeds(seed: int, stream: int) -> tuple[int, int]:
+def stream_seeds(seed: int, stream: int, inertial: bool = False) -> tuple:
     """``(preprocess seed, submap seed)`` of a fleet's stream: the
     single-stream pipeline's (:data:`..pipeline.pc_processor.SEED`,
-    :data:`..pipeline.submap.SEED`) offset by ``seed + stream``."""
-    return pc_processor.SEED + seed + stream, submap.SEED + seed + stream
+    :data:`..pipeline.submap.SEED`) offset by ``seed + stream``; with
+    ``inertial`` a third, the LIO registration sampling's
+    (:data:`..pipeline.lidar_inertial_odometry.SEED`) offset alike."""
+    seeds = (pc_processor.SEED + seed + stream, submap.SEED + seed + stream)
+    return seeds + (lio_frame.SEED + seed + stream,) if inertial else seeds
 
 
 class _Pending(NamedTuple):
     """A fleet frame in flight (device handles: holding them reads nothing)."""
 
-    stats: DeferredFetch  # [B, _S1 + 6]
+    stats: DeferredFetch  # [B, stats1 + 6]
     sampled: Optional[PointCloud]  # [B, num] keyframe samples; None with no keyframe
     is_kf: np.ndarray  # [B]
     prev_map_state: object  # the stacked state before the insert
@@ -105,18 +130,19 @@ class FleetOdometry:
                 "(ROADMAP Queue 1 item 12)")
         # the template holds the parameters, the preprocessor and the submap
         # config; its own single-stream map is freed
-        t = PipelinedLidarOdometry(params, map_prior_params, device=device)
+        t = self._make_template(params, map_prior_params, device)
         t.submap.map_state = None
         self._t = t
         self.params = params
         self.device = t.device
         self.B = int(n_streams)
         self._max_in_flight = max(1, max_in_flight)
+        self._s1 = self._stats1_len()
         seeds = [stream_seeds(seed, s) for s in range(self.B)]
         self._pre_gens = [torch.Generator(device=self.device).manual_seed(a) for a, _ in seeds]
         self._map_gens = [torch.Generator(device=self.device).manual_seed(b) for _, b in seeds]
-        self._need_covs = t._needs_covariances()
-        self._submap_step = make_submap_step_streams(params, t.submap, t._submap_robust_scale)
+        self._need_covs = getattr(t, "_needs_covariances", lambda: True)()
+        self._submap_step = make_submap_step_streams(params, t.submap, self._robust_scale(t))
 
         if initial_poses is None:
             initial_poses = np.broadcast_to(params.pose.initial_matrix(), (self.B, 4, 4))
@@ -144,6 +170,59 @@ class FleetOdometry:
         self.processing_times: dict = {}
         self._last_ts: Optional[np.ndarray] = None
 
+    # ---- the pipeline's hooks (FleetLIO overrides them) --------------------
+    def _make_template(self, params, map_prior_params, device):
+        return PipelinedLidarOdometry(params, map_prior_params, device=device)
+
+    def _stats1_len(self) -> int:
+        """Columns of a stream's registration stats (the submap step's follow)."""
+        return _S1
+
+    def _robust_scale(self, t):
+        """The submap step's sampling-weight scale."""
+        return t._submap_robust_scale
+
+    def _kf_col(self) -> int:
+        """The stats column of the keyframe flag; the one before it is the
+        valid count of the cloud the submap step inserts."""
+        return 20
+
+    def _iter_col(self) -> int:
+        """The stats column of a stream's align iterations."""
+        return 23
+
+    def _upload_inputs(self, ts: np.ndarray):
+        """The frame's host inputs on the device: each stream's ``dt``
+        (a non-increasing clock falls back to 0.1 s) and timestamp."""
+        dts = np.where(ts > self._last_ts, ts - self._last_ts, 0.1)
+        return torch.from_numpy(dts.astype(np.float32)).to(self.device), torch.from_numpy(ts).to(self.device)
+
+    def _run_reg(self, pre: PointCloud, ts: np.ndarray, inputs):
+        """The registration of all streams: the device prediction, the MAP
+        prior, the align, the keyframe decision and the carry. Returns
+        ``(cloud for the submap step, T_eff [B, 4, 4], stats1 [B, ...])``."""
+        dt_d, ts_d = inputs
+        t = self._t
+        c = self._carry
+        kfp = self.params.submap.keyframe
+        init_T, lin_s, ang_s = t._predict(c, dt_d)
+        kf_dt_exceeded = (c.last_kf_time <= 0.0) | ((ts_d - c.last_kf_time) >= kfp.time_threshold_seconds)
+        prior_in = (c.prev_T, c.prev_Hraw, c.prev_err_raw, c.prev_inlier)
+        result, deskewed, T_eff, is_kf, small, s1 = t._reg_step(
+            pre, init_T, c.odom, c.last_kf_pose, kf_dt_exceeded, prior_in, c.registrated,
+            target=self.submap_cloud, knn=self._knn)
+        self._carry = t._next_carry(c, result, T_eff, is_kf, small, lin_s, ang_s, dt_d, ts_d)
+        return deskewed, T_eff, s1
+
+    def _post_bootstrap(self, ts: np.ndarray) -> None:
+        """A pipeline's own state after the fleet's first frame."""
+
+    def _stream_result_types(self, stats: np.ndarray) -> list:
+        """Each stream's ``ResultType`` from its stats row."""
+        small = stats[:, 21] > 0.5
+        return [ResultType.small_number_of_points if small[b] else ResultType.success for b in range(self.B)]
+
+    # ------------------------------------------------------------------
     @property
     def map_capacity(self) -> int:
         return self._t.submap.map_capacity
@@ -170,11 +249,9 @@ class FleetOdometry:
         ts = np.broadcast_to(np.asarray(timestamps, np.float64), (B,)).copy()
         t0 = time.perf_counter()
         if self._carry is not None:
-            dts = np.where(ts > self._last_ts, ts - self._last_ts, 0.1)
             # the frame's host inputs go up while the stream is idle (the last
             # frame ended in a read), so the copy waits for nothing
-            dt_d = torch.from_numpy(dts.astype(np.float32)).to(self.device)
-            ts_d = torch.from_numpy(ts).to(self.device)
+            inputs = self._upload_inputs(ts)
         pre = self._t.pc_processor.preprocess_streams(clouds, self._pre_gens, self._need_covs)
         t0 = self._stage("1. preprocessing", t0)
         if self._carry is None:
@@ -184,20 +261,12 @@ class FleetOdometry:
         self._last_ts = ts
 
         # ---- registration: prediction, align, keyframe decision, carry ----
-        t = self._t
-        c = self._carry
-        kfp = self.params.submap.keyframe
-        init_T, lin_s, ang_s = t._predict(c, dt_d)
-        kf_dt_exceeded = (c.last_kf_time <= 0.0) | ((ts_d - c.last_kf_time) >= kfp.time_threshold_seconds)
-        prior_in = (c.prev_T, c.prev_Hraw, c.prev_err_raw, c.prev_inlier)
-        result, deskewed, T_eff, is_kf, small, s1 = t._reg_step(
-            pre, init_T, c.odom, c.last_kf_pose, kf_dt_exceeded, prior_in, c.registrated,
-            target=self.submap_cloud, knn=self._knn)
-        self._carry = t._next_carry(c, result, T_eff, is_kf, small, lin_s, ang_s, dt_d, ts_d)
+        deskewed, T_eff, s1 = self._run_reg(pre, ts, inputs)
         t0 = self._stage("3. registration", t0)
 
         # ---- the submap step: the keyframe flags and valid counts in one read ----
-        n_desk, kf = np.asarray(to_host(s1[:, 19:21])).T
+        kf_col = self._kf_col()
+        n_desk, kf = np.asarray(to_host(s1[:, kf_col - 1 : kf_col + 1])).T
         kf = kf > 0.5
         prev_map_state = self.map_state
         new_state, target, sampled, s2 = self._submap_step(prev_map_state, self.submap_cloud, self._knn, deskewed,
@@ -260,6 +329,7 @@ class FleetOdometry:
         self._set_target(sm.finalize_traced(PointCloud(points=first.points, mask=first.mask))
                          if sm._need_covs or sm._need_normals else PointCloud(points=first.points, mask=first.mask))
         self._carry = self._init_carry(ts)
+        self._post_bootstrap(ts)
         self._dropped_seen = s0[:, 2].astype(np.int64)
         self.extract_overflow = s0[:, 1].astype(np.int64)
         self.budget_lost = s0[:, 3].astype(np.int64)
@@ -270,21 +340,19 @@ class FleetOdometry:
 
     # ------------------------------------------------------------------
     def _resolve_one(self, pend: _Pending) -> None:
-        stats = pend.stats.get().astype(np.float64)  # [B, _S1 + 6]
-        B = self.B
+        stats = pend.stats.get().astype(np.float64)  # [B, stats1 + 6]
+        B, s1 = self.B, self._s1
         T_np = stats[:, :16].reshape(B, 4, 4).astype(np.float32)
-        small = stats[:, 21] > 0.5
-        load, overflow = stats[:, _S1], stats[:, _S1 + 1]
-        dropped = stats[:, _S1 + 3].astype(np.int64)
-        for b in range(B):
-            rtype = ResultType.small_number_of_points if small[b] else ResultType.success
+        load, overflow = stats[:, s1], stats[:, s1 + 1]
+        dropped = stats[:, s1 + 3].astype(np.int64)
+        for b, rtype in enumerate(self._stream_result_types(stats)):
             self.deferred_results[b].append((pend.frame_index, rtype))
             self.pose_log[b].append((pend.frame_index, float(pend.timestamps[b]), T_np[b], rtype))
-            self.align_iterations[b].append(int(stats[b, 23]))
+            self.align_iterations[b].append(int(stats[b, self._iter_col()]))
         self.keyframe_counts += pend.is_kf
         # only an insert extracts: a stream off a keyframe keeps its mirror
         self.extract_overflow = np.where(pend.is_kf, overflow.astype(np.int64), self.extract_overflow)
-        self.budget_lost = stats[:, _S1 + 4].astype(np.int64)
+        self.budget_lost = stats[:, s1 + 4].astype(np.int64)
 
         if pend.frame_index <= self._reconciled_until:
             return
@@ -349,3 +417,125 @@ class FleetOdometry:
         """The latest resolved pose of one stream."""
         log = self.pose_log[stream]
         return log[-1][2].copy() if log else self._initial_poses[stream].copy()
+
+
+class FleetLIO(FleetOdometry):
+    """``n_streams`` tightly-coupled 15-DOF LIO streams, one launch sequence
+    a frame: the fleet form of
+    :class:`~..pipeline.pipelined_lio.PipelinedLidarInertialOdometry`.
+
+    Each stream has its own IMU buffer (:meth:`add_imu_measurement`), filter
+    state (:attr:`x`, :attr:`P` with a leading ``[B]``) and keyframe carry; a
+    frame's results arrive deferred, per stream ``success``, ``imu_only`` (a
+    too-small cloud, propagated by the IMU alone) or ``error`` (a non-finite
+    propagation, held). Stream ``s`` computes what the single-stream
+    pipelined LIO computes on its scans and IMU with its generators seeded
+    as ``stream_seeds(seed, s, inertial=True)``, with the fleet's deltas of
+    :class:`FleetOdometry`. As that class, it needs the IMU deskew off, and
+    as the JAX class, the initial alignment off (its handshake is per
+    stream and on the host); both raise ``ValueError``.
+    """
+
+    def __init__(self, params: LidarInertialOdometryParams = LidarInertialOdometryParams(), n_streams: int = 4,
+                 initial_poses: Optional[np.ndarray] = None, mesh=None, mesh_axis: str = "streams",
+                 max_in_flight: int = 16, seed: int = 0, device: torch.device | str = "cuda"):
+        if params.imu.initial_alignment.enable:
+            raise ValueError("FleetLIO requires imu.initial_alignment.enable=False (the alignment handshake is "
+                             "host-side and per stream; use the single-stream pipelines)")
+        lio._check_supported(params.registration.factor, params.lio)
+        super().__init__(params, n_streams, initial_poses=initial_poses, mesh=mesh, mesh_axis=mesh_axis,
+                         max_in_flight=max_in_flight, seed=seed, device=device)
+        B = self.B
+        self._reg_gens = [torch.Generator(device=self.device).manual_seed(stream_seeds(seed, s, inertial=True)[2])
+                          for s in range(B)]
+        self._imu_buffers = [deque() for _ in range(B)]
+        self._last_reset = np.full(B, -1.0, np.float64)
+        self.x: Optional[State] = None  # the filter state, fields [B, ...], from the first frame on
+        self.P: Optional[torch.Tensor] = None  # [B, 15, 15]
+        # host mirrors of each stream's biases and velocity (telemetry, a few frames late)
+        t = self._t
+        self.gyro_bias_np = np.repeat(t.gyro_bias_np[None], B, 0)
+        self.accel_bias_np = np.repeat(t.accel_bias_np[None], B, 0)
+        self.velocity_np = np.zeros((B, 3), np.float32)
+        self.align_loops: List[int] = []  # the align loop's iterations a fleet frame (telemetry)
+
+    # ---- hooks ---------------------------------------------------------------
+    def _make_template(self, params, map_prior_params, device):
+        return PipelinedLidarInertialOdometry(params, device=device)
+
+    def _stats1_len(self) -> int:
+        return lio_frame._S1 + 1  # the LIO stats row, then the stream's align iterations
+
+    def _robust_scale(self, t):
+        return None  # the LIO convention of the submap step
+
+    def _kf_col(self) -> int:
+        return 19
+
+    def _iter_col(self) -> int:
+        return lio_frame._S1
+
+    def _init_carry(self, ts: np.ndarray) -> LIOCarry:
+        """The keyframe carry after the first frame, as each single-stream
+        pipeline starts it: the initial pose and the first frame's time."""
+        return LIOCarry(last_kf_pose=torch.from_numpy(self._initial_poses).to(self.device),
+                        last_kf_time=torch.from_numpy(ts).to(self.device))
+
+    def _post_bootstrap(self, ts: np.ndarray) -> None:
+        """The filter state after the first frame: the initial pose, no
+        velocity (a caller may seed it, as the replay does), the template's
+        biases and posterior covariance."""
+        t, B = self._t, self.B
+        poses = torch.from_numpy(self._initial_poses).to(self.device)
+        self.x = State(position=poses[:, :3, 3], rotation=poses[:, :3, :3],
+                       velocity=torch.zeros((B, 3), dtype=torch.float32, device=self.device),
+                       accel_bias=t.x.accel_bias.expand(B, 3), gyro_bias=t.x.gyro_bias.expand(B, 3))
+        self.P = t.P_post.expand(B, -1, -1)
+        self._last_reset = ts.copy()
+
+    def _upload_inputs(self, ts: np.ndarray):
+        """Each stream's IMU window since its last reset, built on the host
+        and padded to the fleet's largest step bucket, with the update-bias
+        flags in one copy ``[B, S, 14]``; the timestamps in another
+        (float64, as the keyframe time is carried)."""
+        packs = [pack_steps(*padded_steps_from_window(build_measurement_window(
+            list(buf), float(self._last_reset[b]), float(ts[b])))) for b, buf in enumerate(self._imu_buffers)]
+        S = max(p.shape[0] for p in packs)
+        pack = np.stack([np.pad(p, ((0, S - p.shape[0]), (0, 0))) for p in packs])
+        imu_pack, update_bias = to_device(self.device, pack, np.full(self.B, float(self._t._imu_bias_observable())))
+        return imu_pack, update_bias, torch.from_numpy(ts).to(self.device)
+
+    def _run_reg(self, pre: PointCloud, ts: np.ndarray, inputs):
+        imu_pack, update_bias, ts_d = inputs
+        c = self._carry
+        kfp = self.params.submap.keyframe
+        kf_dt_exceeded = (c.last_kf_time <= 0.0) | ((ts_d - c.last_kf_time) >= kfp.time_threshold_seconds)
+        misc = torch.cat([c.last_kf_pose.reshape(self.B, 16), update_bias[:, None],
+                          kf_dt_exceeded.to(torch.float32)[:, None]], -1)
+        self.x, self.P, reg_input, T_eff, is_kf, s1, result, _ = self._t._lio_step_streams(
+            pre, self.submap_cloud, self._knn, self.x, self.P, imu_pack, misc, self._reg_gens)
+        kf_update = is_kf & (not self._t.submap.inserts_every_frame)
+        self._carry = LIOCarry(last_kf_pose=torch.where(kf_update[:, None, None], T_eff, c.last_kf_pose),
+                               last_kf_time=torch.where(kf_update, ts_d, c.last_kf_time))
+        self._last_reset = ts.copy()
+        self.align_loops.append(result.loops)
+        return reg_input, T_eff, torch.cat([s1, result.executed.to(torch.float32)[:, None]], -1)
+
+    def _stream_result_types(self, stats: np.ndarray) -> list:
+        small = stats[:, 20] > 0.5
+        finite = stats[:, 21] > 0.5
+        self.gyro_bias_np = stats[:, 25:28].astype(np.float32)
+        self.accel_bias_np = stats[:, 28:31].astype(np.float32)
+        self.velocity_np = stats[:, 31:34].astype(np.float32)
+        R = lio_frame.ResultType
+        return [R.error if not finite[b] else R.imu_only if small[b] else R.success for b in range(self.B)]
+
+    # ---- IMU input -------------------------------------------------------------
+    def add_imu_measurement(self, stream: int, meas: IMUMeasurement) -> None:
+        """Buffer one IMU reading of one stream; readings older than
+        ``imu.buffer_duration_sec`` before it are dropped."""
+        buf = self._imu_buffers[stream]
+        buf.append(meas)
+        horizon = meas.timestamp - self.params.imu.buffer_duration_sec
+        while buf and buf[0].timestamp < horizon:
+            buf.popleft()

@@ -6,11 +6,13 @@ refine -> IMU window integration -> (IMU-only fallback for tiny clouds) ->
 15-DOF LIO registration -> bias clamps -> preintegration reset with the
 P_post sigma floors -> submapping.
 
-The inertial step (:meth:`LidarInertialOdometry._lio_step`) is one function
-of tensors, as the JAX package's jitted program: the parallel-prefix
-preintegration of the padded window, the state and covariance prediction,
-the 15-DOF align, the bias clamps, the IMU-only select and the keyframe
-decision. The window and the host-side scalars go up in one copy; the
+The inertial step (:meth:`LidarInertialOdometry._lio_step_streams`) is one
+function of tensors, as the JAX package's jitted program: the
+parallel-prefix preintegration of the padded window, the state and
+covariance prediction, the 15-DOF align, the bias clamps, the IMU-only
+select and the keyframe decision. It takes a leading stream axis (the LIO
+fleet's ``vmap``); a single frame runs it with one stream
+(:meth:`LidarInertialOdometry._lio_step`). The window and the host-side scalars go up in one copy; the
 filter state (``State``, ``P_post``) stays on the device. A frame reads the
 device as the LiDAR-only frame does: the ``stats1`` fetch after the step,
 the ``stats2`` fetch after the submap step, one read an iteration for the
@@ -44,13 +46,14 @@ from sycl_points_tpu_torch.imu.preintegration import (
     unpack_steps,
 )
 from sycl_points_tpu_torch.lio import lio_registration as lio
-from sycl_points_tpu_torch.ops.sampling import random_sampling
+from sycl_points_tpu_torch.ops.sampling import random_sampling_streams
 from sycl_points_tpu_torch.pipeline.fused_submap import make_submap_step
 from sycl_points_tpu_torch.pipeline.params import LidarInertialOdometryParams
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
 from sycl_points_tpu_torch.pipeline.submap import MAX_LOAD, Submap
-from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, flatten_streams, unflatten_streams
 from sycl_points_tpu_torch.utils import lie, lie_np
+from sycl_points_tpu_torch.utils.smallmat import matvec3
 from sycl_points_tpu_torch.utils.sync import counts as sync_counts, to_device, to_host
 
 _F32 = torch.float32
@@ -74,7 +77,8 @@ _S1 = 34
 
 
 def _clamp_norm(v: torch.Tensor, max_norm: float) -> torch.Tensor:
-    n = torch.linalg.vector_norm(v)
+    """``v [..., 3]`` scaled down to ``max_norm`` where it is longer."""
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return torch.where(n > max_norm, v * (max_norm / torch.clamp_min(n, 1e-30)), v)
 
 
@@ -156,33 +160,50 @@ class LidarInertialOdometry:
     # ------------------------------------------------------------------
     def _lio_step(self, pre: PointCloud, submap: PointCloud, knn, x: State, P_post: torch.Tensor,
                   imu_pack: torch.Tensor, misc: torch.Tensor):
-        """The inertial step, on the device: preintegration with the reset
-        covariance floors -> prediction -> 15-DOF align -> bias clamps ->
-        IMU-only select (small clouds) -> the hold of a non-finite
-        propagation -> keyframe decision -> ``stats1``. ``misc`` is the last
-        keyframe pose (16) and the update-bias and keyframe-time flags.
-        Returns ``(x_new, P_new, source, T_eff, is_kf, stats1, iterations
-        run, debug)``."""
+        """The inertial step of one frame: :meth:`_lio_step_streams` with one
+        stream, so that a frame alone and the same frame as a fleet's stream
+        give the same bits. Returns ``(x_new, P_new, source, T_eff, is_kf,
+        stats1, iterations run, debug)``."""
+        x_new, P_new, source, T_eff, is_kf, s1, result, debug = self._lio_step_streams(
+            unflatten_streams(pre, 1), unflatten_streams(submap, 1), lio.OneStreamKNN(knn),
+            State(*(f[None] for f in x)), P_post[None], imu_pack[None], misc[None], [self._generator])
+        return (State(*(f[0] for f in x_new)), P_new[0], flatten_streams(source), T_eff[0], is_kf[0], s1[0],
+                result.loops, None if debug is None else {k: v[0] for k, v in debug.items()})
+
+    def _lio_step_streams(self, pre: PointCloud, submap: PointCloud, knn, x: State, P_post: torch.Tensor,
+                          imu_pack: torch.Tensor, misc: torch.Tensor, generators):
+        """The inertial step of B streams, on the device: preintegration with
+        the reset covariance floors -> prediction -> 15-DOF align -> bias
+        clamps -> IMU-only select (small clouds) -> the hold of a non-finite
+        propagation -> keyframe decision -> ``stats1``. ``pre [B, N]``,
+        ``submap [B, M]`` (``knn`` on its ``[B, M, 3]`` points), ``x`` fields
+        ``[B, ...]``, ``P_post [B, 15, 15]``, ``imu_pack [B, S, 14]``; ``misc
+        [B, 18]`` is each stream's last keyframe pose (16) and its update-bias
+        and keyframe-time flags; stream ``b``'s registration sampling draws
+        from ``generators[b]``. Returns ``(x_new, P_new, source, T_eff,
+        is_kf, stats1 [B, 34], the align's LIORegistrationResult, debug)``."""
         p = self.params
         pp = p.imu.preintegration
         kfp = p.submap.keyframe
         T_il = self._T_il
+        B = pre.points.shape[0]
         dt_s, w0, w1, a0, a1, valid = unpack_steps(imu_pack)
-        last_kf_pose = misc[:16].reshape(4, 4)
-        update_bias = misc[16] > 0.5
-        kf_dt_exceeded = misc[17] > 0.5
+        last_kf_pose = misc[:, :16].reshape(B, 4, 4)
+        update_bias = misc[:, 16] > 0.5
+        kf_dt_exceeded = misc[:, 17] > 0.5
 
         # ---- preintegration from the floored posterior ----------------------
         P_imu_init = lio.transform_covariance_lidar_to_imu(P_post + self._P_floor, T_il, x.rotation)
-        R_world_imu = x.rotation @ T_il[:3, :3]
+        R_world_imu = lie.compose(x.rotation, T_il[:3, :3])
         raw = integrate_steps(pp, init_state(P_imu_init), dt_s, w0, w1, a0, a1, valid,
                               x.gyro_bias, x.accel_bias, R_world_imu)
 
         # ---- state / covariance prediction ----------------------------------
         T_imu_rel = predict_relative_transform(pp, raw, R_world_imu, x.velocity)
-        T_pred = x.pose() @ (T_il @ T_imu_rel @ self._T_il_inv)
-        v_pred = x.velocity + gravity_vector(pp, self.device) * raw.dt_total + R_world_imu @ raw.Delta_v
-        pred = State(position=T_pred[:3, 3], rotation=T_pred[:3, :3], velocity=v_pred,
+        T_pred = lie.compose(x.pose(), lie.compose(lie.compose(T_il, T_imu_rel), self._T_il_inv))
+        v_pred = (x.velocity + gravity_vector(pp, self.device) * raw.dt_total[:, None]
+                  + matvec3(R_world_imu, raw.Delta_v))
+        pred = State(position=T_pred[..., :3, 3], rotation=T_pred[..., :3, :3], velocity=v_pred,
                      accel_bias=x.accel_bias, gyro_bias=x.gyro_bias)
         P_pred = lio.transform_covariance_imu_to_lidar(raw.covariance, T_il, pred.rotation)
 
@@ -192,9 +213,9 @@ class LidarInertialOdometry:
         source = pre
         sampling = p.registration_sampling
         if sampling.enable and sampling.num < pre.capacity:
-            source = random_sampling(pre, sampling.num, self._generator)
-        aligned = lio.align(source, submap, knn, pred, P_pred, P_post, factor_params=p.registration.factor,
-                            params=p.lio, update_bias=update_bias, trace=self.collect_trace)
+            source = random_sampling_streams(pre, sampling.num, generators)
+        aligned = lio.align_streams(source, submap, knn, pred, P_pred, P_post, factor_params=p.registration.factor,
+                                    params=p.lio, update_bias=update_bias, trace=self.collect_trace)
         result, iter_trace = aligned if self.collect_trace else (aligned, None)
         x_reg = result.state
         if p.max_accel_bias_norm > 0.0:
@@ -204,44 +225,44 @@ class LidarInertialOdometry:
 
         # ---- IMU-only select for small clouds -------------------------------
         x_new = select(small, pred, x_reg)
-        P_new = torch.where(small, P_pred, result.posterior_covariance)
-        finite_ok = (torch.isfinite(x_new.pose()).all() & torch.isfinite(x_new.velocity).all()
-                     & torch.isfinite(P_new).all())
+        P_new = torch.where(small[:, None, None], P_pred, result.posterior_covariance)
+        finite_ok = (torch.isfinite(x_new.pose()).flatten(-2).all(-1) & torch.isfinite(x_new.velocity).all(-1)
+                     & torch.isfinite(P_new).flatten(-2).all(-1))
         # a non-finite propagation holds the state: the synchronous frame
         # refuses the commit on the host, the pipelined frame commits blind
         x_new = select(finite_ok, x_new, x)
-        P_new = torch.where(finite_ok, P_new, P_post)
+        P_new = torch.where(finite_ok[:, None, None], P_new, P_post)
         T_eff = x_new.pose()
 
         # ---- keyframe decision ------------------------------------------------
         n_reg = source.count()
         ratio = result.inlier.to(_F32) / torch.clamp_min(n_reg, 1).to(_F32)
         inlier_ok = (ratio > kfp.inlier_ratio_threshold if kfp.inlier_ratio_threshold > 0.0
-                     else torch.ones((), dtype=torch.bool, device=self.device))
-        delta = lie.transform_inverse(last_kf_pose) @ T_eff
-        dist = torch.linalg.vector_norm(delta[:3, 3])
-        angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[:3]) * (180.0 / math.pi)
+                     else torch.ones_like(small))
+        delta = lie.compose(lie.transform_inverse(last_kf_pose), T_eff)
+        dist = torch.linalg.vector_norm(delta[..., :3, 3], dim=-1)
+        angle_deg = torch.linalg.vector_norm(lie.se3_log(delta)[..., :3], dim=-1) * (180.0 / math.pi)
         geom_kf = (dist >= kfp.distance_threshold) | (angle_deg >= kfp.angle_threshold_degrees) | kf_dt_exceeded
         if self.submap.inserts_every_frame:
             geom_kf = torch.ones_like(geom_kf)
         is_kf = (~small) & inlier_ok & geom_kf & finite_ok
 
         stats1 = torch.cat([
-            T_eff.reshape(-1),
+            T_eff.reshape(B, 16),
             torch.stack([v.to(_F32) for v in (result.inlier, n_pre, n_reg, is_kf, small, finite_ok,
-                                               result.iterations, result.error, raw.dt_total)]),
+                                               result.iterations, result.error, raw.dt_total)], -1),
             x_new.gyro_bias, x_new.accel_bias, x_new.velocity,
-        ])
+        ], -1)
         debug = None
         if self.collect_trace:
-            innov = lie.se3_log(lie.transform_inverse(T_pred) @ x_reg.pose())
+            innov = lie.se3_log(lie.compose(lie.transform_inverse(T_pred), x_reg.pose()))
             debug = {
                 "iter_trace": iter_trace, "T_pred": T_pred,
-                "innovation_rot": torch.linalg.vector_norm(innov[:3]),
-                "innovation_trans": torch.linalg.vector_norm(innov[3:]),
-                "v_pred": v_pred, "dv_update": torch.linalg.vector_norm(x_reg.velocity - v_pred),
+                "innovation_rot": torch.linalg.vector_norm(innov[..., :3], dim=-1),
+                "innovation_trans": torch.linalg.vector_norm(innov[..., 3:], dim=-1),
+                "v_pred": v_pred, "dv_update": torch.linalg.vector_norm(x_reg.velocity - v_pred, dim=-1),
             }
-        return x_new, P_new, source, T_eff, is_kf, stats1, result.executed, debug
+        return x_new, P_new, source, T_eff, is_kf, stats1, result, debug
 
     # ------------------------------------------------------------------
     def add_imu_measurement(self, meas: IMUMeasurement):

@@ -9,11 +9,10 @@ the raw scan. Every stage runs on the processor's device and none waits on
 the host. ``prepare_context`` is the ``knn_k`` kernel on the card.
 
 :meth:`PCProcessor.preprocess_streams` is the fleet's preprocess (the
-JAX fleet's vmapped ``_pre_fn``): the prefilter, the k-NN context,
-covariances and the refine filter for a fleet's clouds ``[B, N]`` in one
-pass, stream ``b``'s random stage drawing from its own generator. The polar
-grid and the intensity ops have no fleet form yet and raise
-``NotImplementedError`` there.
+JAX fleet's vmapped ``_pre_fn``): the prefilter (the polar grid included),
+the k-NN context, covariances and the refine filter (the intensity ops
+included) for a fleet's clouds ``[B, N]`` in one pass, stream ``b``'s random
+stage drawing from its own generator.
 
 Not ported yet: the raw range-image covariances (ROADMAP Queue 1 item 10),
 which raise ``NotImplementedError`` when the flag asks for them.
@@ -61,10 +60,6 @@ class PCProcessor:
         """The prefilter, then (``need_covs``) the k-NN context, covariances
         and refine filter, for a fleet's clouds ``[B, N]``; stream ``b``'s
         random stage draws from ``generators[b]``."""
-        if self.params.scan.downsampling.polar.enable:
-            raise NotImplementedError("the fleet's prefilter has no polar grid yet (ROADMAP Queue 1 item 11.2)")
-        if clouds.intensities is not None:
-            raise NotImplementedError("the fleet's preprocess has no intensity ops yet (ROADMAP Queue 1 item 11.2)")
         c = self.prefilter(clouds, generators)
         if need_covs:
             ctx = self.prepare_context(c)
@@ -144,11 +139,11 @@ class PCProcessor:
         if p.intensity_gaussian.enable:
             g, knn = p.intensity_gaussian, ctx.knn
             c = intensity_ops.smooth_intensity(c, knn, g.sigma_azimuth, g.sigma_elevation, g.sigma_range,
-                                               k_limit=min(g.neighbor_num, knn.indices.shape[1]))
+                                               k_limit=min(g.neighbor_num, knn.indices.shape[-1]))
         if p.intensity_local_mean_norm.enable:
             m, knn = p.intensity_local_mean_norm, ctx.knn
             c = intensity_ops.local_mean_normalize(c, knn, m.sigma_azimuth, m.sigma_elevation, m.sigma_range,
-                                                   m.mean_min, k_limit=min(m.neighbor_num, knn.indices.shape[1]))
+                                                   m.mean_min, k_limit=min(m.neighbor_num, knn.indices.shape[-1]))
         return c
 
     # -- IMU deskew ----------------------------------------------------------

@@ -16,9 +16,15 @@
     on PointCloud2 buffers with every field kind, unaligned offsets, and
     every message type;
   * the entry points default to ``"cuda"`` and raise without a card, the
-    fleet's among them (``parallel.fleet.FleetOdometry``,
-    ``apps.fleet_odometry.run_fleet`` and ``main``,
-    ``convert.carry_from_reference``).
+    fleet's among them (``parallel.fleet.FleetOdometry`` and ``FleetLIO``,
+    at the parameter tree's defaults too, ``apps.fleet_odometry.run_fleet``
+    and ``main``, ``apps.fleet_replay``'s LIO runs,
+    ``convert.carry_from_reference`` and ``fleet_lio_state_from_reference``);
+  * ``apps.fleet_replay``'s copy of the JAX fleet benchmark's ``--lio``
+    deployment (``benchmarks/bench_fleet.py:112-200``) equals it: the
+    parameter tree, the IMU feed (every reading, both ends of each chunk)
+    and each stream's initial velocity; ``default_trees`` gives the tree's
+    default ``scan`` and ``submap``.
 """
 
 import ast
@@ -40,18 +46,20 @@ from sycl_points_tpu.apps import stream_protocol as ref_sp  # noqa: E402
 from sycl_points_tpu.points import conversion as ref_conv  # noqa: E402
 from sycl_points_tpu.points import io as ref_io  # noqa: E402
 from sycl_points_tpu_torch.apps import example_registration, kitti_odometry, lio_replay, odometry_replay  # noqa: E402
-from sycl_points_tpu_torch.apps import fleet_odometry, stream_odometry  # noqa: E402
+from sycl_points_tpu_torch.apps import fleet_odometry, fleet_replay, stream_odometry  # noqa: E402
 from sycl_points_tpu_torch.apps import stream_protocol as port_sp  # noqa: E402
 from sycl_points_tpu_torch.convert import (  # noqa: E402
     carry_from_reference,
     cloud_from_numpy,
+    fleet_lio_state_from_reference,
     lio_state_from_reference,
     map_state_from_reference,
+    params_from_reference,
 )
 from sycl_points_tpu_torch.imu import factor as imu_factor  # noqa: E402
 from sycl_points_tpu_torch.imu import preintegration  # noqa: E402
 from sycl_points_tpu_torch.mapping import voxel_hash_map  # noqa: E402
-from sycl_points_tpu_torch.parallel.fleet import FleetOdometry  # noqa: E402
+from sycl_points_tpu_torch.parallel.fleet import FleetLIO, FleetOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry  # noqa: E402
@@ -265,7 +273,8 @@ def test_imu_and_velocity_equal_the_originals(t):
                                 imu_factor.State.identity, PipelinedLidarOdometry, PipelinedLidarInertialOdometry,
                                 stream_odometry.OdometryStreamServer, odometry_replay.run_pipelined_replay,
                                 lio_replay.run_pipelined_lio_replay, FleetOdometry, fleet_odometry.run_fleet,
-                                carry_from_reference])
+                                carry_from_reference, FleetLIO, fleet_replay.run_fleet_lio_replay,
+                                fleet_replay.run_stream_lio_replay, fleet_lio_state_from_reference])
 def test_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -318,10 +327,14 @@ def _vhm_params():
     lambda **kw: PipelinedLidarInertialOdometry(_lio_params(), **kw),
     lambda **kw: stream_odometry.OdometryStreamServer(_vhm_params(), **kw),
     lambda **kw: FleetOdometry(_vhm_params(), n_streams=2, **kw),
+    lambda **kw: FleetOdometry(lo_params.LidarOdometryParams(), n_streams=2, **kw),
+    lambda **kw: FleetLIO(_lio_params(), n_streams=2, **kw),
+    lambda **kw: FleetLIO(lo_params.LidarInertialOdometryParams(), n_streams=2, **kw),
 ], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference",
         "LidarInertialOdometry", "make_lio_inputs", "run_lio_replay", "lio_state_from_reference",
         "IMUPreintegration", "init_state", "State.identity", "scan_at_distorted", "PipelinedLidarOdometry",
-        "PipelinedLidarInertialOdometry", "OdometryStreamServer", "FleetOdometry"])
+        "PipelinedLidarInertialOdometry", "OdometryStreamServer", "FleetOdometry", "FleetOdometry-defaults",
+        "FleetLIO", "FleetLIO-defaults"])
 def test_lo_entry_points_raise_without_a_card(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -337,3 +350,68 @@ def _lio_params():
         scan=p.scan, imu=p.imu, pose=p.pose,
         submap=lo_params.SubmapParams(map_type="VOXEL_HASH_MAP", map_capacity=1 << 8, extract_capacity=1 << 6),
     )
+
+
+# -- the fleet-LIO deployment against benchmarks/bench_fleet.py --lio -------------
+
+
+def _bench_fleet_lio_params():
+    """What ``bench_fleet.py --lio`` builds at its defaults (lines 101-133)."""
+    from sycl_points_tpu.imu.preintegration import IMUPreintegrationParams
+    from sycl_points_tpu.pipeline import params as P
+
+    scan_params = P.ScanParams(downsampling=P.DownsamplingParams(
+        voxel=P.VoxelDownsamplingParams(enable=True, size=1.0), polar=P.PolarDownsamplingParams(enable=False),
+        random=P.RandomDownsamplingParams(enable=True, num=5000)))
+    submap_params = P.SubmapParams(map_type="VOXEL_HASH_MAP", voxel_size=1.0, map_capacity=1 << 16,
+                                   point_random_sampling_num=512)
+    return P.LidarInertialOdometryParams(scan=scan_params, submap=submap_params, imu=P.IMUParams(
+        enable=True, preintegration=IMUPreintegrationParams(
+            gyro_noise_density=1e-3, accel_noise_density=1e-2, gyro_bias_rw_density=1e-5,
+            accel_bias_rw_density=1e-4)))
+
+
+def test_fleet_lio_params_equal_the_benchmark():
+    assert fleet_replay.fleet_lio_params() == params_from_reference(_bench_fleet_lio_params())
+    assert fleet_replay.fleet_params(default_trees=True) == lo_params.LidarOdometryParams()
+    lio_def = fleet_replay.fleet_lio_params(default_trees=True)
+    assert (lio_def.scan, lio_def.submap) == (lo_params.ScanParams(), lo_params.SubmapParams())
+    assert lio_def.imu == fleet_replay.fleet_lio_params().imu
+    assert not lio_def.imu.deskew.enable and not lio_def.imu.initial_alignment.enable
+
+
+def test_fleet_imu_feed_equals_the_benchmark():
+    """bench_fleet.py:136-145 and 154-173: each frame ``i`` feeds
+    ``feed_imu(max(0.1 i - 0.1, -0.05), 0.1 i)`` to every stream, then after
+    frame 0 seeds ``R_s v0``."""
+    class Recorder:
+        B = 3
+
+        def __init__(self):
+            self.got = [[] for _ in range(self.B)]
+
+        def add_imu_measurement(self, s, m):
+            self.got[s].append((m.timestamp, m.gyro, m.accel))
+
+    ours, want = Recorder(), []
+    for i in range(4):
+        t_from, t_to = max(0.1 * i - 0.1, -0.05), 0.1 * i
+        fleet_replay.feed_fleet_imu(ours, t_from, t_to)
+        n = max(int(round((t_to - t_from) * 200.0)), 1)
+        for k in range(n + 1):
+            t = t_from + (t_to - t_from) * k / n
+            g, a = ref_synth.figure8_imu(t, speed=0.35)
+            want.append((t, g.astype(np.float32), a.astype(np.float32)))
+    for got in ours.got:
+        assert len(got) == len(want)
+        for (t, g, a), (wt, wg, wa) in zip(got, want, strict=True):
+            assert t == wt
+            np.testing.assert_array_equal(g, wg)
+            np.testing.assert_array_equal(a, wa)
+    s_dot = 0.35 / (0.1 * 18.0)
+    v0 = np.array([18.0 * s_dot, 18.0 * s_dot, 0.0], np.float32)
+    for s, v in enumerate(fleet_replay.initial_velocities(8)):
+        yaw = 2.0 * np.pi * s / 8
+        c, si = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, -si, 0], [si, c, 0], [0, 0, 1]], np.float32)
+        np.testing.assert_array_equal(v, R @ v0)
