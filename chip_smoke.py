@@ -221,6 +221,48 @@
     stream and FLEET_STREAM0_M for stream 0), or when the corrected
     intensities are missing or outside the correction's range.
 29. The batched ``nn1`` and ``knn_k`` at the shapes of both runs of 28.
+30. ``LidarOdometry.process`` at the full-cloud coarse-to-fine deployment
+    (``apps.odometry_replay.fullcloud_c2f_params``: 1 m voxels, up to
+    30,000 points a scan, registration sampling off, the first 20
+    iterations of each align on every 4th target row) over C2F_FRAMES
+    full-width scans after C2F_WARMUP warm-up frames, with the counts set to
+    0 just before and read just after. Prints every frame, ms a frame
+    (median, max), host reads a frame, points registered, nn1 launches a
+    frame on the coarse target and on the full one, knn_k launches,
+    iterations a frame, the ATE and the final map's voxels beside the JAX
+    record's ATE and voxels (for accuracy only). Fails if a frame after the
+    first is not a success, if the coarse target is never searched, if a
+    frame launched nn1 fewer times than it ran align iterations, if an
+    align ends on the coarse target, if the ATE exceeds MAX_C2F_ATE_M, or
+    if nn1 or knn_k never launched. Then the same scans with JAX's
+    ``max_iterations`` (20, every iteration coarse, as the JAX record ran):
+    its ATE beside the record's; and without the coarse phase
+    (``coarse_to_fine_iters=0``, 20 iterations): ms, iterations, reads and
+    ATE beside the coarse-to-fine run's.
+31. nn1 and knn_k at phase 30's shapes, as in 8: every query row of the
+    last scan against the coarse target (every 4th row of the 16,384-row
+    target) and the full one; the coarse copy of the target's first 10,001
+    rows (a partial tail tile) bit-equal too.
+32. The first C2F_CPU_FRAMES frames of phase 30's deployment at 512 x 32 on
+    the card and on the CPU, every sampler taking every point, on the
+    card-vs-CPU map sizes: no align ends on the coarse target, final poses
+    within LIO_CPU_TRANS_M / LIO_CPU_ROT_DEG.
+33. The LO replay deployment with the rotation constraint (weight
+    OPTIONS_ROT_WEIGHT) and nl_reg (the dataclass's thresholds) over phase
+    7's scans: fails as phase 7 does; prints ms, iterations, syncs and ATE
+    beside phase 7's.
+34. The LIO replay deployment with the same two options over phase 10's
+    inputs: fails as phase 10 does.
+35. ``FleetLIO`` at the ``--lio`` deployment with the same two options over
+    the first OPTIONS_FLEET_FRAMES frames of phase 23's scans: fails as
+    phase 26 does, stream 0 held to the single-stream run within
+    FLEET_STREAM0_M / FLEET_STREAM0_DEG.
+36. ``LidarOdometry`` at the tree's defaults with intensity-weighted
+    registration sampling over phase 13's scans: fails as phase 13's
+    frames and ATE bound do, or if the last frame's draw (made again as the
+    frame made it, from the default seed) took fewer than
+    ``round(num * weighted_ratio)`` weighted points, or one of zero
+    intensity.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -277,8 +319,9 @@ from sycl_points_tpu_torch.pipeline.params import MotionPredictionParams, PosePa
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry
 from sycl_points_tpu_torch.pipeline.submap import Submap
+from sycl_points_tpu_torch.registration.degenerate import DegenerateRegularizationParams
 from sycl_points_tpu_torch.registration.pipeline import align_pipeline
-from sycl_points_tpu_torch.registration.registration import compute_icp_robust_weights
+from sycl_points_tpu_torch.registration.registration import RotationConstraintParams, compute_icp_robust_weights
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
 from sycl_points_tpu_torch.utils import lie, lie_np, sync
@@ -413,6 +456,25 @@ FLEET_DEFAULT_STREAMS = 4
 FLEET_DEFAULT_FRAMES = 12
 FLEET_DEFAULT_WARMUP = 2
 FLEET_DEFAULT_MAX_ATE_M = 0.15
+# The registration options. The full-cloud coarse-to-fine deployment
+# (apps.odometry_replay.fullcloud_c2f_params) over the JAX record's 30
+# frames of 2048 x 64. The JAX record (benchmarks/REPLAY_FULLCLOUD_C2F_r4.json)
+# read an ATE of 0.325 m with every iteration on the coarse target; the
+# bound gives the port's run, refined on the full target, that value with
+# room. The card against the CPU takes every point (no draw) on the
+# card-vs-CPU map sizes, with the LIO's card-vs-CPU bounds.
+C2F_PATH = "LidarOdometry.process (full-cloud C2F)"
+C2F_FRAMES = 30
+C2F_WARMUP = 3
+C2F_CPU_FRAMES = 3
+MAX_C2F_ATE_M = 0.40
+JAX_C2F_ATE_M = 0.325
+JAX_C2F_VOXELS = 803
+# The rotation constraint (at the JAX test's weight) and nl_reg (at the
+# dataclass's thresholds) on the LO, LIO and fleet-LIO deployments, held to
+# those deployments' bounds; the fleet at a cut depth.
+OPTIONS_ROT_WEIGHT = 0.5
+OPTIONS_FLEET_FRAMES = 20
 
 
 def nvidia_smi(query: str) -> str:
@@ -2133,6 +2195,281 @@ def fleet_kitti_phase(dev) -> None:
         raise AssertionError(f"a kernel of the fleet runner never launched: {launches}")
 
 
+# -- the registration options -----------------------------------------------------------
+
+
+def with_factor(params, **changes):
+    """``params`` with ``registration.factor`` changed."""
+    reg = params.registration
+    return dataclasses.replace(params, registration=dataclasses.replace(
+        reg, factor=dataclasses.replace(reg.factor, **changes)))
+
+
+def with_options(params):
+    """``params`` with the rotation constraint (weight OPTIONS_ROT_WEIGHT) and
+    nl_reg (the dataclass's thresholds) on."""
+    return with_factor(params, rotation_constraint=RotationConstraintParams(enable=True, weight=OPTIONS_ROT_WEIGHT),
+                       degenerate_reg=DegenerateRegularizationParams(type="nl_reg"))
+
+
+def c2f_rows(params, poses, scans, dev) -> dict:
+    """``LidarOdometry.process`` over ``scans`` (frame ``i`` at ``t = 0.1 (i +
+    1)``), each frame timed by ``odometry_replay.timed_process``, with its
+    iterations, those that searched the coarse target, its launches, host
+    reads and registered points."""
+    lo = LidarOdometry(params, device=dev)
+    rows, est = [], []
+    for i, scan in enumerate(scans):
+        result, ms, launches = odometry_replay.timed_process(lo, scan, odometry_replay.FRAME_DT * (i + 1), dev)
+        reg = lo.reg_result if result.value == "success" else None
+        rows.append({"frame": i, "result": result.value, "ms": ms, "launches": launches,
+                     "syncs": lo.sync_count_last_frame, "registered": int(lo.preprocessed.count()),
+                     "iterations": int(reg.iterations) if reg is not None else 0,
+                     "coarse": reg.coarse_iterations if reg is not None else 0})
+        est.append(lo.get_odometry())
+    return {"odometry": lo, "rows": rows, "poses": est, "ate_m": odometry_replay.ate(est, poses)}
+
+
+def check_c2f_frames(tag: str, out, device) -> None:
+    """Every frame after the first a success, the coarse target searched,
+    and on the card an nn1 launch for every align iteration (a keyframe
+    adds one for its sampling weights; the plain versions on the CPU count
+    none)."""
+    rows = out["rows"]
+    bad = [r["frame"] for r in rows[1:] if r["result"] != "success"]
+    if rows[0]["result"] != "first_frame" or bad:
+        raise AssertionError(f"{tag}: frames {bad} did not succeed")
+    if not sum(r["coarse"] for r in rows):
+        raise AssertionError(f"{tag}: the coarse target was never searched")
+    if device.type == "cuda" and any(r["launches"]["nn1"] < r["iterations"] for r in rows):
+        raise AssertionError(f"{tag}: fewer nn1 launches than align iterations in a frame")
+
+
+def c2f_replay_phase(dev) -> dict:
+    """Phase 30: LidarOdometry at the full-cloud coarse-to-fine deployment
+    over C2F_FRAMES full-width scans, with the counts set to 0 just before
+    and read just after; then the same scans with JAX's max_iterations
+    (every iteration coarse), printed beside the JAX record."""
+    t0 = time.perf_counter()
+    poses, scans = odometry_replay.make_scans(C2F_FRAMES, device=dev)
+    params = odometry_replay.fullcloud_c2f_params(poses[0])
+    factor = params.registration.factor
+    cf = factor.coarse_to_fine_iters
+    print(f"full-cloud C2F replay: {C2F_FRAMES} scans of {scans[0].capacity} rays ({int(scans[0].count())} returns "
+          f"in the first), made in {time.perf_counter() - t0:.2f} s; {cf} coarse iterations on every "
+          f"{factor.coarse_stride}th target row, at most {factor.max_iterations} in all; registration sampling off")
+    c2f_rows(params, poses[:C2F_WARMUP + 1], scans[:C2F_WARMUP + 1], dev)  # warms the allocator
+    torch.cuda.synchronize()
+    sync.reset_sync_count()
+    cuda_knn.reset_launch_counts()
+    out = c2f_rows(params, poses, scans, dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    for r in out["rows"]:
+        print(f"  frame {r['frame']:2d}: {r['result']:<12s} {r['ms']:8.3f} ms, {r['iterations']:2d} iterations "
+              f"({r['coarse']} coarse), nn1 on the coarse target {r['coarse']}, on the full one "
+              f"{r['launches']['nn1'] - r['coarse']} ({r['iterations'] - r['coarse']} in the align), knn_k "
+              f"{r['launches']['knn_k']}, host reads {r['syncs']}, {r['registered']} points registered")
+    check_c2f_frames("full-cloud C2F replay", out, dev)
+    ended_coarse = [r["frame"] for r in out["rows"][1:] if r["iterations"] <= r["coarse"]]
+    lo = out["odometry"]
+    rows = out["rows"][C2F_WARMUP:]
+    after = out["rows"][1:]
+    ms = [r["ms"] for r in rows]
+    n = len(after)
+    voxels = int(lo.submap.map_state.used.sum())
+    print(f"full-cloud C2F frame after {C2F_WARMUP} warm-up frames: median {statistics.median(ms):.3f} ms, max "
+          f"{max(ms):.3f} ms; host reads a frame median {median_of(rows, lambda r: r['syncs'])}, mean "
+          f"{statistics.mean(r['syncs'] for r in rows):.2f}; points registered a frame median "
+          f"{median_of(rows, lambda r: r['registered'])}")
+    print(f"full-cloud C2F: over the {n} frames after the first, nn1 a frame on the coarse target "
+          f"{sum(r['coarse'] for r in after) / n:.2f}, on the full one "
+          f"{sum(r['launches']['nn1'] - r['coarse'] for r in after) / n:.2f} (in the align "
+          f"{sum(r['iterations'] - r['coarse'] for r in after) / n:.2f}, the rest a keyframe's sampling weights), knn_k "
+          f"{sum(r['launches']['knn_k'] for r in after) / n:.2f}; iterations a frame "
+          f"{sum(r['iterations'] for r in after) / n:.2f}; launches in all {launches}")
+    print(f"full-cloud C2F: ATE {out['ate_m']:.4f} m over {len(out['rows'])} frames (bound {MAX_C2F_ATE_M} m), "
+          f"frames ok {n - sum(r['result'] != 'success' for r in after) + 1}/{len(out['rows'])}, final map "
+          f"{voxels} voxels; the JAX record (benchmarks/REPLAY_FULLCLOUD_C2F_r4.json, for accuracy only): ATE "
+          f"{JAX_C2F_ATE_M} m, frames ok 30/30, {JAX_C2F_VOXELS} voxels")
+    if ended_coarse:
+        raise AssertionError(f"full-cloud C2F: frames {ended_coarse} ended their align on the coarse target")
+    if not out["ate_m"] <= MAX_C2F_ATE_M:
+        raise AssertionError(f"full-cloud C2F: ATE {out['ate_m']:.4f} m above {MAX_C2F_ATE_M} m")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the full-cloud C2F frame never launched: {launches}")
+    check_on_device(vars(lo.submap.submap_cloud), dev)
+
+    # the JAX benchmark's own max_iterations: every iteration coarse
+    jax_like = c2f_rows(with_factor(params, max_iterations=cf), poses, scans, dev)
+    check_c2f_frames("full-cloud C2F at JAX's max_iterations", jax_like, dev)
+    ja = jax_like["rows"][1:]
+    print(f"full-cloud C2F with JAX's max_iterations={cf} (every iteration on the coarse target, as the JAX record "
+          f"ran): ATE {jax_like['ate_m']:.4f} m against the JAX record's {JAX_C2F_ATE_M} m; iterations a frame "
+          f"{statistics.mean(r['iterations'] for r in ja):.2f}, all coarse: "
+          f"{all(r['iterations'] == r['coarse'] for r in ja)}; final map "
+          f"{int(jax_like['odometry'].submap.map_state.used.sum())} voxels")
+
+    # the same deployment without the coarse phase: what it costs or saves
+    full_only = c2f_rows(with_factor(params, coarse_to_fine_iters=0, max_iterations=factor.max_iterations - cf),
+                         poses, scans, dev)
+    fo = full_only["rows"][C2F_WARMUP:]
+    if any(r["result"] != "success" for r in full_only["rows"][1:]):
+        raise AssertionError("full-cloud deployment without the coarse phase: a frame did not succeed")
+    print(f"full-cloud deployment without the coarse phase (max_iterations {factor.max_iterations - cf}): median "
+          f"{statistics.median(r['ms'] for r in fo):.3f} ms a frame against {statistics.median(ms):.3f} with it; "
+          f"iterations a frame {statistics.mean(r['iterations'] for r in fo):.2f}, host reads a frame "
+          f"{statistics.mean(r['syncs'] for r in fo):.2f}; ATE {full_only['ate_m']:.4f} m against "
+          f"{out['ate_m']:.4f} m")
+
+    # the kernels at this path's shapes: every query row against the
+    # strided coarse copy of the target (the align's own) and the full one
+    # (last, so that knn_k's check takes the full target), and the coarse
+    # copy of an odd target count, whose tail tile is partial
+    pose = torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev).contiguous()
+    target = lo.submap.submap_cloud
+    s = factor.coarse_stride
+    coarse = PointCloud(points=target.points[::s].contiguous(), mask=target.mask[::s].contiguous())
+    queries = lo.preprocessed.points.contiguous()
+    n_odd = 10001
+    odd_t, odd_m = target.points[:n_odd][::s].contiguous(), target.mask[:n_odd][::s].contiguous()
+    check_equal("nn1", cuda_knn.nn1_prepped(cuda_knn.prep_target(odd_t, odd_m), queries, pose),
+                cuda_knn.nn1_plain(odd_t, odd_m, queries, pose), f"C2F, coarse copy of {n_odd} rows")
+    print(f"nn1 on the coarse copy of the target's first {n_odd} rows ({odd_t.shape[0]} rows, a partial tail "
+          f"tile): equal to nn1_plain bit for bit")
+    return {"launches": launches, "scan": lo.preprocessed, "queries": queries,
+            "targets": {"coarse": (coarse, pose), "full": (target, pose)}}
+
+
+def c2f_card_vs_cpu(dev) -> None:
+    """Phase 32: the first C2F_CPU_FRAMES frames of the full-cloud C2F
+    deployment at 512 x 32 on the card and on the CPU, every sampler taking
+    every point, on the card-vs-CPU map and target sizes."""
+    n_az, n_rings = SMALL_RAYS
+    finals = {}
+    for device in (torch.device("cpu"), dev):
+        p, s = odometry_replay.make_scans(C2F_CPU_FRAMES, n_az, n_rings, device=device)
+        o = c2f_rows(cpu_sized(every_point(odometry_replay.fullcloud_c2f_params(p[0]))), p, s, device)
+        check_c2f_frames(f"full-cloud C2F on {device.type}", o, device)
+        if any(r["iterations"] <= r["coarse"] for r in o["rows"][1:]):
+            raise AssertionError(f"full-cloud C2F on {device.type}: an align ended on the coarse target")
+        finals[device.type] = o["poses"][-1]
+    trans, rot = pose_error(finals["cuda"], finals["cpu"])
+    print(f"full-cloud C2F card vs CPU after {C2F_CPU_FRAMES} frames ({n_az} x {n_rings}, every point): "
+          f"{trans * 1e3:.4f} mm, {rot:.5f} deg apart (bounds {LIO_CPU_TRANS_M * 1e3:.0f} mm, {LIO_CPU_ROT_DEG} deg)")
+    if not (trans <= LIO_CPU_TRANS_M and rot <= LIO_CPU_ROT_DEG):
+        raise AssertionError("the card and the CPU disagree on the full-cloud C2F replay")
+
+
+def options_lo_phase(replay, dev) -> None:
+    """Phase 33: the LO replay deployment with the rotation constraint and
+    nl_reg over phase 7's scans, beside phase 7's run."""
+    params, poses, scans, plain = replay
+    params = with_options(params)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = odometry_replay.run_replay(params, poses, scans, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    rows = out["rows"][LO_WARMUP:]
+    print(f"LO replay with the rotation constraint (weight {OPTIONS_ROT_WEIGHT}) and nl_reg: median "
+          f"{statistics.median(r['ms'] for r in rows):.3f} ms a frame (phase 7: "
+          f"{statistics.median(r['ms'] for r in plain['rows'][LO_WARMUP:]):.3f}), iterations a frame median "
+          f"{median_of(rows, lambda r: r['iterations'])}, host syncs a frame median "
+          f"{median_of(rows, lambda r: r['syncs'])}; ATE {out['ate_m']:.4f} m (phase 7: {plain['ate_m']:.4f}); "
+          f"launches {launches}")
+    check_replay("LO replay with the options", out, 2, MAX_ATE_M)
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the LO frame with the options never launched: {launches}")
+
+
+def options_lio_phase(replay, dev) -> None:
+    """Phase 34: the LIO replay deployment with the rotation constraint and
+    nl_reg over phase 10's inputs, beside phase 10's run."""
+    params, inputs, plain = replay
+    params = with_options(params)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = lio_replay.run_lio_replay(params, inputs, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    rows = out["rows"][LIO_WARMUP:]
+    print(f"LIO replay with the rotation constraint and nl_reg: median {statistics.median(r['ms'] for r in rows):.3f} "
+          f"ms a frame (phase 10: {statistics.median(r['ms'] for r in plain['rows'][LIO_WARMUP:]):.3f}), iterations "
+          f"a frame median {median_of(rows, lambda r: r['iterations'])}; ATE {out['ate_m']:.4f} m (phase 10: "
+          f"{plain['ate_m']:.4f}); launches {launches}")
+    check_lio("LIO replay with the options", out, MAX_LIO_ATE_M)
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the LIO frame with the options never launched: {launches}")
+
+
+def options_fleet_lio_phase(dev, trajs, scans) -> None:
+    """Phase 35: FleetLIO at the benchmark's --lio deployment with the
+    rotation constraint and nl_reg, over the first OPTIONS_FLEET_FRAMES
+    frames of phase 23's scans, held to the single-stream run of stream 0."""
+    n = OPTIONS_FLEET_FRAMES
+    trajs, scans = [t[:n] for t in trajs], scans[:n]
+    cap = pad_capacity_for(fleet_replay.FLEET_RAYS[0] * fleet_replay.FLEET_RAYS[1])
+    params = with_options(fleet_replay.fleet_lio_params())
+    torch.cuda.synchronize()
+    sync.reset_sync_count()
+    cuda_knn.reset_launch_counts()
+    out = fleet_replay.run_fleet_lio_replay(params, trajs, scans, device=dev, capacity=cap)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    tag = "fleet LIO with the options"
+    print_fleet_timing(tag, [r["ms"] for r in out["rows"][fleet_replay.FLEET_WARMUP:]], len(trajs),
+                       out["rows"][fleet_replay.FLEET_WARMUP:])
+    print_lio_fleet_state(tag, out["fleet"])
+    ates = print_fleet_results(tag, out, n)
+    single = fleet_replay.run_stream_lio_replay(params, trajs, scans, 0, device=dev, capacity=cap)
+    worst_m, worst_deg = stream0_gap(out["poses"][0], single["poses"])
+    print(f"{tag}: stream 0 at most {worst_m * 1e3:.4f} mm and {worst_deg:.5f} deg from the single-stream run "
+          f"(bounds {FLEET_STREAM0_M * 1e3:.0f} mm, {FLEET_STREAM0_DEG} deg); launches {launches}")
+    if not statistics.mean(ates) <= FLEET_LIO_MAX_MEAN_ATE_M or not max(ates) <= FLEET_LIO_MAX_ATE_M:
+        raise AssertionError(f"{tag}: ATE {ates} above the bounds")
+    if worst_m > FLEET_STREAM0_M or worst_deg > FLEET_STREAM0_DEG:
+        raise AssertionError(f"{tag}: stream 0 strays from the single-stream run")
+    if min(launches["nn1_batched"], launches["knn_k_batched"]) <= 0:
+        raise AssertionError(f"a batched kernel of the {tag} never launched: {launches}")
+
+
+def intensity_sampling_phase(replay, dev) -> None:
+    """Phase 31: LidarOdometry at the tree's defaults with intensity-weighted
+    registration sampling over phase 13's scans; the last frame's draw,
+    made again as the frame made it, must hold round(num x weighted_ratio)
+    weighted points."""
+    params, poses, scans, plain = replay
+    sp = dataclasses.replace(params.registration_sampling, use_intensities=True)
+    params = dataclasses.replace(params, registration_sampling=sp)
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    out = odometry_replay.run_replay(params, poses, scans, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_knn.launch_counts)
+    lo = out["odometry"]
+    rows = out["rows"][LO_WARMUP:]
+    # the occupancy grid inserts every frame and lists no keyframe past the first
+    check_replay("default tree with intensity-weighted sampling", out, 1, MAX_ATE_M)
+    pre = lo.preprocessed
+    if pre.intensities is None:
+        raise AssertionError("intensity-weighted sampling: the scans carry no intensities")
+    drawn = align_pipeline(pre, lo.submap.submap_cloud, lo.submap.submap_knn, lo.pipeline_params,
+                           initial_guess=torch.as_tensor(out["poses"][-1], dtype=torch.float32, device=dev))
+    n_w = round(sp.num * sp.weighted_ratio)
+    took = int(drawn.registration_input.mask[:n_w].sum())
+    positive = bool((drawn.registration_input.intensities[:n_w][drawn.registration_input.mask[:n_w]] > 0).all())
+    print(f"default tree with intensity-weighted sampling (num {sp.num}, weighted_ratio {sp.weighted_ratio}): median "
+          f"{statistics.median(r['ms'] for r in rows):.3f} ms a frame (phase 13: "
+          f"{statistics.median(r['ms'] for r in plain['rows'][LO_WARMUP:]):.3f}), ATE {out['ate_m']:.4f} m (phase "
+          f"13: {plain['ate_m']:.4f}); the last frame's draw took {took} weighted points of {n_w} (all of positive "
+          f"intensity: {positive}), {int(drawn.registration_input.count())} in all; launches {launches}")
+    if took < n_w or not positive:
+        raise AssertionError(f"intensity-weighted sampling took {took} weighted points, fewer than {n_w}")
+    if min(launches["nn1"], launches["knn_k"]) <= 0:
+        raise AssertionError(f"a kernel of the intensity-sampled frame never launched: {launches}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -2257,6 +2594,14 @@ def main() -> None:
                                    "fleet LIO")
     for f, path, tag in fleet_defaults_phase(dev):
         results += check_fleet_kernels(f, path, tag)
+
+    # --- the registration options -----------------------------------------------------
+    results += check_lo_shapes(c2f_replay_phase(dev), C2F_PATH, "C2F")
+    c2f_card_vs_cpu(dev)
+    options_lo_phase(lo_out["replay"], dev)
+    options_lio_phase(lio_out["replay"], dev)
+    options_fleet_lio_phase(dev, fleet_out["trajs"], fleet_out["scans"])
+    intensity_sampling_phase(og_out["replay"], dev)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

@@ -14,6 +14,12 @@ HDL-64 sweeps (:mod:`..utils.synthetic`) along a figure-8 at 10 Hz.
     out = run_replay(replay_params(poses[0]), poses, scans)
     print(out["ate_m"], out["frame_ms"])
 
+:func:`fullcloud_c2f_params` is the JAX package's full-cloud coarse-to-fine
+deployment (its replay benchmark run with ``--scan-points 30000
+--reg-sampling 0 --coarse-to-fine 20``): the whole preprocessed scan
+registers, the first 20 iterations of each align against every 4th target
+row.
+
 :func:`default_params` is the parameter tree's defaults (polar
 downsampling, the occupancy-grid submap, intensity correction) with only
 the initial pose set; ``make_scans(..., intensities=True)`` gives the scans
@@ -47,12 +53,15 @@ from sycl_points_tpu_torch.pipeline.params import (
     PolarDownsamplingParams,
     PoseParams,
     RandomDownsamplingParams,
+    RegistrationBlockParams,
     ScanParams,
     SubmapParams,
     VoxelDownsamplingParams,
 )
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry
-from sycl_points_tpu_torch.points.point_cloud import PointCloud
+from sycl_points_tpu_torch.points.point_cloud import PointCloud, pad_capacity_for
+from sycl_points_tpu_torch.registration.pipeline import RandomSamplingParams
+from sycl_points_tpu_torch.registration.registration import RegistrationParams
 from sycl_points_tpu_torch.utils import sync
 from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, return_intensities, scan_at
 
@@ -74,6 +83,40 @@ def replay_params(initial_pose: np.ndarray, map_capacity: int = 1 << 17,
         submap=SubmapParams(map_type="VOXEL_HASH_MAP", voxel_size=1.0, map_capacity=map_capacity,
                             extract_capacity=extract_capacity, point_random_sampling_num=512),
         scan_capacity=1 << 13,
+        pose=PoseParams(initial=tuple(np.asarray(initial_pose, np.float32).ravel().tolist())),
+    )
+
+
+FULLCLOUD_POINTS = 30000
+FULLCLOUD_COARSE_ITERS = 20
+
+
+def fullcloud_c2f_params(initial_pose: np.ndarray) -> LidarOdometryParams:
+    """The full-cloud coarse-to-fine deployment, starting at
+    ``initial_pose``: 1 m voxels, polar off, random sampling to 30,000 points
+    in a capacity of ``max(8192, pad_capacity_for(30000))``, registration
+    sampling off (the whole preprocessed cloud registers), the first 20
+    iterations of each align on every 4th target row; a voxel-hash map of
+    2^17 slots at 1 m, 512 points a keyframe.
+
+    One number differs from the JAX benchmark's: it left ``max_iterations``
+    at its default 20, equal to the coarse iterations, so every iteration of
+    every frame searched the strided target there and no align converged.
+    Here the full target gets the default 20 iterations after the coarse
+    ones, so each pose is refined on it, as ``RegistrationParams`` has it."""
+    factor = RegistrationParams(coarse_to_fine_iters=FULLCLOUD_COARSE_ITERS, coarse_stride=4,
+                                max_iterations=FULLCLOUD_COARSE_ITERS + RegistrationParams().max_iterations)
+    return LidarOdometryParams(
+        scan=ScanParams(downsampling=DownsamplingParams(
+            voxel=VoxelDownsamplingParams(enable=True, size=1.0),
+            polar=PolarDownsamplingParams(enable=False),
+            random=RandomDownsamplingParams(enable=True, num=FULLCLOUD_POINTS),
+        )),
+        submap=SubmapParams(map_type="VOXEL_HASH_MAP", voxel_size=1.0, map_capacity=1 << 17,
+                            point_random_sampling_num=512),
+        registration=RegistrationBlockParams(factor=factor),
+        registration_sampling=RandomSamplingParams(enable=False),
+        scan_capacity=max(1 << 13, pad_capacity_for(FULLCLOUD_POINTS)),
         pose=PoseParams(initial=tuple(np.asarray(initial_pose, np.float32).ravel().tolist())),
     )
 

@@ -42,6 +42,7 @@ from sycl_points_tpu_torch.pipeline.pipelined_lio import LIOCarry
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import OdomCarry
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration import map_prior, pipeline, registration
+from sycl_points_tpu_torch.registration.degenerate import DegenerateRegularizationParams
 from sycl_points_tpu_torch.registration.factors import RegType
 
 _PARAM_CLASSES = {
@@ -54,6 +55,7 @@ _PARAM_CLASSES = {
         registration.DoglegParams,
         registration.CriteriaParams,
         registration.RegistrationParams,
+        DegenerateRegularizationParams,
         pipeline.RandomSamplingParams,
         pipeline.RobustScheduleParams,
         pipeline.VelocityUpdateParams,

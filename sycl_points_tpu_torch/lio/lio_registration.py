@@ -25,8 +25,13 @@ candidates as one batch; where JAX picks a state with
 batched ``nn1`` launch and one host read ("any stream still active") an
 iteration, every choice a per-stream select, a stream that is done holding
 its state. :func:`align` is it with one stream, so that a cloud alone and
-the same cloud as a fleet's stream give the same bits. Both refuse the
-registration branches of ROADMAP Queue 1 item 10a.
+the same cloud as a fleet's stream give the same bits.
+
+The registration options apply as in the JAX package: the rotation
+constraint joins the ICP linearization at each level's rotation scale, and
+nl_reg pulls the ICP system toward the predicted pose. The coarse-to-fine
+schedule (``coarse_to_fine_iters``) is not a branch of the LIO solve: every
+iteration searches the full target, as in JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from sycl_points_tpu_torch.imu.factor import (
 from sycl_points_tpu_torch.ops.robust import RobustLossType
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, unflatten_streams
 from sycl_points_tpu_torch.registration import registration as reg_core
+from sycl_points_tpu_torch.registration.degenerate import regularize
 from sycl_points_tpu_torch.registration.factors import RegType
 from sycl_points_tpu_torch.registration.registration import (
     CriteriaParams,
@@ -62,6 +68,7 @@ from sycl_points_tpu_torch.registration.registration import (
     RegistrationParams,
     compute_dogleg_step,
 )
+from sycl_points_tpu_torch.registration.rotation_constraint import add_rotation_constraint
 from sycl_points_tpu_torch.utils import lie
 from sycl_points_tpu_torch.utils.eigh3 import eigh3
 from sycl_points_tpu_torch.utils.smallmat import solve_psd
@@ -315,14 +322,7 @@ def align(
     return (result, buf[0]) if trace else result
 
 
-def _check_supported(factor_params: RegistrationParams, params: LIORegistrationParams) -> None:
-    if factor_params.rotation_constraint.enable:
-        raise NotImplementedError("the rotation constraint is not ported yet (ROADMAP Queue 1 item 10a)")
-    if factor_params.degenerate_reg is not None:
-        raise NotImplementedError("degenerate regularization is not ported yet (ROADMAP Queue 1 item 10a)")
-    if factor_params.coarse_to_fine_iters > 0:
-        raise NotImplementedError(
-            "the coarse-to-fine correspondence schedule is not ported yet (ROADMAP Queue 1 item 10a)")
+def _check_supported(params: LIORegistrationParams) -> None:
     if params.optimization_method not in ("gauss_newton", "levenberg_marquardt", "powell_dogleg"):
         raise ValueError(params.optimization_method)
 
@@ -354,7 +354,7 @@ def align_streams(
     the loop's. ``trace=True`` also returns ``[B, total_iterations,
     len(TRACE_COLS)]`` (NaN rows = not executed).
     """
-    _check_supported(factor_params, params)
+    _check_supported(params)
     method = params.optimization_method
     dev = source.device
     B = source.points.shape[0]
@@ -362,6 +362,7 @@ def align_streams(
     zero15 = torch.zeros((B, DOF), dtype=_F32, device=dev)
     pred_state, P_pred, P_prev = predicted_state, predicted_covariance, previous_posterior_covariance
     H_imu, _, imu_valid = compute_imu_hessian_gradient(pred_state, pred_state, P_pred)
+    initial_pose = pred_state.pose()
     icp_residual_dim = 1.0 if factor_params.reg_type in (RegType.POINT_TO_PLANE, RegType.GENZ) else 3.0
 
     src_covs_reg, tgt = reg_core._precompute_targets(factor_params, source, target)
@@ -396,11 +397,12 @@ def align_streams(
         return ((torch.linalg.vector_norm(delta[..., _ROT], dim=-1) < params.criteria.rotation)
                 & (torch.linalg.vector_norm(delta[..., _POS], dim=-1) < params.criteria.translation))
 
-    iters_per_level, geo_scales, _ = _level_schedule(params, factor_params)
+    iters_per_level, geo_scales, rot_scales = _level_schedule(params, factor_params)
     n_levels = len(iters_per_level)
     level_iters = torch.tensor(iters_per_level, dtype=torch.int64, device=dev)
     level_start = torch.tensor([sum(iters_per_level[:i]) for i in range(n_levels)], dtype=torch.int64, device=dev)
     geo_t = torch.tensor(geo_scales, dtype=_F32, device=dev)
+    rot_t = torch.tensor(rot_scales, dtype=_F32, device=dev)
     budget = sum(iters_per_level)
 
     state = pred_state
@@ -423,6 +425,9 @@ def align_streams(
         corr = reg_core._correspondences(factor_params, target_knn, src_pts, src_mask, pose, tgt)
         alpha = (reg_core._genz_alpha(corr) if factor_params.reg_type is RegType.GENZ else full(1.0))[:, None]
         lin = reg_core._linearize(factor_params, pose, src_pts, src_covs_reg, corr, geo_s, alpha)
+        if factor_params.rotation_constraint.enable:
+            lin = add_rotation_constraint(factor_params, lin, pose, source.covs, corr, rot_t[lvl][:, None])
+        lin = regularize(factor_params.degenerate_reg, lin, pose, initial_pose)
         b_imu = compute_imu_gradient(pred_state, state, H_imu)
 
         icp_dof = icp_residual_dim * lin.inlier.to(_F32) - 6.0

@@ -442,7 +442,7 @@ class FleetLIO(FleetOdometry):
         if params.imu.initial_alignment.enable:
             raise ValueError("FleetLIO requires imu.initial_alignment.enable=False (the alignment handshake is "
                              "host-side and per stream; use the single-stream pipelines)")
-        lio._check_supported(params.registration.factor, params.lio)
+        lio._check_supported(params.lio)
         super().__init__(params, n_streams, initial_poses=initial_poses, mesh=mesh, mesh_axis=mesh_axis,
                          max_in_flight=max_in_flight, seed=seed, device=device)
         B = self.B

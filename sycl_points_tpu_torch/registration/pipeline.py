@@ -3,8 +3,10 @@
 Counterpart of :mod:`sycl_points_tpu.registration.pipeline`. Without the
 velocity update all annealing levels run in one :func:`~.registration.align`
 loop; with it (VICP) each level runs ``iter`` constant-velocity deskew passes,
-each followed by an align from the pose so far. Intensity-weighted sampling
-is not ported yet and raises ``NotImplementedError``.
+each followed by an align from the pose so far. The input sampling is
+uniform, or intensity-weighted (``use_intensities``: ``weighted_ratio`` of
+the draw weighted by the source's intensities, the rest uniform) when the
+source has intensities.
 
 :func:`align_pipeline_streams` is the fleet's form: one sampling draw (each
 single-stream call draws the same one from the default seed) and one
@@ -20,7 +22,7 @@ import torch
 
 from sycl_points_tpu_torch.deskew.constant_velocity import deskew_constant_velocity
 from sycl_points_tpu_torch.ops.robust import RobustLossType
-from sycl_points_tpu_torch.ops.sampling import gumbel_noise, random_sampling, sample_by_scores
+from sycl_points_tpu_torch.ops.sampling import gumbel_noise, mixed_sampling, random_sampling, sample_by_scores
 from sycl_points_tpu_torch.points.point_cloud import PointCloud
 from sycl_points_tpu_torch.registration.registration import (
     RegistrationParams,
@@ -110,23 +112,24 @@ def align_pipeline(
     ``map_prior`` goes to :func:`~.registration.align`.
 
     The sampling noise comes from ``generator`` (default: seeded with
-    :data:`DEFAULT_SEED` on the source's device); ``scores [capacity]``, when
-    given, replace the drawn Gumbel noise. ``prev_pose`` / ``dt`` feed the
-    VICP deskew (unused when the velocity update is off or the source has no
+    :data:`DEFAULT_SEED` on the source's device); ``scores``, when given,
+    replace the drawn Gumbel noise: ``[capacity]`` for the uniform draw, the
+    pair of ``[capacity]`` arrays of the weighted and the uniform part for
+    the intensity-weighted one. ``prev_pose`` / ``dt`` feed the VICP deskew
+    (unused when the velocity update is off or the source has no
     timestamps).
     """
     sp = params.random_sampling
+    src = source
     if sp.enable and sp.num < source.capacity:
-        if sp.use_intensities:
-            raise NotImplementedError("intensity-weighted sampling is not ported yet")
-        if scores is not None:
+        if generator is None and scores is None:
+            generator = torch.Generator(device=source.device).manual_seed(DEFAULT_SEED)
+        if sp.use_intensities and source.intensities is not None:
+            src = mixed_sampling(source, sp.num, source.intensities, generator, sp.weighted_ratio, noise=scores)
+        elif scores is not None:
             src = sample_by_scores(source, sp.num, scores)
         else:
-            if generator is None:
-                generator = torch.Generator(device=source.device).manual_seed(DEFAULT_SEED)
             src = random_sampling(source, sp.num, generator)
-    else:
-        src = source
 
     geo_scales, rot_scales = _robust_schedule(params)
     vu = params.velocity_update
@@ -143,11 +146,11 @@ def align_pipeline(
     pp = T if prev_pose is None else prev_pose
     duration = -1.0 if dt is None else float(dt)
     deskewed = src
-    for geo_s in geo_scales:
+    for geo_s, rot_s in zip(geo_scales, rot_scales):
         for _ in range(deskew_iters):
             deskewed = deskew_constant_velocity(src, pp, T, duration)
             result = align(deskewed, target, target_knn, params.registration, initial_guess=T,
-                           robust_scale=geo_s, map_prior=map_prior)
+                           robust_scale=geo_s, rotation_robust_scale=rot_s, map_prior=map_prior)
             T = result.T
     return PipelineOutput(result=result, registration_input=src, deskewed=deskewed)
 
@@ -163,16 +166,23 @@ def align_pipeline_streams(
     """:func:`align_pipeline` of every stream of a fleet (``source [B, N]``,
     ``target [B, M]``, ``initial_guess [B, 4, 4]``), with the default
     sampling seed: stream ``b`` samples and aligns as a single-stream call
-    does. The VICP deskew is single-stream only (the fleet's frames carry no
-    per-point timestamps) and raises here."""
+    does (its noise, or its pair for the intensity-weighted draw, drawn as
+    that call draws it from its default-seeded generator). The VICP deskew
+    is single-stream only (the fleet's frames carry no per-point
+    timestamps) and raises here."""
     sp = params.random_sampling
     src = source
     if sp.enable and sp.num < source.capacity:
-        if sp.use_intensities:
-            raise NotImplementedError("intensity-weighted sampling is not ported yet")
         generator = torch.Generator(device=source.device).manual_seed(DEFAULT_SEED)
-        noise = gumbel_noise(source.capacity, generator, source.device)
-        src = sample_by_scores(source, sp.num, noise.expand(source.mask.shape))
+
+        def noise():
+            return gumbel_noise(source.capacity, generator, source.device).expand(source.mask.shape)
+
+        if sp.use_intensities and source.intensities is not None:
+            pair = (noise(), noise())
+            src = mixed_sampling(source, sp.num, source.intensities, weighted_ratio=sp.weighted_ratio, noise=pair)
+        else:
+            src = sample_by_scores(source, sp.num, noise())
     if params.velocity_update.enable and src.timestamp_offsets is not None:
         raise NotImplementedError("the fleet has no per-point-timestamp (VICP) deskew")
     geo_scales, rot_scales = _robust_schedule(params)

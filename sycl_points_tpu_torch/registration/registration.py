@@ -17,9 +17,14 @@ one flag an iteration for the whole fleet ("any stream still active"), and
 one more when any stream rejected LM's first candidate; the step choices the
 single-stream loop makes on the host are per-stream selects on the device.
 
-Not ported yet (they raise ``NotImplementedError``): degenerate
-regularization, the rotation constraint and the coarse-to-fine
-correspondence schedule.
+The registration options run in both loops as in the JAX package: the
+rotation constraint (:mod:`.rotation_constraint`) in the linearization and
+the LM / dogleg error, nl_reg (:mod:`.degenerate`) on the raw linearization
+toward the call's initial guess, and the coarse-to-fine schedule, whose
+first ``coarse_to_fine_iters`` iterations search every ``coarse_stride``-th
+target row and cannot converge. The loop counter is a host int, so the
+choice of target is made on the host and reads nothing; a coarse
+Gauss-Newton iteration, which cannot end the loop, reads nothing either.
 """
 
 from __future__ import annotations
@@ -29,14 +34,17 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.ops.robust import RobustLossType, compute_error, compute_weight
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, gather_streams
+from sycl_points_tpu_torch.registration.degenerate import regularize
 from sycl_points_tpu_torch.registration.factors import (
     RegType,
     genz_planarity,
     residual_norms_only,
     whitened_rows,
 )
+from sycl_points_tpu_torch.registration.rotation_constraint import add_rotation_constraint, rotation_constraint_error
 from sycl_points_tpu_torch.utils import lie
 from sycl_points_tpu_torch.utils.eigh3 import plane_regularize
 from sycl_points_tpu_torch.utils.smallmat import solve_psd
@@ -99,6 +107,9 @@ class CriteriaParams:
 class RegistrationParams:
     reg_type: RegType = RegType.GICP
     max_correspondence_distance: float = 2.0
+    # The first ``coarse_to_fine_iters`` iterations in all search every
+    # ``coarse_stride``-th target row and cannot converge; the later ones
+    # search the full target.
     coarse_to_fine_iters: int = 0
     coarse_stride: int = 4
     robust: RobustParams = RobustParams()
@@ -110,7 +121,7 @@ class RegistrationParams:
     dogleg: DoglegParams = DoglegParams()
     max_iterations: int = 20
     criteria: CriteriaParams = CriteriaParams()
-    degenerate_reg: Optional[Any] = None
+    degenerate_reg: Optional[Any] = None  # degenerate.DegenerateRegularizationParams
     map_prior_enable: bool = False
 
 
@@ -132,6 +143,7 @@ class RegistrationResult(NamedTuple):
     H_raw: torch.Tensor
     b_raw: torch.Tensor
     error_raw: torch.Tensor
+    coarse_iterations: int = 0  # iterations that searched the coarse target (a host count)
 
 
 # Columns of the per-iteration trace buffer (align(..., trace=True)); rows
@@ -207,6 +219,11 @@ def _precompute_targets(params: RegistrationParams, source: PointCloud, target: 
             normals=target.normals,
             planar=genz_planarity(target.covs, params.genz_planarity_threshold),
         )
+    if params.rotation_constraint.enable:
+        # the constraint reads the raw covariances of both clouds
+        if source.covs is None or target.covs is None:
+            raise ValueError("rotation constraint requires source and target covariances")
+        tgt = tgt._replace(covs_raw=target.covs)
     return src_covs_reg, _pack_targets(tgt)
 
 
@@ -243,6 +260,27 @@ def _correspondences(params, knn, src_pts, src_mask, T, tgt: _Targets) -> _Targe
     """One 1-NN search with the pose folded into the queries."""
     res = knn.search(src_pts, 1, pose=T)
     return _gather_correspondences(params, res.indices[..., 0], res.distances[..., 0], src_mask, tgt)
+
+
+def _coarse_knn(params: RegistrationParams, target_knn) -> Optional[BruteForceKNN]:
+    """The coarse phase's search: every ``coarse_stride``-th row of the
+    unprepared target (of each stream's, for a fleet), made contiguous and
+    prepared once; None when the schedule is off."""
+    if params.coarse_to_fine_iters <= 0 or not hasattr(target_knn, "points"):
+        return None
+    s = params.coarse_stride
+    return BruteForceKNN(points=target_knn.points[..., ::s, :].contiguous(),
+                         mask=target_knn.mask[..., ::s].contiguous()).prepped()
+
+
+def _search(params, knn, knn_coarse, coarse: bool, src_pts, src_mask, T, tgt: _Targets) -> _Targets:
+    """The correspondences of one iteration: on the coarse target, its
+    indices multiplied back to the full target's rows, when ``coarse``."""
+    if not coarse:
+        return _correspondences(params, knn, src_pts, src_mask, T, tgt)
+    res = knn_coarse.search(src_pts, 1, pose=T)
+    return _gather_correspondences(params, res.indices[..., 0] * params.coarse_stride, res.distances[..., 0],
+                                   src_mask, tgt)
 
 
 def _genz_alpha(corr: _Targets) -> torch.Tensor:
@@ -350,17 +388,27 @@ def compute_dogleg_step(H, g, radius):
 
 
 class _Step(NamedTuple):
-    """What one optimizer iteration decided (tensors on the device, except
-    ``conv``, which the loop control reads on the host)."""
+    """What one optimizer iteration decided, on the device; ``conv`` is a
+    host bool where the step read it already (LM), else a device flag."""
 
     T: torch.Tensor
-    conv: bool
+    conv: bool | torch.Tensor
     err: torch.Tensor
     inlier: torch.Tensor
     lam: torch.Tensor
     trust: torch.Tensor
     step: torch.Tensor
     accepted: torch.Tensor
+
+
+def _per(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A ``[B]`` (or 0-dim) flag shaped to broadcast over ``x [B, ...]``."""
+    return flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
+
+
+def _pick(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stream by stream: ``a`` where ``flag`` holds, else ``b``."""
+    return torch.where(_per(flag, a), a, b)
 
 
 def _lm_step(params, T, H, g, cur_err, inlier, lm_lambda, error_fn) -> _Step:
@@ -405,6 +453,8 @@ def _lm_step(params, T, H, g, cur_err, inlier, lm_lambda, error_fn) -> _Step:
 
 
 def _dogleg_step(params, T, H, g, cur_err, inlier, trust_radius, error_fn) -> _Step:
+    """One Powell dogleg step, of one stream or of every stream of a fleet
+    (its choices are selects); ``conv`` stays on the device."""
     p = params.dogleg
 
     def clamp(r):
@@ -420,17 +470,24 @@ def _dogleg_step(params, T, H, g, cur_err, inlier, trust_radius, error_fn) -> _S
     trust_next = clamp(
         torch.where(reject, radius * p.gamma_decrease, torch.where(grow, radius * p.gamma_increase, radius))
     )
-    conv = (~reject) & _is_converged(params, step)
     return _Step(
-        T=torch.where(reject, T, T_c),
-        conv=to_host(conv),
+        T=_pick(reject, T, T_c),
+        conv=(~reject) & _is_converged(params, step),
         err=torch.where(reject, cur_err, new_err),
         inlier=torch.where(reject, inlier, new_inl),
         lam=None,
         trust=trust_next,
-        step=torch.where(reject, torch.zeros_like(step), step),
+        step=_pick(reject, torch.zeros_like(step), step),
         accepted=~reject,
     )
+
+
+def _scales(params: RegistrationParams, robust_schedule, robust_scale, rotation_robust_scale):
+    """The robust levels' (geometry scales, rotation-constraint scales)."""
+    if robust_schedule:
+        return [g for g, _ in robust_schedule], [r for _, r in robust_schedule]
+    return ([params.robust.default_scale if robust_scale is None else robust_scale],
+            [params.rotation_constraint.robust_scale if rotation_robust_scale is None else rotation_robust_scale])
 
 
 def align(
@@ -440,6 +497,7 @@ def align(
     params: RegistrationParams = RegistrationParams(),
     initial_guess: Optional[torch.Tensor] = None,
     robust_scale: Optional[float] = None,
+    rotation_robust_scale: Optional[float] = None,
     map_prior=None,
     robust_schedule: Optional[tuple] = None,
     trace: bool = False,
@@ -448,20 +506,16 @@ def align(
 
     ``map_prior`` (a ``map_prior.MapPriorState``) adds the previous frame's
     information to the normal equations of every iteration and its cost to
-    the LM / dogleg error. ``robust_schedule`` (tuple of (geometry_scale, rotation_scale) pairs; the
-    rotation scale is unused until the rotation constraint is ported) runs
-    the robust-annealing chain in one loop: each level runs at most
+    the LM / dogleg error. ``robust_schedule`` (tuple of (geometry_scale,
+    rotation_scale) pairs, the second the rotation constraint's) runs the
+    robust-annealing chain in one loop: each level runs at most
     ``max_iterations`` from the previous level's pose with fresh optimizer
-    state. ``trace=True`` also returns a ``[max_iterations * n_levels,
-    len(TRACE_COLS)]`` per-iteration buffer (unexecuted rows NaN).
+    state. Without it, ``robust_scale`` and ``rotation_robust_scale`` (the
+    parameters' defaults when None) make one level. nl_reg pulls toward
+    ``initial_guess``. ``trace=True`` also returns a ``[max_iterations *
+    n_levels, len(TRACE_COLS)]`` per-iteration buffer (unexecuted rows NaN).
     Returns ``RegistrationResult``, or ``(result, trace)`` with ``trace``.
     """
-    if params.degenerate_reg is not None:
-        raise NotImplementedError("degenerate regularization is not ported yet")
-    if params.rotation_constraint.enable:
-        raise NotImplementedError("the rotation constraint is not ported yet")
-    if params.coarse_to_fine_iters > 0:
-        raise NotImplementedError("the coarse-to-fine correspondence schedule is not ported yet")
     method = params.optimization_method
     if method not in ("gauss_newton", "levenberg_marquardt", "powell_dogleg"):
         raise ValueError(method)
@@ -472,17 +526,18 @@ def align(
         if initial_guess is None
         else initial_guess.to(device=dev, dtype=_F32)
     )
-    if robust_schedule:
-        geo = [g for g, _ in robust_schedule]
-    else:
-        geo = [params.robust.default_scale if robust_scale is None else robust_scale]
+    T_initial = T
+    geo, rot = _scales(params, robust_schedule, robust_scale, rotation_robust_scale)
     geo_scales = [_scalar(g, dev) for g in geo]
+    rot_scales = [_scalar(r, dev) for r in rot]
     n_levels = len(geo)
+    rotc = params.rotation_constraint.enable
 
     src_covs_reg, tgt = _precompute_targets(params, source, target)
     src_pts, src_mask = source.points, source.mask
     if hasattr(target_knn, "prepped"):
         target_knn = target_knn.prepped()
+    knn_coarse = _coarse_knn(params, target_knn)
 
     lm_lambda = _scalar(params.lm.init_lambda, dev)
     trust = _scalar(params.dogleg.initial_trust_region_radius, dev)
@@ -496,30 +551,36 @@ def align(
     error = error_raw = zero_f
     inlier = zero_i
     conv = False
-    it = total_it = level = 0
+    it = total_it = level = coarse_its = 0
     rows = []
 
     while total_it < params.max_iterations * n_levels:
-        r_scale = geo_scales[level]
-        corr = _correspondences(params, target_knn, src_pts, src_mask, T, tgt)
+        r_scale, rot_s = geo_scales[level], rot_scales[level]
+        coarse = knn_coarse is not None and total_it < params.coarse_to_fine_iters
+        coarse_its += coarse
+        corr = _search(params, target_knn, knn_coarse, coarse, src_pts, src_mask, T, tgt)
         alpha = _genz_alpha(corr) if params.reg_type is RegType.GENZ else torch.ones((), dtype=_F32, device=dev)
         lin = _linearize(params, T, src_pts, src_covs_reg, corr, r_scale, alpha)
+        if rotc:
+            lin = add_rotation_constraint(params, lin, T, source.covs, corr, rot_s)
         H_raw, b_raw, error_raw = lin.H, lin.b, lin.error
+        lin = regularize(params.degenerate_reg, lin, T, T_initial)
         if map_prior is not None:
             lin = map_prior.apply(lin, T)
         H, g, cur_err, cur_inl = lin.H, lin.b, lin.error, lin.inlier
 
-        def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale):
+        def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale, rot_s=rot_s):
             err, inl = _error_at(params, T_c, src_pts, src_covs_reg, corr, r_scale, alpha)
+            if rotc:
+                err = err + rotation_constraint_error(params, T_c, source.covs, corr, rot_s)
             if map_prior is not None:
                 err = err + map_prior.prior_error(T_c)
             return err, inl
 
         if method == "gauss_newton":
             delta, _ = solve_psd(H + params.gn.lambda_ * eye6, -g)
-            conv_t = _is_converged(params, delta)
-            step = _Step(lie.compose(T, lie.se3_exp(delta)), to_host(conv_t), cur_err, cur_inl, None, None, delta,
-                         _scalar(True, dev, torch.bool))
+            step = _Step(lie.compose(T, lie.se3_exp(delta)), _is_converged(params, delta), cur_err, cur_inl, None,
+                         None, delta, _scalar(True, dev, torch.bool))
             damping = _scalar(params.gn.lambda_, dev)
         elif method == "levenberg_marquardt":
             step = _lm_step(params, T, H, g, cur_err, cur_inl, lm_lambda, error_fn)
@@ -529,7 +590,9 @@ def align(
             step = _dogleg_step(params, T, H, g, cur_err, cur_inl, trust, error_fn)
             trust = step.trust
             damping = step.trust
-        T, conv, error, inlier = step.T, step.conv, step.err, step.inlier
+        T, error, inlier = step.T, step.err, step.inlier
+        # a coarse iteration cannot converge, so its flag needs no read
+        conv = False if coarse else to_host(step.conv) if isinstance(step.conv, torch.Tensor) else step.conv
 
         if trace:
             rows.append(torch.stack([
@@ -557,6 +620,7 @@ def align(
         iterations=_scalar(total_it, dev, torch.int32),
         H=H, b=g, error=error, inlier=inlier,
         H_raw=H_raw, b_raw=b_raw, error_raw=error_raw,
+        coarse_iterations=coarse_its,
     )
     if not trace:
         return result
@@ -567,16 +631,6 @@ def align(
 
 
 # -- the fleet's loop ---------------------------------------------------------
-
-
-def _per(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A ``[B]`` flag shaped to broadcast over ``x [B, ...]``."""
-    return flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
-
-
-def _pick(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Stream by stream: ``a`` where ``flag`` holds, else ``b``."""
-    return torch.where(_per(flag, a), a, b)
 
 
 def _lm_step_streams(params, T, H, g, cur_err, inlier, lm_lambda, error_fn, active) -> _Step:
@@ -630,36 +684,6 @@ def _lm_step_streams(params, T, H, g, cur_err, inlier, lm_lambda, error_fn, acti
     return _Step(*(None if a is None else _pick(accept0, a, b) for a, b in zip(step0, sweep)))
 
 
-def _dogleg_step_streams(params, T, H, g, cur_err, inlier, trust_radius, error_fn) -> _Step:
-    """:func:`_dogleg_step` of every stream (its choices are selects
-    already); ``conv`` stays on the device."""
-    p = params.dogleg
-
-    def clamp(r):
-        return torch.clamp(r, p.min_trust_region_radius, p.max_trust_region_radius)
-
-    radius = clamp(trust_radius)
-    step, step_norm, pred = compute_dogleg_step(H, g, radius)
-    T_c = lie.compose(T, lie.se3_exp(step))
-    new_err, new_inl = error_fn(T_c)
-    rho = (cur_err - new_err) / torch.clamp_min(pred, 1e-30)
-    reject = (pred <= 0.0) | (rho < p.eta1)
-    grow = (rho > p.eta2) & (step_norm >= radius * 0.99)
-    trust_next = clamp(
-        torch.where(reject, radius * p.gamma_decrease, torch.where(grow, radius * p.gamma_increase, radius))
-    )
-    return _Step(
-        T=_pick(reject, T, T_c),
-        conv=(~reject) & _is_converged(params, step),
-        err=torch.where(reject, cur_err, new_err),
-        inlier=torch.where(reject, inlier, new_inl),
-        lam=None,
-        trust=trust_next,
-        step=_pick(reject, torch.zeros_like(step), step),
-        accepted=~reject,
-    )
-
-
 def align_streams(
     source: PointCloud,
     target: PointCloud,
@@ -677,13 +701,13 @@ def align_streams(
     every field has the leading stream axis; stream ``b``'s equal what
     :func:`align` returns for it. Each iteration runs every stream still
     active through one batched ``nn1`` launch and one linearization, and
-    ends in one host read of "any stream still active"."""
-    if params.degenerate_reg is not None:
-        raise NotImplementedError("degenerate regularization is not ported yet")
-    if params.rotation_constraint.enable:
-        raise NotImplementedError("the rotation constraint is not ported yet")
-    if params.coarse_to_fine_iters > 0:
-        raise NotImplementedError("the coarse-to-fine correspondence schedule is not ported yet")
+    ends in one host read of "any stream still active".
+
+    The coarse phase is the loop's first ``coarse_to_fine_iters``
+    iterations for every stream: a coarse iteration cannot converge and
+    levels change by count, so no stream ends inside it except at the
+    iteration budget, and every active stream has run every iteration. The
+    host read of a coarse iteration asserts this at no extra cost."""
     method = params.optimization_method
     if method not in ("gauss_newton", "levenberg_marquardt", "powell_dogleg"):
         raise ValueError(method)
@@ -692,14 +716,18 @@ def align_streams(
     B = source.points.shape[0]
     T = (torch.eye(4, dtype=_F32, device=dev).expand(B, 4, 4) if initial_guess is None
          else initial_guess.to(device=dev, dtype=_F32))
-    geo = [g for g, _ in robust_schedule] if robust_schedule else [params.robust.default_scale]
+    T_initial = T
+    geo, rot = _scales(params, robust_schedule, None, None)
     geo_scales = torch.tensor(geo, dtype=_F32, device=dev)
+    rot_scales = torch.tensor(rot, dtype=_F32, device=dev)
     n_levels = len(geo)
     max_total = params.max_iterations * n_levels
+    rotc = params.rotation_constraint.enable
 
     src_covs_reg, tgt = _precompute_targets(params, source, target)
     src_pts, src_mask = source.points, source.mask
     target_knn = target_knn.prepped()
+    knn_coarse = _coarse_knn(params, target_knn)
 
     def full(value, dtype=_F32):
         return torch.full((B,), value, dtype=dtype, device=dev)
@@ -716,23 +744,32 @@ def align_streams(
     total_it = full(0, torch.int64)
     level = full(0, torch.int64)
     active = full(max_total > 0, torch.bool)
+    loops = 0
 
     while max_total > 0:
-        r_scale = geo_scales[level][:, None]
-        corr = _correspondences(params, target_knn, src_pts, src_mask, T, tgt)
+        r_scale, rot_s = geo_scales[level][:, None], rot_scales[level][:, None]
+        coarse = knn_coarse is not None and loops < params.coarse_to_fine_iters
+        corr = _search(params, target_knn, knn_coarse, coarse, src_pts, src_mask, T, tgt)
         alpha = (_genz_alpha(corr) if params.reg_type is RegType.GENZ else full(1.0))[:, None]
         lin = _linearize(params, T, src_pts, src_covs_reg, corr, r_scale, alpha)
+        if rotc:
+            lin = add_rotation_constraint(params, lin, T, source.covs, corr, rot_s)
         lin_raw = lin
+        lin = regularize(params.degenerate_reg, lin, T, T_initial)
         if map_prior is not None:
             lin = map_prior.apply(lin, T)
 
-        def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale):
+        def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale, rot_s=rot_s):
             if T_c.dim() == 4:  # the LM sweep: [B, C, 4, 4] against [B, 1, N, ...]
                 c = _Targets(*(None if f is None else f[:, None] for f in corr[:6]))
                 err, _ = _error_at(params, T_c, src_pts[:, None], None if src_covs_reg is None
                                    else src_covs_reg[:, None], c, r_scale[:, None], alpha[:, None])
+                if rotc:
+                    err = err + rotation_constraint_error(params, T_c, source.covs[:, None], c, rot_s[:, None])
             else:
                 err, _ = _error_at(params, T_c, src_pts, src_covs_reg, corr, r_scale, alpha)
+                if rotc:
+                    err = err + rotation_constraint_error(params, T_c, source.covs, corr, rot_s)
             if map_prior is not None:
                 err = err + map_prior.prior_error(T_c)
             return err, corr.mask.sum(-1, dtype=torch.int32)
@@ -745,12 +782,12 @@ def align_streams(
             step = _lm_step_streams(params, T, lin.H, lin.b, lin.error, lin.inlier, lm_lambda, error_fn, active)
             lm_lambda = torch.where(active, step.lam, lm_lambda)
         else:
-            step = _dogleg_step_streams(params, T, lin.H, lin.b, lin.error, lin.inlier, trust, error_fn)
+            step = _dogleg_step(params, T, lin.H, lin.b, lin.error, lin.inlier, trust, error_fn)
             trust = torch.where(active, step.trust, trust)
 
         # commit the active streams; a stream that is done keeps its carry
         T = _pick(active, step.T, T)
-        conv = torch.where(active, step.conv, conv)
+        conv = torch.where(active, step.conv & (not coarse), conv)
         error = torch.where(active, step.err, error)
         inlier = torch.where(active, step.inlier, inlier)
         H, g = _pick(active, lin.H, H), _pick(active, lin.b, g)
@@ -768,13 +805,21 @@ def align_streams(
         lm_lambda = torch.where(advance, params.lm.init_lambda, lm_lambda)
         trust = torch.where(advance, params.dogleg.initial_trust_region_radius, trust)
         active = active & ~(level_end & last) & (total_it < max_total)
-        if not to_host(active.any()):
+        loops += 1
+        if coarse:
+            any_active, strays = to_host(torch.stack([active.any(), (active & (total_it != loops)).any()]))
+            if strays:
+                raise AssertionError("a stream left the coarse phase out of step with the loop")
+        else:
+            any_active = to_host(active.any())
+        if not any_active:
             break
 
     return RegistrationResult(
         T=T, converged=conv, iterations=total_it.to(torch.int32),
         H=H, b=g, error=error, inlier=inlier,
         H_raw=H_raw, b_raw=b_raw, error_raw=error_raw,
+        coarse_iterations=min(loops, params.coarse_to_fine_iters) if knn_coarse is not None else 0,
     )
 
 
@@ -801,13 +846,14 @@ def compute_linearized_result(
     initial_pose: Optional[torch.Tensor] = None,
     robust_scale=None,
 ) -> LinearizedResult:
-    """One correspondence search and linearization at ``pose``. Degenerate
-    regularization toward ``initial_pose`` is not ported yet."""
-    if params.degenerate_reg is not None and initial_pose is not None:
-        raise NotImplementedError("degenerate regularization is not ported yet")
+    """One correspondence search and linearization at ``pose``, with nl_reg
+    toward ``initial_pose`` when both are given."""
     r_scale, src_covs_reg, corr, alpha = _linearization_inputs(
         params, source, target, target_knn, pose, robust_scale)
-    return _linearize(params, pose, source.points, src_covs_reg, corr, r_scale, alpha)
+    lin = _linearize(params, pose, source.points, src_covs_reg, corr, r_scale, alpha)
+    if initial_pose is not None:
+        lin = regularize(params.degenerate_reg, lin, pose, initial_pose)
+    return lin
 
 
 def compute_icp_robust_weights(

@@ -21,6 +21,8 @@ a stream and their plain versions bit for bit, at the fleet's shapes (8
 streams of 1,000 queries against 16,384-row targets of different valid
 counts, one stream every target masked; 8 x 5,000 and 8 x 16,384 rows
 searched in themselves), on an odd target count, and with exact ties.
+The coarse-to-fine schedule's strided target (every 4th row, a partial
+tail tile) goes through both entries bit-equal to the plain versions.
 
 The cluster kernels split the target into 1 to 16 slices of whole
 512-target tiles, the count chosen from Q; the cases below put M off both,
@@ -152,6 +154,33 @@ def test_nn1_prepped_equals_nn1():
     b = cuda_knn.nn1(tgt, mask, qry, pose)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("m", [16384, 10001, 4099])
+def test_nn1_on_the_coarse_target_matches_plain(m):
+    """The coarse-to-fine schedule's target: every 4th row of the target,
+    made contiguous (ceil(m / 4) rows: 4,096, whole tiles, at the odometry
+    frame's 16,384; 2,501 and 1,025, a partial tail tile, otherwise)."""
+    tgt, mask = _cloud(m, 35, masked_every=3)
+    coarse, cmask = tgt[::4].contiguous(), mask[::4].contiguous()
+    assert coarse.shape[0] == -(-m // 4)
+    qry, _ = _cloud(30000, 36)
+    pose = _pose()
+    i, d = cuda_knn.nn1_prepped(cuda_knn.prep_target(coarse, cmask), qry, pose)
+    ri, rd = cuda_knn.nn1_plain(coarse, cmask, qry, pose)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    # an index times the stride is the full target's row of that point
+    assert torch.equal(tgt[i.long() * 4], coarse[i.long()])
+    B = 4
+    pts, bmask = _fleet_targets(B, m, 37)
+    bc, bcm = pts[:, ::4].contiguous(), bmask[:, ::4].contiguous()
+    qb = torch.stack([_cloud(1000, 70 + b)[0] for b in range(B)])
+    poses = _pose().expand(B, 4, 4).contiguous()
+    bi, bd = cuda_knn.nn1_prepped_batched(cuda_knn.prep_targets(bc, bcm), qb, poses)
+    ri, rd = cuda_knn.nn1_batched_plain(bc, bcm, qb, poses)
+    torch.cuda.synchronize()
+    assert torch.equal(bi, ri) and torch.equal(bd, rd)
 
 
 def test_nn1_empty():

@@ -19,8 +19,10 @@
     on its scans and IMU, its generators seeded as ``stream_seeds(0, s,
     inertial=True)``: every pose, the final state and covariance bit for
     bit, the same result types, the maps equal as sets of voxels.
-  * The refusals: the initial alignment, the IMU deskew, ``mesh=`` and the
-    registration branches of ROADMAP Queue 1 item 10a.
+  * The refusals: the initial alignment (which JAX refuses too), the IMU
+    deskew and ``mesh=``; the rotation constraint and coarse-to-fine,
+    refused before they were ported, run (coarse-to-fine leaves every bit
+    as it was: it is no branch of the LIO solve, as in JAX).
   * Zero-loss growth with the LIO stats layout (the JAX
     ``test_fleet_growth_zero_loss`` on ``FleetLIO``): a 2^10-slot fleet at 8
     probes a key drops on a frame after the first, retries it on the grown
@@ -372,13 +374,29 @@ def test_fleet_lio_refusals():
             imu, deskew=dataclasses.replace(imu.deskew, enable=True))), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         FleetLIO(p, n_streams=2, mesh=object(), device="cpu")
+    # the rotation constraint and coarse-to-fine, which FleetLIO refused
+    # before they were ported, run; coarse-to-fine is no branch of the LIO
+    # solve (as in JAX), so it leaves every bit as it was
     factor = p.registration.factor
-    for changed in (dataclasses.replace(factor, rotation_constraint=dataclasses.replace(
-                        factor.rotation_constraint, enable=True)),
-                    dataclasses.replace(factor, coarse_to_fine_iters=2)):
-        bad = dataclasses.replace(p, registration=dataclasses.replace(p.registration, factor=changed))
-        with pytest.raises(NotImplementedError, match="item 10a"):
-            FleetLIO(bad, device="cpu")
+    world = make_world()
+    starts = [np.eye(4, dtype=np.float32), lie_np.se3_exp(np.array([0, 0, 0.3, 0.5, 2.0, 0])).astype(np.float32)]
+    frames = [_stack_pts([scan_at(world, T @ lie_np.se3_exp(np.array([0, 0, 0, 0.2 * i, 0, 0])).astype(np.float32))
+                          for T in starts]) for i in range(3)]
+    poses = {}
+    for name, changed in (("plain", factor),
+                          ("rotation constraint", dataclasses.replace(factor, rotation_constraint=dataclasses.replace(
+                              factor.rotation_constraint, enable=True))),
+                          ("coarse-to-fine", dataclasses.replace(factor, coarse_to_fine_iters=2))):
+        fleet = FleetLIO(dataclasses.replace(p, registration=dataclasses.replace(p.registration, factor=changed)),
+                         n_streams=2, initial_poses=np.stack(starts), device="cpu")
+        _feed_both((fleet,), 2, -0.2, FRAME_DT * len(frames) + 0.01, _level_imu)
+        for i, frame in enumerate(frames):
+            fleet.process_batch(frame, 10.0 + FRAME_DT * i)
+        fleet.flush()
+        assert all(rt.value == "success" for s in range(2) for _, rt in fleet.deferred_results[s]), name
+        poses[name] = np.stack([fleet.get_odometry(s) for s in range(2)])
+    _eq(poses["coarse-to-fine"], poses["plain"])
+    assert not np.array_equal(poses["rotation constraint"], poses["plain"])
     fleet = FleetLIO(p, n_streams=2, device="cpu")
     assert fleet.precompile_growth(1 << 20) == 0
     with pytest.raises(ValueError, match="2 streams"):

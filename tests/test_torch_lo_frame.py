@@ -576,6 +576,40 @@ def _run_occupancy():
         and int(overflow) == 0 and 0 < float(load) < 0.7
 
 
+def _run_registration_option(option):
+    """LidarOdometry with one registration option on: two frames 0.2 m
+    apart, the second a success within 0.1 m of the truth (the bound of the
+    frame tests above; with the intensity-weighted draw on these random
+    intensities the port lands 6.3 cm off and JAX 9.8 cm)."""
+    from sycl_points_tpu_torch.registration.degenerate import DegenerateRegularizationParams
+    from sycl_points_tpu_torch.registration.registration import RotationConstraintParams
+
+    base = _tp()
+    factor = base.registration.factor
+    changes = {
+        "rotation-constraint": dict(factor=dataclasses.replace(
+            factor, rotation_constraint=RotationConstraintParams(enable=True, weight=0.5))),
+        "nl-reg": dict(factor=dataclasses.replace(factor, degenerate_reg=DegenerateRegularizationParams(type="nl_reg"))),
+        "coarse-to-fine": dict(factor=dataclasses.replace(factor, coarse_to_fine_iters=4, max_iterations=20)),
+        "intensity-sampling": {},
+    }[option]
+    params = dataclasses.replace(base, registration=dataclasses.replace(base.registration, **changes))
+    if option == "intensity-sampling":
+        params = dataclasses.replace(params, registration_sampling=dataclasses.replace(
+            params.registration_sampling, use_intensities=True))
+    lo = t_lo.LidarOdometry(params, device="cpu")
+    poses = [np.eye(4, dtype=np.float32), lie_np.se3_exp(np.array([0, 0, 0.02, 0.2, 0, 0])).astype(np.float32)]
+    results = []
+    for i, T in enumerate(poses):
+        pts = scan_at(make_world(), T)
+        inten = np.random.default_rng(i).uniform(0.1, 1.0, len(pts)).astype(np.float32)
+        results.append(lo.process(cloud_from_numpy({"points": pts, "intensities": inten}, capacity=4096,
+                                                   device="cpu"), 0.1 * (i + 1)))
+    trans, _ = pose_gap(lo.get_odometry(), poses[-1])
+    coarse_ok = lo.reg_result.coarse_iterations == (4 if option == "coarse-to-fine" else 0)
+    return results == [t_lo.ResultType.first_frame, t_lo.ResultType.success] and trans < 0.1 and coarse_ok
+
+
 def _run_intensity_ops():
     """The Gaussian smoothing and the local-mean normalization run on the
     k-NN context."""
@@ -591,6 +625,9 @@ def _run_intensity_ops():
     return ctx.knn is not None and not torch.allclose(out.intensities, pre.intensities)
 
 
+REGISTRATION_OPTIONS = ("rotation-constraint", "nl-reg", "coarse-to-fine", "intensity-sampling")
+
+
 @pytest.mark.parametrize("make,message", [
     (_run_default_params, None),
     (_run_polar, None),
@@ -601,12 +638,14 @@ def _run_intensity_ops():
      r"raw range-image covariance path is not ported yet \(ROADMAP Queue 1 item 10\)"),
     (_run_intensity_ops, None),
     (_run_imu_deskew, None),
+    *((lambda option=option: _run_registration_option(option), None) for option in REGISTRATION_OPTIONS),
 ], ids=["default-params", "polar", "occupancy", "imu", "velocity-update", "raw-range-image", "intensity-ops",
-        "imu-deskew"])
+        "imu-deskew", *REGISTRATION_OPTIONS])
 def test_not_ported_yet(make, message):
     """What is not ported raises by its message; the branches ported since
     (the default parameter tree, polar downsampling, the occupancy grid, the
-    IMU, the velocity update, the intensity ops, the IMU deskew) run."""
+    IMU, the velocity update, the intensity ops, the IMU deskew, the
+    registration options) run."""
     if message is None:
         assert make()
         return

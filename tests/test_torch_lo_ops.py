@@ -55,6 +55,7 @@ from sycl_points_tpu.ops.knn import BruteForceKNN as JBruteForceKNN, approx_knn 
 from sycl_points_tpu.ops.robust import RobustLossType as JLoss  # noqa: E402
 from sycl_points_tpu.pipeline import motion_predictor as j_mp  # noqa: E402
 from sycl_points_tpu.pipeline import params as j_params  # noqa: E402
+from sycl_points_tpu.registration import degenerate as j_degen  # noqa: E402
 from sycl_points_tpu.registration import map_prior as j_prior  # noqa: E402
 from sycl_points_tpu.registration import registration as j_reg  # noqa: E402
 from sycl_points_tpu.registration.factors import RegType as JRegType  # noqa: E402
@@ -326,10 +327,16 @@ def test_compute_linearized_result(pair):
     _close_rel(tl.b, jl.b, rtol=5e-3)
     np.testing.assert_allclose(float(tl.error), float(jl.error), rtol=1e-4)
     assert int(tl.inlier) == int(jl.inlier)
-    with pytest.raises(NotImplementedError, match="degenerate regularization is not ported yet"):
-        t_reg.compute_linearized_result(
-            ts, tt, TBruteForceKNN.build(tt), both(T_gt)[1],
-            dataclasses.replace(params_from_reference(params), degenerate_reg=object()), initial_pose=both(T_gt)[1])
+    # nl_reg toward an initial pose, as in JAX
+    nl = dataclasses.replace(params, degenerate_reg=j_degen.DegenerateRegularizationParams(
+        type="nl_reg", rot_eigenvalue_threshold=1e4, trans_eigenvalue_threshold=1e3))
+    T_init = both(T_gt @ j_lie_np.se3_exp(np.array([0.01, 0, 0, 0.1, 0, 0])).astype(np.float32))
+    jn = j_reg.compute_linearized_result(js, jt, JBruteForceKNN.build(jt), both(T_gt)[0], nl, initial_pose=T_init[0])
+    tn = t_reg.compute_linearized_result(ts, tt, TBruteForceKNN.build(tt), both(T_gt)[1], params_from_reference(nl),
+                                         initial_pose=T_init[1])
+    _close_rel(tn.H, jn.H)
+    _close_rel(tn.b, jn.b, rtol=5e-3)
+    assert not np.allclose(np_(tn.H), np_(tl.H))  # the penalty acted
 
 
 def _prior_inputs(rng, inlier=800, error_raw=950.0):

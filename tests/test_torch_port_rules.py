@@ -93,6 +93,9 @@ def forbidden_imports(source: str) -> list:
 def test_port_imports_nothing_of_the_jax_side():
     files = sorted((ROOT / "sycl_points_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    walked = {str(f.relative_to(ROOT)) for f in files}
+    assert {"sycl_points_tpu_torch/registration/degenerate.py",
+            "sycl_points_tpu_torch/registration/rotation_constraint.py"} <= walked
     bad = {str(f.relative_to(ROOT)): forbidden_imports(f.read_text()) for f in files}
     assert not {f: b for f, b in bad.items() if b}
 

@@ -162,18 +162,28 @@ def test_align_pipeline_with_jax_scores(pair):
 
 
 def test_unported_options_raise(pair):
-    _, _, ts, tt, _ = pair
+    """The options that raised before they were ported now run, each to
+    JAX's pose within POSE_ATOL (nl_reg at its defaults holds this pair's
+    1 m motion near the initial guess in both packages; the options' own
+    parity tests: tests/test_torch_registration_options.py)."""
+    js, jt, ts, tt, _ = pair
     knn = TBruteForceKNN.build(tt)
-    base = params_from_reference(_params("gauss_newton"))
+    jbase = _params("gauss_newton")
+    base = params_from_reference(jbase)
     import dataclasses
 
-    for bad in (
+    from sycl_points_tpu.registration.degenerate import DegenerateRegularizationParams
+
+    for option in (
         dict(coarse_to_fine_iters=2),
-        dict(rotation_constraint=t_reg.RotationConstraintParams(enable=True)),
-        dict(degenerate_reg=object()),
+        dict(rotation_constraint=j_reg.RotationConstraintParams(enable=True)),
+        dict(degenerate_reg=DegenerateRegularizationParams(type="nl_reg")),
     ):
-        with pytest.raises(NotImplementedError):
-            t_reg.align(ts, tt, knn, dataclasses.replace(base, **bad))
+        jp = dataclasses.replace(jbase, **option)
+        jres = j_reg.align(js, jt, JBruteForceKNN.build(jt), jp)
+        res = t_reg.align(ts, tt, knn, params_from_reference(jp))
+        np.testing.assert_allclose(np_(res.T), np_(jres.T), rtol=0, atol=POSE_ATOL, err_msg=str(option))
+        assert res.coarse_iterations == (2 if "coarse_to_fine_iters" in option else 0)
     # the velocity update (VICP) is ported: on a source without timestamps it
     # is the plain pipeline, as in the JAX package
     params = t_pipeline.RegistrationPipelineParams(registration=base)
