@@ -17,8 +17,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
-from collections import defaultdict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -41,6 +39,7 @@ from sycl_points_tpu_torch.registration.pipeline import (
     align_pipeline,
 )
 from sycl_points_tpu_torch.registration.registration import RegistrationParams, RobustParams
+from sycl_points_tpu_torch.utils.timing import StageTimer
 
 BOX_MIN, BOX_MAX = 0.5, 50.0
 
@@ -108,28 +107,6 @@ def register_pair(
     return PairResult(out, src, tgt)
 
 
-class StageTimer:
-    """Per-stage wall times; synchronizes the device around each stage."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.times = defaultdict(list)
-
-    def measure(self, name, fn):
-        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        self.times[name].append(time.perf_counter() - t0)
-        return out
-
-    def report(self) -> str:
-        return "\n".join(
-            f"{name}: {np.mean(ts) * 1e6:.0f} us (n={len(ts)})" for name, ts in sorted(self.times.items())
-        )
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("source")
@@ -150,10 +127,10 @@ def main(argv=None):
     cap = voxel_capacity((src_raw, tgt_raw), args.voxel)
     generator = torch.Generator(device=device).manual_seed(1234)
 
-    timer = StageTimer(device)
+    timer = StageTimer()
     T = None
     for i in range(args.loops + args.warmup):
-        tm = timer if i >= args.warmup else StageTimer(device)
+        tm = timer if i >= args.warmup else StageTimer()
         sd = tm.measure("2. Downsampling", lambda: downsample(src_raw, args.voxel, cap))
         td = tm.measure("2. Downsampling", lambda: downsample(tgt_raw, args.voxel, cap))
         sk = tm.measure("4. kNN Search", lambda: self_knn(sd.points, sd.mask, args.k))

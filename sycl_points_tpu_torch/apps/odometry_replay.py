@@ -68,6 +68,7 @@ from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, ret
 FRAME_DT = 0.1  # a 10 Hz sensor
 IMU_HZ = 400
 FRAME_SPAN = "replay.frame"  # the profiler span around each timed frame
+FRAME_KERNELS = ("nn1", "knn_k", "range_image")  # the kernels a frame may launch
 
 
 def replay_params(initial_pose: np.ndarray, map_capacity: int = 1 << 17,
@@ -177,7 +178,8 @@ def timed_process(odo, scan: PointCloud, t: float, device: torch.device, synchro
     span ``FRAME_SPAN``; with ``synchronize`` the device is drained before
     and after, so the time is the frame's whole device work (a pipelined
     frame is timed without: its work may run on under the next frame).
-    Returns the result, its ms and the ``nn1`` / ``knn_k`` launches it made."""
+    Returns the result, its ms and the ``nn1`` / ``knn_k`` / ``range_image``
+    launches it made."""
     sync_dev = synchronize and device.type == "cuda"
     before = dict(cuda_knn.launch_counts)
     if sync_dev:
@@ -188,7 +190,7 @@ def timed_process(odo, scan: PointCloud, t: float, device: torch.device, synchro
         if sync_dev:
             torch.cuda.synchronize(device)
         ms = (time.perf_counter() - t0) * 1e3
-    return result, ms, {k: cuda_knn.launch_counts[k] - before[k] for k in ("nn1", "knn_k")}
+    return result, ms, {k: cuda_knn.launch_counts[k] - before[k] for k in FRAME_KERNELS}
 
 
 def pipelined_rows(odo, scans, times, device: torch.device, before: Optional[Callable] = None) -> tuple[list, float]:
@@ -234,11 +236,12 @@ def run_pipelined_replay(params: LidarOdometryParams, poses, scans, device: torc
 
 
 def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device | str = "cuda",
-               sync_stage_times: bool = False, imu: Optional[Callable] = None) -> dict:
+               sync_stage_times: bool = False, imu: Optional[Callable] = None, seed: Optional[int] = None) -> dict:
     """Drive ``LidarOdometry.process`` over ``scans`` at 10 Hz, frame ``i`` at
     ``t = 0.1 (i + 1)``. ``imu`` (as :func:`feed_imu` takes it), when given,
-    is fed up to each frame's time. Each frame is timed by
-    :func:`timed_process`. Returns the odometry object, per-frame rows
+    is fed up to each frame's time. ``seed``, when given, reseeds the scan's
+    and the submap's samplers (another sampling stream than the package's
+    fixed seeds). Each frame is timed by :func:`timed_process`. Returns the odometry object, per-frame rows
     (result, ms, iterations, inliers, keyframe flag, map load, target size,
     slots used, occupied voxels, kernel launches, host syncs and their
     sources, stage times),
@@ -246,6 +249,9 @@ def run_replay(params: LidarOdometryParams, poses, scans, device: torch.device |
     device = require_device(device)
     lo = LidarOdometry(params, device=device)
     lo.sync_stage_times = sync_stage_times
+    if seed is not None:
+        for k, gen in enumerate((lo.pc_processor._generator, lo.submap._generator)):
+            gen.manual_seed(seed + k)
     rows, estimated, fed_to = [], [], None
     for i, scan in enumerate(scans):
         if imu is not None:

@@ -27,6 +27,10 @@ queries already moved by the pose: ``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8
 or 32 lanes a query) and ``nn1_unroll2`` (v3). Every 1-NN kernel equals
 :func:`nn1_plain`.
 
+``csrc/range_image.cu`` holds the range-image window search of the raw
+scans; its wrapper is :func:`..range_image_knn.range_image_window`, which
+counts its launches here under ``range_image``.
+
 On first use every source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` (one ``nvcc`` a source, all started together) and linked into one
 shared library with a plain C interface under ``_build/``, keyed by a hash of
@@ -81,7 +85,7 @@ NN1_LANES = (8, 32)
 # Kernel launches per wrapper; reset with reset_launch_counts().
 launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
-    "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0,
+    "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -157,9 +161,11 @@ def load_library() -> ctypes.CDLL:
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
+            lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, p, p, p]
             for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_batched, lib.spt_knn_k_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled,
-                       lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2):
+                       lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
+                       lib.spt_range_image_window):
                 fn.restype = i
             _lib = lib
     return _lib

@@ -16,6 +16,11 @@ class RobustLossType(enum.Enum):
     CAUCHY = "cauchy"
     GEMAN_MCCLURE = "geman_mcclure"
 
+    @staticmethod
+    def from_string(s: str) -> "RobustLossType":
+        """The loss named ``s`` (any case)."""
+        return RobustLossType[s.strip().upper()]
+
 
 def compute_weight(loss: RobustLossType, residual_norm: torch.Tensor, scale) -> torch.Tensor:
     """IRLS weight w(r) in [0, 1]; w=1 below the 1e-8 residual floor."""

@@ -1,5 +1,5 @@
-"""Random point sampling (counterpart of :mod:`sycl_points_tpu.ops.sampling`;
-farthest-point sampling is not ported yet).
+"""Point sampling (counterpart of :mod:`sycl_points_tpu.ops.sampling`):
+random, weighted and mixed sampling, and farthest-point sampling.
 
 Sampling without replacement is a Gumbel top-k: uniform over the valid
 points, or weighted (Efraimidis-Spirakis: ``log w`` plus the noise). The
@@ -139,3 +139,32 @@ def random_sampling_streams(cloud: PointCloud, num: int, generators) -> PointClo
     if num >= cloud.capacity:
         return cloud
     return sample_by_scores(cloud, num, stream_noise(generators, cloud.capacity, cloud.device))
+
+
+def farthest_point_sampling(cloud: PointCloud, num: int, generator: torch.Generator) -> PointCloud:
+    """Iterative farthest-point sampling to ``num`` points: the first is the
+    valid point of highest uniform noise drawn from ``generator``; each next
+    one is the valid point farthest from those taken (the first of equal
+    distances). A request that covers the whole capacity returns the cloud
+    unchanged; slots beyond the valid count are masked."""
+    if num >= cloud.capacity:
+        return cloud
+    u = torch.rand(cloud.capacity, generator=generator, device=cloud.device)
+    return _farthest_point_sampling(cloud, num, torch.argmax(torch.where(cloud.mask, u, -1.0)))
+
+
+def _farthest_point_sampling(cloud: PointCloud, num: int, first: torch.Tensor) -> PointCloud:
+    """:func:`farthest_point_sampling` from the given first index (a 0-dim
+    device tensor): ``num - 1`` rounds of a distance update and an argmax,
+    queued with no host read."""
+    pts, valid = cloud.points, cloud.mask
+    sel = torch.zeros(num, dtype=torch.int64, device=cloud.device)
+    sel[0] = first
+    min_d = torch.where(valid, torch.inf, -1.0)
+    for i in range(1, num):
+        e = pts - pts.index_select(0, sel[i - 1:i])
+        min_d = torch.where(valid, torch.minimum(min_d, e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]),
+                            -1.0)
+        sel[i] = torch.argmax(min_d)
+    taken = torch.arange(num, device=cloud.device) < valid.sum()
+    return _take(cloud, sel, taken)

@@ -192,8 +192,8 @@ class CovarianceEstimationParams:
     neighbor_num: int = 10
     m_estimation: MEstimationParams = MEstimationParams()
     # Raw-features path: covariances estimated on the raw sensor-frame scan
-    # with a range-image neighbourhood search and carried through the voxel
-    # downsample. Not ported yet (ROADMAP Queue 1 item 10).
+    # with a range-image neighbourhood search (ops/range_image_knn.py) and
+    # carried through the polar and voxel downsampling.
     raw_range_image: bool = False
     range_image_n_az: int = 2048
     range_image_n_rings: int = 64

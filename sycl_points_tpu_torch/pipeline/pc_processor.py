@@ -1,21 +1,28 @@
 """Scan preprocessing (PCProcessor).
 
 Counterpart of :mod:`sycl_points_tpu.pipeline.pc_processor`: the prefilter
-chain (box -> polar grid -> voxel grid -> random sampling), the k-NN context,
-the covariance estimation (robust or plain), the refine filter (angle of
-incidence, intensity correction, directional Gaussian smoothing, local-mean
-normalization; the last two reuse the k-NN context), and the IMU deskew of
-the raw scan. Every stage runs on the processor's device and none waits on
+chain (box -> raw-features covariances -> polar grid -> voxel grid -> random
+sampling), the k-NN context, the covariance estimation (robust or plain), the
+refine filter (angle of incidence, intensity correction, directional Gaussian
+smoothing, local-mean normalization; the last two reuse the k-NN context),
+and the IMU deskew of the raw scan. Every stage runs on the processor's device and none waits on
 the host. ``prepare_context`` is the ``knn_k`` kernel on the card.
+
+With ``covariance_estimation.raw_range_image`` the covariances come from the
+raw scan, after the box filter: its range-image neighbourhoods
+(:func:`..ops.range_image_knn.range_image_knn`, the ``range_image`` kernel on
+the card) feed the plain or robust estimator, the polar and voxel stages
+carry them as the mean of their members' covariances, ``prepare_context``
+searches no k-NN unless a refine op needs one, and ``compute_covariances``
+passes the cloud through.
 
 :meth:`PCProcessor.preprocess_streams` is the fleet's preprocess (the
 JAX fleet's vmapped ``_pre_fn``): the prefilter (the polar grid included),
 the k-NN context, covariances and the refine filter (the intensity ops
 included) for a fleet's clouds ``[B, N]`` in one pass, stream ``b``'s random
-stage drawing from its own generator.
-
-Not ported yet: the raw range-image covariances (ROADMAP Queue 1 item 10),
-which raise ``NotImplementedError`` when the flag asks for them.
+stage drawing from its own generator. The JAX fleet recomputes the
+covariances after its prefilter whenever it needs them, which overwrites the
+raw-features ones; the fleet here skips that discarded range-image pass.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from sycl_points_tpu_torch.ops.covariance import estimate_covariances, estimate_
 from sycl_points_tpu_torch.ops.filters import angle_incidence_filter, box_filter
 from sycl_points_tpu_torch.ops.knn import KNNResult, self_knn, self_knn_streams
 from sycl_points_tpu_torch.ops.polar import CoordinateSystem, polar_downsample
+from sycl_points_tpu_torch.ops.range_image_knn import range_image_knn
 from sycl_points_tpu_torch.ops.sampling import random_sampling, random_sampling_streams
 from sycl_points_tpu_torch.ops.voxel import voxel_downsample
 from sycl_points_tpu_torch.pipeline.params import CommonParameters
@@ -51,29 +59,31 @@ class PCProcessor:
         self.params = params
         self.device = require_device(device)
         self._generator = torch.Generator(device=self.device).manual_seed(SEED)
-        if params.covariance_estimation.raw_range_image:
-            raise NotImplementedError(
-                "the raw range-image covariance path is not ported yet (ROADMAP Queue 1 item 10)")
 
     # -- the fleet ----------------------------------------------------------
     def preprocess_streams(self, clouds: PointCloud, generators, need_covs: bool = True) -> PointCloud:
         """The prefilter, then (``need_covs``) the k-NN context, covariances
         and refine filter, for a fleet's clouds ``[B, N]``; stream ``b``'s
         random stage draws from ``generators[b]``."""
-        c = self.prefilter(clouds, generators)
+        # with need_covs the covariances are estimated anew after the
+        # prefilter, as in the JAX fleet: a raw-features pass would be discarded
+        c = self.prefilter(clouds, generators, raw_covariances=not need_covs)
         if need_covs:
             ctx = self.prepare_context(c)
             c = self.refine_filter(self.compute_covariances(c, ctx), ctx)
         return c
 
     # -- prefilter ----------------------------------------------------------
-    def prefilter(self, cloud: PointCloud, generators=None) -> PointCloud:
+    def prefilter(self, cloud: PointCloud, generators=None, raw_covariances: bool = True) -> PointCloud:
         """The prefilter chain; a fleet's clouds ``[B, N]`` take one
-        generator a stream for the random stage."""
+        generator a stream for the random stage. ``raw_covariances=False``
+        skips the raw-features covariances."""
         p = self.params.scan
         c = cloud
         if p.preprocess.box_filter.enable:
             c = box_filter(c, p.preprocess.box_filter.min, p.preprocess.box_filter.max)
+        if self.params.covariance_estimation.raw_range_image and raw_covariances:
+            c = c.replace(covs=self._range_image_covariances(c))
         cap = min(self.params.scan_capacity, c.capacity)
         polar = p.downsampling.polar
         if polar.enable:
@@ -95,6 +105,25 @@ class PCProcessor:
                 c = random_sampling(c, p.downsampling.random.num, self._generator)
         return c
 
+    def _range_image_covariances(self, cloud: PointCloud) -> torch.Tensor:
+        """The covariances of the raw scan from its range-image
+        neighbourhoods, one stream at a time for a fleet's clouds."""
+        if cloud.points.dim() == 3:
+            return torch.stack([self._range_image_covariances(PointCloud(points=p, mask=m))
+                                for p, m in zip(cloud.points, cloud.mask)])
+        ce = self.params.covariance_estimation
+        rr = range_image_knn(cloud.points, cloud.mask, ce.neighbor_num, n_az=ce.range_image_n_az,
+                             n_rings=ce.range_image_n_rings, window_az=ce.range_image_window_az,
+                             window_el=ce.range_image_window_el)
+        return self._covariances(cloud.points, rr.knn)
+
+    def _covariances(self, points: torch.Tensor, knn: KNNResult) -> torch.Tensor:
+        me = self.params.covariance_estimation.m_estimation
+        if me.enable:
+            return estimate_covariances_robust(points, knn, me.type, me.mad_scale, me.min_robust_scale,
+                                               me.max_iterations)
+        return estimate_covariances(points, knn)
+
     # -- covariance context --------------------------------------------------
     def prepare_context(self, cloud: PointCloud) -> ProcessingContext:
         """The exact self-k-NN of the preprocessed cloud; none when the
@@ -111,15 +140,8 @@ class PCProcessor:
 
     def compute_covariances(self, cloud: PointCloud, ctx: ProcessingContext) -> PointCloud:
         if cloud.covs is not None:
-            return cloud
-        me = self.params.covariance_estimation.m_estimation
-        if me.enable:
-            covs = estimate_covariances_robust(
-                cloud.points, ctx.knn, me.type, me.mad_scale, me.min_robust_scale, me.max_iterations
-            )
-        else:
-            covs = estimate_covariances(cloud.points, ctx.knn)
-        return cloud.replace(covs=covs)
+            return cloud  # the raw-features path: estimated and carried already
+        return cloud.replace(covs=self._covariances(cloud.points, ctx.knn))
 
     # -- refine filter -------------------------------------------------------
     def refine_filter(self, cloud: PointCloud, ctx: ProcessingContext) -> PointCloud:

@@ -8,10 +8,9 @@ The port's own copy of the message boundary of
     intensity, time, rgb, ring, ambient where present);
   * :func:`to_structured_array` / :func:`to_pointcloud2_bytes` pack a cloud
     dict back;
-  * :func:`read_kitti_bin` loads KITTI Velodyne ``.bin`` scans.
-
-The Ouster reflectivity corrector of the JAX module is not copied: nothing in
-the port calls it.
+  * :func:`read_kitti_bin` loads KITTI Velodyne ``.bin`` scans;
+  * :class:`EnhancedReflectivityCorrector`, the Ouster enhanced reflectivity
+    of a scan's intensities with its ring and ambient channels.
 """
 
 from __future__ import annotations
@@ -145,3 +144,52 @@ def read_kitti_bin(path: str) -> Dict[str, np.ndarray]:
     """KITTI Velodyne scan: float32 x,y,z,reflectance records."""
     raw = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
     return {"points": raw[:, :3].copy(), "intensities": raw[:, 3].copy()}
+
+
+class EnhancedReflectivityCorrector:
+    """Ouster enhanced reflectivity: ``ref_i = I_i * r_i^2`` and
+    ``amb_i = ambient_i / r_i^2``, each normalized by the per-ring mean,
+    smoothed across scans by an exponential moving average, then summed and
+    clipped to ``[0, clip_max]``. Rings at or above ``MAX_RINGS`` give 0."""
+
+    MAX_RINGS = 256
+
+    def __init__(self, ema_alpha: float = 0.5):
+        self.ema_alpha = ema_alpha
+        self.ring_mean_ref = np.zeros(self.MAX_RINGS, np.float64)
+        self.ring_mean_amb = np.zeros(self.MAX_RINGS, np.float64)
+        self.ring_initialized = np.zeros(self.MAX_RINGS, bool)
+
+    def apply(self, points: np.ndarray, intensities: np.ndarray, ring: np.ndarray, ambient: np.ndarray,
+              clip_max: float = 5.0) -> np.ndarray:
+        range_sq = np.sum(points * points, axis=1)
+        ok = range_sq >= 1e-6
+        rs = np.where(ok, range_sq, 1.0)
+        en_ref = np.where(ok, intensities * rs, 0.0)
+        en_amb = np.where(ok, ambient / rs, 0.0)
+
+        r = np.clip(ring.astype(np.int64), 0, self.MAX_RINGS - 1)
+        in_range = ring < self.MAX_RINGS
+        w = (ok & in_range).astype(np.float64)
+        cnt = np.bincount(r, weights=w, minlength=self.MAX_RINGS)
+        sum_ref = np.bincount(r, weights=en_ref * w, minlength=self.MAX_RINGS)
+        sum_amb = np.bincount(r, weights=en_amb * w, minlength=self.MAX_RINGS)
+
+        seen = cnt > 0
+        new_ref = np.divide(sum_ref, cnt, out=np.zeros_like(sum_ref), where=seen)
+        new_amb = np.divide(sum_amb, cnt, out=np.zeros_like(sum_amb), where=seen)
+        first = seen & ~self.ring_initialized
+        upd = seen & self.ring_initialized
+        a = self.ema_alpha
+        self.ring_mean_ref[first] = new_ref[first]
+        self.ring_mean_amb[first] = new_amb[first]
+        self.ring_mean_ref[upd] = a * new_ref[upd] + (1 - a) * self.ring_mean_ref[upd]
+        self.ring_mean_amb[upd] = a * new_amb[upd] + (1 - a) * self.ring_mean_amb[upd]
+        self.ring_initialized |= seen
+
+        mean_ref = self.ring_mean_ref[r]
+        mean_amb = self.ring_mean_amb[r]
+        ref_n = np.where(mean_ref > 0, en_ref / np.maximum(mean_ref, 1e-30), en_ref)
+        amb_n = np.where(mean_amb > 0, en_amb / np.maximum(mean_amb, 1e-30), en_amb)
+        out = np.clip(ref_n + amb_n, 0.0, clip_max)
+        return np.where(in_range, out, 0.0).astype(np.float32)

@@ -1,10 +1,13 @@
-"""PLY/PCD point-cloud readers (host-side, numpy).
+"""PLY/PCD point-cloud readers and writers (host-side, numpy).
 
-The port's own copy of the readers of :mod:`sycl_points_tpu.points.io`:
-PLY ascii / binary_little_endian / binary_big_endian and PCD ascii / binary
-/ binary_compressed (PCL LZF, structure-of-arrays body), with x/y/z,
+The port's own copy of :mod:`sycl_points_tpu.points.io`. Readers: PLY ascii /
+binary_little_endian / binary_big_endian and PCD ascii / binary /
+binary_compressed (PCL LZF, structure-of-arrays body), with x/y/z,
 red/green/blue (or packed rgb/rgba), normals, any field whose name contains
-``intensity`` and a time field. The LZF decoder is the pure-Python one.
+``intensity`` and a time field. Writers: PLY ascii / binary and PCD ascii /
+binary / binary_compressed, non-finite points skipped. The LZF codec is the
+native library's (:mod:`.native_io`) when it can be built, else the
+pure-Python one; the two may emit different but equally valid streams.
 
 Returns plain numpy dicts; :meth:`PointCloud.from_numpy` moves them to a
 device. :func:`finite_filter` drops the rows with a non-finite point.
@@ -124,7 +127,16 @@ def read_ply(path: str) -> dict:
 
 
 def _lzf_decompress(src: bytes, out_len: int) -> bytes:
-    """PCL/liblzf decompression.
+    """PCL/liblzf decompression: the native codec when it can be built, else
+    :func:`_lzf_decompress_py`, which gives the same bytes."""
+    from sycl_points_tpu_torch.points import native_io
+
+    native = native_io.lzf_decompress(src, out_len)
+    return native if native is not None else _lzf_decompress_py(src, out_len)
+
+
+def _lzf_decompress_py(src: bytes, out_len: int) -> bytes:
+    """PCL/liblzf decompression in Python.
 
     Stream grammar: control byte < 32 -> literal run of ``ctrl+1`` bytes;
     otherwise a back-reference of ``(ctrl >> 5) + 2`` bytes (7 extends the
@@ -243,3 +255,146 @@ def finite_filter(cloud: dict) -> dict:
     package's ``io._finite_filter``)."""
     finite = np.isfinite(cloud["points"]).all(axis=1)
     return {k: v[finite] for k, v in cloud.items()}
+
+
+def _lzf_compress(src: bytes) -> bytes:
+    """liblzf-style compression: the native codec when it can be built, else
+    :func:`_lzf_compress_py`. Either stream decompresses with either decoder
+    and with PCL's."""
+    from sycl_points_tpu_torch.points import native_io
+
+    native = native_io.lzf_compress(src)
+    return native if native is not None else _lzf_compress_py(src)
+
+
+def _lzf_compress_py(src: bytes) -> bytes:
+    """Greedy liblzf compression in Python: 3-byte hash matches up to 8 KiB
+    back, runs of up to 264 bytes, literal runs of up to 32."""
+    out = bytearray()
+    table: dict = {}
+    lit_start = 0
+    i, n = 0, len(src)
+
+    def flush_literals(end):
+        s = lit_start
+        while s < end:
+            run = min(32, end - s)
+            out.append(run - 1)
+            out.extend(src[s : s + run])
+            s += run
+
+    while i < n:
+        if i + 3 <= n:
+            key = src[i : i + 3]
+            cand = table.get(key, -1)
+            table[key] = i
+            dist = i - cand - 1
+            if cand >= 0 and 0 <= dist < (1 << 13):
+                length = 3
+                max_len = min(n - i, 264)
+                while length < max_len and src[cand + length] == src[i + length]:
+                    length += 1
+                flush_literals(i)
+                l_enc = length - 2
+                if l_enc < 7:
+                    out.append((l_enc << 5) | (dist >> 8))
+                else:
+                    out.append((7 << 5) | (dist >> 8))
+                    out.append(l_enc - 7)
+                out.append(dist & 0xFF)
+                i += length
+                lit_start = i
+                continue
+        i += 1
+    flush_literals(n)
+    return bytes(out)
+
+
+def write_ply(path: str, cloud: dict, binary: bool = True) -> None:
+    """Write a PLY file (binary_little_endian or ascii): x/y/z, then nx/ny/nz,
+    red/green/blue (uchar) and intensity where the cloud has them; non-finite
+    points are skipped."""
+    cloud = finite_filter(cloud)
+    pts = cloud["points"].astype(np.float32)
+    n = len(pts)
+    props = [("x", pts[:, 0]), ("y", pts[:, 1]), ("z", pts[:, 2])]
+    if "normals" in cloud:
+        nm = cloud["normals"].astype(np.float32)
+        props += [("nx", nm[:, 0]), ("ny", nm[:, 1]), ("nz", nm[:, 2])]
+    if "rgb" in cloud:
+        rgb_u8 = np.clip(cloud["rgb"][:, :3] * 255.0, 0, 255).astype(np.uint8)
+        props += [("red", rgb_u8[:, 0]), ("green", rgb_u8[:, 1]), ("blue", rgb_u8[:, 2])]
+    if "intensities" in cloud:
+        props.append(("intensity", cloud["intensities"].astype(np.float32)))
+
+    type_names = {np.dtype(np.float32): "float", np.dtype(np.uint8): "uchar"}
+    header = ["ply", "format binary_little_endian 1.0" if binary else "format ascii 1.0", f"element vertex {n}"]
+    header += [f"property {type_names[col.dtype]} {name}" for name, col in props]
+    header.append("end_header")
+
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            table = np.empty(n, dtype=np.dtype([(name, col.dtype.newbyteorder("<")) for name, col in props]))
+            for name, col in props:
+                table[name] = col
+            f.write(table.tobytes())
+        else:
+            arr = np.stack([col.astype(np.float64) for _, col in props], axis=1)
+            int_cols = [i for i, (_, col) in enumerate(props) if col.dtype == np.uint8]
+            lines = [" ".join(f"{int(v)}" if i in int_cols else f"{v:.9g}" for i, v in enumerate(row)) for row in arr]
+            f.write(("\n".join(lines) + "\n").encode("ascii"))
+
+
+def write_pcd(path: str, cloud: dict, binary: bool = True, compressed: bool = False) -> None:
+    """Write a PCD file (ascii, binary or binary_compressed): x/y/z, then
+    normal_x/y/z, a packed rgb and intensity where the cloud has them, every
+    field a float32; non-finite points are skipped."""
+    cloud = finite_filter(cloud)
+    pts = cloud["points"].astype(np.float32)
+    n = len(pts)
+    fields = [("x", pts[:, 0]), ("y", pts[:, 1]), ("z", pts[:, 2])]
+    if "normals" in cloud:
+        nm = cloud["normals"].astype(np.float32)
+        fields += [("normal_x", nm[:, 0]), ("normal_y", nm[:, 1]), ("normal_z", nm[:, 2])]
+    if "rgb" in cloud:
+        rgb = np.clip(cloud["rgb"][:, :3] * 255.0, 0, 255).astype(np.uint32)
+        packed = (rgb[:, 0] << 16) | (rgb[:, 1] << 8) | rgb[:, 2]
+        fields.append(("rgb", packed.view(np.float32)))
+    if "intensities" in cloud:
+        fields.append(("intensity", cloud["intensities"].astype(np.float32)))
+
+    header = (
+        "# .PCD v0.7 - Point Cloud Data file format\n"
+        "VERSION 0.7\n"
+        f"FIELDS {' '.join(name for name, _ in fields)}\n"
+        f"SIZE {' '.join('4' for _ in fields)}\n"
+        f"TYPE {' '.join('F' for _ in fields)}\n"
+        f"COUNT {' '.join('1' for _ in fields)}\n"
+        f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\n"
+        f"DATA {'binary_compressed' if compressed else 'binary' if binary else 'ascii'}\n"
+    )
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        table = np.stack([col for _, col in fields], axis=1).astype(np.float32)
+        if compressed:
+            # PCL's structure-of-arrays body, LZF-compressed
+            soa = np.ascontiguousarray(table.T).tobytes()
+            comp = _lzf_compress(soa)
+            f.write(struct.pack("<II", len(comp), len(soa)))
+            f.write(comp)
+        elif binary:
+            f.write(np.ascontiguousarray(table).tobytes())
+        else:
+            f.write(("\n".join(" ".join(f"{v:.9g}" for v in row) for row in table) + "\n").encode("ascii"))
+
+
+def write_file(path: str, cloud: dict, binary: bool = True) -> None:
+    """Write a ``.ply`` or ``.pcd`` file by its extension."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".ply":
+        write_ply(path, cloud, binary)
+    elif ext == ".pcd":
+        write_pcd(path, cloud, binary)
+    else:
+        raise ValueError(f"unsupported point cloud extension: {ext}")

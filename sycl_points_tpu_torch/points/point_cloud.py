@@ -69,6 +69,21 @@ class PointCloud:
     def device(self) -> torch.device:
         return self.points.device
 
+    def has_cov(self) -> bool:
+        return self.covs is not None
+
+    def has_normal(self) -> bool:
+        return self.normals is not None
+
+    def has_rgb(self) -> bool:
+        return self.rgb is not None
+
+    def has_intensity(self) -> bool:
+        return self.intensities is not None
+
+    def has_timestamps(self) -> bool:
+        return self.timestamp_offsets is not None
+
     def count(self) -> torch.Tensor:
         """Number of valid points (0-dim int tensor on the cloud's device;
         ``[B]`` for a fleet's cloud)."""
@@ -198,9 +213,29 @@ def filter_by_mask(cloud: PointCloud, keep: torch.Tensor) -> PointCloud:
     return cloud.replace(mask=cloud.mask & keep)
 
 
+def merge_with_timestamps(a: PointCloud, b: PointCloud, a_start_ms=0.0, b_start_ms=0.0):
+    """:func:`merge` with the reference's timestamp-base shift: the merged
+    cloud starts at ``min(a_start_ms, b_start_ms)`` and each side's offsets
+    move by its start's distance from it; if either side has no timestamps,
+    the merged cloud has none. Returns ``(merged, start_ms)``, ``start_ms`` a
+    0-dim float32 tensor on the clouds' device when both have timestamps,
+    else the start of the side that has them (0.0 for neither)."""
+    a_has, b_has = a.has_timestamps(), b.has_timestamps()
+    if not (a_has and b_has):
+        m = merge(a, b).replace(timestamp_offsets=None)
+        return m, a_start_ms if a_has else (b_start_ms if b_has else 0.0)
+    a_start = torch.as_tensor(a_start_ms, dtype=torch.float32, device=a.device)
+    b_start = torch.as_tensor(b_start_ms, dtype=torch.float32, device=a.device)
+    start = torch.minimum(a_start, b_start)
+    return merge(a.replace(timestamp_offsets=a.timestamp_offsets + (a_start - start)),
+                 b.replace(timestamp_offsets=b.timestamp_offsets + (b_start - start))), start
+
+
 def merge(a: PointCloud, b: PointCloud) -> PointCloud:
     """Concatenate two clouds; capacities add. An attribute present in only
-    one cloud is zero-filled for the other."""
+    one cloud is zero-filled for the other. Timestamp offsets concatenate as
+    they are: :func:`merge_with_timestamps` shifts clouds of different start
+    times to one base."""
 
     def cat(x, y):
         if x is None and y is None:

@@ -37,6 +37,14 @@ class RegType(enum.Enum):
     GICP = "gicp"
     GENZ = "genz"
 
+    @staticmethod
+    def from_string(s: str) -> "RegType":
+        """The type named ``s`` (any case); ``"P2D"`` is point-to-distribution."""
+        u = s.strip().upper()
+        if u == "P2D":
+            return RegType.POINT_TO_DISTRIBUTION
+        return RegType[u]
+
 
 class WhitenedRows(NamedTuple):
     A: torch.Tensor  # [N, 3, 6] whitened Jacobian rows

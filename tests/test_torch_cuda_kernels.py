@@ -353,3 +353,88 @@ def test_knn_k_batched_equals_single_launches_and_plain(m, q_self, ties):
     ri, rd = cuda_knn.knn_k_batched_plain(pts, mask, qry, K)
     assert cuda_knn.knn_mismatches(i.reshape(-1, K), d.reshape(-1, K), ri.reshape(-1, K), rd.reshape(-1, K),
                                    TIE) == 0
+
+
+# ---- the range-image window search (csrc/range_image.cu) ----------------------
+
+
+def _raw_scan(n_az, n_rings, seed=0):
+    """A synthetic sensor-frame scan of ``n_az x n_rings`` rays, on the card."""
+    from sycl_points_tpu_torch.utils.synthetic import World, scan_at
+
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [0.0, 0.0, 1.8]
+    pts = torch.from_numpy(scan_at(World(), T, n_az=n_az, n_rings=n_rings, seed=seed)).cuda()
+    return pts, torch.ones(pts.shape[0], dtype=torch.bool, device="cuda")
+
+
+def _range_image_case(name):
+    """(points, mask, range_image_knn keywords) of a range-image case."""
+    if name == "full width":
+        return (*_raw_scan(2048, 64), {})
+    if name == "collisions":
+        # every 3rd return twice, and a block of returns five times over
+        pts, mask = _raw_scan(1024, 32, seed=4)
+        pts = torch.cat([pts, pts[::3], pts[100:400].repeat(4, 1)]).contiguous()
+        return pts, torch.ones(pts.shape[0], dtype=torch.bool, device="cuda"), {"n_az": 1024, "n_rings": 32}
+    if name == "all masked":
+        pts, mask = _raw_scan(1024, 32, seed=5)
+        return pts, torch.zeros_like(mask), {"n_az": 1024, "n_rings": 32}
+    if name == "partial fan":
+        # a 90-degree sector and every other ring, with the sensor's fan given
+        pts, mask = _raw_scan(2048, 64, seed=6)
+        az = torch.atan2(pts[:, 1], pts[:, 0])
+        el = torch.asin(pts[:, 2] / torch.linalg.vector_norm(pts, dim=1))
+        keep = (az.abs() < np.pi / 4) & (torch.remainder(torch.round(el * 100), 2) == 0)
+        return pts, mask & keep, {"el_min": -0.4363, "el_max": 0.0349}
+    if name == "masked, window (8, 4)":
+        pts, mask = _raw_scan(1024, 32, seed=7)
+        mask[::7] = False
+        return pts, mask, {"n_az": 1024, "n_rings": 32, "window_az": 8}
+    raise ValueError(name)
+
+
+RANGE_IMAGE_CASES = ["full width", "collisions", "all masked", "partial fan", "masked, window (8, 4)"]
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("case", RANGE_IMAGE_CASES)
+def test_range_image_window_matches_plain(case, k):
+    """The window kernel equals its plain version bit for bit on the image
+    (indices and distances, unfilled slots included), and so does the
+    per-point result after the self-substitution."""
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    pts, mask, kw = _range_image_case(case)
+    n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
+    w_az, w_el = kw.get("window_az", 6), kw.get("window_el", 4)
+    img_p, img_i, cell, ok, collisions = ri.range_image(pts, mask, n_az, n_rings, kw.get("el_min"),
+                                                        kw.get("el_max"))
+    before = cuda_knn.launch_counts["range_image"]
+    got = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["range_image"] == before + 1
+    ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    res, plain = ri.point_rows(*got, cell, ok), ri.point_rows(*ref, cell, ok)
+    assert torch.equal(res.indices, plain.indices) and torch.equal(res.distances, plain.distances)
+    if case == "collisions":
+        assert int(collisions) > 0
+    if case == "all masked":
+        assert bool(torch.isinf(res.distances).all())
+        assert torch.equal(res.indices[:, 0].long(), torch.arange(pts.shape[0], device="cuda"))
+
+
+def test_range_image_window_rejects_bad_inputs():
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    img_p = torch.zeros(64 * 8, 3, device="cuda")
+    img_i = torch.full((64 * 8,), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        ri.range_image_window(img_p, img_i, 64, 8, 6, 4, 17)
+    with pytest.raises(ValueError):
+        ri.range_image_window(img_p[:-1], img_i, 64, 8, 6, 4, 10)
+    with pytest.raises(TypeError):
+        ri.range_image_window(img_p, img_i.long(), 64, 8, 6, 4, 10)
+    with pytest.raises(ValueError):
+        ri.range_image_window(img_p, img_i.cpu(), 64, 8, 6, 4, 10)

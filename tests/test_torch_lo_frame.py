@@ -22,10 +22,10 @@
     poses within 0.05 m / 0.02 rad of each other;
   * the ``old_timestamp``, ``small_number_of_points`` and ``first_frame``
     results, map growth from 2^10 slots, the MAP prior switched on, the
-    ``NotImplementedError`` of the raw range-image path by its message, the
     branches ported since (the default parameter tree, polar downsampling,
-    the occupancy grid, the IMU, the velocity update, the intensity ops, the
-    IMU deskew) running, and intensity correction against JAX's (rtol 1e-5).
+    the occupancy grid, the IMU, the velocity update, the raw range-image
+    covariances, the intensity ops, the IMU deskew, the registration
+    options) running, and intensity correction against JAX's (rtol 1e-5).
 """
 
 import dataclasses
@@ -625,6 +625,20 @@ def _run_intensity_ops():
     return ctx.knn is not None and not torch.allclose(out.intensities, pre.intensities)
 
 
+def _run_raw_range_image():
+    """LidarOdometry with the raw-features covariances: two frames 0.2 m
+    apart, the second a success within 0.1 m of the truth (the bound of the
+    frame tests above), every scan's covariances from its range image and no
+    k-NN context."""
+    lo = t_lo.LidarOdometry(_tp(covariance_estimation=TP.CovarianceEstimationParams(raw_range_image=True)),
+                            device="cpu")
+    poses = [np.eye(4, dtype=np.float32), lie_np.se3_exp(np.array([0, 0, 0.02, 0.2, 0, 0])).astype(np.float32)]
+    results = [lo.process(t_cloud(scan_at(make_world(), T)), 0.1 * (i + 1)) for i, T in enumerate(poses)]
+    trans, _ = pose_gap(lo.get_odometry(), poses[-1])
+    ctx = lo.pc_processor.prepare_context(lo.preprocessed)
+    return results == [t_lo.ResultType.first_frame, t_lo.ResultType.success] and trans < 0.1 and ctx.knn is None
+
+
 REGISTRATION_OPTIONS = ("rotation-constraint", "nl-reg", "coarse-to-fine", "intensity-sampling")
 
 
@@ -634,8 +648,7 @@ REGISTRATION_OPTIONS = ("rotation-constraint", "nl-reg", "coarse-to-fine", "inte
     (_run_occupancy, None),
     (_run_imu_branch, None),
     (_run_velocity_update, None),
-    (lambda: TPCProcessor(_tp(covariance_estimation=TP.CovarianceEstimationParams(raw_range_image=True)), device="cpu"),
-     r"raw range-image covariance path is not ported yet \(ROADMAP Queue 1 item 10\)"),
+    (_run_raw_range_image, None),
     (_run_intensity_ops, None),
     (_run_imu_deskew, None),
     *((lambda option=option: _run_registration_option(option), None) for option in REGISTRATION_OPTIONS),
@@ -644,8 +657,8 @@ REGISTRATION_OPTIONS = ("rotation-constraint", "nl-reg", "coarse-to-fine", "inte
 def test_not_ported_yet(make, message):
     """What is not ported raises by its message; the branches ported since
     (the default parameter tree, polar downsampling, the occupancy grid, the
-    IMU, the velocity update, the intensity ops, the IMU deskew, the
-    registration options) run."""
+    IMU, the velocity update, the raw range-image covariances, the intensity
+    ops, the IMU deskew, the registration options) run."""
     if message is None:
         assert make()
         return

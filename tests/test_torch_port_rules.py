@@ -11,15 +11,22 @@
     ``benchmarks/synthetic_velodyne.py`` (``scan_at_distorted``, raycast in
     float32, in ``tests/test_torch_deskew.py``; the IMU copies in
     ``tests/test_torch_imu.py``);
+  * the writers (PLY ascii / binary, PCD ascii / binary /
+    binary_compressed) write the originals' bytes, and the pure-Python LZF
+    compressor gives the original's stream (the rest of the new copies,
+    native_io, prefix_sum, the filters, FPS, the facade, timing, profiling
+    and the covariance markers, in ``tests/test_torch_filters_io.py``);
   * ``points/conversion.py`` and ``apps/stream_protocol.py`` equal their
     originals: the same constants, and the same outputs (arrays and bytes)
     on PointCloud2 buffers with every field kind, unaligned offsets, and
-    every message type;
+    every message type; ``EnhancedReflectivityCorrector`` over two scans;
   * the entry points default to ``"cuda"`` and raise without a card, the
     fleet's among them (``parallel.fleet.FleetOdometry`` and ``FleetLIO``,
     at the parameter tree's defaults too, ``apps.fleet_odometry.run_fleet``
     and ``main``, ``apps.fleet_replay``'s LIO runs,
-    ``convert.carry_from_reference`` and ``fleet_lio_state_from_reference``);
+    ``convert.carry_from_reference`` and ``fleet_lio_state_from_reference``),
+    ``PreprocessFilter`` and ``LidarOdometry`` with the raw-features
+    covariances;
   * ``apps.fleet_replay``'s copy of the JAX fleet benchmark's ``--lio``
     deployment (``benchmarks/bench_fleet.py:112-200``) equals it: the
     parameter tree, the IMU feed (every reading, both ends of each chunk)
@@ -28,6 +35,7 @@
 """
 
 import ast
+import dataclasses
 import inspect
 import sys
 from pathlib import Path
@@ -59,6 +67,7 @@ from sycl_points_tpu_torch.convert import (  # noqa: E402
 from sycl_points_tpu_torch.imu import factor as imu_factor  # noqa: E402
 from sycl_points_tpu_torch.imu import preintegration  # noqa: E402
 from sycl_points_tpu_torch.mapping import voxel_hash_map  # noqa: E402
+from sycl_points_tpu_torch.ops.preprocess_filter import PreprocessFilter  # noqa: E402
 from sycl_points_tpu_torch.parallel.fleet import FleetLIO, FleetOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry  # noqa: E402
@@ -95,7 +104,11 @@ def test_port_imports_nothing_of_the_jax_side():
     assert len(files) > 20
     walked = {str(f.relative_to(ROOT)) for f in files}
     assert {"sycl_points_tpu_torch/registration/degenerate.py",
-            "sycl_points_tpu_torch/registration/rotation_constraint.py"} <= walked
+            "sycl_points_tpu_torch/registration/rotation_constraint.py",
+            "sycl_points_tpu_torch/ops/range_image_knn.py", "sycl_points_tpu_torch/ops/prefix_sum.py",
+            "sycl_points_tpu_torch/ops/preprocess_filter.py", "sycl_points_tpu_torch/points/native_io.py",
+            "sycl_points_tpu_torch/utils/timing.py", "sycl_points_tpu_torch/utils/profiling.py",
+            "sycl_points_tpu_torch/apps/covariance_markers.py"} <= walked
     bad = {str(f.relative_to(ROOT)): forbidden_imports(f.read_text()) for f in files}
     assert not {f: b for f, b in bad.items() if b}
 
@@ -151,6 +164,35 @@ def test_big_endian_ply_equals_the_original(tmp_path):
     out = port_io.read_ply(str(path))
     _assert_same(out, ref_io.read_ply(str(path)))
     np.testing.assert_array_equal(out["points"], pts)
+
+
+@pytest.mark.parametrize("name,write", [
+    ("ascii.ply", lambda io, p, c: io.write_ply(p, c, binary=False)),
+    ("binary.ply", lambda io, p, c: io.write_ply(p, c, binary=True)),
+    ("ascii.pcd", lambda io, p, c: io.write_pcd(p, c, binary=False)),
+    ("binary.pcd", lambda io, p, c: io.write_pcd(p, c, binary=True)),
+    ("compressed.pcd", lambda io, p, c: io.write_pcd(p, c, compressed=True)),
+])
+def test_writers_equal_the_originals(tmp_path, name, write):
+    """The port's writers write the originals' bytes, and the pure-Python
+    LZF compressor gives the original's stream."""
+    ours, theirs = str(tmp_path / f"port_{name}"), str(tmp_path / f"jax_{name}")
+    write(port_io, ours, _cloud())
+    write(ref_io, theirs, _cloud())
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+    soa = np.ascontiguousarray(_cloud()["points"].T).tobytes()
+    assert port_io._lzf_compress_py(soa) == ref_io._lzf_compress_py(soa)
+
+
+def test_reflectivity_corrector_equals_the_original():
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(0.5, 20, (300, 3)).astype(np.float32)
+    args = (rng.uniform(0, 1, 300).astype(np.float32), rng.integers(0, 300, 300).astype(np.uint16),
+            rng.uniform(0, 50, 300).astype(np.float32))
+    assert port_conv.EnhancedReflectivityCorrector.MAX_RINGS == ref_conv.EnhancedReflectivityCorrector.MAX_RINGS
+    ours, theirs = port_conv.EnhancedReflectivityCorrector(0.3), ref_conv.EnhancedReflectivityCorrector(0.3)
+    for _ in range(2):
+        np.testing.assert_array_equal(ours.apply(pts, *args), theirs.apply(pts, *args))
 
 
 def test_finite_filter_equals_the_original():
@@ -277,7 +319,8 @@ def test_imu_and_velocity_equal_the_originals(t):
                                 stream_odometry.OdometryStreamServer, odometry_replay.run_pipelined_replay,
                                 lio_replay.run_pipelined_lio_replay, FleetOdometry, fleet_odometry.run_fleet,
                                 carry_from_reference, FleetLIO, fleet_replay.run_fleet_lio_replay,
-                                fleet_replay.run_stream_lio_replay, fleet_lio_state_from_reference])
+                                fleet_replay.run_stream_lio_replay, fleet_lio_state_from_reference,
+                                PreprocessFilter])
 def test_device_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -333,17 +376,26 @@ def _vhm_params():
     lambda **kw: FleetOdometry(lo_params.LidarOdometryParams(), n_streams=2, **kw),
     lambda **kw: FleetLIO(_lio_params(), n_streams=2, **kw),
     lambda **kw: FleetLIO(lo_params.LidarInertialOdometryParams(), n_streams=2, **kw),
+    lambda **kw: PreprocessFilter(**kw),
+    lambda **kw: LidarOdometry(_raw_params(), **kw),
 ], ids=["LidarOdometry", "Submap", "PCProcessor", "voxel_hash_map.create", "map_state_from_reference",
         "LidarInertialOdometry", "make_lio_inputs", "run_lio_replay", "lio_state_from_reference",
         "IMUPreintegration", "init_state", "State.identity", "scan_at_distorted", "PipelinedLidarOdometry",
         "PipelinedLidarInertialOdometry", "OdometryStreamServer", "FleetOdometry", "FleetOdometry-defaults",
-        "FleetLIO", "FleetLIO-defaults"])
+        "FleetLIO", "FleetLIO-defaults", "PreprocessFilter", "LidarOdometry-raw-features"])
 def test_lo_entry_points_raise_without_a_card(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         make()
     made = make(device="cpu")
     assert getattr(made, "device", torch.device("cpu")).type == "cpu"
+
+
+def _raw_params():
+    """The ported parameter tree with the raw range-image covariances."""
+    p = _vhm_params()
+    return dataclasses.replace(p, covariance_estimation=dataclasses.replace(p.covariance_estimation,
+                                                                            raw_range_image=True))
 
 
 def _lio_params():
