@@ -313,6 +313,39 @@
     ``profiling.trace`` of one raw frame whose Chrome trace names the
     cluster nn1 kernel and the range-image kernel; the covariance markers
     of the raw frame's covariances.
+42. The LO replay of phase 7's scans with GridKNN submaps
+    (``ops.knn.GRID_KNN_TARGET_THRESHOLD`` set to 0 for the run) and with
+    brute-force submaps, in turns (GRID_TURNS, three runs each): every grid
+    frame after the first a success that launched ``grid_knn``, ``nn1``
+    never, ATE <= MAX_ATE_M and within MAX_GRID_ATE_GAP_M of the brute-force
+    runs; ms a frame of each (median, max, keyframes and others), the host
+    ms of building the target's search structure on a keyframe, launches,
+    build_auto's rebuilds, host syncs.
+43. The three structured-search kernels against their plain versions, bit
+    for bit, and timed in turns beside ``nn1`` / ``knn_k`` on the same
+    inputs, with their bounds (9 FP32 operations a valid candidate; each
+    input read once): ``grid_knn`` (``csrc/grid_knn.cu``) at the LO frame's
+    shapes (1,000 and 5,000 queries against the 16,384-row submap, k = 1
+    under the pose and k = 10) and the C2F shapes (C2F_QUERIES against its
+    4,096 and 16,384 rows), with a query with no neighbour and one off the
+    21-bit range, and on an all-masked target, with ``build_auto``'s host
+    ms; ``coarse_refine`` (``csrc/coarse_knn.cu``) through
+    ``CoarseKNN.search`` at C2F_QUERIES against one and eight full-width
+    scans moved into the world (COARSE_CELL cells, COARSE_L a cell,
+    COARSE_P cells a query): its launches, the certified fraction, every
+    certified row equal to ``nn1``, then the refine on the same selection
+    (k = 1 and K; an all-masked target); the same at a build sized to the
+    data (the capacity from the occupied cells, the budget from the fullest
+    cell, so nothing overflows); ``morton_window``
+    (``csrc/window_knn.cu``) through ``window_self_knn`` on one full-width
+    scan (K, WINDOW_W, two passes): launches, recall against the exact
+    ``knn_k`` (above 0.70), each pass bit for bit (an all-masked scan too).
+44. ``preprocess_pair`` on the pair's raw scans against two sequential
+    preprocesses (voxels, covariances, normals bit for bit; ms of each in
+    turns); ``sharded_align`` on ``make_mesh()`` (the one card) equal to
+    ``align`` in every field, and on a two-entry mesh of the card (two
+    shards, their partials added) within SHARDED_T_TOL of ``align`` on T
+    with equal inliers; ``device_info()``.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -357,7 +390,12 @@ from sycl_points_tpu_torch.convert import cloud_from_numpy
 from sycl_points_tpu_torch.mapping import occupancy_grid as og
 from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
 from sycl_points_tpu_torch.mapping.hash_table import resolve_slots, resolve_slots_tiered
-from sycl_points_tpu_torch.ops import cuda_knn, range_image_knn, sampling
+from sycl_points_tpu_torch.ops import coarse_knn, cuda_knn, grid_knn, range_image_knn, sampling, window_knn
+from sycl_points_tpu_torch.ops import knn as knn_module
+from sycl_points_tpu_torch.ops.coarse_knn import CoarseKNN
+from sycl_points_tpu_torch.ops.grid_knn import GridKNN
+from sycl_points_tpu_torch.ops.pair_preprocess import preprocess_pair
+from sycl_points_tpu_torch.parallel import sharded
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
 from sycl_points_tpu_torch.ops.filters import box_filter, radius_outlier_removal, statistical_outlier_removal
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN, KNNResult, self_knn
@@ -376,7 +414,13 @@ from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdom
 from sycl_points_tpu_torch.pipeline.submap import Submap
 from sycl_points_tpu_torch.registration.degenerate import DegenerateRegularizationParams
 from sycl_points_tpu_torch.registration.pipeline import align_pipeline
-from sycl_points_tpu_torch.registration.registration import RotationConstraintParams, compute_icp_robust_weights
+from sycl_points_tpu_torch.registration.registration import (
+    RegistrationParams,
+    RotationConstraintParams,
+    align,
+    compute_icp_robust_weights,
+)
+from sycl_points_tpu_torch.utils.device import device_info
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
 from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
 from sycl_points_tpu_torch.utils import lie, lie_np, profiling, sync
@@ -540,6 +584,27 @@ OPTIONS_FLEET_FRAMES = 20
 RAW_PATH = "LidarOdometry.process (raw features)"
 RAW_SOURCE = "sycl_points_tpu_torch/csrc/range_image.cu"
 RAW_REPLACES = "sycl_points_tpu/ops/range_image_knn.py:113"
+# The structured searches (ROADMAP Queue 1 item 12): GridKNN behind the LO
+# frame's submap, CoarseKNN at 30,000 queries against one and eight scans,
+# the Morton window on one scan.
+GRID_PATH = "LidarOdometry.process (GridKNN submap)"
+GRID_SOURCE = "sycl_points_tpu_torch/csrc/grid_knn.cu"
+GRID_REPLACES = "sycl_points_tpu/ops/grid_knn.py:139"
+COARSE_PATH = "CoarseKNN.search"
+COARSE_SOURCE = "sycl_points_tpu_torch/csrc/coarse_knn.cu"
+COARSE_REPLACES = "sycl_points_tpu/ops/coarse_knn.py:157"
+WINDOW_PATH = "window_self_knn"
+WINDOW_SOURCE = "sycl_points_tpu_torch/csrc/window_knn.cu"
+WINDOW_REPLACES = "sycl_points_tpu/ops/window_knn.py:103"
+MAX_GRID_ATE_GAP_M = 0.02
+C2F_QUERIES = 30000
+GRID_TURNS = ("brute", "grid", "grid", "brute", "brute", "grid")
+COARSE_CELL = 1.0
+COARSE_L = 256
+COARSE_P = 8
+COARSE_PLAIN_QUERIES = 512  # the sized build's plain check: its [q, P, L] block at a budget of thousands
+WINDOW_W = 64
+SHARDED_T_TOL = 1e-4  # tests/test_multichip.py's bound on T for a split source
 RAW_ATE_MARGIN_M = 0.02
 RAW_CPU_FRAMES = 4
 # The deployments run the robust (IRLS) covariance estimator. On the raw
@@ -2937,6 +3002,419 @@ def api_phase(raw_out, lo_replay_out, dev) -> None:
             raise AssertionError(f"the trace misses the cluster nn1 or the range-image kernel: {kernels}")
 
 
+# -- item 12: the structured searches, the pair preprocess, the device list ------
+
+
+def grid_replay_phase(lo_out, dev) -> dict:
+    """The LO replay with GridKNN submaps (GRID_KNN_TARGET_THRESHOLD lowered
+    to 0 for the run) and with brute-force submaps (the default threshold),
+    in turns on the LO phase's scans (GRID_TURNS: brute, grid, grid, brute,
+    brute, grid): every grid frame after the first a success that launched
+    grid_knn and no nn1, ATE <= MAX_ATE_M and within MAX_GRID_ATE_GAP_M of
+    the brute-force run; ms a frame (median, max, keyframes and others) of
+    each, the host ms of building the target's search structure on a
+    keyframe (Submap._target_knn) in each, launches, build_auto's
+    rebuilds."""
+    params, poses, scans, _ = lo_out["replay"]
+    builds = {"build": 0, "build_auto": 0}
+    target_ms = []
+    real = {name: getattr(GridKNN, name) for name in builds}
+    real_target = Submap._target_knn
+
+    def counting(name):
+        def call(*args, **kwargs):
+            builds[name] += 1
+            return real[name](*args, **kwargs)
+        return staticmethod(call)
+
+    def timed_target(self, target):
+        t0 = time.perf_counter()
+        out = real_target(self, target)
+        target_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    threshold = knn_module.GRID_KNN_TARGET_THRESHOLD
+
+    def replay(kind: str, n: int = LO_FRAMES) -> dict:
+        knn_module.GRID_KNN_TARGET_THRESHOLD = 0 if kind == "grid" else threshold
+        builds.update(build=0, build_auto=0)
+        target_ms.clear()
+        torch.cuda.synchronize()
+        cuda_knn.reset_launch_counts()
+        out = odometry_replay.run_replay(params, poses[:n], scans[:n], device=dev)
+        torch.cuda.synchronize()
+        return {"out": out, "launches": dict(cuda_knn.launch_counts), "builds": dict(builds),
+                "target_ms": list(target_ms)}
+
+    for name in builds:
+        setattr(GridKNN, name, counting(name))
+    Submap._target_knn = timed_target
+    try:
+        replay("grid", LO_WARMUP + 1)
+        runs = {"brute": [], "grid": []}
+        for kind in GRID_TURNS:
+            runs[kind].append(replay(kind))
+    finally:
+        knn_module.GRID_KNN_TARGET_THRESHOLD = threshold
+        for name, fn in real.items():
+            setattr(GridKNN, name, staticmethod(fn))
+        Submap._target_knn = real_target
+    for run in runs["grid"]:
+        out, launches = run["out"], run["launches"]
+        lo, rows = out["odometry"], out["rows"]
+        bad = [r["frame"] for r in rows[1:] if r["result"] != "success"]
+        if bad or not isinstance(lo.submap.submap_knn, GridKNN):
+            raise AssertionError(f"GridKNN LO replay: frames {bad} failed, target {type(lo.submap.submap_knn).__name__}")
+        per_frame = [r["launches"]["grid_knn"] for r in rows[1:]]
+        if min(per_frame) <= 0 or launches["nn1"] != 0:
+            raise AssertionError(f"GridKNN LO replay: grid_knn a frame {per_frame}, nn1 {launches['nn1']} (must be 0)")
+    for run in runs["brute"]:
+        check_replay("brute-force LO replay (in turns with the grid)", run["out"], 2, MAX_ATE_M)
+        if run["launches"]["grid_knn"] != 0 or run["builds"]["build"] != 0:
+            raise AssertionError(f"brute-force LO replay built or searched a grid: {run['launches']}, {run['builds']}")
+    grid, brute = runs["grid"][0], runs["brute"][0]
+    print_frames(grid["out"])
+
+    def split(kind: str) -> dict:
+        """Medians over the kind's runs, frames after the warm-up."""
+        rows = [r for run in runs[kind] for r in run["out"]["rows"][LO_WARMUP:]]
+        key = [r for run in runs[kind] for r in run["target_ms"]]
+        return {"ms_median": statistics.median(r["ms"] for r in rows), "ms_max": max(r["ms"] for r in rows),
+                "keyframe_ms": median_of(rows, lambda r: r["ms"], lambda r: r["keyframe"]),
+                "other_ms": median_of(rows, lambda r: r["ms"], lambda r: not r["keyframe"]),
+                "keyframes": sum(r["keyframe"] for r in rows) // len(runs[kind]),
+                "target_build_ms": statistics.median(key) if key else float("nan"),
+                "syncs": median_of(rows, lambda r: r["syncs"]),
+                "run_medians": [statistics.median(r["ms"] for r in run["out"]["rows"][LO_WARMUP:])
+                                for run in runs[kind]],
+                "ate_m": [run["out"]["ate_m"] for run in runs[kind]]}
+
+    g, b = split("grid"), split("brute")
+    gap = max(abs(x - y) for x in g["ate_m"] for y in b["ate_m"])
+    per_frame = [r["launches"]["grid_knn"] for r in grid["out"]["rows"][1:]]
+    rebuilds = max(run["builds"]["build"] - run["builds"]["build_auto"] for run in runs["grid"])
+    lo = grid["out"]["odometry"]
+    print(f"GridKNN LO replay ({LO_FRAMES} x 2048 x 64, threshold 0, cell = max_correspondence_distance "
+          f"{params.registration.factor.max_correspondence_distance} m), in turns {GRID_TURNS} with the brute-force "
+          f"replay on the same scans: ATE {g['ate_m']} m (brute force {b['ate_m']}, largest gap {gap:.4f}); grid_knn "
+          f"a frame after the first {per_frame} (median {statistics.median(per_frame)}); launches {grid['launches']}; "
+          f"{grid['builds']['build_auto']} build_auto, {rebuilds} rebuilds; last grid: cell budget "
+          f"{lo.submap.submap_knn.max_per_cell}, table {lo.submap.submap_knn.cell_coords.shape[0]} slots")
+    for kind, s in (("grid", g), ("brute force", b)):
+        print(f"LO frame, {kind} submaps, after {LO_WARMUP} warm-up frames, {len(s['run_medians'])} runs: median "
+              f"{s['ms_median']:.3f} ms, max {s['ms_max']:.3f} (run medians "
+              f"{[round(x, 3) for x in s['run_medians']]}); keyframes ({s['keyframes']} a run) median "
+              f"{s['keyframe_ms']:.3f}, others {s['other_ms']:.3f}; the target's search structure "
+              f"(Submap._target_knn) {s['target_build_ms']:.3f} host ms a keyframe; host syncs a frame median "
+              f"{s['syncs']}")
+    if not (max(g["ate_m"]) <= MAX_ATE_M and gap <= MAX_GRID_ATE_GAP_M):
+        raise AssertionError(f"GridKNN LO replay: ATE {g['ate_m']} m, gap {gap:.4f} m to brute force")
+    return {"launches": grid["launches"], "per_frame": statistics.median(per_frame), "grid": g, "brute": b,
+            "rebuilds": rebuilds}
+
+
+def spread_rows(points: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` valid rows taken evenly over the cloud, contiguous."""
+    valid = points[mask]
+    return valid[torch.linspace(0, valid.shape[0] - 1, n, device=points.device).long()].contiguous()
+
+
+def world_cloud(scans, poses, dev) -> PointCloud:
+    """Scans moved into the world by their poses, merged."""
+    pts = [transform_points(s.points, torch.as_tensor(np.asarray(T, np.float32), device=dev))
+           for s, T in zip(scans, poses)]
+    return PointCloud(points=torch.cat(pts).contiguous(), mask=torch.cat([s.mask for s in scans]).contiguous())
+
+
+def check_grid_kernel(lo_out, grid_out, dev) -> dict:
+    """grid_knn (kernel A) against its plain version, bit for bit, at the LO
+    frame's shapes (1,000 and 5,000 queries against the 16,384-row submap)
+    and the coarse-to-fine shapes (30,000 against 4,096 and 16,384 rows),
+    with a query with no neighbour and one outside the 21-bit range added,
+    and on an all-masked target; timed in turns with its plain version and
+    nn1 on the same target, with its bound."""
+    params, poses, scans, _ = lo_out["replay"]
+    cell = params.registration.factor.max_correspondence_distance
+    target, pose = lo_out["targets"]["last keyframe"]
+    odd = torch.tensor([[1e3, 1e3, 1e3], [5e6, 0.0, 0.0]], device=dev)
+    q1000 = torch.cat([lo_out["queries"], odd]).contiguous()
+    q5000 = spread_rows(lo_out["scan"].points, lo_out["scan"].mask, 5000)
+    q30000 = spread_rows(scans[-1].points, scans[-1].mask, 30000)
+    coarse = PointCloud(points=target.points[::4].contiguous(), mask=target.mask[::4].contiguous())
+    shapes_in = {"LO 1,000 queries": (q1000, target, pose, 1), "LO 5,000 queries": (q5000, target, pose, 1),
+                 "LO 5,000 queries, k=10": (q5000, target, None, K),
+                 "C2F 30,000 against 4,096": (q30000, coarse, pose, 1),
+                 "C2F 30,000 against 16,384": (q30000, target, pose, 1)}
+    shapes = {}
+    for label, (q, tgt, T, k) in shapes_in.items():
+        grid = GridKNN.build_auto(tgt, cell_size=cell)
+        cases = {"path": grid, "all masked": GridKNN.build(tgt.replace(mask=torch.zeros_like(tgt.mask)), cell)}
+        for what, g in cases.items():
+            got, ref = grid_knn.grid_search(g, q, k, T), grid_knn.grid_search_plain(g, q, k, T)
+            torch.cuda.synchronize()
+            check_equal("grid_knn", got, ref, f"{label}, {what}")
+        t, m = tgt.points.contiguous(), tgt.mask
+        prep = cuda_knn.prep_target(t, m)
+        turns = in_turns({"plain_ms": lambda: grid_knn.grid_search_plain(grid, q, k, T),
+                          "ms": lambda: grid_knn.grid_search(grid, q, k, T),
+                          "yardstick_ms": (lambda: cuda_knn.nn1_prepped(prep, q, T)) if k == 1 else
+                          (lambda: cuda_knn.knn_k_prepped(prep, q, k))})
+        build_ms, build_syncs = host_ms(lambda: GridKNN.build_auto(tgt, cell_size=cell))
+        _, valid, idx = grid_knn.grid_candidates(grid, q, T)
+        C, M, Q = grid.cell_coords.shape[0], t.shape[0], q.shape[0]
+        # what the search must touch: the queries, the pose and the outputs;
+        # 17 B (point, mask, original index) for each distinct row of a found
+        # cell that holds a candidate; the used flags and 20 B (key, start,
+        # count) for each occupied slot
+        rows = int(torch.unique(idx[valid]).numel())
+        occupied = int(grid.cell_used.sum())
+        sb = bound(int(valid.sum()), 12 * Q + (64 if T is not None else 0) + 8 * Q * k + 17 * rows + C + 20 * occupied)
+        shapes[label] = {"Q": Q, "M": M, "valid": int(m.sum()), "k": k, "cells": C, "cells_used": occupied,
+                         "rows_touched": rows, "max_per_cell": grid.max_per_cell, "pairs": int(valid.sum()), **turns,
+                         "build_ms": build_ms, "build_syncs": build_syncs, "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"grid_knn ({label}: Q={Q}, M={M}, valid {int(m.sum())}, k={k}, budget {grid.max_per_cell}, "
+              f"{occupied} of {C} slots used, {rows} rows in the cells found, {int(valid.sum())} candidate pairs): "
+              f"equal to its plain version bit for bit (all masked, a query with no neighbour and one off the 21-bit "
+              f"range too); kernel {turns['ms']:.4f} ms, plain {turns['plain_ms']:.4f}, "
+              f"{'nn1' if k == 1 else 'knn_k'} on the same target {turns['yardstick_ms']:.4f}, build_auto "
+              f"{build_ms:.3f} host ms ({build_syncs} syncs); bound {sb[0]:.6f} ({sb[1]}); no library call "
+              f"computes this search")
+    path = shapes["LO 1,000 queries"]
+    r = row("grid_knn", GRID_SOURCE, GRID_REPLACES, GRID_PATH, 0.0, (path["ms"], path["plain_ms"], None),
+            (path["bound_ms"], path["bound_by"]), shapes=shapes, library="none computes it")
+    r["launches"] = grid_out["launches"]["grid_knn"]
+    return r
+
+
+def pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def coarse_sized(cloud: PointCloud, ck: CoarseKNN, q: torch.Tensor, label: str) -> dict:
+    """CoarseKNN built to the data that ``ck`` (the default capacity) found:
+    the cell capacity the power of two above the occupied cells, the budget
+    the power of two above the fullest cell, so that no cell and no point
+    overflows. The certified fraction, certified rows exact against nn1, the
+    refine bit for bit against its plain version on the first
+    COARSE_PLAIN_QUERIES queries, and the refine, the whole search and nn1
+    timed in turns."""
+    used, fullest = int(ck.valid.sum()) + int(ck.cells_lost), int(ck.counts.max())
+    C, L = max(pow2(used), 2 * COARSE_P), pow2(fullest)
+    sized = CoarseKNN.build(cloud, COARSE_CELL, cells_capacity=C, max_per_cell=L)
+    over = (int(sized.overflow), int(sized.cells_lost), int(sized.points_lost))
+    if over != (0, 0, 0):
+        raise AssertionError(f"CoarseKNN ({label}) sized to the data overflows: {over}")
+    res, cert = sized.search(q, 1, top_cells=COARSE_P)
+    prep = cuda_knn.prep_target(sized.points, sized.mask)
+    ref_i, ref_d = cuda_knn.nn1_prepped(prep, q)
+    c = cert.bool()
+    d_bad = int((res.distances[c, 0] != ref_d[c]).sum())
+    i_bad = cuda_knn.nn1_mismatches(res.indices[c, 0], res.distances[c, 0], ref_i[c], ref_d[c], TIE_TOL)
+    if d_bad or i_bad:
+        raise AssertionError(f"CoarseKNN ({label}, sized): {d_bad} certified distances and {i_bad} indices differ")
+    cells, lb = sized.select_cells(q, COARSE_P, 1e-2)
+    part = slice(0, COARSE_PLAIN_QUERIES)
+    got = coarse_knn.coarse_refine(sized, q[part].contiguous(), cells[part].contiguous(), lb[part].contiguous(), 1)
+    ref = coarse_knn.coarse_refine_plain(sized, q[part], cells[part], lb[part], 1)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"coarse_refine ({label}, sized) differs from its plain version")
+    del got, ref
+    turns = in_turns({"ms": lambda: coarse_knn.coarse_refine(sized, q, cells, lb, 1),
+                      "search_ms": lambda: sized.search(q, 1, top_cells=COARSE_P),
+                      "nn1_ms": lambda: cuda_knn.nn1_prepped(prep, q)})
+    valid, _ = coarse_knn.coarse_candidates(sized, cells)
+    M, Q = sized.points.shape[0], q.shape[0]
+    sb = bound(int(valid.sum()), 12 * Q + 4 * Q * COARSE_P + 4 * Q + 13 * M + 9 * C + 8 * Q + Q)
+    frac = float(cert.float().mean())
+    print(f"coarse_refine ({label}, sized to the data: {used} cells used of {C}, the fullest cell {fullest} points, "
+          f"budget {L}, overflow 0, {COARSE_CELL} m cells, top {COARSE_P} cells, {int(valid.sum())} candidate pairs): "
+          f"certified {frac:.4f}, certified rows equal to nn1; equal to its plain version bit for bit on the first "
+          f"{COARSE_PLAIN_QUERIES} queries; kernel {turns['ms']:.4f} ms, whole search {turns['search_ms']:.4f}, nn1 "
+          f"{turns['nn1_ms']:.4f}; bound {sb[0]:.4f} ({sb[1]})")
+    return {"Q": Q, "M": M, "cells": C, "cells_used": used, "fullest": fullest, "max_per_cell": L, "overflow": 0,
+            "pairs": int(valid.sum()), "certified": frac, **turns, "bound_ms": sb[0], "bound_by": sb[1]}
+
+
+def check_coarse_kernel(lo_out, dev) -> dict:
+    """coarse_refine (kernel B) at 30,000 queries against 131,072 (one
+    scan) and 1,048,576 rows (eight), built from the LO phase's scans moved
+    into the world: CoarseKNN.search driven with the counts at 0 (its
+    launches), the certified fraction and the certified rows exact against
+    nn1; bit for bit against its plain version on the same cells (an
+    all-masked target too); timed in turns with its plain version, the whole
+    search and nn1 on the same target."""
+    _, poses, scans, _ = lo_out["replay"]
+    q = transform_points(spread_rows(scans[-1].points, scans[-1].mask, C2F_QUERIES),
+                         torch.as_tensor(np.asarray(poses[-1], np.float32), device=dev)).contiguous()
+    shapes, launches = {}, 0
+    for label, n in (("131,072 rows", 1), ("1,048,576 rows", 8)):
+        cloud = world_cloud(scans[:n], poses[:n], dev)
+        ck = CoarseKNN.build(cloud, COARSE_CELL, max_per_cell=COARSE_L)
+        torch.cuda.synchronize()
+        cuda_knn.reset_launch_counts()
+        res, cert = ck.search(q, 1, top_cells=COARSE_P)
+        torch.cuda.synchronize()
+        launches += cuda_knn.launch_counts["coarse_refine"]
+        prep = cuda_knn.prep_target(ck.points, ck.mask)
+        ref_i, ref_d = cuda_knn.nn1_prepped(prep, q)
+        c = cert.bool()
+        d_bad = int((res.distances[c, 0] != ref_d[c]).sum())
+        i_bad = cuda_knn.nn1_mismatches(res.indices[c, 0], res.distances[c, 0], ref_i[c], ref_d[c], TIE_TOL)
+        if d_bad or i_bad:
+            raise AssertionError(f"CoarseKNN ({label}): {d_bad} certified distances and {i_bad} indices differ from nn1")
+        cells, lb = ck.select_cells(q, COARSE_P, 1e-2)
+        for what, kk in (("k=1", 1), (f"k={K}", K)):
+            got = coarse_knn.coarse_refine(ck, q, cells, lb, kk)
+            ref = coarse_knn.coarse_refine_plain(ck, q, cells, lb, kk)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"coarse_refine ({label}, {what}) differs from its plain version")
+        if n == 1:
+            empty = CoarseKNN.build(cloud.replace(mask=torch.zeros_like(cloud.mask)), COARSE_CELL,
+                                    max_per_cell=COARSE_L)
+            e_cells, e_lb = empty.select_cells(q, COARSE_P, 1e-2)
+            got = coarse_knn.coarse_refine(empty, q, e_cells, e_lb, 1)
+            ref = coarse_knn.coarse_refine_plain(empty, q, e_cells, e_lb, 1)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)) or not bool(torch.isinf(got[1]).all()):
+                raise AssertionError("coarse_refine on an all-masked target differs from its plain version")
+        turns = in_turns({"plain_ms": lambda: coarse_knn.coarse_refine_plain(ck, q, cells, lb, 1),
+                          "ms": lambda: coarse_knn.coarse_refine(ck, q, cells, lb, 1),
+                          "search_ms": lambda: ck.search(q, 1, top_cells=COARSE_P),
+                          "nn1_ms": lambda: cuda_knn.nn1_prepped(prep, q)})
+        valid, _ = coarse_knn.coarse_candidates(ck, cells)
+        C, M, Q = ck.centroids.shape[0], ck.points.shape[0], q.shape[0]
+        sb = bound(int(valid.sum()), 12 * Q + 4 * Q * COARSE_P + 4 * Q + 13 * M + 9 * C + 8 * Q + Q)
+        frac = float(cert.float().mean())
+        shapes[label] = {"Q": Q, "M": M, "valid": int(ck.mask.sum()), "cells": C, "max_per_cell": COARSE_L,
+                         "cells_used": int(ck.valid.sum()), "overflow": int(ck.overflow),
+                         "pairs": int(valid.sum()), "certified": frac, **turns, "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"coarse_refine ({label}, the default capacity: Q={Q}, M={M}, valid {int(ck.mask.sum())}, "
+              f"{int(ck.valid.sum())} of {C} cells used, {COARSE_CELL} m cells, budget {COARSE_L}, overflow "
+              f"{int(ck.overflow)}, top {COARSE_P} cells, {int(valid.sum())} candidate pairs): certified {frac:.4f}, "
+              f"certified rows equal to nn1; equal to its plain version bit for bit (k=1 and k={K}); kernel "
+              f"{turns['ms']:.4f} ms, whole search {turns['search_ms']:.4f}, plain {turns['plain_ms']:.4f}, nn1 "
+              f"{turns['nn1_ms']:.4f}; bound {sb[0]:.4f} ({sb[1]}); no library call computes this search")
+        shapes[f"{label}, sized to the data"] = coarse_sized(cloud, ck, q, label)
+    path = shapes["131,072 rows"]
+    r = row("coarse_refine", COARSE_SOURCE, COARSE_REPLACES, COARSE_PATH, 0.0, (path["ms"], path["plain_ms"], None),
+            (path["bound_ms"], path["bound_by"]), shapes=shapes, library="none computes it")
+    r["launches"] = launches
+    return r
+
+
+def window_valid_pairs(ok_s: torch.Tensor, window: int) -> int:
+    n, pairs = ok_s.shape[0], 0
+    for o in list(range(-window, 0)) + list(range(1, window + 1)):
+        lo, hi = max(0, -o), min(n, n - o)
+        pairs += int((ok_s[lo:hi] & ok_s[lo + o:hi + o]).sum())
+    return pairs
+
+
+def check_window_kernel(lo_out, dev) -> dict:
+    """morton_window (kernel C) on one 2048 x 64 scan (k=10, W=64, two
+    passes): window_self_knn driven with the counts at 0 (its launches),
+    its recall against the exact knn_k; each pass bit for bit against its
+    plain version (an all-masked scan too); timed in turns with its plain
+    version, the whole two-pass search and knn_k at the same shape."""
+    _, _, scans, _ = lo_out["replay"]
+    pts, mask = scans[-1].points.contiguous(), scans[-1].mask.contiguous()
+    torch.cuda.synchronize()
+    cuda_knn.reset_launch_counts()
+    res = window_knn.window_self_knn(pts, mask, K, window=WINDOW_W)
+    torch.cuda.synchronize()
+    launches = cuda_knn.launch_counts["morton_window"]
+    exact = self_knn(pts, mask, K)
+    rows = torch.nonzero(mask)[::13, 0]
+    hits = (res.indices[rows][:, :, None] == exact.indices[rows][:, None, :]).any(-1).float().mean()
+    recall = float(hits)
+    if recall <= 0.70:
+        raise AssertionError(f"window_self_knn recall {recall:.4f} below the 0.70 envelope")
+    sorted_in = {}
+    for order in ((0, 1, 2), (2, 0, 1)):
+        for what, m in (("scan", mask), ("all masked", torch.zeros_like(mask))):
+            perm = torch.sort(window_knn.morton_codes(pts, m, 0.5, order), stable=True)[1]
+            args = (pts[perm].contiguous(), m[perm].contiguous(), perm.to(torch.int32), WINDOW_W, K)
+            got, ref = window_knn.window_search(*args), window_knn.window_search_plain(*args)
+            torch.cuda.synchronize()
+            check_equal("morton_window", got, ref, f"axes {order}, {what}")
+            if what == "scan":
+                sorted_in[order] = args
+    args = sorted_in[(0, 1, 2)]
+    prep = cuda_knn.prep_target(pts, mask)
+    turns = in_turns({"plain_ms": lambda: window_knn.window_search_plain(*args),
+                      "ms": lambda: window_knn.window_search(*args),
+                      "window_self_knn_ms": lambda: window_knn.window_self_knn(pts, mask, K, window=WINDOW_W),
+                      "knn_k_ms": lambda: cuda_knn.knn_k_prepped(prep, pts, K)})
+    N = pts.shape[0]
+    pairs = window_valid_pairs(args[1], WINDOW_W)
+    sb = bound(pairs, 17 * N + 8 * N * K)
+    print(f"morton_window (one 2048 x 64 scan: N={N}, valid {int(mask.sum())}, k={K}, W={WINDOW_W}, two passes, "
+          f"{pairs} valid window pairs a pass): {launches} launches in window_self_knn; recall {recall:.4f} against "
+          f"the exact knn_k (every 13th valid row); each pass equal to its plain version bit for bit (all masked "
+          f"too); one pass {turns['ms']:.4f} ms, plain {turns['plain_ms']:.4f}, window_self_knn "
+          f"{turns['window_self_knn_ms']:.4f}, knn_k {turns['knn_k_ms']:.4f}; bound {sb[0]:.4f} ({sb[1]}); no "
+          f"library call computes this search")
+    r = row("morton_window", WINDOW_SOURCE, WINDOW_REPLACES, WINDOW_PATH, 0.0, (turns["ms"], turns["plain_ms"], None),
+            sb, shapes={"2048 x 64 scan": {"N": N, "valid": int(mask.sum()), "k": K, "window": WINDOW_W,
+                                           "pairs": pairs, "recall": recall, **turns}}, library="none computes it")
+    r["launches"] = launches
+    return r
+
+
+def pair_preprocess_phase(src_raw, tgt_raw, cap) -> None:
+    """preprocess_pair against two sequential preprocesses of the pair's
+    scans: the same voxels, covariances and normals bit for bit, and ms of
+    each in turns."""
+    a = PointCloud(points=src_raw.points, mask=src_raw.mask)
+    b = PointCloud(points=tgt_raw.points, mask=tgt_raw.mask)
+
+    def sequential():
+        out = []
+        for c in (a, b):
+            d = voxel_downsample(c, VOXEL, out_capacity=cap)
+            covs = estimate_covariances(d.points, self_knn(d.points, d.mask, K))
+            out.append(d.replace(covs=covs, normals=extract_normals(d.points, covs)))
+        return out
+
+    fused = preprocess_pair(a, b, VOXEL, cap, K)
+    for f, s, name in zip(fused, sequential(), ("source", "target")):
+        m = s.mask
+        same = torch.equal(f.mask, m) and all(torch.equal(getattr(f, x)[m], getattr(s, x)[m])
+                                              for x in ("points", "covs", "normals"))
+        if not same:
+            raise AssertionError(f"preprocess_pair's {name} differs from the sequential preprocess")
+    t = in_turns({"sequential_ms": sequential, "preprocess_pair_ms": lambda: preprocess_pair(a, b, VOXEL, cap, K)})
+    print(f"preprocess_pair (the scan pair, {VOXEL} m voxels, capacity {cap}, k={K}): voxels, covariances and normals "
+          f"equal to two sequential preprocesses bit for bit; {t['preprocess_pair_ms']:.4f} ms against "
+          f"{t['sequential_ms']:.4f} ms sequential (marginal CUDA-event ms, medians in turns)")
+
+
+def sharded_phase(source, target) -> None:
+    """sharded_align on the card's one-device mesh equal to align bit for
+    bit; on a two-entry mesh of the card (two shards, the per-shard moves,
+    the partial sums) within SHARDED_T_TOL of align on T with equal inliers;
+    device_info."""
+    mesh = sharded.make_mesh()
+    params = RegistrationParams(max_iterations=10)
+    got = sharded.sharded_align(mesh, source, target, params)
+    ref = align(source, target, BruteForceKNN.build(target), params)
+    torch.cuda.synchronize()
+    for name, a, b in zip(ref._fields, got, ref):
+        if not (a == b if isinstance(a, int) else torch.equal(a, b)):
+            raise AssertionError(f"sharded_align on {mesh} differs from align in {name}")
+    two = mesh * 2
+    got2 = sharded.sharded_align(two, source, target, params)
+    torch.cuda.synchronize()
+    t_gap = float((got2.T - ref.T).abs().max())
+    print(f"sharded_align on the mesh {mesh}: equal to align bit for bit ({int(got.iterations)} iterations, "
+          f"{int(got.inlier)} inliers); on {two}: T within {t_gap:.3g} of align, {int(got2.iterations)} iterations, "
+          f"{int(got2.inlier)} inliers; device_info {device_info()}")
+    if not (t_gap <= SHARDED_T_TOL and int(got2.inlier) == int(ref.inlier)):
+        raise AssertionError(f"sharded_align on {two}: T gap {t_gap}, inliers {int(got2.inlier)} against "
+                             f"{int(ref.inlier)}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -3077,6 +3555,16 @@ def main() -> None:
                                      raw_out["kernel_launches"]["range_image"]))
     raw_card_vs_cpu(dev)
     api_phase(raw_out, lo_out["replay"], dev)
+
+    # --- item 12: GridKNN, CoarseKNN, the Morton window, the pair preprocess, the mesh -
+    t0 = time.perf_counter()
+    grid_out = grid_replay_phase(lo_out, dev)
+    results.append(check_grid_kernel(lo_out, grid_out, dev))
+    results.append(check_coarse_kernel(lo_out, dev))
+    results.append(check_window_kernel(lo_out, dev))
+    pair_preprocess_phase(src_raw, tgt_raw, cap)
+    sharded_phase(res.source, res.target)
+    print(f"item 12 phase: {time.perf_counter() - t0:.1f} s")
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

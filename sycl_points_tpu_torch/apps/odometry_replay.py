@@ -68,7 +68,7 @@ from sycl_points_tpu_torch.utils.synthetic import World, figure8_trajectory, ret
 FRAME_DT = 0.1  # a 10 Hz sensor
 IMU_HZ = 400
 FRAME_SPAN = "replay.frame"  # the profiler span around each timed frame
-FRAME_KERNELS = ("nn1", "knn_k", "range_image")  # the kernels a frame may launch
+FRAME_KERNELS = ("nn1", "knn_k", "range_image", "grid_knn")  # the kernels a frame may launch
 
 
 def replay_params(initial_pose: np.ndarray, map_capacity: int = 1 << 17,

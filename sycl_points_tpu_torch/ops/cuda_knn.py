@@ -29,7 +29,11 @@ or 32 lanes a query) and ``nn1_unroll2`` (v3). Every 1-NN kernel equals
 
 ``csrc/range_image.cu`` holds the range-image window search of the raw
 scans; its wrapper is :func:`..range_image_knn.range_image_window`, which
-counts its launches here under ``range_image``.
+counts its launches here under ``range_image``. The searches of the
+structured targets count here too: ``grid_knn`` (``csrc/grid_knn.cu``,
+wrapper :func:`..grid_knn.grid_search`), ``coarse_refine``
+(``csrc/coarse_knn.cu``, :func:`..coarse_knn.coarse_refine`) and
+``morton_window`` (``csrc/window_knn.cu``, :func:`..window_knn.window_search`).
 
 On first use every source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` (one ``nvcc`` a source, all started together) and linked into one
@@ -86,6 +90,7 @@ NN1_LANES = (8, 32)
 launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
     "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
+    "grid_knn": 0, "coarse_refine": 0, "morton_window": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -162,10 +167,14 @@ def load_library() -> ctypes.CDLL:
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, p, p, p]
+            lib.spt_grid_knn.argtypes = [p, i, p, ctypes.c_float, p, p, p, i, p, p, p, p, i, i, i, i, p, p, p]
+            lib.spt_coarse_refine.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, p, p, p, p]
+            lib.spt_morton_window.argtypes = [p, p, p, i, i, i, p, p, p]
             for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_batched, lib.spt_knn_k_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
-                       lib.spt_range_image_window):
+                       lib.spt_range_image_window, lib.spt_grid_knn, lib.spt_coarse_refine,
+                       lib.spt_morton_window):
                 fn.restype = i
             _lib = lib
     return _lib

@@ -10,6 +10,10 @@
     ``lax.approx_max_k`` exists only on a TPU and lowers to an exact top-k
     everywhere else.
 
+:func:`build_target_knn` picks a target's correspondence search: brute force
+at or below ``GRID_KNN_TARGET_THRESHOLD`` rows, :class:`~.grid_knn.GridKNN`
+above it (never, at the default threshold).
+
 A fleet's clouds (``[B, N, 3]``) go through the batched kernels in one
 launch: :func:`self_knn_streams`, and :class:`BruteForceKNN` built on
 ``[B, M, 3]`` targets, whose ``search(k=1)`` takes queries ``[B, Q, 3]`` and
@@ -120,3 +124,24 @@ class BruteForceKNN:
             torch.where(within, res.indices, -1),
             torch.where(within, res.distances, torch.inf),
         )
+
+
+# Rows above which build_target_knn picks the grid search. JAX measured no
+# crossover on its TPU (brute force won at every size), so the default never
+# picks the grid; a caller or a test lowers it to opt in.
+GRID_KNN_TARGET_THRESHOLD = 1 << 62
+
+
+def build_target_knn(cloud: PointCloud, *, max_correspondence_distance: float, threshold: Optional[int] = None):
+    """The correspondence search of a target cloud: a prepared
+    :class:`BruteForceKNN` at or below ``threshold`` rows (default
+    :data:`GRID_KNN_TARGET_THRESHOLD`), else ``GridKNN.build_auto`` with
+    ``cell_size = max_correspondence_distance``. ICP drops correspondences
+    beyond that distance, and the grid is exact within one cell, so both
+    give the registration the same correspondences."""
+    thr = GRID_KNN_TARGET_THRESHOLD if threshold is None else threshold
+    if cloud.capacity > thr:
+        from sycl_points_tpu_torch.ops.grid_knn import GridKNN
+
+        return GridKNN.build_auto(cloud, cell_size=max_correspondence_distance)
+    return BruteForceKNN.build(cloud).prepped()

@@ -48,8 +48,10 @@ streams. The two fleets differ only in the hooks that the JAX classes name
 ``_upload_inputs`` (a frame's host inputs, sent before the preprocess) and
 ``_iter_col`` (where a stream's align iterations sit in the stats).
 
-The JAX class's ``mesh=`` (GSPMD sharding of the stream axis over chips) has
-no use on one card; it raises here (ROADMAP Queue 1 item 12).
+The JAX class's ``mesh=`` (GSPMD sharding of the stream axis over chips)
+raises here: a fleet split over several cards is ROADMAP Queue 1 item 13
+(``parallel/sharded.py`` splits one pair, a query batch or a batch of pairs,
+not a fleet).
 """
 
 from __future__ import annotations
@@ -126,8 +128,8 @@ class FleetOdometry:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                f"mesh= (sharding the {mesh_axis!r} axis over chips) has no use on one card "
-                "(ROADMAP Queue 1 item 12)")
+                f"mesh= (sharding the {mesh_axis!r} axis over cards) is not ported: a fleet split over "
+                "several cards is ROADMAP Queue 1 item 13")
         # the template holds the parameters, the preprocessor and the submap
         # config; its own single-stream map is freed
         t = self._make_template(params, map_prior_params, device)

@@ -10,9 +10,12 @@ policy, extraction of the target within range (the occupied voxels, on the
 occupancy grid), and the target's search structure and covariances /
 normals as the registration type needs.
 
-The search structure (``submap_knn``) holds the target prepared for the
-``nn1`` kernel; it is rebuilt only when the target changes (inserts,
-growth), never per registration iteration.
+The search structure (``submap_knn``) comes from ``ops.knn.build_target_knn``
+wherever the JAX class calls it (and on the LO / LIO frames' inserts): the
+target prepared for the ``nn1`` kernel, or a ``GridKNN`` above
+``GRID_KNN_TARGET_THRESHOLD`` rows (never, at the default). It is rebuilt
+only when the target changes (inserts, growth), never per registration
+iteration.
 
 The pipelined frames' drop-retry reconcile re-applies a window of stashed
 inserts in one call (:meth:`Submap.reconcile_chain`). The JAX class's jit
@@ -35,7 +38,7 @@ from sycl_points_tpu_torch import require_device
 from sycl_points_tpu_torch.mapping import occupancy_grid as og
 from sycl_points_tpu_torch.mapping import voxel_hash_map as vhm
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
-from sycl_points_tpu_torch.ops.knn import BruteForceKNN, self_knn, self_knn_streams
+from sycl_points_tpu_torch.ops.knn import build_target_knn, self_knn, self_knn_streams
 from sycl_points_tpu_torch.ops.sampling import mixed_sampling, random_sampling
 from sycl_points_tpu_torch.ops.transform import transform_cloud
 from sycl_points_tpu_torch.pipeline.params import CommonParameters
@@ -85,7 +88,7 @@ class Submap:
         self._generator = torch.Generator(device=self.device).manual_seed(SEED)
 
         self.submap_cloud: Optional[PointCloud] = None
-        self.submap_knn: Optional[BruteForceKNN] = None
+        self.submap_knn = None  # BruteForceKNN, or GridKNN above the threshold
         self.last_keyframe_cloud: Optional[PointCloud] = None
         # Telemetry (no silent caps): in-range voxels that did not fit the
         # extract capacity on the latest insert, and cumulative fixed-budget
@@ -189,7 +192,14 @@ class Submap:
     def _set_target(self, target: PointCloud) -> None:
         """Finalize ``target`` and prepare its search structure."""
         self.submap_cloud = self._finalize_target(target)
-        self.submap_knn = BruteForceKNN.build(self.submap_cloud).prepped()
+        self.submap_knn = self._target_knn(self.submap_cloud)
+
+    def _target_knn(self, target: PointCloud):
+        """The target's search structure (``ops.knn.build_target_knn``): a
+        prepared brute-force target, or a ``GridKNN`` with the correspondence
+        gate as its cell above ``GRID_KNN_TARGET_THRESHOLD`` rows."""
+        return build_target_knn(
+            target, max_correspondence_distance=self.params.registration.factor.max_correspondence_distance)
 
     def extract_tier_for(self, map_capacity: int) -> int:
         """The extract capacity the tiering policy pairs with a map capacity:
@@ -289,7 +299,7 @@ class Submap:
         and its search structure (prepared once, here), the insert's sample
         and extraction overflow, and the keyframe bookkeeping."""
         self.submap_cloud = target
-        self.submap_knn = BruteForceKNN.build(target).prepped()
+        self.submap_knn = self._target_knn(target)
         self.extract_overflow = int(extract_overflow)
         self.last_keyframe_cloud = sampled
         self._record_keyframe(pose, timestamp)

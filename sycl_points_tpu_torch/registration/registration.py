@@ -265,9 +265,16 @@ def _correspondences(params, knn, src_pts, src_mask, T, tgt: _Targets) -> _Targe
 def _coarse_knn(params: RegistrationParams, target_knn) -> Optional[BruteForceKNN]:
     """The coarse phase's search: every ``coarse_stride``-th row of the
     unprepared target (of each stream's, for a fleet), made contiguous and
-    prepared once; None when the schedule is off."""
+    prepared once; None when the schedule is off. Only a brute-force target
+    can be strided: a ``GridKNN`` holds its points in cell order, so strided
+    rows would index the sorted layout, and it is refused (JAX's constructor
+    call fails on it too)."""
     if params.coarse_to_fine_iters <= 0 or not hasattr(target_knn, "points"):
         return None
+    if not isinstance(target_knn, BruteForceKNN):
+        raise ValueError(
+            f"coarse-to-fine strides the target's rows, which only a BruteForceKNN target keeps in the "
+            f"cloud's order; got {type(target_knn).__name__} (set coarse_to_fine_iters=0 to use it)")
     s = params.coarse_stride
     return BruteForceKNN(points=target_knn.points[..., ::s, :].contiguous(),
                          mask=target_knn.mask[..., ::s].contiguous()).prepped()
@@ -283,11 +290,53 @@ def _search(params, knn, knn_coarse, coarse: bool, src_pts, src_mask, T, tgt: _T
                                    src_mask, tgt)
 
 
-def _genz_alpha(corr: _Targets) -> torch.Tensor:
-    """Planar fraction among inliers."""
-    inl = corr.mask.sum(-1)
-    pl = (corr.mask & corr.planar).sum(-1)
+def _genz_alpha(*corrs: _Targets) -> torch.Tensor:
+    """Planar fraction among inliers (of all shards' correspondences, on the
+    first one's device)."""
+    dev = corrs[0].mask.device
+    inl = _sum_on(dev, [c.mask.sum(-1) for c in corrs])
+    pl = _sum_on(dev, [(c.mask & c.planar).sum(-1) for c in corrs])
     return torch.where(inl > 0, pl.to(_F32) / torch.clamp_min(inl, 1).to(_F32), 1.0)
+
+
+def _sum_on(dev, parts):
+    """The sum of ``parts`` (tensors or tuples of them) on ``dev``, taken in
+    order; one part comes back as it is."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = tuple(a + b.to(dev) for a, b in zip(total, p)) if isinstance(total, tuple) else total + p.to(dev)
+    return tuple(t.to(dev) for t in total) if isinstance(total, tuple) else total.to(dev)
+
+
+class Shard(NamedTuple):
+    """The part of an align's source that one device holds, with that
+    device's copy of the target's search and attributes (see
+    :func:`make_shard`). :func:`align` runs one shard; the sharded align
+    (``parallel.sharded.sharded_align``) one a device, their partial sums
+    added on the first device every iteration."""
+
+    points: torch.Tensor
+    mask: torch.Tensor
+    covs: Optional[torch.Tensor]
+    covs_reg: Optional[torch.Tensor]
+    knn: Any
+    knn_coarse: Optional[BruteForceKNN]
+    tgt: _Targets
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+
+def make_shard(params: RegistrationParams, source: PointCloud, target: PointCloud, target_knn) -> Shard:
+    """``source`` (or its part) against ``target`` on their device: the
+    pose-independent target attributes and the prepared search, made once
+    an align."""
+    src_covs_reg, tgt = _precompute_targets(params, source, target)
+    if hasattr(target_knn, "prepped"):
+        target_knn = target_knn.prepped()
+    return Shard(source.points, source.mask, source.covs, src_covs_reg, target_knn,
+                 _coarse_knn(params, target_knn), tgt)
 
 
 def _linearize(params, T, src_pts, src_covs_reg, corr: _Targets, robust_scale, genz_alpha):
@@ -516,11 +565,29 @@ def align(
     n_levels, len(TRACE_COLS)]`` per-iteration buffer (unexecuted rows NaN).
     Returns ``RegistrationResult``, or ``(result, trace)`` with ``trace``.
     """
+    return align_shards([make_shard(params, source, target, target_knn)], params, initial_guess, robust_scale,
+                        rotation_robust_scale, map_prior, robust_schedule, trace)
+
+
+def align_shards(
+    shards: list,
+    params: RegistrationParams = RegistrationParams(),
+    initial_guess: Optional[torch.Tensor] = None,
+    robust_scale: Optional[float] = None,
+    rotation_robust_scale: Optional[float] = None,
+    map_prior=None,
+    robust_schedule: Optional[tuple] = None,
+    trace: bool = False,
+):
+    """:func:`align` over a source split into :class:`Shard` s, the loop's
+    state on the first shard's device: each iteration, each shard searches
+    and linearizes its own points on its own device, and the partial H, b,
+    error and inlier counts (and the GenZ counts, and LM / dogleg's trial
+    errors) are added on the first device. One shard is :func:`align`."""
     method = params.optimization_method
     if method not in ("gauss_newton", "levenberg_marquardt", "powell_dogleg"):
         raise ValueError(method)
-
-    dev = source.device
+    dev = shards[0].device
     T = (
         torch.eye(4, dtype=_F32, device=dev)
         if initial_guess is None
@@ -532,12 +599,21 @@ def align(
     rot_scales = [_scalar(r, dev) for r in rot]
     n_levels = len(geo)
     rotc = params.rotation_constraint.enable
+    has_coarse = shards[0].knn_coarse is not None
 
-    src_covs_reg, tgt = _precompute_targets(params, source, target)
-    src_pts, src_mask = source.points, source.mask
-    if hasattr(target_knn, "prepped"):
-        target_knn = target_knn.prepped()
-    knn_coarse = _coarse_knn(params, target_knn)
+    def lin_of(sh, corr, T, alpha, r_scale, rot_s):
+        T, alpha, r_scale, rot_s = (x.to(sh.device) for x in (T, alpha, r_scale, rot_s))
+        lin = _linearize(params, T, sh.points, sh.covs_reg, corr, r_scale, alpha)
+        if rotc:
+            lin = add_rotation_constraint(params, lin, T, sh.covs, corr, rot_s)
+        return lin
+
+    def err_of(sh, corr, T_c, alpha, r_scale, rot_s):
+        T_c, alpha, r_scale, rot_s = (x.to(sh.device) for x in (T_c, alpha, r_scale, rot_s))
+        err, inl = _error_at(params, T_c, sh.points, sh.covs_reg, corr, r_scale, alpha)
+        if rotc:
+            err = err + rotation_constraint_error(params, T_c, sh.covs, corr, rot_s)
+        return err, inl
 
     lm_lambda = _scalar(params.lm.init_lambda, dev)
     trust = _scalar(params.dogleg.initial_trust_region_radius, dev)
@@ -556,23 +632,21 @@ def align(
 
     while total_it < params.max_iterations * n_levels:
         r_scale, rot_s = geo_scales[level], rot_scales[level]
-        coarse = knn_coarse is not None and total_it < params.coarse_to_fine_iters
+        coarse = has_coarse and total_it < params.coarse_to_fine_iters
         coarse_its += coarse
-        corr = _search(params, target_knn, knn_coarse, coarse, src_pts, src_mask, T, tgt)
-        alpha = _genz_alpha(corr) if params.reg_type is RegType.GENZ else torch.ones((), dtype=_F32, device=dev)
-        lin = _linearize(params, T, src_pts, src_covs_reg, corr, r_scale, alpha)
-        if rotc:
-            lin = add_rotation_constraint(params, lin, T, source.covs, corr, rot_s)
+        corrs = [_search(params, sh.knn, sh.knn_coarse, coarse, sh.points, sh.mask, T.to(sh.device), sh.tgt)
+                 for sh in shards]
+        alpha = _genz_alpha(*corrs) if params.reg_type is RegType.GENZ else torch.ones((), dtype=_F32, device=dev)
+        lin = LinearizedResult(*_sum_on(dev, [lin_of(sh, c, T, alpha, r_scale, rot_s)
+                                             for sh, c in zip(shards, corrs)]))
         H_raw, b_raw, error_raw = lin.H, lin.b, lin.error
         lin = regularize(params.degenerate_reg, lin, T, T_initial)
         if map_prior is not None:
             lin = map_prior.apply(lin, T)
         H, g, cur_err, cur_inl = lin.H, lin.b, lin.error, lin.inlier
 
-        def error_fn(T_c, corr=corr, alpha=alpha, r_scale=r_scale, rot_s=rot_s):
-            err, inl = _error_at(params, T_c, src_pts, src_covs_reg, corr, r_scale, alpha)
-            if rotc:
-                err = err + rotation_constraint_error(params, T_c, source.covs, corr, rot_s)
+        def error_fn(T_c, corrs=corrs, alpha=alpha, r_scale=r_scale, rot_s=rot_s):
+            err, inl = _sum_on(dev, [err_of(sh, c, T_c, alpha, r_scale, rot_s) for sh, c in zip(shards, corrs)])
             if map_prior is not None:
                 err = err + map_prior.prior_error(T_c)
             return err, inl

@@ -438,3 +438,126 @@ def test_range_image_window_rejects_bad_inputs():
         ri.range_image_window(img_p, img_i.long(), 64, 8, 6, 4, 10)
     with pytest.raises(ValueError):
         ri.range_image_window(img_p, img_i.cpu(), 64, 8, 6, 4, 10)
+
+
+# -- the structured searches: grid_knn (A), coarse_refine (B), morton_window (C) --
+
+
+def _cloud_on_card(pts, mask=None):
+    from sycl_points_tpu_torch.points.point_cloud import PointCloud
+
+    c = PointCloud.from_numpy(np.asarray(pts, np.float32), device="cuda")
+    if mask is not None:
+        full = torch.zeros(c.capacity, dtype=torch.bool, device="cuda")
+        full[: len(mask)] = torch.from_numpy(np.asarray(mask)).cuda()
+        c = c.replace(mask=full)
+    return c
+
+
+def _grid_case(name):
+    """(grid, queries, pose) of a grid-search case: a scan's voxels against
+    a submap-like target, queries with no neighbour in their 27 cells,
+    outside the 21-bit range and NaN, an overflowing budget, every target
+    masked."""
+    from sycl_points_tpu_torch.ops.grid_knn import GridKNN
+
+    pts, _ = _raw_scan(1024, 32, seed=8)
+    rng = np.random.default_rng(11)
+    tgt = pts[::2]
+    q = torch.cat([pts[1::2][:3000] + torch.from_numpy(rng.normal(scale=0.05, size=(3000, 3)).astype(np.float32))
+                   .cuda(), torch.tensor([[500.0, 500.0, 500.0], [4e6, 0.0, 0.0], [float("nan"), 0.0, 0.0]],
+                                         device="cuda")]).contiguous()
+    pose = se3_exp(torch.tensor([0.01, -0.02, 0.03, 0.2, -0.1, 0.05])).cuda().contiguous()
+    mask = rng.uniform(size=tgt.shape[0]) > 0.1
+    if name == "submap, pose":
+        return GridKNN.build_auto(_cloud_on_card(tgt.cpu().numpy(), mask), cell_size=1.0), q, pose
+    if name == "small budget":
+        return GridKNN.build(_cloud_on_card(tgt.cpu().numpy()), cell_size=2.0, max_per_cell=4), q, None
+    if name == "all masked":
+        return GridKNN.build(_cloud_on_card(tgt.cpu().numpy(), np.zeros(tgt.shape[0], bool)), cell_size=1.0), q, pose
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("case", ["submap, pose", "small budget", "all masked"])
+def test_grid_knn_kernel_matches_plain(case, k):
+    """Kernel A equals the plain search bit for bit, padded entries included."""
+    from sycl_points_tpu_torch.ops import grid_knn as gk
+
+    grid, q, pose = _grid_case(case)
+    before = cuda_knn.launch_counts["grid_knn"]
+    got = gk.grid_search(grid, q, k, pose)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["grid_knn"] == before + 1
+    ref = gk.grid_search_plain(grid, q, k, pose)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert bool(torch.isinf(got[1][-3:]).all())
+    if case == "all masked":
+        assert bool(torch.isinf(got[1]).all())
+
+
+def _coarse_case(name):
+    from sycl_points_tpu_torch.ops.coarse_knn import CoarseKNN
+
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(-40, 40, size=(40000, 3)).astype(np.float32)
+    pts[:, 2] *= 0.1
+    q = torch.from_numpy(rng.uniform(-40, 40, size=(3001, 3)).astype(np.float32) * [1, 1, 0.1]).float().cuda()
+    if name == "lidar-like":
+        return CoarseKNN.build(_cloud_on_card(pts), coarse_cell=8.0, max_per_cell=256), q.contiguous()
+    if name == "small budget":
+        return CoarseKNN.build(_cloud_on_card(pts), coarse_cell=8.0, max_per_cell=8), q.contiguous()
+    if name == "masked, lost cells":
+        mask = rng.uniform(size=len(pts)) > 0.3
+        return CoarseKNN.build(_cloud_on_card(pts, mask), coarse_cell=1.0, cells_capacity=512,
+                               max_per_cell=16), q.contiguous()
+    if name == "all masked":
+        return CoarseKNN.build(_cloud_on_card(pts, np.zeros(len(pts), bool)), coarse_cell=8.0), q.contiguous()
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("case", ["lidar-like", "small budget", "masked, lost cells", "all masked"])
+def test_coarse_refine_kernel_matches_plain(case, k):
+    """Kernel B equals the plain refine bit for bit (indices into the sorted
+    layout, distances, certificates), on the same selected cells."""
+    from sycl_points_tpu_torch.ops import coarse_knn as ckm
+
+    ck, q = _coarse_case(case)
+    cells, lb = ck.select_cells(q, 8, 1e-2)
+    before = cuda_knn.launch_counts["coarse_refine"]
+    got = ckm.coarse_refine(ck, q, cells.contiguous(), lb.contiguous(), k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["coarse_refine"] == before + 1
+    ref = ckm.coarse_refine_plain(ck, q, cells, lb, k)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    if case == "lidar-like":
+        assert float(got[2].float().mean()) > 0.5
+    if case in ("small budget", "masked, lost cells"):
+        assert not bool(got[2].any())
+    if case == "all masked":  # nothing to find: every result padding, vacuously certified as in JAX
+        assert bool(torch.isinf(got[1]).all()) and bool(got[2].all())
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("window", [8, 64])
+def test_morton_window_kernel_matches_plain(window, k):
+    """Kernel C equals the plain window search bit for bit on a scan with
+    repeated Morton codes and masked points, written in the original order."""
+    from sycl_points_tpu_torch.ops import window_knn as wk
+
+    pts, mask = _raw_scan(1024, 32, seed=9)
+    mask[::11] = False
+    for order in ((0, 1, 2), (2, 0, 1)):
+        code = wk.morton_codes(pts, mask, 0.5, order)
+        perm = torch.sort(code, stable=True)[1]
+        args = (pts[perm].contiguous(), mask[perm].contiguous(), perm.to(torch.int32), window, k)
+        before = cuda_knn.launch_counts["morton_window"]
+        got = wk.window_search(*args)
+        torch.cuda.synchronize()
+        assert cuda_knn.launch_counts["morton_window"] == before + 1
+        ref = wk.window_search_plain(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    a, b = wk.window_self_knn(pts, mask, 10), wk.window_self_knn(pts.cpu(), mask.cpu(), 10)
+    assert torch.equal(a.indices.cpu(), b.indices) and torch.equal(a.distances.cpu(), b.distances)

@@ -144,7 +144,7 @@ def test_fleet_matches_jax(world_scans, map_type):
 
 def test_fleet_refusals():
     p = params_from_reference(small_params())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         FleetOdometry(p, n_streams=2, mesh=object(), device="cpu")
     fleet = FleetOdometry(p, n_streams=2, device="cpu")
     assert fleet.precompile_growth(1 << 20) == 0

@@ -372,7 +372,7 @@ def test_fleet_lio_refusals():
     with pytest.raises(ValueError, match="deskew"):
         FleetLIO(dataclasses.replace(p, imu=dataclasses.replace(
             imu, deskew=dataclasses.replace(imu.deskew, enable=True))), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         FleetLIO(p, n_streams=2, mesh=object(), device="cpu")
     # the rotation constraint and coarse-to-fine, which FleetLIO refused
     # before they were ported, run; coarse-to-fine is no branch of the LIO

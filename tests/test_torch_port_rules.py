@@ -25,8 +25,8 @@
     at the parameter tree's defaults too, ``apps.fleet_odometry.run_fleet``
     and ``main``, ``apps.fleet_replay``'s LIO runs,
     ``convert.carry_from_reference`` and ``fleet_lio_state_from_reference``),
-    ``PreprocessFilter`` and ``LidarOdometry`` with the raw-features
-    covariances;
+    ``PreprocessFilter``, ``LidarOdometry`` with the raw-features
+    covariances, and ``parallel.sharded.make_mesh`` (the visible cards);
   * ``apps.fleet_replay``'s copy of the JAX fleet benchmark's ``--lio``
     deployment (``benchmarks/bench_fleet.py:112-200``) equals it: the
     parameter tree, the IMU feed (every reading, both ends of each chunk)
@@ -68,6 +68,7 @@ from sycl_points_tpu_torch.imu import factor as imu_factor  # noqa: E402
 from sycl_points_tpu_torch.imu import preintegration  # noqa: E402
 from sycl_points_tpu_torch.mapping import voxel_hash_map  # noqa: E402
 from sycl_points_tpu_torch.ops.preprocess_filter import PreprocessFilter  # noqa: E402
+from sycl_points_tpu_torch.parallel import sharded  # noqa: E402
 from sycl_points_tpu_torch.parallel.fleet import FleetLIO, FleetOdometry  # noqa: E402
 from sycl_points_tpu_torch.pipeline import params as lo_params  # noqa: E402
 from sycl_points_tpu_torch.pipeline.lidar_inertial_odometry import LidarInertialOdometry  # noqa: E402
@@ -108,7 +109,10 @@ def test_port_imports_nothing_of_the_jax_side():
             "sycl_points_tpu_torch/ops/range_image_knn.py", "sycl_points_tpu_torch/ops/prefix_sum.py",
             "sycl_points_tpu_torch/ops/preprocess_filter.py", "sycl_points_tpu_torch/points/native_io.py",
             "sycl_points_tpu_torch/utils/timing.py", "sycl_points_tpu_torch/utils/profiling.py",
-            "sycl_points_tpu_torch/apps/covariance_markers.py"} <= walked
+            "sycl_points_tpu_torch/apps/covariance_markers.py", "sycl_points_tpu_torch/ops/grid_knn.py",
+            "sycl_points_tpu_torch/ops/coarse_knn.py", "sycl_points_tpu_torch/ops/window_knn.py",
+            "sycl_points_tpu_torch/ops/pair_preprocess.py", "sycl_points_tpu_torch/parallel/sharded.py",
+            "sycl_points_tpu_torch/utils/device.py"} <= walked
     bad = {str(f.relative_to(ROOT)): forbidden_imports(f.read_text()) for f in files}
     assert not {f: b for f, b in bad.items() if b}
 
@@ -342,6 +346,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         stream_odometry.main(["--port", "0"])
     with pytest.raises(RuntimeError, match="is_available"):
         fleet_odometry.run_fleet([["scan.bin"]], _vhm_params(), "fleet")
+    with pytest.raises(RuntimeError, match="is_available"):
+        sharded.make_mesh(1)
     assert cloud_from_numpy(pts, device="cpu").device.type == "cpu"
 
 
