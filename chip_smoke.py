@@ -280,16 +280,25 @@
     range_image or nn1 never launched, or if a raw median ATE falls outside
     RAW_BOUNDS (at the replay deployment with the plain estimator: above
     MAX_ATE_M, or more than RAW_ATE_MARGIN_M from the standard median).
-38. The range-image kernel (``csrc/range_image.cu``) against its plain
-    version, bit for bit on the image (indices and distances, unfilled
-    slots included) and after the self-substitution, on the last
-    full-width scan after the box filter, on it with every 3rd return
-    doubled (collisions), with every point masked, and on a partial fan
-    with the elevation bounds given; then, in turns, the kernel, its plain
-    version, the whole ``range_image_knn`` and the ``knn_k`` self-search
+38. The range-image kernels (``csrc/range_image.cu``) against their plain
+    versions, bit for bit, on the last full-width scan after the box
+    filter, on it with every 3rd return doubled (collisions), with every
+    point masked, and on a partial fan with the elevation bounds given: the
+    window search (the shared-memory tile, TA columns a block from
+    ``range_image_tile``, and the first design, one thread a cell) on the
+    image (indices and distances, unfilled slots included) and after the
+    self-substitution; the card's ``range_image_knn`` (a memset, the
+    elevation, cells, window and rows kernels) against the plain sequence:
+    every cell (so every bin), winner and occupancy, every index and
+    distance, ``collisions``, and its device launches under the profiler
+    (at most 6). Then, in turns: the window kernel, its first design and
+    plain version; the card's ``range_image_knn``, the first sequence (the
+    plain steps around the first design) and the ``knn_k`` self-search
     (with its target prep) of the standard frame's post-voxel scan, which
-    the raw frame no longer runs, and the kernel's bound (16 B a cell in,
-    8 k B a cell out; 9 FP32 operations a window pair of occupied cells).
+    the raw frame no longer runs; the elevation, cells (with its memset)
+    and rows kernels beside their plain steps; with each kernel's bound
+    (the window: 16 B a cell in, 8 k B a cell out, 9 FP32 operations a
+    window pair of occupied cells; the others: their bytes).
 39. The raw-features LIO frame at the LIO replay deployment over phase 10's
     inputs beside the standard one, as in 37, with RAW_BOUNDS' LIO entry
     (MAX_LIO_ATE_M for the medians, no margin).
@@ -311,7 +320,7 @@
     back equal; ``native_io`` built, its readers and prefetching loader
     equal to the Python readers; ``StageTimer`` around raw frames; a
     ``profiling.trace`` of one raw frame whose Chrome trace names the
-    cluster nn1 kernel and the range-image kernel; the covariance markers
+    cluster nn1 kernel and the four range-image kernels; the covariance markers
     of the raw frame's covariances.
 42. The LO replay of phase 7's scans with GridKNN submaps
     (``ops.knn.GRID_KNN_TARGET_THRESHOLD`` set to 0 for the run) and with
@@ -324,7 +333,9 @@
 43. The three structured-search kernels against their plain versions, bit
     for bit, and timed in turns beside ``nn1`` / ``knn_k`` on the same
     inputs, with their bounds (9 FP32 operations a valid candidate; each
-    input read once): ``grid_knn`` (``csrc/grid_knn.cu``) at the LO frame's
+    input read once): ``grid_knn`` (``csrc/grid_knn.cu``; a lane group a
+    query, at the lanes ``cuda_knn.grid_lanes`` picks and at each of 8, 16
+    and 32, and its first design, one thread a query) at the LO frame's
     shapes (1,000 and 5,000 queries against the 16,384-row submap, k = 1
     under the pose and k = 10) and the C2F shapes (C2F_QUERIES against its
     4,096 and 16,384 rows), with a query with no neighbour and one off the
@@ -422,7 +433,7 @@ from sycl_points_tpu_torch.registration.registration import (
 )
 from sycl_points_tpu_torch.utils.device import device_info
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
-from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, bound, marginal_ms, nn1_bound
+from sycl_points_tpu_torch.scripts.measure import FP32_OPS_PER_S, OPS_PER_PAIR, bound, marginal_ms, nn1_bound
 from sycl_points_tpu_torch.utils import lie, lie_np, profiling, sync
 from sycl_points_tpu_torch.utils.timing import StageTimer
 from sycl_points_tpu_torch.points import io, native_io
@@ -584,6 +595,13 @@ OPTIONS_FLEET_FRAMES = 20
 RAW_PATH = "LidarOdometry.process (raw features)"
 RAW_SOURCE = "sycl_points_tpu_torch/csrc/range_image.cu"
 RAW_REPLACES = "sycl_points_tpu/ops/range_image_knn.py:113"
+# the JAX steps the card path's other range-image kernels replace
+RAW_ELEVATION_REPLACES = "sycl_points_tpu/ops/range_image_knn.py:72"
+RAW_CELLS_REPLACES = "sycl_points_tpu/ops/range_image_knn.py:89"
+RAW_ROWS_REPLACES = "sycl_points_tpu/ops/range_image_knn.py:132"
+RAW_ANGLE_OPS = 40  # FP32 operations a point of r, atan2 and asin (bounds of the per-point kernels)
+MAX_RANGE_IMAGE_LAUNCHES = 6
+RAW_KERNELS = ("range_image_elevation", "range_image_cells", "range_image", "range_image_rows")
 # The structured searches (ROADMAP Queue 1 item 12): GridKNN behind the LO
 # frame's submap, CoarseKNN at 30,000 queries against one and eight scans,
 # the Morton window on one scan.
@@ -2659,7 +2677,7 @@ def window_pairs(img_i: torch.Tensor, n_az: int, n_rings: int, w_az: int, w_el: 
 
 
 def range_image_cases(points: torch.Tensor, mask: torch.Tensor) -> dict:
-    """The bit-equality cases of the window search: the path's full-width
+    """The bit-equality cases of the range image: the path's full-width
     scan; the scan with every 3rd return doubled 3 mm off (collisions);
     every point masked; a quarter of the azimuths and the lower half of the
     fan with the full scan's elevation bounds given."""
@@ -2676,54 +2694,142 @@ def range_image_cases(points: torch.Tensor, mask: torch.Tensor) -> dict:
     }
 
 
-def check_range_image(scan, std_scan, launches: int) -> dict:
-    """The range-image kernel against its plain version, bit for bit on the
-    image and after the self-substitution, in every case of
-    :func:`range_image_cases`; then the kernel, the plain version, the whole
-    ``range_image_knn`` and the ``knn_k`` self-search of the standard
-    frame's post-voxel scan it replaces, timed in turns, and the kernel's
-    bound."""
+def device_launches(fn) -> int:
+    """Kernels and memsets the card ran for ``fn()``, under the profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def first_sequence(points, mask, k, n_az, n_rings, w_az, w_el):
+    """``range_image_knn`` as the port first ran it on the card: the plain
+    steps 1-2 and 4 around the first window design."""
+    img_p, img_i, cell, ok, collisions = range_image_knn.range_image(points, mask, n_az, n_rings)
+    return range_image_knn.point_rows(*range_image_knn.range_image_window_simple(img_p, img_i, n_az, n_rings, w_az,
+                                                                                 w_el, k), cell, ok), collisions
+
+
+def check_range_image(scan, std_scan, launches: dict) -> list:
+    """The range-image kernels against their plain versions, bit for bit, in
+    every case of :func:`range_image_cases`: the window search (the tiled
+    kernel and the first design) on the image and after the
+    self-substitution; the card's ``range_image_knn`` against the plain
+    sequence (cells, winners, occupancy, rows, collisions) and its device
+    launches. Then times in turns (the window kernel, its first design and
+    plain version; the card path, the first sequence and the ``knn_k``
+    self-search of the standard frame's post-voxel scan it replaces; the
+    elevation, cells and rows kernels beside their plain steps) and the
+    bounds. ``launches``: the raw frames' counts."""
     ce = CovarianceEstimationParams()
     n_az, n_rings, w_az, w_el, k = (ce.range_image_n_az, ce.range_image_n_rings, ce.range_image_window_az,
                                     ce.range_image_window_el, ce.neighbor_num)
-    pts, mask = scan.points.contiguous(), scan.mask
+    ri = range_image_knn
+    pts, mask = scan.points.contiguous(), scan.mask.contiguous()
+    ta = ri.range_image_tile(n_rings, w_az)
+    fused_launches = {}
     for what, (p, m, kw) in range_image_cases(pts, mask).items():
-        img_p, img_i, cell, ok, coll = range_image_knn.range_image(p, m, n_az, n_rings, kw.get("el_min"),
-                                                                   kw.get("el_max"))
-        got = range_image_knn.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
-        ref = range_image_knn.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+        img_p, img_i, cell, ok, coll = ri.range_image(p, m, n_az, n_rings, **kw)
+        got = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+        simple = ri.range_image_window_simple(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+        ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k)
         torch.cuda.synchronize()
         check_equal("range_image", got, ref, f"{what}, the image")
-        res, plain = range_image_knn.point_rows(*got, cell, ok), range_image_knn.point_rows(*ref, cell, ok)
+        check_equal("range_image_simple", simple, ref, f"{what}, the image")
+        res, plain = ri.point_rows(*got, cell, ok), ri.point_rows(*ref, cell, ok)
         check_equal("range_image", (res.indices, res.distances), (plain.indices, plain.distances),
                     f"{what}, after the self-substitution")
+        cells, ref_cells = ri.range_image_cells(p, m, n_az, n_rings, **kw), ri.range_image_cells_plain(
+            p, m, n_az, n_rings, **kw)
+        for name, a, b in zip(("cells", "winners", "occupancy", "collisions"), cells, ref_cells):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"range_image_cells ({what}): the {name} differ from the plain steps")
+        fused = ri.range_image_knn(p, m, k, n_az, n_rings, w_az, w_el, **kw)
+        check_equal("range_image_knn", (fused.knn.indices, fused.knn.distances), (plain.indices, plain.distances),
+                    f"{what}, the card's path against the plain sequence")
+        if int(fused.collisions) != int(coll):
+            raise AssertionError(f"range_image_knn ({what}): {int(fused.collisions)} collisions, plain {int(coll)}")
+        fused_launches[what] = device_launches(lambda: ri.range_image_knn(p, m, k, n_az, n_rings, w_az, w_el, **kw))
         print(f"range_image ({what}: {p.shape[0]} points, {int(m.sum())} valid, {int((img_i >= 0).sum())} cells "
-              f"occupied, {int(coll)} collisions): equal to its plain version bit for bit, the image and the points")
+              f"occupied, {int(coll)} collisions): the tiled window kernel ({ta} columns a block) and the first "
+              f"design equal to the plain window bit for bit, the image and the points; the card's range_image_knn "
+              f"equal to the plain sequence in every cell, winner, occupancy, row and collisions, "
+              f"{fused_launches[what]} device launches (kernels and memsets)")
         if what == "collisions" and int(coll) == 0:
             raise AssertionError("the collision case made no collision")
         if what == "all masked" and not (bool(torch.isinf(res.distances).all()) and bool((img_i < 0).all())):
             raise AssertionError("range_image with every point masked must leave the image empty")
+        if fused_launches[what] > MAX_RANGE_IMAGE_LAUNCHES:
+            raise AssertionError(f"range_image_knn ({what}) ran {fused_launches[what]} device launches")
+    seq_launches = device_launches(lambda: first_sequence(pts, mask, k, n_az, n_rings, w_az, w_el))
 
-    img_p, img_i, _, _, _ = range_image_knn.range_image(pts, mask, n_az, n_rings)
+    img_p, img_i, cell, ok, _ = ri.range_image(pts, mask, n_az, n_rings)
     sp, sm = std_scan.points.contiguous(), std_scan.mask
     turns = in_turns({
-        "plain_ms": lambda: range_image_knn.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k),
-        "ms": lambda: range_image_knn.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k),
-        "range_image_knn_ms": lambda: range_image_knn.range_image_knn(pts, mask, k),
+        "plain_ms": lambda: ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k),
+        "ms": lambda: ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k),
+        "previous_ms": lambda: ri.range_image_window_simple(img_p, img_i, n_az, n_rings, w_az, w_el, k),
+        "range_image_knn_ms": lambda: ri.range_image_knn(pts, mask, k),
+        "first_sequence_ms": lambda: first_sequence(pts, mask, k, n_az, n_rings, w_az, w_el),
         "replaced_knn_k_ms": lambda: self_knn(sp, sm, k),
     })
-    C = n_az * n_rings
+    # the per-point kernels alone, beside their plain steps
+    N, C = pts.shape[0], n_az * n_rings
+    ok_p, _, el = ri.point_angles(pts, mask)
+    lo, hi = (float(x) for x in ri.elevation_bounds(ok_p, el))
+    scratch = torch.zeros(2 * C + 3, dtype=torch.int32, device=pts.device)
+    cell32 = torch.empty(N, dtype=torch.int32, device=pts.device)
+    idx_c, d_c = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+
+    def cells_kernel():
+        scratch.zero_()
+        ri._cells_launch(pts, mask, n_az, n_rings, lo, hi, scratch, cell32)
+
+    steps = in_turns({
+        "elevation_plain_ms": lambda: ri.elevation_bounds(*ri.point_angles(pts, mask)[::2]),
+        "elevation_ms": lambda: ri._elevation_launch(pts, mask, scratch),
+        "cells_plain_ms": lambda: ri.range_image_cells_plain(pts, mask, n_az, n_rings, lo, hi),
+        "cells_ms": cells_kernel,
+        "rows_plain_ms": lambda: ri.point_rows(idx_c, d_c, cell, ok),
+        "rows_ms": lambda: ri.cell_rows(idx_c, d_c, cell.to(torch.int32)),
+    })
+    occupied = int((img_i >= 0).sum())
     pairs = window_pairs(img_i, n_az, n_rings, w_az, w_el)
     sb = bound(pairs, C * 16 + C * k * 8)
-    print(f"range_image at the raw frame's shape ({n_az} x {n_rings} cells, {int((img_i >= 0).sum())} occupied, "
-          f"{pairs} window pairs, k={k}), marginal CUDA-event ms per launch, medians in turns: "
+    angle_pairs = -(-N * RAW_ANGLE_OPS // OPS_PER_PAIR)
+    bounds = {"elevation": bound(angle_pairs, 13 * N + 8),
+              "cells": bound(angle_pairs, 13 * N + 4 * N + 8 * C + 4),
+              "rows": bound(0, 4 * N + 8 * k * occupied + 8 * k * N)}
+    print(f"range_image at the raw frame's shape ({n_az} x {n_rings} cells, {occupied} occupied, {pairs} window "
+          f"pairs, k={k}, TA {ta}), marginal CUDA-event ms per launch, medians in turns: "
           + ", ".join(f"{name} {v:.4f}" for name, v in turns.items())
-          + f" (knn_k with prep over the standard frame's scan, {sp.shape[0]} rows, {int(sm.sum())} valid); "
-          f"bound {sb[0]:.4f} ({sb[1]}); no library call computes this search")
-    return row("range_image", RAW_SOURCE, RAW_REPLACES, RAW_PATH, 0.0, (turns["ms"], turns["plain_ms"], None), sb,
-               launches=launches, range_image_knn_ms=turns["range_image_knn_ms"],
-               replaced_knn_k_ms=turns["replaced_knn_k_ms"],
-               shapes={"raw scan": {"cells": C, "occupied": int((img_i >= 0).sum()), "pairs": pairs, "k": k}})
+          + f" (knn_k with prep over the standard frame's scan, {sp.shape[0]} rows, {int(sm.sum())} valid); window "
+          f"bound {sb[0]:.4f} ({sb[1]}); the card's range_image_knn {fused_launches['full width']} device launches, "
+          f"the first sequence {seq_launches}; tiled / first design {turns['ms'] / turns['previous_ms']:.3f}, card "
+          f"path / first sequence {turns['range_image_knn_ms'] / turns['first_sequence_ms']:.3f}; no library call "
+          f"computes this search")
+    print("range_image's per-point kernels, medians in turns: " + ", ".join(f"{n} {v:.4f}" for n, v in steps.items())
+          + "; bounds " + ", ".join(f"{n} {b[0]:.6f} ({b[1]})" for n, b in bounds.items())
+          + " (cells_ms with its memset)")
+    shapes = {"raw scan": {"cells": C, "occupied": occupied, "pairs": pairs, "k": k, "tile_az": ta,
+                           "fused_launches": fused_launches, "first_sequence_launches": seq_launches}}
+    common = dict(range_image_knn_ms=turns["range_image_knn_ms"], first_sequence_ms=turns["first_sequence_ms"],
+                  replaced_knn_k_ms=turns["replaced_knn_k_ms"])
+    return [
+        row("range_image", RAW_SOURCE, RAW_REPLACES, RAW_PATH, 0.0, (turns["ms"], turns["plain_ms"], None), sb,
+            launches=launches["range_image"], previous_ms=turns["previous_ms"], shapes=shapes, **common),
+        row("range_image_simple", RAW_SOURCE, RAW_REPLACES, RAW_PATH, 0.0,
+            (turns["previous_ms"], turns["plain_ms"], None), sb, launches=launches["range_image_simple"]),
+        row("range_image_elevation", RAW_SOURCE, RAW_ELEVATION_REPLACES, RAW_PATH, 0.0,
+            (steps["elevation_ms"], steps["elevation_plain_ms"], None), bounds["elevation"],
+            launches=launches["range_image_elevation"]),
+        row("range_image_cells", RAW_SOURCE, RAW_CELLS_REPLACES, RAW_PATH, 0.0,
+            (steps["cells_ms"], steps["cells_plain_ms"], None), bounds["cells"],
+            launches=launches["range_image_cells"]),
+        row("range_image_rows", RAW_SOURCE, RAW_ROWS_REPLACES, RAW_PATH, 0.0,
+            (steps["rows_ms"], steps["rows_plain_ms"], None), bounds["rows"], launches=launches["range_image_rows"]),
+    ]
 
 
 def raw_collisions(params, scans) -> list:
@@ -2770,7 +2876,7 @@ def raw_vs_standard(tag: str, run, params, inputs) -> dict:
         out[name] = {"ms": statistics.median(r["ms"] for r in rows), "max_ms": max(r["ms"] for r in rows),
                      "preprocess_ms": pre, "launches": per, "ate_m": o["ate_m"]}
     print(f"{tag}: raw-run launches {launches}")
-    if min(launches["range_image"], launches["nn1"]) <= 0:
+    if min(launches[name] for name in RAW_KERNELS + ("nn1",)) <= 0:
         raise AssertionError(f"{tag}: a kernel of the raw frame never launched: {launches}")
     out["kernel_launches"] = launches
     out["raw_run"] = raw
@@ -2993,13 +3099,14 @@ def api_phase(raw_out, lo_replay_out, dev) -> None:
             with profiling.annotate("raw.frame"):
                 lo.process(scans[3], 0.4)
         names = {e.get("name", "") for e in json.load(open(f"{tmp}/trace/trace.json"))["traceEvents"]}
-        kernels = {want: sorted(n for n in names if want in n) for want in
-                   ("knn_cluster_kernel<1", "range_image_window_kernel", "raw.frame")}
+        wanted = ("knn_cluster_kernel<1", "range_image_elevation_kernel", "range_image_cells_kernel",
+                  "range_image_tile_kernel", "range_image_rows_kernel")
+        kernels = {want: sorted(n for n in names if want in n) for want in wanted + ("raw.frame",)}
         device_ms = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-                     if "range_image_window_kernel" in e.key or "knn_cluster_kernel<1" in e.key}
+                     if any(want in e.key for want in wanted)}
         print(f"profiling.trace of one raw frame: {len(names)} event names; {kernels}; device ms {device_ms}")
         if not all(kernels.values()):
-            raise AssertionError(f"the trace misses the cluster nn1 or the range-image kernel: {kernels}")
+            raise AssertionError(f"the trace misses the cluster nn1 or a range-image kernel: {kernels}")
 
 
 # -- item 12: the structured searches, the pair preprocess, the device list ------
@@ -3126,13 +3233,16 @@ def world_cloud(scans, poses, dev) -> PointCloud:
     return PointCloud(points=torch.cat(pts).contiguous(), mask=torch.cat([s.mask for s in scans]).contiguous())
 
 
-def check_grid_kernel(lo_out, grid_out, dev) -> dict:
-    """grid_knn (kernel A) against its plain version, bit for bit, at the LO
-    frame's shapes (1,000 and 5,000 queries against the 16,384-row submap)
-    and the coarse-to-fine shapes (30,000 against 4,096 and 16,384 rows),
-    with a query with no neighbour and one outside the 21-bit range added,
-    and on an all-masked target; timed in turns with its plain version and
-    nn1 on the same target, with its bound."""
+def check_grid_kernel(lo_out, grid_out, dev) -> list:
+    """grid_knn (kernel A, a lane group a query) at the lanes grid_lanes
+    picks and at each of GRID_LANES, and its first design (one thread a
+    query), against the plain search, bit for bit, at the LO frame's shapes
+    (1,000 and 5,000 queries against the 16,384-row submap) and the
+    coarse-to-fine shapes (30,000 against 4,096 and 16,384 rows), with a
+    query with no neighbour and one outside the 21-bit range added, and on
+    an all-masked target; timed in turns (the kernel at its lanes and at
+    each lane count, the first design, the plain version and nn1 / knn_k on
+    the same target), with its bound."""
     params, poses, scans, _ = lo_out["replay"]
     cell = params.registration.factor.max_correspondence_distance
     target, pose = lo_out["targets"]["last keyframe"]
@@ -3150,18 +3260,25 @@ def check_grid_kernel(lo_out, grid_out, dev) -> dict:
         grid = GridKNN.build_auto(tgt, cell_size=cell)
         cases = {"path": grid, "all masked": GridKNN.build(tgt.replace(mask=torch.zeros_like(tgt.mask)), cell)}
         for what, g in cases.items():
-            got, ref = grid_knn.grid_search(g, q, k, T), grid_knn.grid_search_plain(g, q, k, T)
-            torch.cuda.synchronize()
-            check_equal("grid_knn", got, ref, f"{label}, {what}")
+            ref = grid_knn.grid_search_plain(g, q, k, T)
+            for lanes in (None, *cuda_knn.GRID_LANES):
+                got = grid_knn.grid_search(g, q, k, T, lanes=lanes)
+                torch.cuda.synchronize()
+                check_equal("grid_knn", got, ref, f"{label}, {what}, lanes {lanes or 'planned'}")
+            check_equal("grid_knn_simple", grid_knn.grid_search_simple(g, q, k, T), ref, f"{label}, {what}")
         t, m = tgt.points.contiguous(), tgt.mask
         prep = cuda_knn.prep_target(t, m)
+        C, M, Q = grid.cell_coords.shape[0], t.shape[0], q.shape[0]
+        lanes = cuda_knn.grid_lanes(Q, n_sm())
         turns = in_turns({"plain_ms": lambda: grid_knn.grid_search_plain(grid, q, k, T),
                           "ms": lambda: grid_knn.grid_search(grid, q, k, T),
+                          "previous_ms": lambda: grid_knn.grid_search_simple(grid, q, k, T),
                           "yardstick_ms": (lambda: cuda_knn.nn1_prepped(prep, q, T)) if k == 1 else
-                          (lambda: cuda_knn.knn_k_prepped(prep, q, k))})
+                          (lambda: cuda_knn.knn_k_prepped(prep, q, k)),
+                          **{f"lanes_{g}_ms": (lambda g=g: grid_knn.grid_search(grid, q, k, T, lanes=g))
+                             for g in cuda_knn.GRID_LANES}})
         build_ms, build_syncs = host_ms(lambda: GridKNN.build_auto(tgt, cell_size=cell))
         _, valid, idx = grid_knn.grid_candidates(grid, q, T)
-        C, M, Q = grid.cell_coords.shape[0], t.shape[0], q.shape[0]
         # what the search must touch: the queries, the pose and the outputs;
         # 17 B (point, mask, original index) for each distinct row of a found
         # cell that holds a candidate; the used flags and 20 B (key, start,
@@ -3170,20 +3287,30 @@ def check_grid_kernel(lo_out, grid_out, dev) -> dict:
         occupied = int(grid.cell_used.sum())
         sb = bound(int(valid.sum()), 12 * Q + (64 if T is not None else 0) + 8 * Q * k + 17 * rows + C + 20 * occupied)
         shapes[label] = {"Q": Q, "M": M, "valid": int(m.sum()), "k": k, "cells": C, "cells_used": occupied,
-                         "rows_touched": rows, "max_per_cell": grid.max_per_cell, "pairs": int(valid.sum()), **turns,
-                         "build_ms": build_ms, "build_syncs": build_syncs, "bound_ms": sb[0], "bound_by": sb[1]}
+                         "rows_touched": rows, "max_per_cell": grid.max_per_cell, "pairs": int(valid.sum()),
+                         "lanes": lanes, **turns, "build_ms": build_ms, "build_syncs": build_syncs,
+                         "bound_ms": sb[0], "bound_by": sb[1]}
         print(f"grid_knn ({label}: Q={Q}, M={M}, valid {int(m.sum())}, k={k}, budget {grid.max_per_cell}, "
               f"{occupied} of {C} slots used, {rows} rows in the cells found, {int(valid.sum())} candidate pairs): "
-              f"equal to its plain version bit for bit (all masked, a query with no neighbour and one off the 21-bit "
-              f"range too); kernel {turns['ms']:.4f} ms, plain {turns['plain_ms']:.4f}, "
-              f"{'nn1' if k == 1 else 'knn_k'} on the same target {turns['yardstick_ms']:.4f}, build_auto "
-              f"{build_ms:.3f} host ms ({build_syncs} syncs); bound {sb[0]:.6f} ({sb[1]}); no library call "
-              f"computes this search")
+              f"the lane-group kernel (at {lanes} lanes a query, planned, and at each of {cuda_knn.GRID_LANES}) and "
+              f"the first design equal to the plain version bit for bit (all masked, a query with no neighbour and "
+              f"one off the 21-bit range too); marginal CUDA-event ms per launch, medians in turns: kernel "
+              f"{turns['ms']:.4f} ("
+              + ", ".join(f"{g} lanes {turns[f'lanes_{g}_ms']:.4f}" for g in cuda_knn.GRID_LANES)
+              + f"), first design {turns['previous_ms']:.4f}, plain {turns['plain_ms']:.4f}, "
+              f"{'nn1' if k == 1 else 'knn_k'} on the same target {turns['yardstick_ms']:.4f}; kernel / first design "
+              f"{turns['ms'] / turns['previous_ms']:.3f}, kernel / {'nn1' if k == 1 else 'knn_k'} "
+              f"{turns['ms'] / turns['yardstick_ms']:.3f}; build_auto {build_ms:.3f} host ms ({build_syncs} syncs); "
+              f"bound {sb[0]:.6f} ({sb[1]}); no library call computes this search")
     path = shapes["LO 1,000 queries"]
-    r = row("grid_knn", GRID_SOURCE, GRID_REPLACES, GRID_PATH, 0.0, (path["ms"], path["plain_ms"], None),
-            (path["bound_ms"], path["bound_by"]), shapes=shapes, library="none computes it")
-    r["launches"] = grid_out["launches"]["grid_knn"]
-    return r
+    return [
+        row("grid_knn", GRID_SOURCE, GRID_REPLACES, GRID_PATH, 0.0, (path["ms"], path["plain_ms"], None),
+            (path["bound_ms"], path["bound_by"]), previous_ms=path["previous_ms"], shapes=shapes,
+            library="none computes it", launches=grid_out["launches"]["grid_knn"]),
+        row("grid_knn_simple", GRID_SOURCE, GRID_REPLACES, GRID_PATH, 0.0,
+            (path["previous_ms"], path["plain_ms"], None), (path["bound_ms"], path["bound_by"]),
+            library="none computes it", launches=grid_out["launches"]["grid_knn_simple"]),
+    ]
 
 
 def pow2(n: int) -> int:
@@ -3551,15 +3678,15 @@ def main() -> None:
     # --- the raw range-image path and the rest of the API -----------------------------
     raw_out = raw_frames_phase(lo_out["replay"], og_out["replay"], lio_out["replay"], dev)
     box = lo_out["replay"][0].scan.preprocess.box_filter
-    results.append(check_range_image(box_filter(lo_out["replay"][2][-1], box.min, box.max), lo_out["scan"],
-                                     raw_out["kernel_launches"]["range_image"]))
+    results += check_range_image(box_filter(lo_out["replay"][2][-1], box.min, box.max), lo_out["scan"],
+                                 raw_out["kernel_launches"])
     raw_card_vs_cpu(dev)
     api_phase(raw_out, lo_out["replay"], dev)
 
     # --- item 12: GridKNN, CoarseKNN, the Morton window, the pair preprocess, the mesh -
     t0 = time.perf_counter()
     grid_out = grid_replay_phase(lo_out, dev)
-    results.append(check_grid_kernel(lo_out, grid_out, dev))
+    results += check_grid_kernel(lo_out, grid_out, dev)
     results.append(check_coarse_kernel(lo_out, dev))
     results.append(check_window_kernel(lo_out, dev))
     pair_preprocess_phase(src_raw, tgt_raw, cap)

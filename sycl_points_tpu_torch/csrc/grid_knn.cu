@@ -11,11 +11,11 @@
 // (a few probes each) and up to 27 P candidate points (16 B each, from L1/L2:
 // neighbouring queries share cells), and does ~9 FP32 operations a valid
 // candidate. Device memory sees the queries, the table and the target about
-// once, so the bound is the FP32 lanes over the candidates the data gives;
-// the probes are dependent loads, so latency, not a rate, is what a simple
-// kernel meets first.
+// once, so the bound is a few microseconds of bytes at most; what a kernel
+// meets first is latency: each probe chain is a run of dependent loads, and
+// a query's candidates (~200 on the LO frame's submap) are few.
 //
-// The simple design: one thread a query.
+// Both designs compute the same function, bit for bit:
 //   1. The pose (if any) moves the query as ops/transform.transform_points
 //      does: ((r0 x + r1 y) + r2 z) + t, each operation rounded once (the
 //      library is built with --fmad=false).
@@ -27,16 +27,50 @@
 //      (uint32 wrap-around), slot (h1 + p h2) & (cap - 1) for p < max_probes,
 //      an unused slot ends the chain, keys compared as the two packed
 //      21-bit planes.
-//   4. Lanes 0 .. min(count, P) - 1 of each found cell, masked points
-//      skipped, d2 = dx*dx + dy*dy + dz*dz, kept by the strict-`<` insertion
-//      of best_k.cuh in slot order (offset, lane).
+//   4. Slot s = o P + j for lane j < min(count, P) of cell o; masked points
+//      are not candidates; d2 = dx*dx + dy*dy + dz*dz. The k smallest by
+//      (d2, s): a tie goes to the earlier slot, as argmin and lax.top_k keep
+//      it (not to the smaller original index).
 //   5. Slots the list leaves empty get JAX's padding: the original index of
-//      the first slots, in the same order, that hold no finite candidate
-//      (an empty or masked lane, a cell not found, the position clipped into
+//      the first slots in (o, j) order, j < P, that hold no finite candidate
+//      (an empty or masked lane, a cell not found; the position clipped into
 //      [0, M)), at +inf.
 //
-// The entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() so the caller can raise on a refused launch.
+// grid_knn_simple_kernel, the first design (kept as the reference the new
+// one is timed against): one thread a query walks the 27 probe chains and
+// the candidates one after another with the strict-`<` insertion of
+// best_k.cuh in slot order, then walks the slots again for the padding.
+// At the LO frame's 1,000 queries that is 8 blocks of 128 threads on 132
+// SMs, each thread a serial chain of ~27 probes and ~200 candidates.
+//
+// grid_knn_lanes_kernel<K, G>, the design for this card: G lanes a query
+// (G in {8, 16, 32}, chosen by ops/cuda_knn.grid_lanes from Q and the SM
+// count, so that small batches still fill the card).
+//   - Probes: lane l probes offsets l, l + G, ... at once; the group shares
+//     each cell's start and n = min(count, P) and takes the exclusive prefix
+//     of n over the 27 cells with shuffles, so candidate t of the query's
+//     T = sum n lies in the cell o with pre[o] <= t < pre[o + 1], at lane
+//     j = t - pre[o]. Starts and prefixes sit in shared memory, 55 ints a
+//     query. A probe loads the slot's flag, key, start and count at once:
+//     one load latency a probe.
+//   - Candidates: lane l takes t = l, l + G, ...: a cell's contiguous rows
+//     load side by side, two a lane a step, the mask and the point of each
+//     at once. Each lane keeps the sorted K smallest of its own
+//     candidates by (d2, s) (a strict `<` insertion in its increasing s),
+//     then K rounds of a butterfly argmin by (d2, s) over the group's list
+//     heads merge the lanes: the winner pops its head. The lists hold slots,
+//     not indices; the original index is read once an output.
+//   - Padding: during the walk a ballot per step ranks the non-finite
+//     candidates (masked rows, an overflowing distance) with popcounts and
+//     keeps the first K positions; then each lane ranks the empty slots of
+//     its own cells: slot (o, j) for j >= n, and the kept non-finite
+//     candidates of cell o, each at its rank among all non-finite slots
+//     (o P - pre[o] empty slots lie in the cells before o). No serial walk.
+// There is no tensor-core work: the search is compares and selects, not
+// products.
+//
+// The entry points launch on the caller's stream, allocate nothing, and
+// return cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 
@@ -45,8 +79,11 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kLaneThreads = 256;
+constexpr int kOffsets = 27;
 constexpr int kCoordOffset = 1 << 20;
 constexpr int kCoordMask = (1 << 21) - 1;
+constexpr int kNoSlot = 0x7fffffff;
 
 __device__ __forceinline__ int cell_coord(float s) {
   float f = floorf(s);
@@ -79,33 +116,96 @@ __device__ int lookup(const int* __restrict__ tbl, const unsigned char* __restri
   return -1;
 }
 
+// lookup() for the lane-group kernel: each probe loads the slot's used flag,
+// key, start and count together, so a probe costs one load latency, and
+// returns the cell's start and count (0 and 0 when the key is absent).
+__device__ __forceinline__ void lookup_cell(const int* __restrict__ tbl, const unsigned char* __restrict__ used,
+                                            const int* __restrict__ cell_start, const int* __restrict__ cell_count,
+                                            int cap, int max_probes, int x, int y, int z, int* start, int* count) {
+  const unsigned cx = static_cast<unsigned>(x), cy = static_cast<unsigned>(y), cz = static_cast<unsigned>(z);
+  const unsigned h1 = (cx * 73856093u) ^ (cy * 19349669u) ^ (cz * 83492791u);
+  const unsigned h2 = (h1 * 2654435761u) | 1u;
+  const unsigned mask = static_cast<unsigned>(cap - 1);
+  unsigned khi, klo;
+  pack2(cx, cy, cz, &khi, &klo);
+  *start = 0;
+  *count = 0;
+  for (int p = 0; p < max_probes; ++p) {
+    const int s = static_cast<int>(((h1 & mask) + static_cast<unsigned>(p) * h2) & mask);
+    const unsigned char u = __ldg(used + s);
+    const int tx = __ldg(tbl + 3 * s), ty = __ldg(tbl + 3 * s + 1), tz = __ldg(tbl + 3 * s + 2);
+    const int st = __ldg(cell_start + s), ct = __ldg(cell_count + s);
+    if (!u) return;
+    unsigned thi, tlo;
+    pack2(static_cast<unsigned>(tx), static_cast<unsigned>(ty), static_cast<unsigned>(tz), &thi, &tlo);
+    if (thi == khi && tlo == klo) {
+      *start = st;
+      *count = ct;
+      return;
+    }
+  }
+}
+
+// One candidate t of a lane group's walk: its slot s = o P + j (the cursor o
+// advanced to t's cell) and its distance, +inf where the row is masked. The
+// row's point and mask load together.
+__device__ __forceinline__ float candidate(int t, int* o, const int* pre, const int* start, int P, int M,
+                                           const float* __restrict__ pts, const unsigned char* __restrict__ pmask,
+                                           float qx, float qy, float qz, int* s) {
+  while (pre[*o + 1] <= t) ++*o;
+  const int j = t - pre[*o];
+  const int p = min(max(start[*o] + j, 0), M - 1);
+  *s = *o * P + j;
+  const unsigned char m = __ldg(pmask + p);
+  const float dx = __ldg(pts + 3 * p) - qx;
+  const float dy = __ldg(pts + 3 * p + 1) - qy;
+  const float dz = __ldg(pts + 3 * p + 2) - qz;
+  const float d = dx * dx + dy * dy + dz * dz;
+  return m ? d : __int_as_float(0x7f800000);
+}
+
+// Steps 1-2: the query moved by the pose, and its cell (ok: the cell is
+// valid).
+__device__ __forceinline__ bool query_cell(const float* __restrict__ queries, int q, const float* __restrict__ pose,
+                                           float inv_cell, float* qx, float* qy, float* qz, int* cx, int* cy,
+                                           int* cz) {
+  float x = __ldg(queries + 3 * q), y = __ldg(queries + 3 * q + 1), z = __ldg(queries + 3 * q + 2);
+  if (pose != nullptr) {
+    const float px = x, py = y, pz = z;
+    x = __ldg(pose + 0) * px + __ldg(pose + 1) * py + __ldg(pose + 2) * pz + __ldg(pose + 3);
+    y = __ldg(pose + 4) * px + __ldg(pose + 5) * py + __ldg(pose + 6) * pz + __ldg(pose + 7);
+    z = __ldg(pose + 8) * px + __ldg(pose + 9) * py + __ldg(pose + 10) * pz + __ldg(pose + 11);
+  }
+  *qx = x;
+  *qy = y;
+  *qz = z;
+  const float sx = x * inv_cell, sy = y * inv_cell, sz = z * inv_cell;
+  *cx = cell_coord(sx);
+  *cy = cell_coord(sy);
+  *cz = cell_coord(sz);
+  return isfinite(sx) && isfinite(sy) && isfinite(sz) && *cx >= 0 && *cx <= kCoordMask && *cy >= 0 &&
+         *cy <= kCoordMask && *cz >= 0 && *cz <= kCoordMask;
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-grid_knn_kernel(const float* __restrict__ queries, int Q, const float* __restrict__ pose, float inv_cell,
-                const float* __restrict__ pts, const unsigned char* __restrict__ pmask,
-                const int* __restrict__ orig_idx, int M, const int* __restrict__ tbl,
-                const unsigned char* __restrict__ used, const int* __restrict__ cell_start,
-                const int* __restrict__ cell_count, int cap, int max_probes, int P, int* __restrict__ out_idx,
-                float* __restrict__ out_d2) {
+grid_knn_simple_kernel(const float* __restrict__ queries, int Q, const float* __restrict__ pose, float inv_cell,
+                       const float* __restrict__ pts, const unsigned char* __restrict__ pmask,
+                       const int* __restrict__ orig_idx, int M, const int* __restrict__ tbl,
+                       const unsigned char* __restrict__ used, const int* __restrict__ cell_start,
+                       const int* __restrict__ cell_count, int cap, int max_probes, int P, int* __restrict__ out_idx,
+                       float* __restrict__ out_d2) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= Q) return;
-  float qx = __ldg(queries + 3 * q), qy = __ldg(queries + 3 * q + 1), qz = __ldg(queries + 3 * q + 2);
-  if (pose != nullptr) {
-    const float x = qx, y = qy, z = qz;
-    qx = __ldg(pose + 0) * x + __ldg(pose + 1) * y + __ldg(pose + 2) * z + __ldg(pose + 3);
-    qy = __ldg(pose + 4) * x + __ldg(pose + 5) * y + __ldg(pose + 6) * z + __ldg(pose + 7);
-    qz = __ldg(pose + 8) * x + __ldg(pose + 9) * y + __ldg(pose + 10) * z + __ldg(pose + 11);
-  }
-  const float sx = qx * inv_cell, sy = qy * inv_cell, sz = qz * inv_cell;
-  const int cx = cell_coord(sx), cy = cell_coord(sy), cz = cell_coord(sz);
-  const bool ok = isfinite(sx) && isfinite(sy) && isfinite(sz) && cx >= 0 && cx <= kCoordMask && cy >= 0 &&
-                  cy <= kCoordMask && cz >= 0 && cz <= kCoordMask;
+  float qx, qy, qz;
+  int cx, cy, cz;
+  const bool ok = query_cell(queries, q, pose, inv_cell, &qx, &qy, &qz, &cx, &cy, &cz);
 
   float bd[K];
   int bi[K];
   best_k_init<K>(bd, bi);
-  int start[27], count[27];
-  for (int o = 0; o < 27; ++o) {
+  int start[kOffsets], count[kOffsets];
+  for (int o = 0; o < kOffsets; ++o) {
     const int s = ok ? lookup(tbl, used, cap, max_probes, cx + o / 9 - 1, cy + (o / 3) % 3 - 1, cz + o % 3 - 1)
                      : -1;
     start[o] = s >= 0 ? __ldg(cell_start + s) : 0;
@@ -126,7 +226,7 @@ grid_knn_kernel(const float* __restrict__ queries, int Q, const float* __restric
   int t = best_k_store<K>(bd, bi, oi, od);
   // JAX's padding: the first slots in (offset, lane) order with no finite
   // candidate
-  for (int o = 0; o < 27 && t < K; ++o) {
+  for (int o = 0; o < kOffsets && t < K; ++o) {
     const int n = min(count[o], P);
     for (int j = 0; j < P && t < K; ++j) {
       const int p = min(max(start[o] + j, 0), M - 1);
@@ -146,44 +246,247 @@ grid_knn_kernel(const float* __restrict__ queries, int Q, const float* __restric
   }
 }
 
+template <int K, int G>
+__global__ void __launch_bounds__(kLaneThreads)
+grid_knn_lanes_kernel(const float* __restrict__ queries, int Q, const float* __restrict__ pose, float inv_cell,
+                      const float* __restrict__ pts, const unsigned char* __restrict__ pmask,
+                      const int* __restrict__ orig_idx, int M, const int* __restrict__ tbl,
+                      const unsigned char* __restrict__ used, const int* __restrict__ cell_start,
+                      const int* __restrict__ cell_count, int cap, int max_probes, int P, int* __restrict__ out_idx,
+                      float* __restrict__ out_d2) {
+  constexpr int kGroups = kLaneThreads / G;
+  constexpr int kPer = (kOffsets + G - 1) / G;  // offsets a lane probes
+  __shared__ int s_start[kGroups][kOffsets];
+  __shared__ int s_pre[kGroups][kOffsets + 1];  // exclusive prefix of n; [27] = T
+  __shared__ int s_nf[kGroups][K];              // the first K non-finite candidates
+
+  const int group = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  const int q = blockIdx.x * kGroups + group;
+  if (q >= Q) return;  // the whole group
+  const int base_lane = (threadIdx.x & 31) & ~(G - 1);
+  const unsigned gmask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << base_lane;
+  int* const start = s_start[group];
+  int* const pre = s_pre[group];
+  int* const nf = s_nf[group];
+
+  float qx, qy, qz;
+  int cx, cy, cz;
+  const bool ok = query_cell(queries, q, pose, inv_cell, &qx, &qy, &qz, &cx, &cy, &cz);
+
+  // probes, then the exclusive prefix of n over the 27 cells
+  int carry = 0;
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int o = lane + r * G;
+    int c_start = 0, c_count = 0;
+    if (ok && o < kOffsets)
+      lookup_cell(tbl, used, cell_start, cell_count, cap, max_probes, cx + o / 9 - 1, cy + (o / 3) % 3 - 1,
+                  cz + o % 3 - 1, &c_start, &c_count);
+    const int n = min(c_count, P);
+    int x = n;
+#pragma unroll
+    for (int d = 1; d < G; d <<= 1) {
+      const int y = __shfl_up_sync(gmask, x, d, G);
+      if (lane >= d) x += y;
+    }
+    if (o < kOffsets) {
+      start[o] = c_start;
+      pre[o] = carry + x - n;
+    }
+    carry += __shfl_sync(gmask, x, G - 1, G);
+  }
+  const int T = carry;
+  if (lane == 0) pre[kOffsets] = T;
+  __syncwarp(gmask);
+
+  // the candidates in stride, two a lane a step (their loads in flight
+  // together, inserted in slot order); the first K non-finite ones ranked
+  // by ballot
+  float bd[K];
+  int bs[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    bd[j] = __int_as_float(0x7f800000);
+    bs[j] = kNoSlot;
+  }
+  int n_nf = 0;
+  int o0 = 0, o1 = 0;
+  for (int b = 0; b < T; b += 2 * G) {
+    const int t0 = b + lane, t1 = b + G + lane;
+    int s0 = 0, s1 = 0;
+    const float d0 = t0 < T ? candidate(t0, &o0, pre, start, P, M, pts, pmask, qx, qy, qz, &s0)
+                            : __int_as_float(0x7f800000);
+    const float d1 = t1 < T ? candidate(t1, &o1, pre, start, P, M, pts, pmask, qx, qy, qz, &s1)
+                            : __int_as_float(0x7f800000);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float d = h ? d1 : d0;
+      const int s = h ? s1 : s0;
+      const int t = h ? t1 : t0;
+      if (d < bd[K - 1]) best_k_insert<K>(bd, bs, d, s);
+      const bool nonfinite = t < T && !(d < __int_as_float(0x7f800000));
+      const unsigned bits = __ballot_sync(gmask, nonfinite) >> base_lane;
+      if (nonfinite) {
+        const int rank = n_nf + __popc(bits & ((1u << lane) - 1u));
+        if (rank < K) nf[rank] = t;
+      }
+      n_nf += __popc(bits);
+    }
+  }
+  __syncwarp(gmask);
+
+  int* oi = out_idx + static_cast<long long>(q) * K;
+  float* od = out_d2 + static_cast<long long>(q) * K;
+  // merge the lanes' lists by (d2, s): K rounds of a butterfly argmin
+  const int n_fin = min(K, T - n_nf);
+  for (int r = 0; r < n_fin; ++r) {
+    float d = bd[0];
+    int s = bs[0];
+#pragma unroll
+    for (int m = G / 2; m >= 1; m >>= 1) {
+      const float d2 = __shfl_xor_sync(gmask, d, m, G);
+      const int s2 = __shfl_xor_sync(gmask, s, m, G);
+      if (d2 < d || (d2 == d && s2 < s)) {
+        d = d2;
+        s = s2;
+      }
+    }
+    if (bs[0] == s) {
+#pragma unroll
+      for (int i = 0; i < K - 1; ++i) {
+        bd[i] = bd[i + 1];
+        bs[i] = bs[i + 1];
+      }
+      bd[K - 1] = __int_as_float(0x7f800000);
+      bs[K - 1] = kNoSlot;
+    }
+    if (lane == r % G) {
+      const int co = s / P;
+      oi[r] = __ldg(orig_idx + min(max(start[co] + s - co * P, 0), M - 1));
+      od[r] = d;
+    }
+  }
+
+  // JAX's padding: the first K - n_fin slots, in (o, j) order, with no
+  // finite candidate; each lane ranks the empty slots of its own cells
+  if (n_fin < K) {
+    const int want = K - n_fin;
+    const int kept = min(n_nf, K);
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int c = lane + r * G;
+      if (c >= kOffsets) continue;
+      const int c_pre = pre[c], n = pre[c + 1] - c_pre, c_start = start[c];
+      const int shift = c * P - c_pre;  // empty lanes (j >= n) of the cells before c
+      int before = 0, through = 0;      // kept non-finite candidates before / through cell c
+      for (int i = 0; i < kept; ++i) {
+        before += nf[i] < c_pre;
+        through += nf[i] < c_pre + n;
+      }
+      for (int i = before; i < through && i + shift < want; ++i) {
+        oi[n_fin + i + shift] = __ldg(orig_idx + min(max(c_start + nf[i] - c_pre, 0), M - 1));
+        od[n_fin + i + shift] = __int_as_float(0x7f800000);
+      }
+      for (int j = n, rank = through + shift; j < P && rank < want; ++j, ++rank) {
+        oi[n_fin + rank] = __ldg(orig_idx + min(max(c_start + j, 0), M - 1));
+        od[n_fin + rank] = __int_as_float(0x7f800000);
+      }
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch_lanes(int G, int Q, cudaStream_t s, const float* queries, const float* pose, float inv_cell,
+                         const float* pts, const unsigned char* pmask, const int* orig_idx, int M, const int* tbl,
+                         const unsigned char* used, const int* cell_start, const int* cell_count, int cap,
+                         int max_probes, int P, int* out_idx, float* out_d2) {
+  const int groups = kLaneThreads / G;
+  const int blocks = (Q + groups - 1) / groups;
+  switch (G) {
+    case 8:
+      grid_knn_lanes_kernel<K, 8><<<blocks, kLaneThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx, M,
+                                                                   tbl, used, cell_start, cell_count, cap, max_probes,
+                                                                   P, out_idx, out_d2);
+      break;
+    case 16:
+      grid_knn_lanes_kernel<K, 16><<<blocks, kLaneThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx,
+                                                                    M, tbl, used, cell_start, cell_count, cap,
+                                                                    max_probes, P, out_idx, out_d2);
+      break;
+    case 32:
+      grid_knn_lanes_kernel<K, 32><<<blocks, kLaneThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx,
+                                                                    M, tbl, used, cell_start, cell_count, cap,
+                                                                    max_probes, P, out_idx, out_d2);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-#define SPT_GRID_KNN_CASE(KK)                                                                       \
-  case KK:                                                                                          \
-    grid_knn_kernel<KK><<<blocks, kThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx, \
-                                                     M, tbl, used, cell_start, cell_count, cap,    \
-                                                     max_probes, P, out_idx, out_d2);              \
+#define SPT_GRID_KNN_CASES(CASE) \
+  CASE(1)                        \
+  CASE(2)                        \
+  CASE(3)                        \
+  CASE(4)                        \
+  CASE(5)                        \
+  CASE(6)                        \
+  CASE(7)                        \
+  CASE(8)                        \
+  CASE(9)                        \
+  CASE(10)                       \
+  CASE(11)                       \
+  CASE(12)                       \
+  CASE(13)                       \
+  CASE(14)                       \
+  CASE(15)                       \
+  CASE(16)
+
+#define SPT_GRID_KNN_LANES_CASE(KK)                                                                              \
+  case KK:                                                                                                       \
+    return static_cast<int>(launch_lanes<KK>(lanes, Q, s, queries, pose, inv_cell, pts, pmask, orig_idx, M, tbl, \
+                                             used, cell_start, cell_count, cap, max_probes, P, out_idx, out_d2));
+
+#define SPT_GRID_KNN_SIMPLE_CASE(KK)                                                                             \
+  case KK:                                                                                                       \
+    grid_knn_simple_kernel<KK><<<blocks, kThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx, M, \
+                                                           tbl, used, cell_start, cell_count, cap, max_probes, P, \
+                                                           out_idx, out_d2);                                      \
     break;
 
 // queries [Q,3] f32, pose [4,4] row-major f32 or null; the grid's sorted
 // points [M,3] f32, mask [M] bool, orig_idx [M] i32, table keys [cap,3] i32,
 // used [cap] bool, cell_start / cell_count [cap] i32 (cap a power of two);
-// out_idx [Q,k] i32 (original order), out_d2 [Q,k] f32; 1 <= k <= 16.
+// out_idx [Q,k] i32 (original order), out_d2 [Q,k] f32; 1 <= k <= 16;
+// lanes a query in {8, 16, 32}.
 extern "C" int spt_grid_knn(const float* queries, int Q, const float* pose, float inv_cell, const float* pts,
                             const unsigned char* pmask, const int* orig_idx, int M, const int* tbl,
                             const unsigned char* used, const int* cell_start, const int* cell_count, int cap,
-                            int max_probes, int P, int k, int* out_idx, float* out_d2, void* stream) {
+                            int max_probes, int P, int k, int lanes, int* out_idx, float* out_d2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q == 0) return static_cast<int>(cudaSuccess);
+  if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (k) {
+    SPT_GRID_KNN_CASES(SPT_GRID_KNN_LANES_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The first design, one thread a query: the same arguments but lanes.
+extern "C" int spt_grid_knn_simple(const float* queries, int Q, const float* pose, float inv_cell, const float* pts,
+                                   const unsigned char* pmask, const int* orig_idx, int M, const int* tbl,
+                                   const unsigned char* used, const int* cell_start, const int* cell_count, int cap,
+                                   int max_probes, int P, int k, int* out_idx, float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (Q + kThreads - 1) / kThreads;
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
-    SPT_GRID_KNN_CASE(1)
-    SPT_GRID_KNN_CASE(2)
-    SPT_GRID_KNN_CASE(3)
-    SPT_GRID_KNN_CASE(4)
-    SPT_GRID_KNN_CASE(5)
-    SPT_GRID_KNN_CASE(6)
-    SPT_GRID_KNN_CASE(7)
-    SPT_GRID_KNN_CASE(8)
-    SPT_GRID_KNN_CASE(9)
-    SPT_GRID_KNN_CASE(10)
-    SPT_GRID_KNN_CASE(11)
-    SPT_GRID_KNN_CASE(12)
-    SPT_GRID_KNN_CASE(13)
-    SPT_GRID_KNN_CASE(14)
-    SPT_GRID_KNN_CASE(15)
-    SPT_GRID_KNN_CASE(16)
+    SPT_GRID_KNN_CASES(SPT_GRID_KNN_SIMPLE_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

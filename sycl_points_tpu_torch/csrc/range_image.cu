@@ -1,45 +1,108 @@
-// The range-image window search for Hopper (sm_90a), plain C interface.
+// The range-image k-NN of a raw spinning-LiDAR scan for Hopper (sm_90a),
+// plain C interface.
 //
-// range_image_window replaces steps 3-4 of the JAX package's range_image_knn
-// (sycl_points_tpu/ops/range_image_knn.py:113-128): for every cell of the
-// dense [n_az, n_rings] range image, the squared distances to the points of
-// the (2 window_az + 1) x (2 window_el + 1) cells around it (azimuth
-// circular, elevation not), then the k smallest. JAX builds the window from
-// 117 image rolls and a top_k over [C, 117] in XLA ops; it is not a Pallas
-// kernel, so this kernel ports no TPU kernel: it takes the place of the
-// self-k-NN (knn_k) on the raw-features frames.
+// These kernels replace the JAX package's range_image_knn
+// (sycl_points_tpu/ops/range_image_knn.py:60-140), which XLA builds from the
+// bins, two scatters, 117 image rolls, a top_k over [C, 117] and a gather. It
+// is not a Pallas kernel, so they port no TPU kernel: they take the place of
+// the self-k-NN (knn_k) on the raw-features frames. On a CUDA tensor,
+// ops/range_image_knn.range_image_knn runs as a memset and four launches:
+//   (a) range_image_elevation_kernel: r, ok and el of every point, and the
+//       masked min and max of el as order-preserving uint32 keys under
+//       atomicMax, from at most 128 blocks (same-address atomics
+//       serialise; skipped when el_min and el_max are both given);
+//   (b) range_image_cells_kernel: the azimuth and elevation bins, the cell,
+//       the occupancy (atomicAdd; a point that finds its cell taken counts
+//       one collision) and the winner (atomicMax of the point index + 1,
+//       which equals scatter_reduce(amax) over the indices);
+//   (c) range_image_tile_kernel<K, gather>: the window search, reading the
+//       winners' points straight from the scan into its tile;
+//   (d) range_image_rows_kernel: each point's row of its cell's result, the
+//       point itself at +inf where a slot is empty or the point is invalid.
+// The plain PyTorch sequence (range_image + range_image_window_plain +
+// point_rows) is the reference, bit for bit: every operation of the bins is
+// written with the _rn intrinsics, one rounding each, in PyTorch's order;
+// (az + pi) / (2 pi) is a product with the f32 reciprocal of 2 pi, as
+// PyTorch's CUDA division by a CPU scalar computes it, while
+// (el - el_lo) / span divides two tensors. atan2f and asinf are CUDA's own,
+// as PyTorch's kernels call them. Built with the library's --fmad=false
+// they agree with PyTorch's: the card tests and chip_smoke.py hold every
+// cell (so every bin) of full-width scans to the plain steps bit for bit,
+// so this source takes the library's flags.
 //
-// What bounds it on the card: per cell it reads the window's points and
-// indices (16 B a candidate, almost all from L1/L2: neighbouring threads
-// read neighbouring cells) and does ~9 FP32 operations a valid candidate,
-// so device memory sees the image once and the bound is the FP32 lanes
-// (117 x 9 operations a cell against 16 B read and 8 k B written).
+// The window search (steps 3-4 of JAX's function, :113-128): for every cell
+// of the dense [n_az, n_rings] image, the squared distances to the points
+// of the (2 window_az + 1) x (2 window_el + 1) cells around it (azimuth
+// circular, elevation not), then the k smallest, scanned in JAX's column
+// order (da outer, de inner) with a strict `<`, so that an equal distance
+// stays behind the earlier column, as lax.top_k keeps it. Unoccupied cells
+// and elevation offsets off the image are skipped; an unoccupied cell gets
+// no candidate; slots not filled stay at 3e38 with index -1.
 //
-// The simple design: one thread a cell. The candidates are scanned in JAX's
-// column order, da outer and de inner, and kept in a sorted register list of
-// K by insertion with a strict `<`, so that an equal distance stays behind
-// the earlier column, as lax.top_k keeps it. Unoccupied cells (index -1) and
-// elevation offsets off the image are skipped; a cell that is unoccupied
-// itself gets no candidate. Slots not filled stay at 3e38 with index -1.
-// Distances are (p - q)^2 summed as dx*dx + dy*dy + dz*dz; the library is
-// built with --fmad=false, so every operation rounds once, as in the plain
-// PyTorch version.
+// What bounds it on the card: the image is 16 B a cell and the result 8 k B
+// a cell, ~12.6 MB at 2048 x 64, k = 10 (~0.004 ms of bytes); a cell does
+// ~9 FP32 operations for each of its 117 candidates, about as long. What a
+// kernel meets first is instructions a candidate (a load, the distance, the
+// compare) and the sorted insertion, which the threads of a warp take at
+// different candidates, so that every candidate where one thread inserts
+// costs the warp a whole insertion.
 //
-// The entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() so the caller can raise on a refused launch.
+// range_image_window_simple_kernel, the first design (kept as the reference
+// the new one is timed against): one thread a cell reads its window as 468
+// scattered 4-byte loads through L1, in JAX's column order, tests each
+// candidate's index, inserts by distance alone, and writes its own k slots
+// (stores 4 k B apart, a sector a store).
+//
+// range_image_tile_kernel<K, gather>, the design for this card: a block owns
+// TA azimuth columns x all n_rings (TA from
+// ops/range_image_knn.range_image_tile: the block's cells near 512, the tile
+// and the block's rows of the result within 227 KB) and stages the
+// TA + 2 window_az columns it reads, azimuth wrapped at 0 and n_az, into
+// shared memory with 4-byte cp.async copies (a column's rings are
+// contiguous rows, so a warp copies runs of consecutive rows; in the gather
+// form it reads the winners' points straight from the scan). A cell's point
+// is 12 bytes, read as three 4-byte loads at one address (stride 3 words,
+// conflict-free), its index in an array apart: one address a candidate
+// where SoA x, y, z take three, and a quarter less shared-memory traffic
+// than 16-byte records. Empty cells are
+// staged at +inf, so no index test a candidate. Each thread takes one
+// cell; its list holds 64-bit keys, the distance's bits above the
+// candidate's position in JAX's order, so any visiting order keeps JAX's
+// ties, and one float compare against the list's last distance turns most
+// candidates away. It visits the window nearest
+// first: the cell's own ring fills the list (its first k candidates, the
+// cell itself at 0 and then da = +1, -1, +2, ..., sorted in by i
+// compare-exchanges for the i-th, where a whole insertion costs k), then
+// ring offset -1, 1, -2, ... and in each, azimuth offset 0, then +-q,
+// +-(q + 1) four at once with their loads in flight together and one warp
+// vote to turn the four away. The list holds the nearest candidates early,
+// so a later one seldom enters. The block's rows of the result go through
+// shared memory and out in coalesced 16-byte stores. (Where the ring holds
+// fewer than k candidates, the cell itself goes in first and the ring is
+// visited like the others.)
+//
+// There is no tensor-core work: the search is compares and selects, not
+// products.
+//
+// The entry points launch on the caller's stream, allocate nothing, and
+// return cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kBig = 3.0e38f;
-constexpr int kThreads = 256;
+constexpr int kSimpleThreads = 256;
+constexpr int kPointThreads = 256;
+constexpr int kTileThreads = 512;
+constexpr int kElevationBlocks = 128;  // blocks of the elevation bounds' grid-stride pass
+constexpr int kMaxSmem = 232448;  // 227 KB, a block's limit on sm_90
 
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-range_image_window_kernel(const float* __restrict__ pts, const int* __restrict__ ids, int n_az,
-                          int n_rings, int window_az, int window_el, int* __restrict__ out_idx,
-                          float* __restrict__ out_d2) {
+__global__ void __launch_bounds__(kSimpleThreads)
+range_image_window_simple_kernel(const float* __restrict__ pts, const int* __restrict__ ids, int n_az,
+                                 int n_rings, int window_az, int window_el, int* __restrict__ out_idx,
+                                 float* __restrict__ out_d2) {
   const int cells = n_az * n_rings;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= cells) return;
@@ -67,10 +130,10 @@ range_image_window_kernel(const float* __restrict__ pts, const int* __restrict__
         const int c2 = a2 * n_rings + e2;
         const int id = __ldg(ids + c2);
         if (id < 0) continue;
-        const float dx = px - __ldg(pts + 3 * c2);
-        const float dy = py - __ldg(pts + 3 * c2 + 1);
-        const float dz = pz - __ldg(pts + 3 * c2 + 2);
-        const float d = dx * dx + dy * dy + dz * dz;
+        const float dx = __fsub_rn(px, __ldg(pts + 3 * c2));
+        const float dy = __fsub_rn(py, __ldg(pts + 3 * c2 + 1));
+        const float dz = __fsub_rn(pz, __ldg(pts + 3 * c2 + 2));
+        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
         // insertion into the ascending list: entries equal to d stay ahead
 #pragma unroll
         for (int j = K - 1; j > 0; --j) {
@@ -97,42 +160,460 @@ range_image_window_kernel(const float* __restrict__ pts, const int* __restrict__
   }
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One window candidate of the tile kernel: its key (the distance's f32 bits
+// above w = (da + window_az) << 16 | (de + window_el), which orders as its
+// position in JAX's column order), into the list if it is among the K
+// smallest keys. dlast is the list's last distance: most candidates fail
+// the one float compare.
+template <int K>
+__device__ __forceinline__ void tile_insert(unsigned long long (&bk)[K], float& dlast, float d, unsigned w) {
+  if (d <= dlast) {  // a key at or above the last one leaves the list as it is
+    const unsigned long long key = (static_cast<unsigned long long>(__float_as_uint(d)) << 32) | w;
+#pragma unroll
+    for (int j = K - 1; j > 0; --j) {
+      if (key < bk[j]) bk[j] = key < bk[j - 1] ? bk[j - 1] : key;
+    }
+    if (key < bk[0]) bk[0] = key;
+    dlast = __uint_as_float(static_cast<unsigned>(bk[K - 1] >> 32));
+  }
+}
+
+// A staged cell's point: 12 bytes, read as three 4-byte loads at one address.
+struct Point3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ float sqdist(Point3 p, Point3 c) {
+  const float dx = __fsub_rn(p.x, c.x);
+  const float dy = __fsub_rn(p.y, c.y);
+  const float dz = __fsub_rn(p.z, c.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// The window search of TA columns a block. gather: ids holds the winner's
+// point index + 1 a cell (0: empty) and pts the scan's [N, 3] points; else
+// ids holds the index (-1: empty) and pts the image's [C, 3] points.
+//
+// A staged cell is a 12-byte point and, apart, its index. An empty cell is
+// staged at +inf, so its distance is +inf and never enters the list: no
+// index test a candidate. The list keeps the K smallest keys (tile_insert), which is the
+// strict-`<` insertion in column order whatever order the window is visited
+// in; the visiting order is the header note's.
+template <int K, bool kGather>
+__global__ void __launch_bounds__(kTileThreads, 2)
+range_image_tile_kernel(const float* __restrict__ pts, const int* __restrict__ ids, int n_az, int n_rings,
+                        int window_az, int window_el, int tile_az, int* __restrict__ out_idx,
+                        float* __restrict__ out_d2) {
+  extern __shared__ float4 smem4[];
+  const int cols = tile_az + 2 * window_az;
+  const int span = cols * n_rings;
+  Point3* const rec = reinterpret_cast<Point3*>(smem4);
+  int* const sid = reinterpret_cast<int*>(rec + span);
+  const int a0 = blockIdx.x * tile_az;
+  const float inf = __int_as_float(0x7f800000);
+
+  // stage the tile's columns, a0 - window_az .. a0 + TA + window_az - 1,
+  // wrapped into [0, n_az); a column's rings are contiguous rows. The image
+  // is copied as it is and its empty cells set to +inf after; the gather
+  // form reads a winner's point once its index is in
+  for (int i = threadIdx.x; i < span; i += blockDim.x) {
+    const int tc = i / n_rings;
+    const int e = i - tc * n_rings;
+    int a = (a0 - window_az + tc) % n_az;
+    if (a < 0) a += n_az;
+    const long long c = static_cast<long long>(a) * n_rings + e;
+    float* const r = &rec[i].x;
+    if (kGather) {
+      const int id = __ldg(ids + c) - 1;
+      sid[i] = id;
+      if (id >= 0) {
+        cp_async4(r, pts + 3ll * id);
+        cp_async4(r + 1, pts + 3ll * id + 1);
+        cp_async4(r + 2, pts + 3ll * id + 2);
+      } else {
+        r[0] = inf;
+        r[1] = inf;
+        r[2] = inf;
+      }
+    } else {
+      cp_async4(r, pts + 3 * c);
+      cp_async4(r + 1, pts + 3 * c + 1);
+      cp_async4(r + 2, pts + 3 * c + 2);
+      sid[i] = __ldg(ids + c);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (!kGather) {
+    for (int i = threadIdx.x; i < span; i += blockDim.x) {
+      if (sid[i] < 0) {
+        rec[i].x = inf;
+        rec[i].y = inf;
+        rec[i].z = inf;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int rows = 2 * window_el + 1;
+  const unsigned long long unfilled = (static_cast<unsigned long long>(__float_as_uint(kBig)) << 32) | 0xffffffffu;
+  // the block's rows of the result, written back coalesced after each round
+  int* const s_oi = sid + span;  // 16 span bytes in: 16-byte aligned
+  float* const s_od = reinterpret_cast<float*>(s_oi + blockDim.x * K);
+  const int tile_cells = min(tile_az, n_az - a0) * n_rings;
+  for (int round = 0; round < tile_cells; round += blockDim.x) {
+    const int l = round + threadIdx.x;
+    if (l < tile_cells) {
+      const int ta = l / n_rings;
+      const int e = l - ta * n_rings;
+      unsigned long long bk[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) bk[j] = unfilled;
+      float dlast = kBig;
+      const int ctr = (ta + window_az) * n_rings + e;
+      const Point3 me = rec[ctr];
+      const int step = n_rings;
+      if (sid[ctr] >= 0) {
+        int r0 = 0;  // the first ring offset left to visit
+        const unsigned wring = static_cast<unsigned>(window_el);  // w of (da = -window_az, de = 0)
+        if (2 * window_az + 1 >= K) {
+          // the cell's own ring fills the list: its first K candidates (da =
+          // 0, +1, -1, +2, ...) go in unconditionally, the i-th sorted in by i
+          // compare-exchanges, not by a whole insertion each
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            const int da = (i & 1) ? (i + 1) >> 1 : -((i + 1) >> 1);
+            const float d = i ? sqdist(me, rec[ctr + da * n_rings]) : 0.0f;  // the cell itself at 0
+            // an empty cell (+inf) leaves its slot unfilled
+            bk[i] = d < kBig ? (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
+                                   (wring + (static_cast<unsigned>(da + window_az) << 16))
+                             : unfilled;
+#pragma unroll
+            for (int j = i; j > 0; --j) {
+              const unsigned long long lo = bk[j] < bk[j - 1] ? bk[j] : bk[j - 1];
+              bk[j] = bk[j] < bk[j - 1] ? bk[j - 1] : bk[j];
+              bk[j - 1] = lo;
+            }
+          }
+          dlast = __uint_as_float(static_cast<unsigned>(bk[K - 1] >> 32));
+          // the rest of the ring: da above K / 2 and below -(K - 1) / 2
+          for (int da = K / 2 + 1; da <= window_az; ++da)
+            tile_insert<K>(bk, dlast, sqdist(me, rec[ctr + da * n_rings]),
+                           wring + (static_cast<unsigned>(da + window_az) << 16));
+          for (int da = -window_az; da < -((K - 1) / 2); ++da)
+            tile_insert<K>(bk, dlast, sqdist(me, rec[ctr + da * n_rings]),
+                           wring + (static_cast<unsigned>(da + window_az) << 16));
+          r0 = 1;
+        } else {
+          // the cell itself first, at distance 0, into the empty list
+          bk[0] = (static_cast<unsigned>(window_az) << 16) | wring;
+        }
+        for (int r = r0; r < rows; ++r) {
+          const int de = (r & 1) ? -((r + 1) >> 1) : (r >> 1);  // 0, -1, 1, -2, 2, ...
+          if (e + de < 0 || e + de >= n_rings) continue;
+          const Point3* const mid = rec + ctr + de;  // (da = 0, de)
+          const unsigned wmid = (static_cast<unsigned>(window_az) << 16) | static_cast<unsigned>(de + window_el);
+          if (r) tile_insert<K>(bk, dlast, sqdist(me, mid[0]), wmid);
+          // azimuth offsets +q, -q, +(q + 1), -(q + 1) at once
+          int q = 1;
+          const Point3* up = mid + step;
+          const Point3* down = mid - step;
+          for (; q < window_az; q += 2, up += 2 * step, down -= 2 * step) {
+            const float d0 = sqdist(me, up[0]), d1 = sqdist(me, down[0]);
+            const float d2 = sqdist(me, up[step]), d3 = sqdist(me, down[-step]);
+            // one vote turns the four away together; a thread's turned-away
+            // candidates fail its own float compare inside
+            if (__any_sync(__activemask(), fminf(fminf(d0, d1), fminf(d2, d3)) <= dlast)) {
+              tile_insert<K>(bk, dlast, d0, wmid + (static_cast<unsigned>(q) << 16));
+              tile_insert<K>(bk, dlast, d1, wmid - (static_cast<unsigned>(q) << 16));
+              tile_insert<K>(bk, dlast, d2, wmid + (static_cast<unsigned>(q + 1) << 16));
+              tile_insert<K>(bk, dlast, d3, wmid - (static_cast<unsigned>(q + 1) << 16));
+            }
+          }
+          if (q == window_az) {
+            const float d0 = sqdist(me, mid[q * step]), d1 = sqdist(me, mid[-q * step]);
+            tile_insert<K>(bk, dlast, d0, wmid + (static_cast<unsigned>(q) << 16));
+            tile_insert<K>(bk, dlast, d1, wmid - (static_cast<unsigned>(q) << 16));
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const unsigned w = static_cast<unsigned>(bk[j]);
+        const bool filled = w != 0xffffffffu;
+        const int da = filled ? static_cast<int>(w >> 16) - window_az : 0;
+        const int de = filled ? static_cast<int>(w & 0xffffu) - window_el : 0;
+        s_oi[threadIdx.x * K + j] = filled ? sid[ctr + da * n_rings + de] : -1;
+        s_od[threadIdx.x * K + j] = __uint_as_float(static_cast<unsigned>(bk[j] >> 32));
+      }
+    }
+    __syncthreads();
+    // cell a0 * n_rings + l is the tile's l-th: the round's rows are contiguous
+    const long long first = (static_cast<long long>(a0) * n_rings + round) * K;
+    const int n_out = min(static_cast<int>(blockDim.x), tile_cells - round) * K;
+    int done = 0;
+    if (((reinterpret_cast<unsigned long long>(out_idx + first) |
+          reinterpret_cast<unsigned long long>(out_d2 + first)) & 15) == 0) {  // 16-byte stores where aligned
+      done = n_out & ~3;
+      for (int i = threadIdx.x; i < done / 4; i += blockDim.x) {
+        reinterpret_cast<int4*>(out_idx + first)[i] = reinterpret_cast<const int4*>(s_oi)[i];
+        reinterpret_cast<float4*>(out_d2 + first)[i] = reinterpret_cast<const float4*>(s_od)[i];
+      }
+    }
+    for (int i = done + threadIdx.x; i < n_out; i += blockDim.x) {
+      out_idx[first + i] = s_oi[i];
+      out_d2[first + i] = s_od[i];
+    }
+    __syncthreads();
+  }
+}
+
+// Order-preserving uint32 key of a float (non-NaN): unsigned order equals
+// float order, and no float's key is 0, so 0 is the neutral start of
+// atomicMax. The min is kept as the max of the complemented key.
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : b | 0x80000000u;
+}
+
+__device__ __forceinline__ float from_order_key(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
+}
+
+// Step 1 of a point as the plain version computes it: ok, az and el.
+__device__ __forceinline__ bool point_angles(const float* __restrict__ points, const unsigned char* __restrict__ mask,
+                                             int n, float* az, float* el) {
+  const float x = __ldg(points + 3ll * n), y = __ldg(points + 3ll * n + 1), z = __ldg(points + 3ll * n + 2);
+  const float r = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+  *az = atan2f(y, x);
+  *el = asinf(fminf(fmaxf(__fdiv_rn(z, fmaxf(r, 1e-9f)), -1.0f), 1.0f));
+  return __ldg(mask + n) && isfinite(r) && r > 1e-6f;
+}
+
+// A few blocks stride over the scan, so that few same-address atomics meet
+// at the two keys; a block's atomic is skipped where the key already holds.
+__global__ void __launch_bounds__(kPointThreads)
+range_image_elevation_kernel(const float* __restrict__ points, const unsigned char* __restrict__ mask, int N,
+                             unsigned* __restrict__ keys) {
+  __shared__ unsigned s_hi[kPointThreads / 32], s_lo[kPointThreads / 32];
+  unsigned hi = 0u, lo = 0u;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N; n += gridDim.x * blockDim.x) {
+    float az, el;
+    if (point_angles(points, mask, n, &az, &el)) {
+      const unsigned k = order_key(el);
+      hi = max(hi, k);
+      lo = max(lo, ~k);
+    }
+  }
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) {
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, m));
+    lo = max(lo, __shfl_xor_sync(0xffffffffu, lo, m));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_hi[threadIdx.x / 32] = hi;
+    s_lo[threadIdx.x / 32] = lo;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kPointThreads / 32; ++w) {
+      hi = max(hi, s_hi[w]);
+      lo = max(lo, s_lo[w]);
+    }
+    volatile unsigned* v = keys;
+    if (hi > v[0]) atomicMax(keys, hi);
+    if (lo > v[1]) atomicMax(keys + 1, lo);
+  }
+}
+
+__global__ void __launch_bounds__(kPointThreads)
+range_image_cells_kernel(const float* __restrict__ points, const unsigned char* __restrict__ mask, int N, int n_az,
+                         int n_rings, const unsigned* __restrict__ keys, float el_min, float el_max, int min_given,
+                         int max_given, float pi, float inv_two_pi, int* __restrict__ occ, int* __restrict__ win1,
+                         int* __restrict__ collisions, int* __restrict__ cell_out) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  bool collided = false;
+  if (n < N) {
+    const int C = n_az * n_rings;
+    float az, el;
+    int cell = C;
+    if (point_angles(points, mask, n, &az, &el)) {
+      const float el_lo = min_given ? el_min : from_order_key(~__ldg(keys + 1));
+      const float el_hi = max_given ? el_max : from_order_key(__ldg(keys));
+      const float span = fmaxf(__fsub_rn(el_hi, el_lo), 1e-6f);
+      float azf = floorf(__fadd_rn(__fmul_rn(__fmul_rn(__fadd_rn(az, pi), inv_two_pi), static_cast<float>(n_az)),
+                                   0.5f));
+      float elf = floorf(__fadd_rn(
+          __fmul_rn(__fdiv_rn(__fsub_rn(el, el_lo), span), static_cast<float>(n_rings - 1)), 0.5f));
+      if (!isfinite(azf)) azf = 0.0f;
+      if (!isfinite(elf)) elf = 0.0f;
+      int azb = static_cast<int>(static_cast<long long>(azf) % n_az);
+      if (azb < 0) azb += n_az;
+      const int elb = static_cast<int>(fminf(fmaxf(elf, 0.0f), static_cast<float>(n_rings - 1)));
+      cell = azb * n_rings + elb;
+      collided = atomicAdd(occ + cell, 1) > 0;
+      atomicMax(win1 + cell, n + 1);
+    }
+    cell_out[n] = cell;
+  }
+  const unsigned b = __ballot_sync(0xffffffffu, collided);
+  if ((threadIdx.x & 31) == 0 && b) atomicAdd(collisions, __popc(b));
+}
+
+__global__ void __launch_bounds__(kPointThreads)
+range_image_rows_kernel(const int* __restrict__ idx_c, const float* __restrict__ d_c,
+                        const int* __restrict__ cell, int N, int C, int K, int* __restrict__ out_idx,
+                        float* __restrict__ out_d2) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(N) * K) return;
+  const int n = static_cast<int>(i / K);
+  const int j = static_cast<int>(i - static_cast<long long>(n) * K);
+  const int c = __ldg(cell + n);
+  int oi = n;
+  float od = __int_as_float(0x7f800000);
+  if (c < C) {
+    const int ii = __ldg(idx_c + static_cast<long long>(c) * K + j);
+    const float dd = __ldg(d_c + static_cast<long long>(c) * K + j);
+    if (!(ii < 0 || dd >= kBig)) {
+      oi = ii;
+      od = dd;
+    }
+  }
+  out_idx[i] = oi;
+  out_d2[i] = od;
+}
+
+template <int K, bool kGather>
+cudaError_t launch_tile(const float* pts, const int* ids, int n_az, int n_rings, int window_az, int window_el,
+                        int tile_az, int* out_idx, float* out_d2, cudaStream_t s) {
+  const int threads = min(kTileThreads, (tile_az * n_rings + 31) / 32 * 32);
+  const long long smem = 16ll * n_rings * (tile_az + 2 * window_az) + 8ll * threads * K;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(range_image_tile_kernel<K, kGather>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (n_az + tile_az - 1) / tile_az;
+  range_image_tile_kernel<K, kGather><<<blocks, threads, static_cast<size_t>(smem), s>>>(
+      pts, ids, n_az, n_rings, window_az, window_el, tile_az, out_idx, out_d2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-#define SPT_RANGE_IMAGE_CASE(KK)                                                        \
-  case KK:                                                                              \
-    range_image_window_kernel<KK><<<blocks, kThreads, 0, s>>>(                          \
-        pts, ids, n_az, n_rings, window_az, window_el, out_idx, out_d2);                \
+#define SPT_RANGE_IMAGE_CASES(CASE) \
+  CASE(1)                           \
+  CASE(2)                           \
+  CASE(3)                           \
+  CASE(4)                           \
+  CASE(5)                           \
+  CASE(6)                           \
+  CASE(7)                           \
+  CASE(8)                           \
+  CASE(9)                           \
+  CASE(10)                          \
+  CASE(11)                          \
+  CASE(12)                          \
+  CASE(13)                          \
+  CASE(14)                          \
+  CASE(15)                          \
+  CASE(16)
+
+#define SPT_RANGE_IMAGE_TILE_CASE(KK)                                                                        \
+  case KK:                                                                                                   \
+    return static_cast<int>(gather ? launch_tile<KK, true>(pts, ids, n_az, n_rings, window_az, window_el,  \
+                                                           tile_az, out_idx, out_d2, s)                     \
+                                   : launch_tile<KK, false>(pts, ids, n_az, n_rings, window_az, window_el, \
+                                                            tile_az, out_idx, out_d2, s));
+
+#define SPT_RANGE_IMAGE_SIMPLE_CASE(KK)                                         \
+  case KK:                                                                      \
+    range_image_window_simple_kernel<KK><<<blocks, kSimpleThreads, 0, s>>>(     \
+        pts, ids, n_az, n_rings, window_az, window_el, out_idx, out_d2);        \
     break;
 
-// pts [n_az * n_rings, 3] f32 and ids [n_az * n_rings] i32 (-1: unoccupied),
-// row a * n_rings + e; out_idx / out_d2 [n_az * n_rings, k], 1 <= k <= 16.
-extern "C" int spt_range_image_window(const float* pts, const int* ids, int n_az, int n_rings,
-                                      int window_az, int window_el, int k, int* out_idx,
+// The window search, TA = tile_az columns a block. gather = 0: pts the
+// image [n_az * n_rings, 3] f32 and ids [n_az * n_rings] i32 (-1:
+// unoccupied), row a * n_rings + e; gather = 1: pts the scan [N, 3] f32 and
+// ids the winner's index + 1 a cell (0: unoccupied). out_idx / out_d2
+// [n_az * n_rings, k], 1 <= k <= 16.
+extern "C" int spt_range_image_window(const float* pts, const int* ids, int gather, int n_az, int n_rings,
+                                      int window_az, int window_el, int k, int tile_az, int* out_idx,
                                       float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cells = n_az * n_rings;
-  const int blocks = (cells + kThreads - 1) / kThreads;
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (n_az <= 0 || n_rings <= 0) return static_cast<int>(cudaSuccess);
+  if (tile_az <= 0 || window_az < 0 || window_el < 0 || window_el > 0xffff || window_az > 0x7fff)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
-    SPT_RANGE_IMAGE_CASE(1)
-    SPT_RANGE_IMAGE_CASE(2)
-    SPT_RANGE_IMAGE_CASE(3)
-    SPT_RANGE_IMAGE_CASE(4)
-    SPT_RANGE_IMAGE_CASE(5)
-    SPT_RANGE_IMAGE_CASE(6)
-    SPT_RANGE_IMAGE_CASE(7)
-    SPT_RANGE_IMAGE_CASE(8)
-    SPT_RANGE_IMAGE_CASE(9)
-    SPT_RANGE_IMAGE_CASE(10)
-    SPT_RANGE_IMAGE_CASE(11)
-    SPT_RANGE_IMAGE_CASE(12)
-    SPT_RANGE_IMAGE_CASE(13)
-    SPT_RANGE_IMAGE_CASE(14)
-    SPT_RANGE_IMAGE_CASE(15)
-    SPT_RANGE_IMAGE_CASE(16)
+    SPT_RANGE_IMAGE_CASES(SPT_RANGE_IMAGE_TILE_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The first design, one thread a cell, on the image: the arguments of
+// spt_range_image_window with gather = 0 and no tile.
+extern "C" int spt_range_image_window_simple(const float* pts, const int* ids, int n_az, int n_rings,
+                                             int window_az, int window_el, int k, int* out_idx, float* out_d2,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cells = n_az * n_rings;
+  const int blocks = (cells + kSimpleThreads - 1) / kSimpleThreads;
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  switch (k) {
+    SPT_RANGE_IMAGE_CASES(SPT_RANGE_IMAGE_SIMPLE_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (a): points [N, 3] f32, mask [N] bool; keys [2] u32, zeroed by the caller:
+// keys[0] the max of el's key, keys[1] the max of its complement.
+extern "C" int spt_range_image_elevation(const float* points, const unsigned char* mask, int N, unsigned* keys,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 0) return static_cast<int>(cudaSuccess);
+  const int blocks = min((N + kPointThreads - 1) / kPointThreads, kElevationBlocks);
+  range_image_elevation_kernel<<<blocks, kPointThreads, 0, s>>>(points, mask, N, keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (b): occ, win1 [n_az * n_rings] i32 and collisions [1] i32 zeroed by the
+// caller; el_min / el_max used where given, else from keys; cell_out [N]
+// i32 (n_az * n_rings for an invalid point). pi and inv_two_pi: the f32
+// values of pi and of 1 / f32(2 pi).
+extern "C" int spt_range_image_cells(const float* points, const unsigned char* mask, int N, int n_az, int n_rings,
+                                     const unsigned* keys, float el_min, float el_max, int min_given, int max_given,
+                                     float pi, float inv_two_pi, int* occ, int* win1, int* collisions,
+                                     int* cell_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 0) return static_cast<int>(cudaSuccess);
+  if (n_az <= 0 || n_rings <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  range_image_cells_kernel<<<(N + kPointThreads - 1) / kPointThreads, kPointThreads, 0, s>>>(
+      points, mask, N, n_az, n_rings, keys, el_min, el_max, min_given, max_given, pi, inv_two_pi, occ, win1,
+      collisions, cell_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (d): idx_c / d_c [C, k] from the window search, cell [N] i32; out_idx /
+// out_d2 [N, k].
+extern "C" int spt_range_image_rows(const int* idx_c, const float* d_c, const int* cell, int N, int C, int k,
+                                    int* out_idx, float* out_d2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = static_cast<long long>(N) * k;
+  if (total == 0) return static_cast<int>(cudaSuccess);
+  range_image_rows_kernel<<<static_cast<unsigned>((total + kPointThreads - 1) / kPointThreads), kPointThreads, 0,
+                            s>>>(idx_c, d_c, cell, N, C, k, out_idx, out_d2);
   return static_cast<int>(cudaGetLastError());
 }

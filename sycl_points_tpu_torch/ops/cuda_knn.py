@@ -27,11 +27,15 @@ queries already moved by the pose: ``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8
 or 32 lanes a query) and ``nn1_unroll2`` (v3). Every 1-NN kernel equals
 :func:`nn1_plain`.
 
-``csrc/range_image.cu`` holds the range-image window search of the raw
-scans; its wrapper is :func:`..range_image_knn.range_image_window`, which
-counts its launches here under ``range_image``. The searches of the
-structured targets count here too: ``grid_knn`` (``csrc/grid_knn.cu``,
-wrapper :func:`..grid_knn.grid_search`), ``coarse_refine``
+``csrc/range_image.cu`` holds the range-image k-NN of the raw scans; its
+wrappers in :mod:`..range_image_knn` count their launches here: the window
+search under ``range_image`` (:func:`..range_image_knn.range_image_window`
+and the fused ``range_image_knn``), the fused path's other kernels under
+``range_image_elevation``, ``range_image_cells`` and ``range_image_rows``,
+and the first window design under ``range_image_simple``. The searches of
+the structured targets count here too: ``grid_knn`` (``csrc/grid_knn.cu``,
+wrapper :func:`..grid_knn.grid_search`, lanes a query from
+:func:`grid_lanes`; its first design ``grid_knn_simple``), ``coarse_refine``
 (``csrc/coarse_knn.cu``, :func:`..coarse_knn.coarse_refine`) and
 ``morton_window`` (``csrc/window_knn.cu``, :func:`..window_knn.window_search`).
 
@@ -81,6 +85,9 @@ CLUSTER_SLICES = (1, 2, 4, 8, 16)
 NN1_QUERY_TILES = (32, 64, 128)
 KNN_QUERY_TILE = 128
 BLOCKS_PER_SM = 4
+# The grid search (csrc/grid_knn.cu): lanes a query, chosen by grid_lanes().
+GRID_LANES = (8, 16, 32)
+GRID_THREADS_PER_SM = 1024
 # Instances compiled into the library (csrc/knn.cu, csrc/nn1_variants.cu).
 NN1_THREADS = (64, 128, 256, 512)
 NN1_TILES = (512, 1024, 2048, 4096)
@@ -90,7 +97,8 @@ NN1_LANES = (8, 32)
 launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
     "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
-    "grid_knn": 0, "coarse_refine": 0, "morton_window": 0,
+    "range_image_elevation": 0, "range_image_cells": 0, "range_image_rows": 0, "range_image_simple": 0,
+    "grid_knn": 0, "grid_knn_simple": 0, "coarse_refine": 0, "morton_window": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -166,14 +174,22 @@ def load_library() -> ctypes.CDLL:
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
-            lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, p, p, p]
-            lib.spt_grid_knn.argtypes = [p, i, p, ctypes.c_float, p, p, p, i, p, p, p, p, i, i, i, i, p, p, p]
+            f = ctypes.c_float
+            lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
+            lib.spt_range_image_window_simple.argtypes = [p, p, i, i, i, i, i, p, p, p]
+            lib.spt_range_image_elevation.argtypes = [p, p, i, p, p]
+            lib.spt_range_image_cells.argtypes = [p, p, i, i, i, p, f, f, i, i, f, f, p, p, p, p, p]
+            lib.spt_range_image_rows.argtypes = [p, p, p, i, i, i, p, p, p]
+            lib.spt_grid_knn.argtypes = [p, i, p, f, p, p, p, i, p, p, p, p, i, i, i, i, i, p, p, p]
+            lib.spt_grid_knn_simple.argtypes = [p, i, p, f, p, p, p, i, p, p, p, p, i, i, i, i, p, p, p]
             lib.spt_coarse_refine.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, p, p, p, p]
             lib.spt_morton_window.argtypes = [p, p, p, i, i, i, p, p, p]
             for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_batched, lib.spt_knn_k_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
-                       lib.spt_range_image_window, lib.spt_grid_knn, lib.spt_coarse_refine,
+                       lib.spt_range_image_window, lib.spt_range_image_window_simple,
+                       lib.spt_range_image_elevation, lib.spt_range_image_cells, lib.spt_range_image_rows,
+                       lib.spt_grid_knn, lib.spt_grid_knn_simple, lib.spt_coarse_refine,
                        lib.spt_morton_window):
                 fn.restype = i
             _lib = lib
@@ -447,6 +463,27 @@ def cluster_shape(Q: int, query_tiles, n_sm: int, streams: int = 1) -> tuple[int
     return qt, slices
 
 
+def grid_lanes(Q: int, n_sm: int) -> int:
+    """Lanes a query of the ``grid_knn`` kernel for ``Q`` queries: the fewest
+    of :data:`GRID_LANES` whose ``Q x G`` threads give the card
+    :data:`GRID_THREADS_PER_SM` an SM, else the most. On the H100 (132 SMs)
+    Q = 1,000 and 5,000 take 32 lanes (a warp a query), 12,000 take 16 and
+    30,000 take 8: few queries spread their ~200 candidates over a warp,
+    many keep the card full with fewer lanes and shorter merges."""
+    want = GRID_THREADS_PER_SM * n_sm
+    return next((g for g in GRID_LANES if Q * g >= want), GRID_LANES[-1])
+
+
+def _run(name, device, call) -> None:
+    """Run ``call(lib, stream)`` once on ``device``'s current stream, raise on
+    its error code and count it under ``name``."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = call(lib, torch.cuda.current_stream(device).cuda_stream)
+    _check_rc(rc, name)
+    launch_counts[name] += 1
+
+
 def _launch(name, device, shape, call):
     """Allocate ``idx`` (int32) and ``d2`` (f32) of ``shape`` on ``device``,
     then, unless they are empty, run ``call(lib, idx_ptr, d2_ptr, stream)``
@@ -456,11 +493,7 @@ def _launch(name, device, shape, call):
     d2 = torch.empty(shape, dtype=torch.float32, device=device)
     if idx.numel() == 0:
         return idx, d2
-    lib = load_library()
-    with torch.cuda.device(device):
-        rc = call(lib, idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    _check_rc(rc, name)
-    launch_counts[name] += 1
+    _run(name, device, lambda lib, s: call(lib, idx.data_ptr(), d2.data_ptr(), s))
     return idx, d2
 
 

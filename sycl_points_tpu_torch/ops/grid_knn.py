@@ -11,7 +11,10 @@ reference's KD-tree and octree (``algorithms/knn/kdtree.hpp``,
   * search: each query (moved by ``pose`` first, when given) looks up the 27
     cells around its own, takes the first ``max_per_cell`` points of each
     and keeps the ``k`` nearest: :func:`grid_search`, the ``grid_knn`` kernel
-    of ``csrc/grid_knn.cu`` on the card, :func:`grid_search_plain` on the CPU.
+    of ``csrc/grid_knn.cu`` on the card (``cuda_knn.grid_lanes`` lanes a
+    query), :func:`grid_search_plain` on the CPU; :func:`grid_search_simple`
+    is the kernel's first design (one thread a query), the reference it is
+    timed against.
 
 Results are exact for neighbours closer than ``cell_size`` (any such
 neighbour lies in the 27 cells); farther ones may be missed (distance inf).
@@ -198,27 +201,55 @@ def grid_candidates(grid: GridKNN, queries: torch.Tensor, pose: Optional[torch.T
     return queries, valid & grid.mask[idx], idx
 
 
-def grid_search(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None):
-    """:func:`grid_search_plain` through the ``grid_knn`` kernel
-    (``csrc/grid_knn.cu``) for CUDA tensors; CPU tensors run the plain
-    version."""
+def _check_search(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor]):
+    """Check a search's arguments; returns the queries' device."""
     if not 1 <= k <= min(cuda_knn.MAX_K, 27 * grid.max_per_cell):
         raise ValueError(f"GridKNN.search takes 1 <= k <= {cuda_knn.MAX_K}, got {k}")
-    M = grid.points.shape[0]
-    if M == 0:
+    if grid.points.shape[0] == 0:
         raise ValueError("GridKNN.search needs a target of at least one row")
-    device = cuda_knn._check_queries(queries, pose, grid.points, grid.mask, grid.cell_coords)
-    if device.type == "cpu":
-        return grid_search_plain(grid, queries, k, pose)
-    cuda_knn._require_cuda(device, "grid_knn")
+    return cuda_knn._check_queries(queries, pose, grid.points, grid.mask, grid.cell_coords)
+
+
+def _grid_launch(name: str, grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor], device,
+                 entry: str, extra=()):
+    """Launch ``lib.<entry>`` (the grid kernels' shared arguments, then
+    ``extra``) once on CUDA tensors, counted under ``name``."""
+    cuda_knn._require_cuda(device, name)
     tensors = (queries, pose, grid.points, grid.mask, grid.orig_idx, grid.cell_coords, grid.cell_used,
                grid.cell_start, grid.cell_count)
     cuda_knn._require_contiguous(*tensors)
-    C, Q = grid.cell_coords.shape[0], queries.shape[0]
+    C, Q, M = grid.cell_coords.shape[0], queries.shape[0], grid.points.shape[0]
     if C & (C - 1):
         raise ValueError(f"the grid's table capacity must be a power of two, got {C}")
     pose_ptr = None if pose is None else pose.data_ptr()
-    return cuda_knn._launch("grid_knn", device, (Q, k), lambda lib, i, d, s: lib.spt_grid_knn(
+    return cuda_knn._launch(name, device, (Q, k), lambda lib, i, d, s: getattr(lib, entry)(
         queries.data_ptr(), Q, pose_ptr, grid.inv_cell, grid.points.data_ptr(), grid.mask.data_ptr(),
         grid.orig_idx.data_ptr(), M, grid.cell_coords.data_ptr(), grid.cell_used.data_ptr(),
-        grid.cell_start.data_ptr(), grid.cell_count.data_ptr(), C, grid.max_probes, grid.max_per_cell, k, i, d, s))
+        grid.cell_start.data_ptr(), grid.cell_count.data_ptr(), C, grid.max_probes, grid.max_per_cell, k, *extra,
+        i, d, s))
+
+
+def grid_search(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None,
+                lanes: Optional[int] = None):
+    """:func:`grid_search_plain` through the ``grid_knn`` kernel
+    (``csrc/grid_knn.cu``, ``lanes`` a query, by default
+    ``cuda_knn.grid_lanes``'s choice) for CUDA tensors; CPU tensors run the
+    plain version."""
+    device = _check_search(grid, queries, k, pose)
+    if lanes is not None and lanes not in cuda_knn.GRID_LANES:
+        raise ValueError(f"grid_knn takes lanes in {cuda_knn.GRID_LANES}, got {lanes}")
+    if device.type == "cpu":
+        return grid_search_plain(grid, queries, k, pose)
+    if lanes is None:
+        lanes = cuda_knn.grid_lanes(queries.shape[0], cuda_knn._sm_count(device.index))
+    return _grid_launch("grid_knn", grid, queries, k, pose, device, "spt_grid_knn", (lanes,))
+
+
+def grid_search_simple(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None):
+    """:func:`grid_search` through the kernel's first design (one thread a
+    query, ``csrc/grid_knn.cu``): the reference the lane-group kernel is
+    held to and timed against. CPU tensors run the plain version."""
+    device = _check_search(grid, queries, k, pose)
+    if device.type == "cpu":
+        return grid_search_plain(grid, queries, k, pose)
+    return _grid_launch("grid_knn_simple", grid, queries, k, pose, device, "spt_grid_knn_simple")

@@ -15,10 +15,21 @@ default window (6, 4) instead of the whole cloud.
      CPU (a scatter-max of the index, so the card gives the same winner);
   3. the window distances and the k smallest of each cell:
      :func:`range_image_window`, the ``range_image`` kernel of
-     ``csrc/range_image.cu`` on the card, :func:`range_image_window_plain`
-     on the CPU;
+     ``csrc/range_image.cu`` on the card (a shared-memory tile of
+     :func:`range_image_tile` azimuth columns a block),
+     :func:`range_image_window_plain` on the CPU;
+     :func:`range_image_window_simple` is the kernel's first design (one
+     thread a cell), the reference it is timed against;
   4. each point reads its cell's row; missing slots and invalid points fall
      back to the point itself at an infinite distance.
+
+On the CPU, :func:`range_image_knn` runs the plain sequence
+(:func:`range_image`, :func:`range_image_window`, :func:`point_rows`). On a
+CUDA tensor it runs as a memset and four hand-written kernels of
+``csrc/range_image.cu``, equal to the plain sequence bit for bit: the
+elevation bounds (skipped when both are given), the cells with the occupancy,
+the winners and ``collisions``, the window search reading the winners'
+points straight from the scan, and the per-point rows.
 
 Nothing here reads the host: ``collisions`` stays a device tensor. A point
 that shares its cell inherits the cell winner's neighbourhood (distances from
@@ -30,12 +41,22 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.ops.knn import KNNResult
 
 BIG = 3.0e38
+# The window kernel's tile: about TILE_CELLS cells (one a thread) a block,
+# within a block's SMEM_BYTES of shared memory (227 KB on the H100).
+TILE_CELLS = 512
+SMEM_BYTES = 232448
+# The bins' constants as PyTorch's CUDA kernels apply them: pi rounded to
+# f32, and the division by the CPU scalar 2 pi as a product with the f32
+# reciprocal of f32(2 pi).
+PI_F32 = float(np.float32(math.pi))
+INV_TWO_PI_F32 = float(np.float32(1.0) / np.float32(2.0 * math.pi))
 
 
 class RangeImageKNNResult(NamedTuple):
@@ -82,14 +103,46 @@ def range_image_window_plain(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int
     return idx, d2
 
 
-def range_image_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
-                       window_el: int, k: int):
-    """:func:`range_image_window_plain` through the ``range_image`` kernel
-    (``csrc/range_image.cu``) for CUDA tensors; CPU tensors run the plain
-    version."""
-    C = n_az * n_rings
+def tile_smem(n_rings: int, window_az: int, tile_az: int, k: int = cuda_knn.MAX_K) -> int:
+    """Shared memory of a window-kernel block: the ``tile_az + 2 window_az``
+    staged columns (16 B a ring) and the block's rows of the result (8 k B a
+    thread, one thread a cell up to TILE_CELLS)."""
+    threads = min(TILE_CELLS, -(-tile_az * n_rings // 32) * 32)
+    return 16 * n_rings * (tile_az + 2 * window_az) + 8 * k * threads
+
+
+def range_image_tile(n_rings: int, window_az: int) -> int:
+    """Azimuth columns a block of the window kernel owns (TA): the largest
+    power of two whose ``TA x n_rings`` cells stay within
+    :data:`TILE_CELLS` (at least one column) and whose :func:`tile_smem` at
+    k = 16 fits :data:`SMEM_BYTES`. Raises when one column and its halo do
+    not fit. 2048 x 64 at the default window takes 8 columns (512 cells,
+    84 KB)."""
+    smem = lambda ta: tile_smem(n_rings, window_az, ta)
+    if n_rings < 1 or window_az < 0:
+        raise ValueError(f"range_image_tile takes n_rings >= 1 and window_az >= 0, got {n_rings}, {window_az}")
+    if smem(1) > SMEM_BYTES:
+        raise ValueError(f"one azimuth column of {n_rings} rings and its halo of 2 x {window_az} columns take "
+                         f"{smem(1)} B of shared memory, above a block's {SMEM_BYTES}")
+    ta = 1 << (max(1, TILE_CELLS // n_rings).bit_length() - 1)
+    while smem(ta) > SMEM_BYTES:
+        ta //= 2
+    return ta
+
+
+def _check_k_window(k: int, window_az: int, window_el: int) -> None:
     if not 1 <= k <= cuda_knn.MAX_K:
-        raise ValueError(f"range_image_window takes 1 <= k <= {cuda_knn.MAX_K}, got {k}")
+        raise ValueError(f"the range-image search takes 1 <= k <= {cuda_knn.MAX_K}, got {k}")
+    if not (0 <= window_az < 1 << 15 and 0 <= window_el < 1 << 16):
+        raise ValueError(f"the range-image search takes windows in [0, 2^15) x [0, 2^16), got {window_az}, "
+                         f"{window_el}")
+
+
+def _check_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
+                  window_el: int, k: int):
+    """Check a window search's arguments; returns the image's device."""
+    C = n_az * n_rings
+    _check_k_window(k, window_az, window_el)
     if img_p.shape != (C, 3) or img_i.shape != (C,):
         raise ValueError(f"expected a [{C}, 3] image and [{C}] indices, got {tuple(img_p.shape)}, "
                          f"{tuple(img_i.shape)}")
@@ -97,13 +150,58 @@ def range_image_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_ri
         raise TypeError(f"expected float32 points and int32 indices, got {img_p.dtype}, {img_i.dtype}")
     if img_p.device != img_i.device:
         raise ValueError(f"inputs on more than one device: {img_p.device}, {img_i.device}")
-    device = img_p.device
+    return img_p.device
+
+
+def range_image_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
+                       window_el: int, k: int):
+    """:func:`range_image_window_plain` through the ``range_image`` kernel
+    (``csrc/range_image.cu``, :func:`range_image_tile` columns a block) for
+    CUDA tensors; CPU tensors run the plain version."""
+    device = _check_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
     if device.type == "cpu":
         return range_image_window_plain(img_p, img_i, n_az, n_rings, window_az, window_el, k)
     cuda_knn._require_cuda(device, "range_image_window")
     cuda_knn._require_contiguous(img_p, img_i)
-    return cuda_knn._launch("range_image", device, (C, k), lambda lib, i, d, s: lib.spt_range_image_window(
-        img_p.data_ptr(), img_i.data_ptr(), n_az, n_rings, window_az, window_el, k, i, d, s))
+    ta = range_image_tile(n_rings, window_az)
+    return cuda_knn._launch("range_image", device, (n_az * n_rings, k),
+                            lambda lib, i, d, s: lib.spt_range_image_window(
+                                img_p.data_ptr(), img_i.data_ptr(), 0, n_az, n_rings, window_az, window_el, k, ta,
+                                i, d, s))
+
+
+def range_image_window_simple(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
+                              window_el: int, k: int):
+    """:func:`range_image_window` through the kernel's first design (one
+    thread a cell, reading the image through L1): the reference the tiled
+    kernel is held to and timed against. CPU tensors run the plain
+    version."""
+    device = _check_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
+    if device.type == "cpu":
+        return range_image_window_plain(img_p, img_i, n_az, n_rings, window_az, window_el, k)
+    cuda_knn._require_cuda(device, "range_image_window_simple")
+    cuda_knn._require_contiguous(img_p, img_i)
+    return cuda_knn._launch("range_image_simple", device, (n_az * n_rings, k),
+                            lambda lib, i, d, s: lib.spt_range_image_window_simple(
+                                img_p.data_ptr(), img_i.data_ptr(), n_az, n_rings, window_az, window_el, k, i, d, s))
+
+
+def point_angles(points: torch.Tensor, mask: torch.Tensor):
+    """Step 1 of each point: ``(ok [N], az [N], el [N])``."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    r = torch.sqrt(x * x + y * y + z * z)
+    ok = mask & torch.isfinite(r) & (r > 1e-6)
+    az = torch.atan2(y, x)
+    el = torch.asin(torch.clamp(z / torch.clamp_min(r, 1e-9), -1.0, 1.0))
+    return ok, az, el
+
+
+def elevation_bounds(ok: torch.Tensor, el: torch.Tensor):
+    """The masked min and max of the elevations (0-dim; +inf / -inf when no
+    point is valid)."""
+    if not el.shape[0]:
+        return torch.tensor(torch.inf, device=el.device), torch.tensor(-torch.inf, device=el.device)
+    return torch.where(ok, el, torch.inf).amin(), torch.where(ok, el, -torch.inf).amax()
 
 
 def range_image(points: torch.Tensor, mask: torch.Tensor, n_az: int = 2048, n_rings: int = 64,
@@ -113,20 +211,11 @@ def range_image(points: torch.Tensor, mask: torch.Tensor, n_az: int = 2048, n_ri
     N = points.shape[0]
     C = n_az * n_rings
     dev = points.device
-    x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    r = torch.sqrt(x * x + y * y + z * z)
-    ok = mask & torch.isfinite(r) & (r > 1e-6)
-    az = torch.atan2(y, x)
-    el = torch.asin(torch.clamp(z / torch.clamp_min(r, 1e-9), -1.0, 1.0))
-
-    if el_min is None:
-        el_lo = torch.where(ok, el, torch.inf).amin() if N else torch.tensor(torch.inf, device=dev)
-    else:
-        el_lo = torch.tensor(el_min, dtype=torch.float32, device=dev)
-    if el_max is None:
-        el_hi = torch.where(ok, el, -torch.inf).amax() if N else torch.tensor(-torch.inf, device=dev)
-    else:
-        el_hi = torch.tensor(el_max, dtype=torch.float32, device=dev)
+    ok, az, el = point_angles(points, mask)
+    if el_min is None or el_max is None:
+        lo, hi = elevation_bounds(ok, el)
+    el_lo = lo if el_min is None else torch.tensor(el_min, dtype=torch.float32, device=dev)
+    el_hi = hi if el_max is None else torch.tensor(el_max, dtype=torch.float32, device=dev)
     span = torch.clamp_min(el_hi - el_lo, 1e-6)
 
     # center-offset bins: the ray angles sit at bin centers, not at edges
@@ -162,9 +251,133 @@ def range_image_knn(
     ``el_min`` / ``el_max`` bound the elevation fan; ``None`` takes them from
     the scan (its masked min and max: right for a full scan; pass the
     sensor's constants for a partial one)."""
+    if points.device.type != "cpu":
+        return _range_image_knn_cuda(points, mask, k, n_az, n_rings, window_az, window_el, el_min, el_max)
     img_p, img_i, cell, ok, collisions = range_image(points, mask, n_az, n_rings, el_min, el_max)
     idx_c, d_c = range_image_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
     return RangeImageKNNResult(knn=point_rows(idx_c, d_c, cell, ok), collisions=collisions)
+
+
+def _check_scan(points: torch.Tensor, mask: torch.Tensor, n_az: int, n_rings: int) -> None:
+    N = points.shape[0]
+    if points.shape != (N, 3) or mask.shape != (N,):
+        raise ValueError(f"expected [N, 3] points and an [N] mask, got {tuple(points.shape)}, {tuple(mask.shape)}")
+    if points.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise TypeError(f"expected float32 points and a bool mask, got {points.dtype}, {mask.dtype}")
+    if points.device != mask.device:
+        raise ValueError(f"inputs on more than one device: {points.device}, {mask.device}")
+    if n_az < 1 or n_rings < 1:
+        raise ValueError(f"expected a non-empty image, got {n_az} x {n_rings}")
+
+
+def range_image_cells_plain(points: torch.Tensor, mask: torch.Tensor, n_az: int = 2048, n_rings: int = 64,
+                            el_min: Optional[float] = None, el_max: Optional[float] = None):
+    """Steps 1-2 as :func:`range_image` computes them: ``(cell [N] int32
+    (n_az * n_rings for an invalid point), winner [C] int32 (the cell's
+    point index + 1, 0 where empty), occupancy [C] int32, collisions)``."""
+    C = n_az * n_rings
+    _, img_i, cell, ok, collisions = range_image(points, mask, n_az, n_rings, el_min, el_max)
+    occ = torch.bincount(cell[ok], minlength=C).to(torch.int32)
+    return cell.to(torch.int32), img_i + 1, occ, collisions
+
+
+def range_image_cells(points: torch.Tensor, mask: torch.Tensor, n_az: int = 2048, n_rings: int = 64,
+                      el_min: Optional[float] = None, el_max: Optional[float] = None):
+    """:func:`range_image_cells_plain` on the card: one memset, then the
+    kernels ``range_image_elevation`` (the masked elevation bounds, skipped
+    when both are given) and ``range_image_cells`` (bins, cells, occupancy,
+    winners, collisions). CPU tensors run the plain version."""
+    _check_scan(points, mask, n_az, n_rings)
+    dev = points.device
+    if dev.type == "cpu":
+        return range_image_cells_plain(points, mask, n_az, n_rings, el_min, el_max)
+    cuda_knn._require_cuda(dev, "range_image_cells")
+    points, mask = points.contiguous(), mask.contiguous()
+    N, C = points.shape[0], n_az * n_rings
+    # [occupancy C | winner + 1 C | collisions | max el key | max ~el key]
+    scratch = torch.zeros(2 * C + 3, dtype=torch.int32, device=dev)
+    occ, win1, collisions = scratch[:C], scratch[C:2 * C], scratch[2 * C]
+    cell = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return cell, win1, occ, collisions
+    if el_min is None or el_max is None:
+        _elevation_launch(points, mask, scratch)
+    _cells_launch(points, mask, n_az, n_rings, el_min, el_max, scratch, cell)
+    return cell, win1, occ, collisions
+
+
+def _elevation_launch(points, mask, scratch) -> None:
+    """Kernel (a) into the elevation keys of ``scratch`` (zeroed)."""
+    N, keys = points.shape[0], scratch[-2:]
+    cuda_knn._run("range_image_elevation", points.device, lambda lib, s: lib.spt_range_image_elevation(
+        points.data_ptr(), mask.data_ptr(), N, keys.data_ptr(), s))
+
+
+def _cells_launch(points, mask, n_az, n_rings, el_min, el_max, scratch, cell) -> None:
+    """Kernel (b): occupancy, winners and collisions into ``scratch``
+    (zeroed), the cells into ``cell``."""
+    N, C = points.shape[0], n_az * n_rings
+    ptr = lambda i: scratch[i:].data_ptr()
+    cuda_knn._run("range_image_cells", points.device, lambda lib, s: lib.spt_range_image_cells(
+        points.data_ptr(), mask.data_ptr(), N, n_az, n_rings, ptr(2 * C + 1), 0.0 if el_min is None else el_min,
+        0.0 if el_max is None else el_max, el_min is not None, el_max is not None, PI_F32, INV_TWO_PI_F32, ptr(0),
+        ptr(C), ptr(2 * C), cell.data_ptr(), s))
+
+
+def range_image_window_gather(points: torch.Tensor, win1: torch.Tensor, n_az: int, n_rings: int, window_az: int,
+                              window_el: int, k: int):
+    """:func:`range_image_window` on the image that ``win1`` (a cell's
+    winner index + 1, 0 where empty) makes of the scan ``points``: the
+    ``range_image`` kernel reads the winners' points into its tile itself.
+    CPU tensors build the image and run the plain version."""
+    C = n_az * n_rings
+    if win1.shape != (C,) or win1.dtype != torch.int32 or win1.device != points.device:
+        raise ValueError(f"expected [{C}] int32 winners on {points.device}, got {tuple(win1.shape)} {win1.dtype} "
+                         f"on {win1.device}")
+    if points.device.type == "cpu":
+        img_i = win1 - 1
+        img_p = torch.where((img_i >= 0)[:, None], points[img_i.clamp_min(0)], 0.0)
+        return range_image_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
+    _check_k_window(k, window_az, window_el)
+    cuda_knn._require_cuda(points.device, "range_image_window_gather")
+    cuda_knn._require_contiguous(points, win1)
+    ta = range_image_tile(n_rings, window_az)
+    return cuda_knn._launch("range_image", points.device, (C, k), lambda lib, i, d, s: lib.spt_range_image_window(
+        points.data_ptr(), win1.data_ptr(), 1, n_az, n_rings, window_az, window_el, k, ta, i, d, s))
+
+
+def cell_rows(idx_c: torch.Tensor, d_c: torch.Tensor, cell: torch.Tensor) -> KNNResult:
+    """:func:`point_rows` for ``cell [N]`` int32 (C for an invalid point)
+    through the ``range_image_rows`` kernel on CUDA tensors; CPU tensors run
+    :func:`point_rows`."""
+    C, k = idx_c.shape
+    if d_c.shape != (C, k) or cell.dim() != 1 or cell.dtype != torch.int32:
+        raise ValueError(f"expected [C, k] rows and [N] int32 cells, got {tuple(idx_c.shape)}, "
+                         f"{tuple(d_c.shape)}, {tuple(cell.shape)} {cell.dtype}")
+    if cell.device.type == "cpu":
+        return point_rows(idx_c, d_c, cell.long(), cell < C)
+    cuda_knn._require_cuda(cell.device, "range_image_rows")
+    cuda_knn._require_contiguous(idx_c, d_c, cell)
+    N = cell.shape[0]
+    return KNNResult(*cuda_knn._launch("range_image_rows", cell.device, (N, k), lambda lib, i, d, s:
+                                       lib.spt_range_image_rows(idx_c.data_ptr(), d_c.data_ptr(), cell.data_ptr(),
+                                                                N, C, k, i, d, s)))
+
+
+def _range_image_knn_cuda(points, mask, k, n_az, n_rings, window_az, window_el, el_min, el_max):
+    """:func:`range_image_knn` on the card: :func:`range_image_cells` (a
+    memset and one or two kernels), the window search on the winners'
+    points, the rows: at most 5 device launches."""
+    _check_scan(points, mask, n_az, n_rings)
+    _check_k_window(k, window_az, window_el)
+    range_image_tile(n_rings, window_az)  # raises before any launch when the tile does not fit
+    points = points.contiguous()
+    cell, win1, _, collisions = range_image_cells(points, mask, n_az, n_rings, el_min, el_max)
+    if points.shape[0] == 0:
+        return RangeImageKNNResult(knn=KNNResult(torch.empty((0, k), dtype=torch.int32, device=points.device),
+                                                 torch.empty((0, k), device=points.device)), collisions=collisions)
+    idx_c, d_c = range_image_window_gather(points, win1, n_az, n_rings, window_az, window_el, k)
+    return RangeImageKNNResult(knn=cell_rows(idx_c, d_c, cell), collisions=collisions)
 
 
 def point_rows(idx_c: torch.Tensor, d_c: torch.Tensor, cell: torch.Tensor, ok: torch.Tensor) -> KNNResult:

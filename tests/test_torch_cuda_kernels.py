@@ -24,6 +24,21 @@ searched in themselves), on an odd target count, and with exact ties.
 The coarse-to-fine schedule's strided target (every 4th row, a partial
 tail tile) goes through both entries bit-equal to the plain versions.
 
+The range-image window kernel (a shared-memory tile of azimuth columns)
+and its first design (one thread a cell) must equal the plain window search
+bit for bit on n_az off every tile width, 16 / 32 / 64 / 128 rings, windows
+(0, 0), (6, 4), (2, 7), (8, 4), k above the window's candidates and an empty
+image; ``range_image_knn`` on the card (a memset and four kernels: 5
+device launches under the profiler, 4 with both bounds given) must equal
+the plain sequence (``range_image`` + ``range_image_window_plain`` +
+``point_rows``) in every
+cell, winner, occupancy, index, distance and ``collisions``, with the
+elevation bounds given and not. The grid search (one lane group a query, G
+in 8 / 16 / 32, and its first design, one thread a query) must equal
+``grid_search_plain`` bit for bit on a lattice of exact ties across cells and
+within one, cells over the budget, fewer candidates than k, queries off the
+21-bit range and NaN, an all-masked target, and Q = 1 to 30,000.
+
 The cluster kernels split the target into 1 to 16 slices of whole
 512-target tiles, the count chosen from Q; the cases below put M off both,
 run every slice count, Q below one query tile, a slice with
@@ -391,10 +406,20 @@ def _range_image_case(name):
         pts, mask = _raw_scan(1024, 32, seed=7)
         mask[::7] = False
         return pts, mask, {"n_az": 1024, "n_rings": 32, "window_az": 8}
+    if name == "n_az 1000":
+        # no tile width divides 1000 columns: the last tile is partial, and
+        # both of its edges wrap
+        pts, mask = _raw_scan(1000, 64, seed=10)
+        return pts, mask, {"n_az": 1000}
+    if name.endswith(" rings"):
+        n_rings = int(name.split()[0])
+        pts, mask = _raw_scan(1024, n_rings, seed=n_rings)
+        return pts, mask, {"n_az": 1024, "n_rings": n_rings}
     raise ValueError(name)
 
 
-RANGE_IMAGE_CASES = ["full width", "collisions", "all masked", "partial fan", "masked, window (8, 4)"]
+RANGE_IMAGE_CASES = ["full width", "collisions", "all masked", "partial fan", "masked, window (8, 4)", "n_az 1000",
+                     "16 rings", "128 rings"]
 
 
 @pytest.mark.parametrize("k", [1, 10, 16])
@@ -410,12 +435,15 @@ def test_range_image_window_matches_plain(case, k):
     w_az, w_el = kw.get("window_az", 6), kw.get("window_el", 4)
     img_p, img_i, cell, ok, collisions = ri.range_image(pts, mask, n_az, n_rings, kw.get("el_min"),
                                                         kw.get("el_max"))
-    before = cuda_knn.launch_counts["range_image"]
+    before = dict(cuda_knn.launch_counts)
     got = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+    simple = ri.range_image_window_simple(img_p, img_i, n_az, n_rings, w_az, w_el, k)
     torch.cuda.synchronize()
-    assert cuda_knn.launch_counts["range_image"] == before + 1
+    assert cuda_knn.launch_counts["range_image"] == before["range_image"] + 1
+    assert cuda_knn.launch_counts["range_image_simple"] == before["range_image_simple"] + 1
     ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(simple[0], ref[0]) and torch.equal(simple[1], ref[1])
     res, plain = ri.point_rows(*got, cell, ok), ri.point_rows(*ref, cell, ok)
     assert torch.equal(res.indices, plain.indices) and torch.equal(res.distances, plain.distances)
     if case == "collisions":
@@ -425,19 +453,102 @@ def test_range_image_window_matches_plain(case, k):
         assert torch.equal(res.indices[:, 0].long(), torch.arange(pts.shape[0], device="cuda"))
 
 
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("window", [(0, 0), (6, 4), (2, 7)])
+@pytest.mark.parametrize("case", ["full width", "n_az 1000", "16 rings", "128 rings", "all masked"])
+def test_range_image_window_kernels_over_windows(case, window, k):
+    """The tiled window kernel and the first design equal the plain window
+    search bit for bit at each window, k above the window's candidates at
+    (0, 0) (one candidate: the cell itself) included."""
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    pts, mask, kw = _range_image_case(case)
+    n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
+    img_p, img_i, _, _, _ = ri.range_image(pts, mask, n_az, n_rings)
+    ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, *window, k)
+    for fn in (ri.range_image_window, ri.range_image_window_simple):
+        got = fn(img_p, img_i, n_az, n_rings, *window, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), fn.__name__
+    if window == (0, 0) and k > 1:
+        assert bool((ref[0][:, 1:] == -1).all())
+
+
+def _device_launches(fn) -> int:
+    """Kernels and memsets the card ran for ``fn()``, under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.parametrize("bounds", ["from the scan", "given", "el_min given"])
+@pytest.mark.parametrize("case", ["full width", "collisions", "all masked", "partial fan", "n_az 1000", "16 rings"])
+def test_range_image_knn_on_the_card_matches_the_plain_sequence(case, bounds):
+    """range_image_knn on a CUDA tensor (a memset, then the elevation, cells,
+    window and rows kernels) equals the plain sequence bit for bit: every
+    cell, winner and occupancy, the per-point indices and distances, and
+    collisions; 5 device launches (4 with both bounds given), within the 6
+    the design allows."""
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    pts, mask, kw = _range_image_case(case)
+    n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
+    given = {"el_min": kw.get("el_min", -0.4363), "el_max": kw.get("el_max", 0.0349)}
+    el = {"from the scan": {}, "given": given, "el_min given": {"el_min": given["el_min"]}}[bounds]
+    k = 10
+    cells = ri.range_image_cells(pts, mask, n_az, n_rings, **el)
+    ref_cells = ri.range_image_cells_plain(pts, mask, n_az, n_rings, **el)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("cell", "winner", "occupancy", "collisions"), cells, ref_cells):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    before = dict(cuda_knn.launch_counts)
+    got = ri.range_image_knn(pts, mask, k, n_az, n_rings, **el)
+    torch.cuda.synchronize()
+    counted = {name: cuda_knn.launch_counts[name] - before[name] for name in before}
+    assert counted["range_image_elevation"] == (0 if bounds == "given" else 1)
+    assert counted["range_image_cells"] == counted["range_image"] == counted["range_image_rows"] == 1
+    img_p, img_i, cell, ok, collisions = ri.range_image(pts, mask, n_az, n_rings, **el)
+    ref = ri.point_rows(*ri.range_image_window_plain(img_p, img_i, n_az, n_rings, 6, 4, k), cell, ok)
+    assert torch.equal(got.knn.indices, ref.indices) and torch.equal(got.knn.distances, ref.distances)
+    assert got.collisions.dtype == torch.int32 and int(got.collisions) == int(collisions)
+    if case == "collisions":
+        assert int(collisions) > 0
+    launches = _device_launches(lambda: ri.range_image_knn(pts, mask, k, n_az, n_rings, **el))
+    assert launches <= (4 if bounds == "given" else 5), launches
+
+
+def test_range_image_knn_on_the_card_with_no_points():
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    pts = torch.zeros(0, 3, device="cuda")
+    got = ri.range_image_knn(pts, torch.zeros(0, dtype=torch.bool, device="cuda"), 10)
+    assert got.knn.indices.shape == (0, 10) and got.knn.distances.shape == (0, 10) and int(got.collisions) == 0
+
+
 def test_range_image_window_rejects_bad_inputs():
     from sycl_points_tpu_torch.ops import range_image_knn as ri
 
     img_p = torch.zeros(64 * 8, 3, device="cuda")
     img_i = torch.full((64 * 8,), -1, dtype=torch.int32, device="cuda")
+    for fn in (ri.range_image_window, ri.range_image_window_simple):
+        with pytest.raises(ValueError):
+            fn(img_p, img_i, 64, 8, 6, 4, 17)
+        with pytest.raises(ValueError):
+            fn(img_p[:-1], img_i, 64, 8, 6, 4, 10)
+        with pytest.raises(TypeError):
+            fn(img_p, img_i.long(), 64, 8, 6, 4, 10)
+        with pytest.raises(ValueError):
+            fn(img_p, img_i.cpu(), 64, 8, 6, 4, 10)
+    # one column of 128 rings and a halo of 2 x 60 columns do not fit a block
+    before = dict(cuda_knn.launch_counts)
+    pts, mask = _raw_scan(256, 128)
     with pytest.raises(ValueError):
-        ri.range_image_window(img_p, img_i, 64, 8, 6, 4, 17)
-    with pytest.raises(ValueError):
-        ri.range_image_window(img_p[:-1], img_i, 64, 8, 6, 4, 10)
-    with pytest.raises(TypeError):
-        ri.range_image_window(img_p, img_i.long(), 64, 8, 6, 4, 10)
-    with pytest.raises(ValueError):
-        ri.range_image_window(img_p, img_i.cpu(), 64, 8, 6, 4, 10)
+        ri.range_image_knn(pts, mask, 10, n_az=256, n_rings=128, window_az=60)
+    assert cuda_knn.launch_counts == before
 
 
 # -- the structured searches: grid_knn (A), coarse_refine (B), morton_window (C) --
@@ -469,6 +580,10 @@ def _grid_case(name):
                                          device="cuda")]).contiguous()
     pose = se3_exp(torch.tensor([0.01, -0.02, 0.03, 0.2, -0.1, 0.05])).cuda().contiguous()
     mask = rng.uniform(size=tgt.shape[0]) > 0.1
+    if name.startswith("lattice"):
+        pts, mask, q = _lattice()
+        budget = 4 if name.endswith("budget 4") else 32
+        return GridKNN.build(_cloud_on_card(pts, mask), cell_size=1.0, max_per_cell=budget), q, None
     if name == "submap, pose":
         return GridKNN.build_auto(_cloud_on_card(tgt.cpu().numpy(), mask), cell_size=1.0), q, pose
     if name == "small budget":
@@ -478,22 +593,72 @@ def _grid_case(name):
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("k", [1, 5, 16])
-@pytest.mark.parametrize("case", ["submap, pose", "small budget", "all masked"])
+def _lattice():
+    """A lattice of 0.5 m spacing in 1 m cells (8 points a cell), every third
+    point repeated under another index and every 11th masked, and queries on
+    the lattice's exact midpoints and nodes (exact distances: ties across
+    cells and among the lanes of one cell), beyond its corner (fewer
+    candidates than k), off the 21-bit range and NaN."""
+    g = np.arange(-2.0, 2.0, 0.5, dtype=np.float32)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = np.concatenate([pts, pts[::3]])
+    mask = np.arange(len(pts)) % 11 != 0
+    h = np.arange(-2.5, 2.5, 0.25, dtype=np.float32)
+    q = np.stack(np.meshgrid(h, h, h, indexing="ij"), -1).reshape(-1, 3)
+    q = np.concatenate([q, [[2.9, 2.9, 2.9], [-2.9, 2.6, 2.9], [500.0, 500.0, 500.0], [4e6, 0.0, 0.0],
+                            [np.nan, 0.0, 0.0]]]).astype(np.float32)
+    return pts, mask, torch.from_numpy(q).cuda().contiguous()
+
+
+GRID_CASES = ["submap, pose", "small budget", "all masked", "lattice", "lattice, budget 4"]
+
+
+@pytest.mark.parametrize("k", [1, 4, 5, 16])
+@pytest.mark.parametrize("case", GRID_CASES)
 def test_grid_knn_kernel_matches_plain(case, k):
-    """Kernel A equals the plain search bit for bit, padded entries included."""
+    """Kernel A (at its chosen lanes and at 8, 16 and 32 lanes a query) and
+    its first design equal the plain search bit for bit, ties in slot order
+    and padded entries included."""
     from sycl_points_tpu_torch.ops import grid_knn as gk
 
     grid, q, pose = _grid_case(case)
-    before = cuda_knn.launch_counts["grid_knn"]
-    got = gk.grid_search(grid, q, k, pose)
-    torch.cuda.synchronize()
-    assert cuda_knn.launch_counts["grid_knn"] == before + 1
     ref = gk.grid_search_plain(grid, q, k, pose)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert bool(torch.isinf(got[1][-3:]).all())
+    before = dict(cuda_knn.launch_counts)
+    for lanes in (None, *cuda_knn.GRID_LANES):
+        got = gk.grid_search(grid, q, k, pose, lanes=lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), lanes
+    simple = gk.grid_search_simple(grid, q, k, pose)
+    torch.cuda.synchronize()
+    assert torch.equal(simple[0], ref[0]) and torch.equal(simple[1], ref[1])
+    assert cuda_knn.launch_counts["grid_knn"] == before["grid_knn"] + 1 + len(cuda_knn.GRID_LANES)
+    assert cuda_knn.launch_counts["grid_knn_simple"] == before["grid_knn_simple"] + 1
+    assert bool(torch.isinf(ref[1][-3:]).all())
     if case == "all masked":
-        assert bool(torch.isinf(got[1]).all())
+        assert bool(torch.isinf(ref[1]).all())
+    if case.startswith("lattice") and k > 1:
+        d = ref[1][:-3]
+        assert bool((d[:, 1:] == d[:, :-1]).any())  # ties held in order
+        if k == 16:
+            assert bool(torch.isinf(d[:, -1]).any())  # rows with fewer candidates than k
+
+
+@pytest.mark.parametrize("n_queries", [1, 31, 1000, 12000, 30000])
+def test_grid_knn_query_counts(n_queries):
+    """Every query count at the lanes grid_lanes picks for it (32 up to a few
+    thousand queries on the H100, 16 at 12,000, 8 at 30,000) equals the
+    plain search and the first design bit for bit."""
+    from sycl_points_tpu_torch.ops import grid_knn as gk
+
+    grid, q, _ = _grid_case("lattice, budget 4")
+    q = torch.cat([q[:-5].repeat(-(-n_queries // (q.shape[0] - 5)), 1)[: max(n_queries - 5, 0)],
+                   q[-5:][: n_queries]]).contiguous()
+    assert q.shape[0] == n_queries
+    for k in (1, 10):
+        ref = gk.grid_search_plain(grid, q, k)
+        for got in (gk.grid_search(grid, q, k), gk.grid_search_simple(grid, q, k)):
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 def _coarse_case(name):

@@ -19,7 +19,15 @@ on the CPU (the plain search; the kernel is held to it on the card in
     lowered to 0 in both packages: every frame a success, the port's target a
     ``GridKNN`` on every frame, each pose within 1 mm / 1e-3 rad of JAX's;
   * coarse-to-fine with a ``GridKNN`` target is refused in both packages
-    (the port with a ValueError that says why).
+    (the port with a ValueError that says why);
+  * the search on a lattice of exact ties (0.5 m spacing in 1 m cells, every
+    third point repeated under another index, every 11th masked; queries on
+    the lattice's midpoints and nodes, beyond its corner, off the 21-bit
+    range and NaN) against JAX's, index for index, at budgets 32 and 4: ties
+    go to the earlier (cell offset, lane) slot in both;
+  * ``cuda_knn.grid_lanes``, the lane planner of the card's kernel, over
+    query counts and SM counts; the CPU wrappers (``grid_search`` with a
+    lane count, ``grid_search_simple``) run the plain search.
 """
 
 import jax
@@ -41,6 +49,8 @@ from sycl_points_tpu.registration.factors import RegType as JRegType
 from sycl_points_tpu.utils import lie_np
 from sycl_points_tpu_torch.apps import odometry_replay
 from sycl_points_tpu_torch.convert import params_from_reference
+from sycl_points_tpu_torch.ops import cuda_knn
+from sycl_points_tpu_torch.ops import grid_knn as t_grid_knn
 from sycl_points_tpu_torch.ops import knn as t_knn
 from sycl_points_tpu_torch.ops.covariance import estimate_covariances, extract_normals
 from sycl_points_tpu_torch.ops.grid_knn import GridKNN as TGrid
@@ -298,3 +308,69 @@ def test_lidar_odometry_on_a_grid_submap_matches_jax(monkeypatch):
         assert trans < 1e-3 and rot < 1e-3, (i, trans, rot)
         trans, rot = pose_gap(tlo.get_odometry(), truth)
         assert trans < 0.1 and rot < 0.05, (i, trans, rot)
+
+
+def _tie_lattice():
+    g = np.arange(-2.0, 2.0, 0.5, dtype=np.float32)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = np.concatenate([pts, pts[::3]])
+    mask = np.arange(len(pts)) % 11 != 0
+    h = np.arange(-2.5, 2.5, 0.5, dtype=np.float32) + np.float32(0.25)
+    n = np.arange(-2.0, 2.0, 1.0, dtype=np.float32)
+    q = np.concatenate([np.stack(np.meshgrid(h, h, h, indexing="ij"), -1).reshape(-1, 3),
+                        np.stack(np.meshgrid(n, n, n, indexing="ij"), -1).reshape(-1, 3),
+                        [[2.75, 2.75, 2.75], [500.0, 500.0, 500.0], [4e6, 0.0, 0.0], [np.nan, 0.0, 0.0]]])
+    return pts, mask, q.astype(np.float32)
+
+
+@pytest.mark.parametrize("budget", [32, 4])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_tie_lattice_matches_jax_index_for_index(k, budget):
+    """Exact ties across cells and among one cell's lanes, cells over the
+    budget, fewer candidates than k: the plain search (what the card's
+    kernels are held to bit for bit) equals JAX's, every index and
+    distance."""
+    pts, mask, qry = _tie_lattice()
+    jg, tg = grids(pts, mask, cell_size=1.0, max_per_cell=budget)
+    jq, tq = both(qry)
+    jres, tres = jsearch(jg, jq, k), tg.search(tq, k)
+    np.testing.assert_array_equal(np_(tres.indices), np_(jres.indices))
+    np.testing.assert_array_equal(np_(tres.distances), np_(jres.distances))
+    d = np_(tres.distances)[:-3]
+    if k > 1:
+        assert (d[:, 1:] == d[:, :-1]).any()  # the ties are there
+    if k == 16:
+        assert np.isinf(d[:, -1]).any()  # and rows with fewer candidates than k
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+def test_grid_lanes_fill_the_card(n_sm):
+    """The lane planner: a lane count of GRID_LANES, never rising with the
+    query count; 32 lanes while Q x 32 threads do not fill the card, the
+    fewest lanes that fill it beyond; on the H100 (132 SMs) 32 lanes at 1 to
+    5,000 queries, 16 at 12,000 and 8 at 30,000."""
+    counts = [1, 31, 1000, 5000, 12000, 16384, 30000, 1 << 20]
+    lanes = [cuda_knn.grid_lanes(q, n_sm) for q in counts]
+    assert set(lanes) <= set(cuda_knn.GRID_LANES)
+    assert lanes == sorted(lanes, reverse=True)
+    want = cuda_knn.GRID_THREADS_PER_SM * n_sm
+    for q, g in zip(counts, lanes):
+        assert q * g >= want or g == max(cuda_knn.GRID_LANES)
+        assert g == min(cuda_knn.GRID_LANES) or q * (g // 2) < want
+    if n_sm == 132:
+        assert lanes[:6] + lanes[6:7] == [32, 32, 32, 32, 16, 16, 8]
+
+
+def test_cpu_wrappers_run_the_plain_search():
+    pts, mask, qry = _tie_lattice()
+    _, tg = grids(pts, mask, cell_size=1.0, max_per_cell=4)
+    q = torch.from_numpy(qry)
+    before = dict(cuda_knn.launch_counts)
+    ref = t_grid_knn.grid_search_plain(tg, q, 5)
+    for got in (t_grid_knn.grid_search(tg, q, 5, lanes=8), t_grid_knn.grid_search_simple(tg, q, 5)):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert cuda_knn.launch_counts == before
+    with pytest.raises(ValueError):
+        t_grid_knn.grid_search(tg, q, 5, lanes=12)
+    with pytest.raises(ValueError):
+        t_grid_knn.grid_search_simple(tg, q, 17)

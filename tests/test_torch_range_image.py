@@ -9,7 +9,14 @@ the JAX package, on the CPU.
     within 1e-6 of each other; distances rtol 1e-6 (XLA may contract the
     distance into fused multiply-adds); ``collisions`` equal;
   * the window search's plain version against a loop over the cells written
-    from JAX's roll formulation (the rolls and the stable top-k), bit for bit;
+    from JAX's roll formulation (the rolls and the stable top-k), bit for bit,
+    also at n_az = 1000 (no tile width of the card's kernel divides it) and
+    16 / 128 rings; ``range_image_knn`` at n_az = 1000 against JAX's;
+  * the tile planner of the card's window kernel (``range_image_tile``) over
+    rings and windows, and its refusal when one column and its halo do not
+    fit a block; the wrappers of the card's path on the CPU (cells, the
+    gathered window, the rows, the first window design) equal the plain
+    sequence and count no launch;
   * ``PCProcessor`` with ``raw_range_image`` against JAX's, voxel and polar
     grids: points 1e-5, covariances after each grid rtol 1e-5 with the plain
     estimator; with the robust one at least 98% of the voxels within 5e-3 of
@@ -166,6 +173,79 @@ def test_window_plain_equals_the_rolls(velodyne_scan, window):
     ref_i, ref_d = _window_by_rolls(np_(img_p), np_(img_i), 512, 32, *window, 10)
     np.testing.assert_array_equal(np_(idx), ref_i)
     np.testing.assert_array_equal(np_(d2), ref_d)
+
+
+@pytest.mark.parametrize("n_az,n_rings,window", [(1000, 32, (6, 4)), (1000, 16, (2, 7)), (602, 128, (0, 0))])
+def test_window_plain_equals_the_rolls_off_the_tiles(velodyne_scan, n_az, n_rings, window):
+    """An azimuth count no tile width divides, and 16 / 128 rings."""
+    pts = torch.from_numpy(velodyne_scan[::3].copy())
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    img_p, img_i, _, _, _ = ri.range_image(pts, mask, n_az, n_rings)
+    k, w = 10, (2 * window[0] + 1) * (2 * window[1] + 1)
+    idx, d2 = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, *window, k)
+    ref_i, ref_d = _window_by_rolls(np_(img_p), np_(img_i), n_az, n_rings, *window, k)
+    np.testing.assert_array_equal(np_(idx)[:, :w], ref_i)
+    np.testing.assert_array_equal(np_(d2)[:, :w], ref_d)
+    # slots beyond the window's candidates stay unfilled
+    assert (np_(idx)[:, w:] == -1).all() and (np_(d2)[:, w:] == np.float32(ri.BIG)).all()
+    assert n_az % ri.range_image_tile(n_rings, window[0])
+
+
+def test_n_az_off_the_tiles_matches_jax(velodyne_scan):
+    pts = velodyne_scan
+    mask = np.ones(len(pts), bool)
+    mask[::13] = False
+    got = _port_knn(pts, mask, 10, n_az=1000, n_rings=32)
+    _assert_knn_equal(got, _jax_knn(pts, mask, 10, n_az=1000, n_rings=32))
+
+
+@pytest.mark.parametrize("n_rings,window_az,tile", [(16, 6, 32), (32, 6, 16), (64, 6, 8), (64, 0, 8), (128, 6, 4),
+                                                    (128, 40, 2), (256, 6, 2), (512, 6, 1)])
+def test_tile_planner(n_rings, window_az, tile):
+    """TA: the largest power of two with TA x n_rings <= TILE_CELLS (at
+    least 1) whose block (TA + 2 window_az staged columns, 16 B a ring, and
+    the block's result rows at k = 16) fits a block's shared memory."""
+    assert ri.range_image_tile(n_rings, window_az) == tile
+    assert ri.tile_smem(n_rings, window_az, tile) <= ri.SMEM_BYTES
+    assert ri.tile_smem(64, 6, 8) == 16 * 64 * 20 + 8 * 16 * 512
+    assert tile * n_rings <= ri.TILE_CELLS or tile == 1
+
+
+@pytest.mark.parametrize("n_rings,window_az", [(128, 60), (2000, 6), (14529, 0)])
+def test_tile_planner_refuses_a_column_that_does_not_fit(n_rings, window_az):
+    with pytest.raises(ValueError, match="shared memory"):
+        ri.range_image_tile(n_rings, window_az)
+
+
+def test_tile_planner_shrinks_the_tile_to_fit():
+    # 32 rings allow 16 columns by the cells; at a halo of 2 x 156 columns
+    # 16 take 233,472 B and 8 take 196,608; at 2 x 105, 64 rings fit one
+    # column only (224,256 B)
+    assert ri.tile_smem(32, 156, 16) > ri.SMEM_BYTES >= ri.tile_smem(32, 156, 8)
+    assert ri.range_image_tile(32, 156) == 8
+    assert ri.range_image_tile(64, 105) == 1
+
+
+@pytest.mark.parametrize("el", [{}, {"el_min": -0.4363, "el_max": 0.0349}, {"el_max": 0.0349}])
+def test_card_path_wrappers_on_the_cpu_equal_the_plain_sequence(velodyne_scan, el):
+    base = velodyne_scan[:12000]
+    pts = torch.from_numpy(np.concatenate([base, base[::3] + 0.003]).astype(np.float32))
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    mask[::9] = False
+    n_az, n_rings, k = 1000, 32, 10
+    before = dict(cuda_knn.launch_counts)
+    cell, win1, occ, collisions = ri.range_image_cells(pts, mask, n_az, n_rings, **el)
+    img_p, img_i, cell64, ok, ref_coll = ri.range_image(pts, mask, n_az, n_rings, **el)
+    assert torch.equal(cell, cell64.to(torch.int32)) and torch.equal(win1, img_i + 1)
+    assert int(occ.sum()) == int(ok.sum()) and int(collisions) == int(ref_coll) > 0
+    assert torch.equal(occ, torch.bincount(cell64[ok], minlength=n_az * n_rings).to(torch.int32))
+    ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, 6, 4, k)
+    for got in (ri.range_image_window_gather(pts, win1, n_az, n_rings, 6, 4, k),
+                ri.range_image_window_simple(img_p, img_i, n_az, n_rings, 6, 4, k)):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    rows, plain = ri.cell_rows(*ref, cell), ri.point_rows(*ref, cell64, ok)
+    assert torch.equal(rows.indices, plain.indices) and torch.equal(rows.distances, plain.distances)
+    assert cuda_knn.launch_counts == before
 
 
 def test_window_wrapper_counts_no_cpu_launch(velodyne_scan):
