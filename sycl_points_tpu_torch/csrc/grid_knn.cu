@@ -45,27 +45,17 @@
 //
 // grid_knn_lanes_kernel<K, G>, the design for this card: G lanes a query
 // (G in {8, 16, 32}, chosen by ops/cuda_knn.grid_lanes from Q and the SM
-// count, so that small batches still fill the card).
+// count, so that small batches still fill the card), the lane-group search
+// of lane_knn.cuh over the 27 cells' slots (W = P).
 //   - Probes: lane l probes offsets l, l + G, ... at once; the group shares
-//     each cell's start and n = min(count, P) and takes the exclusive prefix
-//     of n over the 27 cells with shuffles, so candidate t of the query's
-//     T = sum n lies in the cell o with pre[o] <= t < pre[o + 1], at lane
-//     j = t - pre[o]. Starts and prefixes sit in shared memory, 55 ints a
-//     query. A probe loads the slot's flag, key, start and count at once:
-//     one load latency a probe.
-//   - Candidates: lane l takes t = l, l + G, ...: a cell's contiguous rows
-//     load side by side, two a lane a step, the mask and the point of each
-//     at once. Each lane keeps the sorted K smallest of its own
-//     candidates by (d2, s) (a strict `<` insertion in its increasing s),
-//     then K rounds of a butterfly argmin by (d2, s) over the group's list
-//     heads merge the lanes: the winner pops its head. The lists hold slots,
+//     each cell's start and n = min(count, P) and their prefix. Starts and
+//     prefixes sit in shared memory, 55 ints a query. A probe loads the
+//     slot's flag, key, start and count at once: one load latency a probe.
+//   - Candidates, merge and padding as lane_knn.cuh: the lists hold slots,
 //     not indices; the original index is read once an output.
-//   - Padding: during the walk a ballot per step ranks the non-finite
-//     candidates (masked rows, an overflowing distance) with popcounts and
-//     keeps the first K positions; then each lane ranks the empty slots of
-//     its own cells: slot (o, j) for j >= n, and the kept non-finite
-//     candidates of cell o, each at its rank among all non-finite slots
-//     (o P - pre[o] empty slots lie in the cells before o). No serial walk.
+// It is built at K = 1 .. 16, 32, 64 and 128 (best_k.cuh); above 16 it
+// writes the first k entries of its K-list.
+//
 // There is no tensor-core work: the search is compares and selects, not
 // products.
 //
@@ -75,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include "best_k.cuh"
+#include "lane_knn.cuh"
 
 namespace {
 
@@ -83,7 +74,6 @@ constexpr int kLaneThreads = 256;
 constexpr int kOffsets = 27;
 constexpr int kCoordOffset = 1 << 20;
 constexpr int kCoordMask = (1 << 21) - 1;
-constexpr int kNoSlot = 0x7fffffff;
 
 __device__ __forceinline__ int cell_coord(float s) {
   float f = floorf(s);
@@ -144,24 +134,6 @@ __device__ __forceinline__ void lookup_cell(const int* __restrict__ tbl, const u
       return;
     }
   }
-}
-
-// One candidate t of a lane group's walk: its slot s = o P + j (the cursor o
-// advanced to t's cell) and its distance, +inf where the row is masked. The
-// row's point and mask load together.
-__device__ __forceinline__ float candidate(int t, int* o, const int* pre, const int* start, int P, int M,
-                                           const float* __restrict__ pts, const unsigned char* __restrict__ pmask,
-                                           float qx, float qy, float qz, int* s) {
-  while (pre[*o + 1] <= t) ++*o;
-  const int j = t - pre[*o];
-  const int p = min(max(start[*o] + j, 0), M - 1);
-  *s = *o * P + j;
-  const unsigned char m = __ldg(pmask + p);
-  const float dx = __ldg(pts + 3 * p) - qx;
-  const float dy = __ldg(pts + 3 * p + 1) - qy;
-  const float dz = __ldg(pts + 3 * p + 2) - qz;
-  const float d = dx * dx + dy * dy + dz * dz;
-  return m ? d : __int_as_float(0x7f800000);
 }
 
 // Steps 1-2: the query moved by the pose, and its cell (ok: the cell is
@@ -252,8 +224,8 @@ grid_knn_lanes_kernel(const float* __restrict__ queries, int Q, const float* __r
                       const float* __restrict__ pts, const unsigned char* __restrict__ pmask,
                       const int* __restrict__ orig_idx, int M, const int* __restrict__ tbl,
                       const unsigned char* __restrict__ used, const int* __restrict__ cell_start,
-                      const int* __restrict__ cell_count, int cap, int max_probes, int P, int* __restrict__ out_idx,
-                      float* __restrict__ out_d2) {
+                      const int* __restrict__ cell_count, int cap, int max_probes, int P, int k,
+                      int* __restrict__ out_idx, float* __restrict__ out_d2) {
   constexpr int kGroups = kLaneThreads / G;
   constexpr int kPer = (kOffsets + G - 1) / G;  // offsets a lane probes
   __shared__ int s_start[kGroups][kOffsets];
@@ -261,11 +233,10 @@ grid_knn_lanes_kernel(const float* __restrict__ queries, int Q, const float* __r
   __shared__ int s_nf[kGroups][K];              // the first K non-finite candidates
 
   const int group = threadIdx.x / G;
-  const int lane = threadIdx.x % G;
+  const spt::LaneGroup<G> g(threadIdx.x);
   const int q = blockIdx.x * kGroups + group;
   if (q >= Q) return;  // the whole group
-  const int base_lane = (threadIdx.x & 31) & ~(G - 1);
-  const unsigned gmask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << base_lane;
+  const int kw = spt::row_count<K>(k);
   int* const start = s_start[group];
   int* const pre = s_pre[group];
   int* const nf = s_nf[group];
@@ -278,146 +249,67 @@ grid_knn_lanes_kernel(const float* __restrict__ queries, int Q, const float* __r
   int carry = 0;
 #pragma unroll
   for (int r = 0; r < kPer; ++r) {
-    const int o = lane + r * G;
+    const int o = g.lane + r * G;
     int c_start = 0, c_count = 0;
     if (ok && o < kOffsets)
       lookup_cell(tbl, used, cell_start, cell_count, cap, max_probes, cx + o / 9 - 1, cy + (o / 3) % 3 - 1,
                   cz + o % 3 - 1, &c_start, &c_count);
-    const int n = min(c_count, P);
-    int x = n;
-#pragma unroll
-    for (int d = 1; d < G; d <<= 1) {
-      const int y = __shfl_up_sync(gmask, x, d, G);
-      if (lane >= d) x += y;
-    }
+    const int c_pre = spt::chunk_prefix<G>(min(c_count, P), g, carry);
     if (o < kOffsets) {
       start[o] = c_start;
-      pre[o] = carry + x - n;
+      pre[o] = c_pre;
     }
-    carry += __shfl_sync(gmask, x, G - 1, G);
   }
   const int T = carry;
-  if (lane == 0) pre[kOffsets] = T;
-  __syncwarp(gmask);
+  if (g.lane == 0) pre[kOffsets] = T;
+  __syncwarp(g.mask);
 
-  // the candidates in stride, two a lane a step (their loads in flight
-  // together, inserted in slot order); the first K non-finite ones ranked
-  // by ballot
   float bd[K];
   int bs[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    bd[j] = __int_as_float(0x7f800000);
-    bs[j] = kNoSlot;
-  }
-  int n_nf = 0;
-  int o0 = 0, o1 = 0;
-  for (int b = 0; b < T; b += 2 * G) {
-    const int t0 = b + lane, t1 = b + G + lane;
-    int s0 = 0, s1 = 0;
-    const float d0 = t0 < T ? candidate(t0, &o0, pre, start, P, M, pts, pmask, qx, qy, qz, &s0)
-                            : __int_as_float(0x7f800000);
-    const float d1 = t1 < T ? candidate(t1, &o1, pre, start, P, M, pts, pmask, qx, qy, qz, &s1)
-                            : __int_as_float(0x7f800000);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float d = h ? d1 : d0;
-      const int s = h ? s1 : s0;
-      const int t = h ? t1 : t0;
-      if (d < bd[K - 1]) best_k_insert<K>(bd, bs, d, s);
-      const bool nonfinite = t < T && !(d < __int_as_float(0x7f800000));
-      const unsigned bits = __ballot_sync(gmask, nonfinite) >> base_lane;
-      if (nonfinite) {
-        const int rank = n_nf + __popc(bits & ((1u << lane) - 1u));
-        if (rank < K) nf[rank] = t;
-      }
-      n_nf += __popc(bits);
-    }
-  }
-  __syncwarp(gmask);
+  const int n_nf = spt::lane_walk<K, G>(T, g, bd, bs, nf, [&](int t, int* o, int* s) {
+    return spt::lane_candidate(t, o, pre, start, P, M, pts, pmask, qx, qy, qz, s);
+  });
+  __syncwarp(g.mask);
 
-  int* oi = out_idx + static_cast<long long>(q) * K;
-  float* od = out_d2 + static_cast<long long>(q) * K;
-  // merge the lanes' lists by (d2, s): K rounds of a butterfly argmin
-  const int n_fin = min(K, T - n_nf);
-  for (int r = 0; r < n_fin; ++r) {
-    float d = bd[0];
-    int s = bs[0];
-#pragma unroll
-    for (int m = G / 2; m >= 1; m >>= 1) {
-      const float d2 = __shfl_xor_sync(gmask, d, m, G);
-      const int s2 = __shfl_xor_sync(gmask, s, m, G);
-      if (d2 < d || (d2 == d && s2 < s)) {
-        d = d2;
-        s = s2;
-      }
-    }
-    if (bs[0] == s) {
-#pragma unroll
-      for (int i = 0; i < K - 1; ++i) {
-        bd[i] = bd[i + 1];
-        bs[i] = bs[i + 1];
-      }
-      bd[K - 1] = __int_as_float(0x7f800000);
-      bs[K - 1] = kNoSlot;
-    }
-    if (lane == r % G) {
+  int* oi = out_idx + static_cast<long long>(q) * kw;
+  float* od = out_d2 + static_cast<long long>(q) * kw;
+  const int n_fin = min(kw, T - n_nf);
+  spt::lane_merge<K, G>(bd, bs, n_fin, g, [&](int r, float d, int s) {
+    if (g.lane == r % G) {
       const int co = s / P;
       oi[r] = __ldg(orig_idx + min(max(start[co] + s - co * P, 0), M - 1));
       od[r] = d;
     }
-  }
-
-  // JAX's padding: the first K - n_fin slots, in (o, j) order, with no
-  // finite candidate; each lane ranks the empty slots of its own cells
-  if (n_fin < K) {
-    const int want = K - n_fin;
-    const int kept = min(n_nf, K);
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int c = lane + r * G;
-      if (c >= kOffsets) continue;
-      const int c_pre = pre[c], n = pre[c + 1] - c_pre, c_start = start[c];
-      const int shift = c * P - c_pre;  // empty lanes (j >= n) of the cells before c
-      int before = 0, through = 0;      // kept non-finite candidates before / through cell c
-      for (int i = 0; i < kept; ++i) {
-        before += nf[i] < c_pre;
-        through += nf[i] < c_pre + n;
-      }
-      for (int i = before; i < through && i + shift < want; ++i) {
-        oi[n_fin + i + shift] = __ldg(orig_idx + min(max(c_start + nf[i] - c_pre, 0), M - 1));
-        od[n_fin + i + shift] = __int_as_float(0x7f800000);
-      }
-      for (int j = n, rank = through + shift; j < P && rank < want; ++j, ++rank) {
-        oi[n_fin + rank] = __ldg(orig_idx + min(max(c_start + j, 0), M - 1));
-        od[n_fin + rank] = __int_as_float(0x7f800000);
-      }
-    }
-  }
+  });
+  if (n_fin < kw)
+    spt::lane_padding<G>(pre, kOffsets, P, nf, min(n_nf, K), kw - n_fin, g, [&](int rank, int c, int j) {
+      oi[n_fin + rank] = __ldg(orig_idx + min(max(start[c] + j, 0), M - 1));
+      od[n_fin + rank] = __int_as_float(0x7f800000);
+    });
 }
 
 template <int K>
 cudaError_t launch_lanes(int G, int Q, cudaStream_t s, const float* queries, const float* pose, float inv_cell,
                          const float* pts, const unsigned char* pmask, const int* orig_idx, int M, const int* tbl,
                          const unsigned char* used, const int* cell_start, const int* cell_count, int cap,
-                         int max_probes, int P, int* out_idx, float* out_d2) {
+                         int max_probes, int P, int k, int* out_idx, float* out_d2) {
   const int groups = kLaneThreads / G;
   const int blocks = (Q + groups - 1) / groups;
   switch (G) {
     case 8:
       grid_knn_lanes_kernel<K, 8><<<blocks, kLaneThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx, M,
                                                                    tbl, used, cell_start, cell_count, cap, max_probes,
-                                                                   P, out_idx, out_d2);
+                                                                   P, k, out_idx, out_d2);
       break;
     case 16:
       grid_knn_lanes_kernel<K, 16><<<blocks, kLaneThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx,
                                                                     M, tbl, used, cell_start, cell_count, cap,
-                                                                    max_probes, P, out_idx, out_d2);
+                                                                    max_probes, P, k, out_idx, out_d2);
       break;
     case 32:
       grid_knn_lanes_kernel<K, 32><<<blocks, kLaneThreads, 0, s>>>(queries, Q, pose, inv_cell, pts, pmask, orig_idx,
                                                                     M, tbl, used, cell_start, cell_count, cap,
-                                                                    max_probes, P, out_idx, out_d2);
+                                                                    max_probes, P, k, out_idx, out_d2);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -427,28 +319,10 @@ cudaError_t launch_lanes(int G, int Q, cudaStream_t s, const float* queries, con
 
 }  // namespace
 
-#define SPT_GRID_KNN_CASES(CASE) \
-  CASE(1)                        \
-  CASE(2)                        \
-  CASE(3)                        \
-  CASE(4)                        \
-  CASE(5)                        \
-  CASE(6)                        \
-  CASE(7)                        \
-  CASE(8)                        \
-  CASE(9)                        \
-  CASE(10)                       \
-  CASE(11)                       \
-  CASE(12)                       \
-  CASE(13)                       \
-  CASE(14)                       \
-  CASE(15)                       \
-  CASE(16)
-
 #define SPT_GRID_KNN_LANES_CASE(KK)                                                                              \
   case KK:                                                                                                       \
     return static_cast<int>(launch_lanes<KK>(lanes, Q, s, queries, pose, inv_cell, pts, pmask, orig_idx, M, tbl, \
-                                             used, cell_start, cell_count, cap, max_probes, P, out_idx, out_d2));
+                                             used, cell_start, cell_count, cap, max_probes, P, k, out_idx, out_d2));
 
 #define SPT_GRID_KNN_SIMPLE_CASE(KK)                                                                             \
   case KK:                                                                                                       \
@@ -460,8 +334,8 @@ cudaError_t launch_lanes(int G, int Q, cudaStream_t s, const float* queries, con
 // queries [Q,3] f32, pose [4,4] row-major f32 or null; the grid's sorted
 // points [M,3] f32, mask [M] bool, orig_idx [M] i32, table keys [cap,3] i32,
 // used [cap] bool, cell_start / cell_count [cap] i32 (cap a power of two);
-// out_idx [Q,k] i32 (original order), out_d2 [Q,k] f32; 1 <= k <= 16;
-// lanes a query in {8, 16, 32}.
+// out_idx [Q,k] i32 (original order), out_d2 [Q,k] f32; 1 <= k <= 128 (the
+// instance best_k.cuh's instance_k picks); lanes a query in {8, 16, 32}.
 extern "C" int spt_grid_knn(const float* queries, int Q, const float* pose, float inv_cell, const float* pts,
                             const unsigned char* pmask, const int* orig_idx, int M, const int* tbl,
                             const unsigned char* used, const int* cell_start, const int* cell_count, int cap,
@@ -469,14 +343,15 @@ extern "C" int spt_grid_knn(const float* queries, int Q, const float* pose, floa
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q == 0) return static_cast<int>(cudaSuccess);
   if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (k) {
-    SPT_GRID_KNN_CASES(SPT_GRID_KNN_LANES_CASE)
+  switch (spt::instance_k(k)) {
+    SPT_K_CASES(SPT_GRID_KNN_LANES_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The first design, one thread a query: the same arguments but lanes.
+// The first design, one thread a query: the same arguments but lanes;
+// 1 <= k <= 16.
 extern "C" int spt_grid_knn_simple(const float* queries, int Q, const float* pose, float inv_cell, const float* pts,
                                    const unsigned char* pmask, const int* orig_idx, int M, const int* tbl,
                                    const unsigned char* used, const int* cell_start, const int* cell_count, int cap,
@@ -486,7 +361,7 @@ extern "C" int spt_grid_knn_simple(const float* queries, int Q, const float* pos
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (M <= 0 || cap <= 0 || (cap & (cap - 1)) != 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
-    SPT_GRID_KNN_CASES(SPT_GRID_KNN_SIMPLE_CASE)
+    SPT_FAST_K_CASES(SPT_GRID_KNN_SIMPLE_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,8 +6,11 @@
 //       search run every ICP iteration, with the 4x4 pose folded into the
 //       queries in registers (the reference's transT).
 // knn_k replaces `_approx_knn_single` (sycl_points_tpu/ops/knn.py), built on
-//       the TPU-only `lax.approx_max_k`; here an exact k-NN (k <= 16), which
-//       is what the CPU reference computes.
+//       the TPU-only `lax.approx_max_k`; here an exact k-NN (k <= 128), which
+//       is what the CPU reference computes. It is built at K = 1 .. 16, 32,
+//       64 and 128 (best_k.cuh); above 16 a request for k runs the smallest
+//       K >= k and writes the first k entries of each K-list (ties by index,
+//       so they are the k-list).
 //
 // What bounds them on this card: FP32 ALU issue, not bytes. A query/target
 // pair costs 9 FP32 operations (3 sub, 3 mul, 2 add, 1 compare, built with
@@ -30,6 +33,11 @@
 //   * Registers set the occupancy: 64 a thread up to k = 10 (8 blocks, 32
 //     warps an SM), 80 above (6 blocks). Two queries a thread, which would
 //     share each shared-memory load, cost more in occupancy than they saved.
+//     The instances above 16 take what the compiler asks (their lists of 64
+//     to 256 registers spill at K = 64 and 128), and their merge lists, 2 x
+//     128 threads x K floats (128 KiB at K = 128, one block an SM), fit a
+//     block's 227 KB at the 128-query tile; the wrapper gives them at most 8
+//     slices, so that a cluster never needs 16 SMs of one GPC at once.
 //   * The slice streams through two shared-memory tiles loaded with cp.async
 //     while the other is scanned: whole aligned tiles of the prepared target,
 //     no mask, no edge test. A float4 load is a warp-wide broadcast feeding
@@ -74,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "best_k.cuh"
 #include "knn_cluster.cuh"
 
 namespace cg = cooperative_groups;
@@ -105,7 +114,8 @@ struct Cfg {
   static constexpr int kMain = kTileFloats > kListFloats ? kTileFloats : kListFloats;
   static constexpr int kPub = kPrune ? G * QT : 0;        // sampled k-th distances
   static constexpr size_t kSmemBytes = sizeof(float) * (kMain + kPub);
-  static constexpr int kMinBlocks = K <= 10 ? 8 : 6;      // 64 / 80 registers a thread
+  // 64 / 80 registers a thread up to k = 16; the large instances take more
+  static constexpr int kMinBlocks = K <= 10 ? 8 : K <= spt::kFastK ? 6 : K <= 32 ? 2 : 1;
   static_assert(kWarps % QW == 0, "QW divides the block's warps");
   static_assert(QT % kMaxSlices == 0, "every slice count divides the query tile");
   static_assert(kChunk % 8 == 0 && kTile % (kSampleStride * 8) == 0, "float4 spans");
@@ -114,9 +124,10 @@ struct Cfg {
 template <int K, int QW, bool kPose, bool kPrune>
 __global__ void __launch_bounds__(kThreads, (Cfg<K, QW, kPrune>::kMinBlocks))
 knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restrict__ queries,
-                   int Q, const float* __restrict__ pose, int* __restrict__ out_idx,
+                   int Q, const float* __restrict__ pose, int k, int* __restrict__ out_idx,
                    float* __restrict__ out_d2) {
   using C = Cfg<K, QW, kPrune>;
+  const int kw = spt::row_count<K>(k);  // entries a row of the output
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -129,8 +140,8 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
   tgt += z * 3 * static_cast<size_t>(Mp);
   queries += z * 3 * static_cast<size_t>(Q);
   if constexpr (kPose) pose += z * 16;
-  out_idx += z * static_cast<size_t>(Q) * K;
-  out_d2 += z * static_cast<size_t>(Q) * K;
+  out_idx += z * static_cast<size_t>(Q) * kw;
+  out_d2 += z * static_cast<size_t>(Q) * kw;
 
   float qx = 0.f, qy = 0.f, qz = 0.f;
   if (qbase + slot < Q) {
@@ -251,16 +262,25 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
 #pragma unroll
       for (int gg = 0; gg < C::G; ++gg) {
         const float2* l = peer + (gg * C::QT + q_slot) * K;
-        float2 e[K];
+        if constexpr (K <= spt::kFastK) {
+          float2 e[K];
 #pragma unroll
-        for (int s = 0; s < K; ++s) e[s] = l[s];
+          for (int s = 0; s < K; ++s) e[s] = l[s];
 #pragma unroll
-        for (int s = 0; s < K; ++s) {
-          const float d = e[s].x;
-          const int idx = __float_as_int(e[s].y);
-          // a list ascends by (d, idx): the rest of it cannot enter either
-          if (!lex_less(d, idx, md[K - 1], mi[K - 1])) break;
-          insert_lex<K>(md, mi, d, idx);
+          for (int s = 0; s < K; ++s) {
+            const float d = e[s].x;
+            const int idx = __float_as_int(e[s].y);
+            // a list ascends by (d, idx): the rest of it cannot enter either
+            if (!lex_less(d, idx, md[K - 1], mi[K - 1])) break;
+            insert_lex<K>(md, mi, d, idx);
+          }
+        } else {  // the long lists load an entry at a time
+          for (int s = 0; s < K; ++s) {
+            const float2 e = l[s];
+            const int idx = __float_as_int(e.y);
+            if (!lex_less(e.x, idx, md[K - 1], mi[K - 1])) break;
+            insert_lex<K>(md, mi, e.x, idx);
+          }
         }
       }
     }
@@ -268,8 +288,10 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
     if (q < Q) {
 #pragma unroll
       for (int s = 0; s < K; ++s) {
-        out_idx[static_cast<size_t>(q) * K + s] = mi[s];
-        out_d2[static_cast<size_t>(q) * K + s] = md[s];
+        if (s < kw) {
+          out_idx[static_cast<size_t>(q) * kw + s] = mi[s];
+          out_d2[static_cast<size_t>(q) * kw + s] = md[s];
+        }
       }
     }
   }
@@ -277,13 +299,14 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
 }
 
 template <int K, int QW, bool kPose, bool kPrune>
-int launch(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices,
+int launch(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices, int k,
            int* out_idx, float* out_d2, void* stream) {
   using C = Cfg<K, QW, kPrune>;
   if (Q <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   const int n_qtiles = (Q + C::QT - 1) / C::QT;
   const bool pow2 = slices > 0 && (slices & (slices - 1)) == 0;
-  if (Mp % kTile != 0 || n_qtiles > kMaxQueryTiles || B > kMaxStreams || !pow2 || slices > kMaxSlices)
+  const int max_slices = K <= spt::kFastK ? kMaxSlices : 8;
+  if (Mp % kTile != 0 || n_qtiles > kMaxQueryTiles || B > kMaxStreams || !pow2 || slices > max_slices)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = knn_cluster_kernel<K, QW, kPose, kPrune>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -303,7 +326,7 @@ int launch(const float* tgt, int Mp, const float* queries, int Q, const float* p
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tgt, Mp, queries, Q, pose, out_idx, out_d2);
+  err = cudaLaunchKernelEx(&cfg, kernel, tgt, Mp, queries, Q, pose, k, out_idx, out_d2);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -312,8 +335,8 @@ template <int QW>
 int launch_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices,
                int* out_idx, float* out_d2, void* stream) {
   if (pose != nullptr)
-    return launch<1, QW, true, false>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
-  return launch<1, QW, false, false>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
+    return launch<1, QW, true, false>(tgt, Mp, queries, Q, pose, B, slices, 1, out_idx, out_d2, stream);
+  return launch<1, QW, false, false>(tgt, Mp, queries, Q, pose, B, slices, 1, out_idx, out_d2, stream);
 }
 
 }  // namespace
@@ -347,30 +370,16 @@ extern "C" int spt_nn1(const float* tgt, int Mp, const float* queries, int Q, co
 
 #define SPT_KNN_CLUSTER_CASE(KV) \
   case KV:                       \
-    return launch<KV, 4, false, true>(tgt, Mp, queries, Q, nullptr, B, slices, out_idx, out_d2, stream);
+    return launch<KV, 4, false, true>(tgt, Mp, queries, Q, nullptr, B, slices, k, out_idx, out_d2, stream);
 
-// Exact k-NN (1 <= k <= 16) of the queries [B,Q,3] of B streams against
+// Exact k-NN (1 <= k <= 128) of the queries [B,Q,3] of B streams against
 // their prepared targets [B,3,Mp], ascending by (d, idx): 128 queries a
-// cluster and the slices the wrapper chooses from B * Q (as for nn1).
+// cluster and the slices the wrapper chooses from B * Q (as for nn1; at most
+// 8 for k above 16).
 extern "C" int spt_knn_k_batched(const float* tgt, int Mp, const float* queries, int Q, int B, int k,
                                  int slices, int* out_idx, float* out_d2, void* stream) {
-  switch (k) {
-    SPT_KNN_CLUSTER_CASE(1)
-    SPT_KNN_CLUSTER_CASE(2)
-    SPT_KNN_CLUSTER_CASE(3)
-    SPT_KNN_CLUSTER_CASE(4)
-    SPT_KNN_CLUSTER_CASE(5)
-    SPT_KNN_CLUSTER_CASE(6)
-    SPT_KNN_CLUSTER_CASE(7)
-    SPT_KNN_CLUSTER_CASE(8)
-    SPT_KNN_CLUSTER_CASE(9)
-    SPT_KNN_CLUSTER_CASE(10)
-    SPT_KNN_CLUSTER_CASE(11)
-    SPT_KNN_CLUSTER_CASE(12)
-    SPT_KNN_CLUSTER_CASE(13)
-    SPT_KNN_CLUSTER_CASE(14)
-    SPT_KNN_CLUSTER_CASE(15)
-    SPT_KNN_CLUSTER_CASE(16)
+  switch (spt::instance_k(k)) {
+    SPT_K_CASES(SPT_KNN_CLUSTER_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -81,6 +81,14 @@
 // fewer than k candidates, the cell itself goes in first and the ring is
 // visited like the others.)
 //
+// The tile kernel is built at K = 1 .. 16, 32, 64 and 128 (best_k.cuh); above
+// 16 a request for k runs the smallest K >= k and writes the first k entries
+// of each list (keys order as JAX's columns, so they are the k-list). Those
+// instances skip the ring fill (its i-th candidate costs i compare-exchanges,
+// K^2 / 2 in all), put the cell itself in first and visit its ring like the
+// others; their block's result rows take 8 K B a thread, so
+// ops/range_image_knn.range_image_tile plans fewer columns a block for them.
+//
 // There is no tensor-core work: the search is compares and selects, not
 // products.
 //
@@ -88,6 +96,8 @@
 // return cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
+
+#include "best_k.cuh"
 
 namespace {
 
@@ -209,10 +219,11 @@ __device__ __forceinline__ float sqdist(Point3 p, Point3 c) {
 // strict-`<` insertion in column order whatever order the window is visited
 // in; the visiting order is the header note's.
 template <int K, bool kGather>
-__global__ void __launch_bounds__(kTileThreads, 2)
+__global__ void __launch_bounds__(kTileThreads, K <= spt::kFastK ? 2 : 1)
 range_image_tile_kernel(const float* __restrict__ pts, const int* __restrict__ ids, int n_az, int n_rings,
-                        int window_az, int window_el, int tile_az, int* __restrict__ out_idx,
+                        int window_az, int window_el, int tile_az, int k, int* __restrict__ out_idx,
                         float* __restrict__ out_d2) {
+  const int kw = spt::row_count<K>(k);  // entries a row of the output
   extern __shared__ float4 smem4[];
   const int cols = tile_az + 2 * window_az;
   const int span = cols * n_rings;
@@ -285,37 +296,38 @@ range_image_tile_kernel(const float* __restrict__ pts, const int* __restrict__ i
       if (sid[ctr] >= 0) {
         int r0 = 0;  // the first ring offset left to visit
         const unsigned wring = static_cast<unsigned>(window_el);  // w of (da = -window_az, de = 0)
-        if (2 * window_az + 1 >= K) {
-          // the cell's own ring fills the list: its first K candidates (da =
-          // 0, +1, -1, +2, ...) go in unconditionally, the i-th sorted in by i
-          // compare-exchanges, not by a whole insertion each
+        // the cell itself first, at distance 0, into the empty list
+        bk[0] = (static_cast<unsigned>(window_az) << 16) | wring;
+        if constexpr (K <= spt::kFastK) {
+          if (2 * window_az + 1 >= K) {
+            // the cell's own ring fills the list: its first K candidates (da =
+            // 0, +1, -1, +2, ...) go in unconditionally, the i-th sorted in by i
+            // compare-exchanges, not by a whole insertion each
 #pragma unroll
-          for (int i = 0; i < K; ++i) {
-            const int da = (i & 1) ? (i + 1) >> 1 : -((i + 1) >> 1);
-            const float d = i ? sqdist(me, rec[ctr + da * n_rings]) : 0.0f;  // the cell itself at 0
-            // an empty cell (+inf) leaves its slot unfilled
-            bk[i] = d < kBig ? (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
-                                   (wring + (static_cast<unsigned>(da + window_az) << 16))
-                             : unfilled;
+            for (int i = 0; i < K; ++i) {
+              const int da = (i & 1) ? (i + 1) >> 1 : -((i + 1) >> 1);
+              const float d = i ? sqdist(me, rec[ctr + da * n_rings]) : 0.0f;  // the cell itself at 0
+              // an empty cell (+inf) leaves its slot unfilled
+              bk[i] = d < kBig ? (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
+                                     (wring + (static_cast<unsigned>(da + window_az) << 16))
+                               : unfilled;
 #pragma unroll
-            for (int j = i; j > 0; --j) {
-              const unsigned long long lo = bk[j] < bk[j - 1] ? bk[j] : bk[j - 1];
-              bk[j] = bk[j] < bk[j - 1] ? bk[j - 1] : bk[j];
-              bk[j - 1] = lo;
+              for (int j = i; j > 0; --j) {
+                const unsigned long long lo = bk[j] < bk[j - 1] ? bk[j] : bk[j - 1];
+                bk[j] = bk[j] < bk[j - 1] ? bk[j - 1] : bk[j];
+                bk[j - 1] = lo;
+              }
             }
+            dlast = __uint_as_float(static_cast<unsigned>(bk[K - 1] >> 32));
+            // the rest of the ring: da above K / 2 and below -(K - 1) / 2
+            for (int da = K / 2 + 1; da <= window_az; ++da)
+              tile_insert<K>(bk, dlast, sqdist(me, rec[ctr + da * n_rings]),
+                             wring + (static_cast<unsigned>(da + window_az) << 16));
+            for (int da = -window_az; da < -((K - 1) / 2); ++da)
+              tile_insert<K>(bk, dlast, sqdist(me, rec[ctr + da * n_rings]),
+                             wring + (static_cast<unsigned>(da + window_az) << 16));
+            r0 = 1;
           }
-          dlast = __uint_as_float(static_cast<unsigned>(bk[K - 1] >> 32));
-          // the rest of the ring: da above K / 2 and below -(K - 1) / 2
-          for (int da = K / 2 + 1; da <= window_az; ++da)
-            tile_insert<K>(bk, dlast, sqdist(me, rec[ctr + da * n_rings]),
-                           wring + (static_cast<unsigned>(da + window_az) << 16));
-          for (int da = -window_az; da < -((K - 1) / 2); ++da)
-            tile_insert<K>(bk, dlast, sqdist(me, rec[ctr + da * n_rings]),
-                           wring + (static_cast<unsigned>(da + window_az) << 16));
-          r0 = 1;
-        } else {
-          // the cell itself first, at distance 0, into the empty list
-          bk[0] = (static_cast<unsigned>(window_az) << 16) | wring;
         }
         for (int r = r0; r < rows; ++r) {
           const int de = (r & 1) ? -((r + 1) >> 1) : (r >> 1);  // 0, -1, 1, -2, 2, ...
@@ -348,18 +360,20 @@ range_image_tile_kernel(const float* __restrict__ pts, const int* __restrict__ i
       }
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        const unsigned w = static_cast<unsigned>(bk[j]);
-        const bool filled = w != 0xffffffffu;
-        const int da = filled ? static_cast<int>(w >> 16) - window_az : 0;
-        const int de = filled ? static_cast<int>(w & 0xffffu) - window_el : 0;
-        s_oi[threadIdx.x * K + j] = filled ? sid[ctr + da * n_rings + de] : -1;
-        s_od[threadIdx.x * K + j] = __uint_as_float(static_cast<unsigned>(bk[j] >> 32));
+        if (j < kw) {
+          const unsigned w = static_cast<unsigned>(bk[j]);
+          const bool filled = w != 0xffffffffu;
+          const int da = filled ? static_cast<int>(w >> 16) - window_az : 0;
+          const int de = filled ? static_cast<int>(w & 0xffffu) - window_el : 0;
+          s_oi[threadIdx.x * kw + j] = filled ? sid[ctr + da * n_rings + de] : -1;
+          s_od[threadIdx.x * kw + j] = __uint_as_float(static_cast<unsigned>(bk[j] >> 32));
+        }
       }
     }
     __syncthreads();
     // cell a0 * n_rings + l is the tile's l-th: the round's rows are contiguous
-    const long long first = (static_cast<long long>(a0) * n_rings + round) * K;
-    const int n_out = min(static_cast<int>(blockDim.x), tile_cells - round) * K;
+    const long long first = (static_cast<long long>(a0) * n_rings + round) * kw;
+    const int n_out = min(static_cast<int>(blockDim.x), tile_cells - round) * kw;
     int done = 0;
     if (((reinterpret_cast<unsigned long long>(out_idx + first) |
           reinterpret_cast<unsigned long long>(out_d2 + first)) & 15) == 0) {  // 16-byte stores where aligned
@@ -494,7 +508,7 @@ range_image_rows_kernel(const int* __restrict__ idx_c, const float* __restrict__
 
 template <int K, bool kGather>
 cudaError_t launch_tile(const float* pts, const int* ids, int n_az, int n_rings, int window_az, int window_el,
-                        int tile_az, int* out_idx, float* out_d2, cudaStream_t s) {
+                        int tile_az, int k, int* out_idx, float* out_d2, cudaStream_t s) {
   const int threads = min(kTileThreads, (tile_az * n_rings + 31) / 32 * 32);
   const long long smem = 16ll * n_rings * (tile_az + 2 * window_az) + 8ll * threads * K;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -505,36 +519,18 @@ cudaError_t launch_tile(const float* pts, const int* ids, int n_az, int n_rings,
   }
   const int blocks = (n_az + tile_az - 1) / tile_az;
   range_image_tile_kernel<K, kGather><<<blocks, threads, static_cast<size_t>(smem), s>>>(
-      pts, ids, n_az, n_rings, window_az, window_el, tile_az, out_idx, out_d2);
+      pts, ids, n_az, n_rings, window_az, window_el, tile_az, k, out_idx, out_d2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-#define SPT_RANGE_IMAGE_CASES(CASE) \
-  CASE(1)                           \
-  CASE(2)                           \
-  CASE(3)                           \
-  CASE(4)                           \
-  CASE(5)                           \
-  CASE(6)                           \
-  CASE(7)                           \
-  CASE(8)                           \
-  CASE(9)                           \
-  CASE(10)                          \
-  CASE(11)                          \
-  CASE(12)                          \
-  CASE(13)                          \
-  CASE(14)                          \
-  CASE(15)                          \
-  CASE(16)
-
 #define SPT_RANGE_IMAGE_TILE_CASE(KK)                                                                        \
   case KK:                                                                                                   \
     return static_cast<int>(gather ? launch_tile<KK, true>(pts, ids, n_az, n_rings, window_az, window_el,  \
-                                                           tile_az, out_idx, out_d2, s)                     \
+                                                           tile_az, k, out_idx, out_d2, s)                  \
                                    : launch_tile<KK, false>(pts, ids, n_az, n_rings, window_az, window_el, \
-                                                            tile_az, out_idx, out_d2, s));
+                                                            tile_az, k, out_idx, out_d2, s));
 
 #define SPT_RANGE_IMAGE_SIMPLE_CASE(KK)                                         \
   case KK:                                                                      \
@@ -546,7 +542,8 @@ cudaError_t launch_tile(const float* pts, const int* ids, int n_az, int n_rings,
 // image [n_az * n_rings, 3] f32 and ids [n_az * n_rings] i32 (-1:
 // unoccupied), row a * n_rings + e; gather = 1: pts the scan [N, 3] f32 and
 // ids the winner's index + 1 a cell (0: unoccupied). out_idx / out_d2
-// [n_az * n_rings, k], 1 <= k <= 16.
+// [n_az * n_rings, k], 1 <= k <= 128 (the instance best_k.cuh's instance_k
+// picks; the tile planned for it).
 extern "C" int spt_range_image_window(const float* pts, const int* ids, int gather, int n_az, int n_rings,
                                       int window_az, int window_el, int k, int tile_az, int* out_idx,
                                       float* out_d2, void* stream) {
@@ -554,15 +551,15 @@ extern "C" int spt_range_image_window(const float* pts, const int* ids, int gath
   if (n_az <= 0 || n_rings <= 0) return static_cast<int>(cudaSuccess);
   if (tile_az <= 0 || window_az < 0 || window_el < 0 || window_el > 0xffff || window_az > 0x7fff)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (k) {
-    SPT_RANGE_IMAGE_CASES(SPT_RANGE_IMAGE_TILE_CASE)
+  switch (spt::instance_k(k)) {
+    SPT_K_CASES(SPT_RANGE_IMAGE_TILE_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The first design, one thread a cell, on the image: the arguments of
-// spt_range_image_window with gather = 0 and no tile.
+// spt_range_image_window with gather = 0 and no tile; 1 <= k <= 16.
 extern "C" int spt_range_image_window_simple(const float* pts, const int* ids, int n_az, int n_rings,
                                              int window_az, int window_el, int k, int* out_idx, float* out_d2,
                                              void* stream) {
@@ -571,7 +568,7 @@ extern "C" int spt_range_image_window_simple(const float* pts, const int* ids, i
   const int blocks = (cells + kSimpleThreads - 1) / kSimpleThreads;
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   switch (k) {
-    SPT_RANGE_IMAGE_CASES(SPT_RANGE_IMAGE_SIMPLE_CASE)
+    SPT_FAST_K_CASES(SPT_RANGE_IMAGE_SIMPLE_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

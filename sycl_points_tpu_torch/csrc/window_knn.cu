@@ -26,6 +26,10 @@
 // and the row is written at the ORIGINAL position idx_s[s] (JAX's final
 // scatter), so the outputs come back in the cloud's order.
 //
+// It is built at K = 1 .. 16, 32, 64 and 128 (best_k.cuh); above 16 a request
+// for k runs the smallest K >= k and writes the first k entries of the list
+// (a K-list's first k entries are the k-list, padding included).
+//
 // The entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
 
@@ -51,7 +55,7 @@ __device__ __forceinline__ float column(const float* __restrict__ pts, const uns
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 morton_window_kernel(const float* __restrict__ pts, const unsigned char* __restrict__ ok,
-                     const int* __restrict__ idx_s, int N, int W, int* __restrict__ out_idx,
+                     const int* __restrict__ idx_s, int N, int W, int k, int* __restrict__ out_idx,
                      float* __restrict__ out_d2) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= N) return;
@@ -66,19 +70,20 @@ morton_window_kernel(const float* __restrict__ pts, const unsigned char* __restr
     best_k_insert<K>(bd, bi, column(pts, ok, N, s, ok_s, px, py, pz, o), o);
   }
 
-  const long long row = static_cast<long long>(__ldg(idx_s + s)) * K;
+  const int kw = spt::row_count<K>(k);
+  const long long row = static_cast<long long>(__ldg(idx_s + s)) * kw;
   int* oi = out_idx + row;
   float* od = out_d2 + row;
   int t = 0;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    if (bd[j] < __int_as_float(0x7f800000)) {
+    if (j < kw && bd[j] < __int_as_float(0x7f800000)) {
       oi[j] = __ldg(idx_s + min(max(s + bi[j], 0), N - 1));
       od[j] = bd[j];
       t = j + 1;
     }
   }
-  for (int c = 0; c < 2 * W && t < K; ++c) {
+  for (int c = 0; c < 2 * W && t < kw; ++c) {
     const int o = c < W ? c - W : c - W + 1;
     const float d = column(pts, ok, N, s, ok_s, px, py, pz, o);
     if (!(d < __int_as_float(0x7f800000))) {
@@ -91,38 +96,23 @@ morton_window_kernel(const float* __restrict__ pts, const unsigned char* __restr
 
 }  // namespace
 
-#define SPT_WINDOW_CASE(KK)                                                                       \
-  case KK:                                                                                        \
-    morton_window_kernel<KK><<<blocks, kThreads, 0, s>>>(pts, ok, idx_s, N, W, out_idx, out_d2); \
+#define SPT_WINDOW_CASE(KK)                                                                          \
+  case KK:                                                                                           \
+    morton_window_kernel<KK><<<blocks, kThreads, 0, s>>>(pts, ok, idx_s, N, W, k, out_idx, out_d2); \
     break;
 
 // pts [N,3] f32 and ok [N] bool in Morton order, idx_s [N] i32 the original
 // index of each sorted position (a permutation); W the one-sided window,
 // 2 W >= k; out_idx [N,k] i32 and out_d2 [N,k] f32 in the ORIGINAL order;
-// 1 <= k <= 16.
+// 1 <= k <= 128.
 extern "C" int spt_morton_window(const float* pts, const unsigned char* ok, const int* idx_s, int N, int W, int k,
                                  int* out_idx, float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (N + kThreads - 1) / kThreads;
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (W <= 0 || 2 * W < k) return static_cast<int>(cudaErrorInvalidValue);
-  switch (k) {
-    SPT_WINDOW_CASE(1)
-    SPT_WINDOW_CASE(2)
-    SPT_WINDOW_CASE(3)
-    SPT_WINDOW_CASE(4)
-    SPT_WINDOW_CASE(5)
-    SPT_WINDOW_CASE(6)
-    SPT_WINDOW_CASE(7)
-    SPT_WINDOW_CASE(8)
-    SPT_WINDOW_CASE(9)
-    SPT_WINDOW_CASE(10)
-    SPT_WINDOW_CASE(11)
-    SPT_WINDOW_CASE(12)
-    SPT_WINDOW_CASE(13)
-    SPT_WINDOW_CASE(14)
-    SPT_WINDOW_CASE(15)
-    SPT_WINDOW_CASE(16)
+  switch (spt::instance_k(k)) {
+    SPT_K_CASES(SPT_WINDOW_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

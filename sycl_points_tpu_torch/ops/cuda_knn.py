@@ -8,8 +8,18 @@ target prepared once by :func:`prep_target`:
   * ``nn1``   exact 1-NN with the 4x4 pose folded into the queries; replaces
               the Pallas kernel ``nn1_pallas_prepped`` (the ICP
               correspondence search);
-  * ``knn_k`` exact k-NN, k <= 16; replaces ``_approx_knn_single``, which
-              rests on the TPU-only ``lax.approx_max_k``.
+  * ``knn_k`` exact k-NN, k <= 128 on the card (any k on the CPU); replaces
+              ``_approx_knn_single``, which rests on the TPU-only
+              ``lax.approx_max_k``.
+
+Every production search kernel (``knn_k``, ``grid_knn``, the range-image
+window, ``morton_window``, ``coarse_refine``) is built at ``k = 1 ..
+FAST_MAX_K`` and at :data:`LARGE_K` (32, 64, 128): a request for ``k`` in
+``(FAST_MAX_K, MAX_K]`` runs the smallest instance ``K >= k``
+(:func:`instance_k`) and writes the first ``k`` entries of its list, which
+are the ``k``-list, ties and padding included. Above ``MAX_K`` the card
+raises; the plain versions on the CPU take any ``k`` their candidates
+allow.
 
 Both take a leading stream axis in one launch (``nn1_prepped_batched``,
 ``knn_k_batched`` on targets made by :func:`prep_targets`): stream ``b``'s
@@ -35,8 +45,10 @@ and the fused ``range_image_knn``), the fused path's other kernels under
 and the first window design under ``range_image_simple``. The searches of
 the structured targets count here too: ``grid_knn`` (``csrc/grid_knn.cu``,
 wrapper :func:`..grid_knn.grid_search`, lanes a query from
-:func:`grid_lanes`; its first design ``grid_knn_simple``), ``coarse_refine``
-(``csrc/coarse_knn.cu``, :func:`..coarse_knn.coarse_refine`) and
+:func:`grid_lanes`; its first design ``grid_knn_simple``), ``coarse_rank``
+and ``coarse_refine`` (``csrc/coarse_knn.cu``, :func:`..coarse_knn.coarse_rank`
+and :func:`..coarse_knn.coarse_refine`, lanes a query from
+:func:`refine_lanes`; the refine's first design ``coarse_refine_simple``) and
 ``morton_window`` (``csrc/window_knn.cu``, :func:`..window_knn.window_search`).
 
 On first use every source under ``csrc/`` is compiled with ``nvcc`` for
@@ -75,16 +87,26 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-Xcompiler", "-fPIC",
 )
-MAX_K = 16
+# k on the card: one kernel instance a k up to FAST_MAX_K (the first designs
+# stop there), then the LARGE_K instances up to MAX_K (the reference's largest
+# KD-tree dispatch, 100, rounded up to a power of two).
+FAST_MAX_K = 16
+LARGE_K = (32, 64, 128)
+MAX_K = LARGE_K[-1]
 # The cluster kernels (csrc/knn_cluster.cu): a prepared target is padded to a
 # multiple of TARGET_TILE; a cluster is one query tile (one of
 # NN1_QUERY_TILES for nn1, KNN_QUERY_TILE for knn_k) against the target cut
-# into CLUSTER_SLICES slices, a block each; cluster_shape() chooses both.
+# into CLUSTER_SLICES slices (LARGE_K_SLICES for k above FAST_MAX_K, whose
+# blocks take up to 128 KiB of shared memory), a block each; cluster_shape()
+# chooses both.
 TARGET_TILE = 512
 CLUSTER_SLICES = (1, 2, 4, 8, 16)
+LARGE_K_SLICES = (1, 2, 4, 8)
 NN1_QUERY_TILES = (32, 64, 128)
 KNN_QUERY_TILE = 128
 BLOCKS_PER_SM = 4
+# Shared memory a block can have on the H100 (227 KB).
+SMEM_BYTES = 232448
 # The grid search (csrc/grid_knn.cu): lanes a query, chosen by grid_lanes().
 GRID_LANES = (8, 16, 32)
 GRID_THREADS_PER_SM = 1024
@@ -98,7 +120,8 @@ launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
     "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
     "range_image_elevation": 0, "range_image_cells": 0, "range_image_rows": 0, "range_image_simple": 0,
-    "grid_knn": 0, "grid_knn_simple": 0, "coarse_refine": 0, "morton_window": 0,
+    "grid_knn": 0, "grid_knn_simple": 0, "coarse_rank": 0, "coarse_refine": 0, "coarse_refine_simple": 0,
+    "morton_window": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -182,7 +205,9 @@ def load_library() -> ctypes.CDLL:
             lib.spt_range_image_rows.argtypes = [p, p, p, i, i, i, p, p, p]
             lib.spt_grid_knn.argtypes = [p, i, p, f, p, p, p, i, p, p, p, p, i, i, i, i, i, p, p, p]
             lib.spt_grid_knn_simple.argtypes = [p, i, p, f, p, p, p, i, p, p, p, p, i, i, i, i, p, p, p]
-            lib.spt_coarse_refine.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, p, p, p, p]
+            lib.spt_coarse_refine.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, i, p, p, p, p]
+            lib.spt_coarse_refine_simple.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, p, p, p, p]
+            lib.spt_coarse_rank.argtypes = [p, i, p, p, p, i, p, f, i, p, p, p]
             lib.spt_morton_window.argtypes = [p, p, p, i, i, i, p, p, p]
             for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_batched, lib.spt_knn_k_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled,
@@ -190,7 +215,7 @@ def load_library() -> ctypes.CDLL:
                        lib.spt_range_image_window, lib.spt_range_image_window_simple,
                        lib.spt_range_image_elevation, lib.spt_range_image_cells, lib.spt_range_image_rows,
                        lib.spt_grid_knn, lib.spt_grid_knn_simple, lib.spt_coarse_refine,
-                       lib.spt_morton_window):
+                       lib.spt_coarse_refine_simple, lib.spt_coarse_rank, lib.spt_morton_window):
                 fn.restype = i
             _lib = lib
     return _lib
@@ -234,6 +259,32 @@ def _check_inputs(target_xyz, target_mask, queries, pose=None):
 def _require_cuda(device, name: str) -> None:
     if device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda tensors, got {device}")
+
+
+def instance_k(k: int) -> int:
+    """The kernel instance that serves a request for ``k`` on the card:
+    ``k`` itself up to :data:`FAST_MAX_K`, else the smallest of
+    :data:`LARGE_K` at or above it (``csrc/best_k.cuh``'s ``instance_k``)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"no kernel instance serves k={k}: 1 <= k <= {MAX_K}")
+    return k if k <= FAST_MAX_K else next(K for K in LARGE_K if K >= k)
+
+
+def check_k(k: int, name: str, device, cap: Optional[int] = None) -> None:
+    """Refuse ``k`` below 1 or above the search's candidate count ``cap``
+    everywhere, and above :data:`MAX_K` on the card (the CPU's plain
+    versions take any ``k``)."""
+    if k < 1 or (cap is not None and k > cap):
+        raise ValueError(f"{name} takes 1 <= k <= {cap if cap is not None else 'any'} (its candidates), got {k}")
+    if device.type != "cpu" and k > MAX_K:
+        raise ValueError(f"{name} on the card takes k <= {MAX_K} (its largest kernel instance), got {k}; "
+                         f"the CPU path is unbounded")
+
+
+def check_fast_k(k: int, name: str) -> None:
+    """The first designs' bound: one instance a k up to :data:`FAST_MAX_K`."""
+    if not 1 <= k <= FAST_MAX_K:
+        raise ValueError(f"{name} (a first design) takes 1 <= k <= {FAST_MAX_K}, got {k}")
 
 
 def _require_contiguous(*tensors):
@@ -368,7 +419,7 @@ def nn1_plain(target_xyz, target_mask, queries, pose=None):
     return _nn1_plain(target_xyz, target_mask.bool(), queries, pose)
 
 
-def _knn_k_plain(target_xyz, valid, queries, k: int):
+def _knn_k_plain(target_xyz, valid, queries, k: int, ties_by_index: bool = False):
     Q, M = queries.shape[0], target_xyz.shape[0]
     idx = torch.zeros((Q, k), dtype=torch.int32, device=queries.device)
     d2 = torch.full((Q, k), torch.inf, dtype=torch.float32, device=queries.device)
@@ -378,7 +429,10 @@ def _knn_k_plain(target_xyz, valid, queries, k: int):
     step = _query_chunk(M)
     for s in range(0, Q, step):
         block = _sqdist_block(queries[s : s + step], target_xyz, valid)
-        d, i = torch.topk(block, kk, dim=1, largest=False, sorted=True)
+        if ties_by_index:  # whole rows sorted stably: equal distances keep the index order
+            d, i = (x[:, :kk] for x in torch.sort(block, dim=1, stable=True))
+        else:
+            d, i = torch.topk(block, kk, dim=1, largest=False, sorted=True)
         idx[s : s + step, :kk] = torch.where(torch.isfinite(d), i, 0).to(torch.int32)
         d2[s : s + step, :kk] = d
     return idx, d2
@@ -388,6 +442,15 @@ def knn_k_plain(target_xyz, target_mask, queries, k: int):
     """Exact k-NN, ascending: ``(idx [Q,k] int32, d2 [Q,k] f32)``. Slots with
     no valid neighbour get idx 0 and d2 = +inf."""
     return _knn_k_plain(target_xyz, target_mask.bool(), queries, k)
+
+
+def knn_k_sorted_plain(target_xyz, target_mask, queries, k: int):
+    """:func:`knn_k_plain` with its ties ordered as the kernels order them,
+    the lower index first (``topk`` on the card orders ties in no stated
+    way): the bit-exact reference of ``knn_k`` above :data:`FAST_MAX_K`,
+    where ``knn_k_simple`` stops. It sorts whole rows, so it is for checks,
+    not for the path."""
+    return _knn_k_plain(target_xyz, target_mask.bool(), queries, k, ties_by_index=True)
 
 
 def nn1_batched_plain(target_xyz, target_mask, queries, poses=None):
@@ -445,7 +508,8 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def cluster_shape(Q: int, query_tiles, n_sm: int, streams: int = 1) -> tuple[int, int]:
+def cluster_shape(Q: int, query_tiles, n_sm: int, streams: int = 1,
+                  slice_counts: tuple = CLUSTER_SLICES) -> tuple[int, int]:
     """``(queries a cluster, slices a cluster)`` for ``Q`` queries in each of
     ``streams`` streams: the largest query tile, then the fewest slices, that
     give the grid ``BLOCKS_PER_SM`` blocks an SM, else the smallest tile and
@@ -454,13 +518,19 @@ def cluster_shape(Q: int, query_tiles, n_sm: int, streams: int = 1) -> tuple[int
     few, as a merge costs more than a block saves there. A fleet's query
     tiles are counted over all its streams: 8 streams of 1000 queries run
     64 tiles of 128 queries x 16 slices, where one stream alone runs 32 x
-    16."""
+    16. ``slice_counts`` are the slice counts to choose from
+    (:data:`LARGE_K_SLICES` for knn_k above :data:`FAST_MAX_K`)."""
     want = BLOCKS_PER_SM * n_sm
     tiles = lambda qt: streams * -(-Q // qt)
-    qt = next((qt for qt in sorted(query_tiles, reverse=True) if tiles(qt) * CLUSTER_SLICES[-1] >= want),
+    qt = next((qt for qt in sorted(query_tiles, reverse=True) if tiles(qt) * slice_counts[-1] >= want),
               min(query_tiles))
-    slices = next((s for s in CLUSTER_SLICES if tiles(qt) * s >= want), CLUSTER_SLICES[-1])
+    slices = next((s for s in slice_counts if tiles(qt) * s >= want), slice_counts[-1])
     return qt, slices
+
+
+def knn_slices(k: int) -> tuple:
+    """The slice counts knn_k's instance for ``k`` may take."""
+    return CLUSTER_SLICES if k <= FAST_MAX_K else LARGE_K_SLICES
 
 
 def grid_lanes(Q: int, n_sm: int) -> int:
@@ -472,6 +542,25 @@ def grid_lanes(Q: int, n_sm: int) -> int:
     many keep the card full with fewer lanes and shorter merges."""
     want = GRID_THREADS_PER_SM * n_sm
     return next((g for g in GRID_LANES if Q * g >= want), GRID_LANES[-1])
+
+
+def refine_lanes(candidates: int, k: int) -> int:
+    """Lanes a query of the lane-group ``coarse_refine`` for ``k`` nearest
+    among at most ``candidates`` (P x L) slots a query. Up to
+    :data:`FAST_MAX_K`, a warp a query, halved (down to 8) while a lane
+    would have fewer than 4 slots: unlike ``grid_knn``'s ~200 candidates, a
+    CoarseKNN query walks hundreds to thousands of them, and the queries
+    beside a dense cell bound the launch (on the H100 at 30,000 queries 32
+    lanes were the fastest at every build measured, where
+    :func:`grid_lanes` picks 8). Above it 8 lanes: every lane fills a list
+    of K = 32 to 128 entries, which spill, and the fewer lists the fewer
+    insertions (8 lanes the fastest there; PERF.md, PR 16)."""
+    if k > FAST_MAX_K:
+        return GRID_LANES[0]
+    g = GRID_LANES[-1]
+    while g > GRID_LANES[0] and candidates < 4 * g:
+        g //= 2
+    return g
 
 
 def _run(name, device, call) -> None:
@@ -531,27 +620,26 @@ def nn1(target_xyz, target_mask, queries, pose=None):
 
 
 def knn_k_prepped(prep: PreppedTarget, queries, k: int):
-    """Exact k nearest neighbours (``1 <= k <= 16``) of ``queries [Q,3]`` in a
-    target made by :func:`prep_target`, ascending by distance, lower index
-    first on ties: ``(idx [Q,k] int32, d2 [Q,k] f32)``; slots with no valid
-    neighbour get idx 0 and d2 = +inf.
+    """Exact k nearest neighbours (``k >= 1``; at most :data:`MAX_K` on the
+    card) of ``queries [Q,3]`` in a target made by :func:`prep_target`,
+    ascending by distance, lower index first on ties: ``(idx [Q,k] int32, d2
+    [Q,k] f32)``; slots with no valid neighbour get idx 0 and d2 = +inf.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
     device = _check_prepped(prep, queries, None)
+    check_k(k, "knn_k", device)
     if device.type == "cpu":
         return _knn_k_plain(prep.points(), None, queries, k)
     _check_prepped_cuda(prep, queries, None, device, "knn_k")
     Q = queries.shape[0]
-    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index))
+    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), slice_counts=knn_slices(k))
     return _launch("knn_k", device, (Q, k), lambda lib, i, d, s: lib.spt_knn_k(
         prep.xyz.data_ptr(), prep.xyz.shape[1], queries.data_ptr(), Q, k, slices, i, d, s))
 
 
 def knn_k(target_xyz, target_mask, queries, k: int):
-    """Exact k nearest neighbours (``1 <= k <= 16``) of ``queries [Q,3]`` in
-    the masked ``target_xyz [M,3]``. Prepares the target for this one call;
+    """Exact k nearest neighbours (``k >= 1``; at most :data:`MAX_K` on the
+    card) of ``queries [Q,3]`` in the masked ``target_xyz [M,3]``. Prepares the target for this one call;
     see :func:`knn_k_prepped`."""
     _check_inputs(target_xyz, target_mask, queries)
     return knn_k_prepped(prep_target(target_xyz, target_mask), queries, k)
@@ -576,20 +664,19 @@ def nn1_prepped_batched(prep: PreppedTarget, queries, poses=None):
 
 
 def knn_k_batched(prep: PreppedTarget, queries, k: int):
-    """Exact k nearest neighbours (``1 <= k <= 16``) of the queries
-    ``[B,Q,3]`` of ``B`` streams in their targets made by
-    :func:`prep_targets`, in one launch: ``(idx [B,Q,k] int32, d2 [B,Q,k]
-    f32)``, equal to :func:`knn_k_prepped` of each stream.
+    """Exact k nearest neighbours (``k >= 1``; at most :data:`MAX_K` on the
+    card) of the queries ``[B,Q,3]`` of ``B`` streams in their targets made
+    by :func:`prep_targets`, in one launch: ``(idx [B,Q,k] int32, d2
+    [B,Q,k] f32)``, equal to :func:`knn_k_prepped` of each stream.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
     device = _check_prepped_batched(prep, queries, None)
+    check_k(k, "knn_k", device)
     if device.type == "cpu":
         return knn_k_batched_plain(prep.points(), None, queries, k)
     _check_prepped_cuda(prep, queries, None, device, "knn_k_batched")
     B, Q = queries.shape[:2]
-    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), B)
+    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), B, knn_slices(k))
     return _launch("knn_k_batched", device, (B, Q, k), lambda lib, i, d, s: lib.spt_knn_k_batched(
         prep.xyz.data_ptr(), prep.xyz.shape[2], queries.data_ptr(), Q, B, k, slices, i, d, s))
 
@@ -606,9 +693,8 @@ def _raw_launch(name, entry, target_xyz, target_mask, queries, shape, extra):
 def knn_k_simple(target_xyz, target_mask, queries, k: int):
     """:func:`knn_k` through its first design (one thread a query, the whole
     target per block, ``csrc/knn.cu``): the exact reference the cluster
-    kernel is held to, ties included, and timed against."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_k takes 1 <= k <= {MAX_K}, got {k}")
+    kernel is held to, ties included, and timed against; ``k <= 16``."""
+    check_fast_k(k, "knn_k_simple")
     device = _check_inputs(target_xyz, target_mask, queries)
     if device.type == "cpu":
         return knn_k_plain(target_xyz, target_mask, queries, k)

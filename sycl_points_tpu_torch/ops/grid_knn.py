@@ -139,7 +139,8 @@ class GridKNN:
         return float(np.float32(1.0) / np.float32(self.cell_size))
 
     def search(self, query_points: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None) -> KNNResult:
-        """27-cell bounded k-NN (``k <= 16``); indices in the original order."""
+        """27-cell bounded k-NN (``k <= 27 max_per_cell``; at most
+        ``cuda_knn.MAX_K`` on the card); indices in the original order."""
         return KNNResult(*grid_search(self, query_points, k, pose))
 
     def radius_search(self, query_points, radius: float, max_k: int, pose=None) -> KNNResult:
@@ -202,12 +203,13 @@ def grid_candidates(grid: GridKNN, queries: torch.Tensor, pose: Optional[torch.T
 
 
 def _check_search(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor]):
-    """Check a search's arguments; returns the queries' device."""
-    if not 1 <= k <= min(cuda_knn.MAX_K, 27 * grid.max_per_cell):
-        raise ValueError(f"GridKNN.search takes 1 <= k <= {cuda_knn.MAX_K}, got {k}")
+    """Check a search's arguments (k up to the 27 cells' slots, and up to
+    ``cuda_knn.MAX_K`` on the card); returns the queries' device."""
+    device = cuda_knn._check_queries(queries, pose, grid.points, grid.mask, grid.cell_coords)
+    cuda_knn.check_k(k, "GridKNN.search", device, 27 * grid.max_per_cell)
     if grid.points.shape[0] == 0:
         raise ValueError("GridKNN.search needs a target of at least one row")
-    return cuda_knn._check_queries(queries, pose, grid.points, grid.mask, grid.cell_coords)
+    return device
 
 
 def _grid_launch(name: str, grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor], device,
@@ -248,8 +250,10 @@ def grid_search(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[tor
 def grid_search_simple(grid: GridKNN, queries: torch.Tensor, k: int, pose: Optional[torch.Tensor] = None):
     """:func:`grid_search` through the kernel's first design (one thread a
     query, ``csrc/grid_knn.cu``): the reference the lane-group kernel is
-    held to and timed against. CPU tensors run the plain version."""
+    held to and timed against; ``k <= 16``. CPU tensors run the plain
+    version."""
     device = _check_search(grid, queries, k, pose)
+    cuda_knn.check_fast_k(k, "grid_search_simple")
     if device.type == "cpu":
         return grid_search_plain(grid, queries, k, pose)
     return _grid_launch("grid_knn_simple", grid, queries, k, pose, device, "spt_grid_knn_simple")

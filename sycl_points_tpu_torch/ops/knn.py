@@ -47,9 +47,9 @@ def brute_force_knn(
     k: int,
     pose: Optional[torch.Tensor] = None,
 ) -> KNNResult:
-    """Exact k-NN (``k <= 16``) through the ``knn_k`` wrapper, on a target
-    prepared once for the call; ``pose`` (4x4), when given, moves the queries
-    first."""
+    """Exact k-NN (any k on the CPU, ``k <= cuda_knn.MAX_K`` on the card)
+    through the ``knn_k`` wrapper, on a target prepared once for the call;
+    ``pose`` (4x4), when given, moves the queries first."""
     if pose is not None:
         query_points = transform_points(query_points, pose)
     prep = cuda_knn.prep_target(target_points, target_mask)

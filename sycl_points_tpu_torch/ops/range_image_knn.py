@@ -51,7 +51,7 @@ BIG = 3.0e38
 # The window kernel's tile: about TILE_CELLS cells (one a thread) a block,
 # within a block's SMEM_BYTES of shared memory (227 KB on the H100).
 TILE_CELLS = 512
-SMEM_BYTES = 232448
+SMEM_BYTES = cuda_knn.SMEM_BYTES
 # The bins' constants as PyTorch's CUDA kernels apply them: pi rounded to
 # f32, and the division by the CPU scalar 2 pi as a product with the f32
 # reciprocal of f32(2 pi).
@@ -103,22 +103,23 @@ def range_image_window_plain(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int
     return idx, d2
 
 
-def tile_smem(n_rings: int, window_az: int, tile_az: int, k: int = cuda_knn.MAX_K) -> int:
+def tile_smem(n_rings: int, window_az: int, tile_az: int, k: int = cuda_knn.FAST_MAX_K) -> int:
     """Shared memory of a window-kernel block: the ``tile_az + 2 window_az``
-    staged columns (16 B a ring) and the block's rows of the result (8 k B a
-    thread, one thread a cell up to TILE_CELLS)."""
+    staged columns (16 B a ring) and the block's rows of the result (8 K B a
+    thread, one thread a cell up to TILE_CELLS), K the kernel instance that
+    serves ``k`` (``cuda_knn.instance_k``)."""
     threads = min(TILE_CELLS, -(-tile_az * n_rings // 32) * 32)
-    return 16 * n_rings * (tile_az + 2 * window_az) + 8 * k * threads
+    return 16 * n_rings * (tile_az + 2 * window_az) + 8 * cuda_knn.instance_k(k) * threads
 
 
-def range_image_tile(n_rings: int, window_az: int) -> int:
-    """Azimuth columns a block of the window kernel owns (TA): the largest
-    power of two whose ``TA x n_rings`` cells stay within
+def range_image_tile(n_rings: int, window_az: int, k: int = cuda_knn.FAST_MAX_K) -> int:
+    """Azimuth columns a block of the window kernel owns (TA) for a search of
+    ``k``: the largest power of two whose ``TA x n_rings`` cells stay within
     :data:`TILE_CELLS` (at least one column) and whose :func:`tile_smem` at
-    k = 16 fits :data:`SMEM_BYTES`. Raises when one column and its halo do
+    ``k`` fits :data:`SMEM_BYTES`. Raises when one column and its halo do
     not fit. 2048 x 64 at the default window takes 8 columns (512 cells,
-    84 KB)."""
-    smem = lambda ta: tile_smem(n_rings, window_az, ta)
+    84 KB) up to k = 32, 4 at k = 64 and 2 at k = 128."""
+    smem = lambda ta: tile_smem(n_rings, window_az, ta, k)
     if n_rings < 1 or window_az < 0:
         raise ValueError(f"range_image_tile takes n_rings >= 1 and window_az >= 0, got {n_rings}, {window_az}")
     if smem(1) > SMEM_BYTES:
@@ -130,9 +131,8 @@ def range_image_tile(n_rings: int, window_az: int) -> int:
     return ta
 
 
-def _check_k_window(k: int, window_az: int, window_el: int) -> None:
-    if not 1 <= k <= cuda_knn.MAX_K:
-        raise ValueError(f"the range-image search takes 1 <= k <= {cuda_knn.MAX_K}, got {k}")
+def _check_k_window(k: int, window_az: int, window_el: int, device) -> None:
+    cuda_knn.check_k(k, "the range-image search", device)
     if not (0 <= window_az < 1 << 15 and 0 <= window_el < 1 << 16):
         raise ValueError(f"the range-image search takes windows in [0, 2^15) x [0, 2^16), got {window_az}, "
                          f"{window_el}")
@@ -142,7 +142,7 @@ def _check_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: 
                   window_el: int, k: int):
     """Check a window search's arguments; returns the image's device."""
     C = n_az * n_rings
-    _check_k_window(k, window_az, window_el)
+    _check_k_window(k, window_az, window_el, img_p.device)
     if img_p.shape != (C, 3) or img_i.shape != (C,):
         raise ValueError(f"expected a [{C}, 3] image and [{C}] indices, got {tuple(img_p.shape)}, "
                          f"{tuple(img_i.shape)}")
@@ -163,7 +163,7 @@ def range_image_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_ri
         return range_image_window_plain(img_p, img_i, n_az, n_rings, window_az, window_el, k)
     cuda_knn._require_cuda(device, "range_image_window")
     cuda_knn._require_contiguous(img_p, img_i)
-    ta = range_image_tile(n_rings, window_az)
+    ta = range_image_tile(n_rings, window_az, k)
     return cuda_knn._launch("range_image", device, (n_az * n_rings, k),
                             lambda lib, i, d, s: lib.spt_range_image_window(
                                 img_p.data_ptr(), img_i.data_ptr(), 0, n_az, n_rings, window_az, window_el, k, ta,
@@ -174,9 +174,10 @@ def range_image_window_simple(img_p: torch.Tensor, img_i: torch.Tensor, n_az: in
                               window_el: int, k: int):
     """:func:`range_image_window` through the kernel's first design (one
     thread a cell, reading the image through L1): the reference the tiled
-    kernel is held to and timed against. CPU tensors run the plain
-    version."""
+    kernel is held to and timed against; ``k <= 16``. CPU tensors run the
+    plain version."""
     device = _check_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
+    cuda_knn.check_fast_k(k, "range_image_window_simple")
     if device.type == "cpu":
         return range_image_window_plain(img_p, img_i, n_az, n_rings, window_az, window_el, k)
     cuda_knn._require_cuda(device, "range_image_window_simple")
@@ -338,10 +339,10 @@ def range_image_window_gather(points: torch.Tensor, win1: torch.Tensor, n_az: in
         img_i = win1 - 1
         img_p = torch.where((img_i >= 0)[:, None], points[img_i.clamp_min(0)], 0.0)
         return range_image_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
-    _check_k_window(k, window_az, window_el)
+    _check_k_window(k, window_az, window_el, points.device)
     cuda_knn._require_cuda(points.device, "range_image_window_gather")
     cuda_knn._require_contiguous(points, win1)
-    ta = range_image_tile(n_rings, window_az)
+    ta = range_image_tile(n_rings, window_az, k)
     return cuda_knn._launch("range_image", points.device, (C, k), lambda lib, i, d, s: lib.spt_range_image_window(
         points.data_ptr(), win1.data_ptr(), 1, n_az, n_rings, window_az, window_el, k, ta, i, d, s))
 
@@ -369,8 +370,8 @@ def _range_image_knn_cuda(points, mask, k, n_az, n_rings, window_az, window_el, 
     memset and one or two kernels), the window search on the winners'
     points, the rows: at most 5 device launches."""
     _check_scan(points, mask, n_az, n_rings)
-    _check_k_window(k, window_az, window_el)
-    range_image_tile(n_rings, window_az)  # raises before any launch when the tile does not fit
+    _check_k_window(k, window_az, window_el, points.device)
+    range_image_tile(n_rings, window_az, k)  # raises before any launch when the tile does not fit
     points = points.contiguous()
     cell, win1, _, collisions = range_image_cells(points, mask, n_az, n_rings, el_min, el_max)
     if points.shape[0] == 0:

@@ -94,11 +94,9 @@ def window_search_plain(pts_s: torch.Tensor, ok_s: torch.Tensor, idx_s: torch.Te
 def window_search(pts_s: torch.Tensor, ok_s: torch.Tensor, idx_s: torch.Tensor, window: int, k: int):
     """:func:`window_search_plain` through the ``morton_window`` kernel
     (``csrc/window_knn.cu``) for CUDA tensors; CPU tensors run the plain
-    version. ``idx_s`` must be a permutation of ``[0, N)``."""
+    version. ``idx_s`` must be a permutation of ``[0, N)``; ``k <= 2
+    window`` (and ``cuda_knn.MAX_K`` on the card)."""
     N = pts_s.shape[0]
-    if not 1 <= k <= min(cuda_knn.MAX_K, 2 * window):
-        raise ValueError(f"window_search takes 1 <= k <= min({cuda_knn.MAX_K}, 2 * window), got k={k}, "
-                         f"window={window}")
     if pts_s.shape != (N, 3) or ok_s.shape != (N,) or idx_s.shape != (N,):
         raise ValueError(f"expected [N,3] points, [N] validity and [N] indices, got {tuple(pts_s.shape)}, "
                          f"{tuple(ok_s.shape)}, {tuple(idx_s.shape)}")
@@ -106,6 +104,7 @@ def window_search(pts_s: torch.Tensor, ok_s: torch.Tensor, idx_s: torch.Tensor, 
         raise TypeError(f"expected float32 points, bool validity and int32 indices, got {pts_s.dtype}, "
                         f"{ok_s.dtype}, {idx_s.dtype}")
     device = cuda_knn._check_queries(pts_s, None, ok_s, idx_s)
+    cuda_knn.check_k(k, f"window_search (window={window})", device, 2 * window)
     if device.type == "cpu":
         return window_search_plain(pts_s, ok_s, idx_s, window, k)
     cuda_knn._require_cuda(device, "morton_window")

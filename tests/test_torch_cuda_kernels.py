@@ -39,6 +39,21 @@ in 8 / 16 / 32, and its first design, one thread a query) must equal
 within one, cells over the budget, fewer candidates than k, queries off the
 21-bit range and NaN, an all-masked target, and Q = 1 to 30,000.
 
+Above k = 16 (``cuda_knn.FAST_MAX_K``) every production search runs its
+instance at K = 32, 64 or 128 and writes the first k entries: at k = 17, 20,
+32, 64, 100 and 128 ``knn_k`` (single and batched) equals
+``knn_k_sorted_plain`` (the plain distances sorted stably, ties by index: the
+first design stops at 16) bit for bit and its first 16 columns the k = 16
+search; ``grid_knn`` at every lane count, the range-image window (and
+``range_image_knn`` on the card), ``morton_window`` and the lane-group
+``coarse_refine`` equal their plain versions bit for bit, and each search
+refuses k above its candidates. ``coarse_rank`` (a warp a query over the
+occupied cells) equals ``rank_cells_plain`` bit for bit: a LiDAR-like scene,
+a lattice whose bounds tie at 0, every cell selected (P = C), every target
+masked, lost cells, the whole capacity ranked (``occupied`` at C), and 33 and
+100 cells kept a query; the lane-group refine at 8, 16 and 32 lanes and k =
+1, 10, 20 and 128 equals the plain refine, certificates included.
+
 The cluster kernels split the target into 1 to 16 slices of whole
 512-target tiles, the count chosen from Q; the cases below put M off both,
 run every slice count, Q below one query tile, a slice with
@@ -47,6 +62,8 @@ duplicated points whose exact ties span the slices, and the odometry
 frame's shapes (1,000 queries against a 16,384-row target with a masked
 tail; the self-search of a 5,000-row scan and of a 16,384-row submap).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -296,7 +313,9 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(TypeError):
         cuda_knn.knn_k(tgt.double(), mask, tgt.double(), 4)
     with pytest.raises(ValueError):
-        cuda_knn.knn_k(tgt, mask, tgt, 17)
+        cuda_knn.knn_k(tgt, mask, tgt, cuda_knn.MAX_K + 1)
+    with pytest.raises(ValueError):
+        cuda_knn.knn_k_simple(tgt, mask, tgt, cuda_knn.FAST_MAX_K + 1)
     with pytest.raises(ValueError):
         cuda_knn.nn1(tgt, mask.cpu(), tgt)
     with pytest.raises(ValueError):
@@ -535,8 +554,8 @@ def test_range_image_window_rejects_bad_inputs():
     img_p = torch.zeros(64 * 8, 3, device="cuda")
     img_i = torch.full((64 * 8,), -1, dtype=torch.int32, device="cuda")
     for fn in (ri.range_image_window, ri.range_image_window_simple):
-        with pytest.raises(ValueError):
-            fn(img_p, img_i, 64, 8, 6, 4, 17)
+        with pytest.raises(ValueError):  # the first design keeps k <= 16
+            fn(img_p, img_i, 64, 8, 6, 4, cuda_knn.MAX_K + 1 if fn is ri.range_image_window else 17)
         with pytest.raises(ValueError):
             fn(img_p[:-1], img_i, 64, 8, 6, 4, 10)
         with pytest.raises(TypeError):
@@ -684,19 +703,22 @@ def _coarse_case(name):
 @pytest.mark.parametrize("k", [1, 10, 16])
 @pytest.mark.parametrize("case", ["lidar-like", "small budget", "masked, lost cells", "all masked"])
 def test_coarse_refine_kernel_matches_plain(case, k):
-    """Kernel B equals the plain refine bit for bit (indices into the sorted
-    layout, distances, certificates), on the same selected cells."""
+    """Kernel B (the lane-group refine) and its first design equal the
+    plain refine bit for bit (indices into the sorted layout, distances,
+    certificates), on the same selected cells."""
     from sycl_points_tpu_torch.ops import coarse_knn as ckm
 
     ck, q = _coarse_case(case)
     cells, lb = ck.select_cells(q, 8, 1e-2)
-    before = cuda_knn.launch_counts["coarse_refine"]
+    before = dict(cuda_knn.launch_counts)
     got = ckm.coarse_refine(ck, q, cells.contiguous(), lb.contiguous(), k)
+    simple = ckm.coarse_refine_simple(ck, q, cells.contiguous(), lb.contiguous(), k)
     torch.cuda.synchronize()
-    assert cuda_knn.launch_counts["coarse_refine"] == before + 1
+    assert cuda_knn.launch_counts["coarse_refine"] == before["coarse_refine"] + 1
+    assert cuda_knn.launch_counts["coarse_refine_simple"] == before["coarse_refine_simple"] + 1
     ref = ckm.coarse_refine_plain(ck, q, cells, lb, k)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    for a, b, c in zip(got, ref, simple):
+        assert torch.equal(a, b) and torch.equal(c, b)
     if case == "lidar-like":
         assert float(got[2].float().mean()) > 0.5
     if case in ("small budget", "masked, lost cells"):
@@ -726,3 +748,180 @@ def test_morton_window_kernel_matches_plain(window, k):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     a, b = wk.window_self_knn(pts, mask, 10), wk.window_self_knn(pts.cpu(), mask.cpu(), 10)
     assert torch.equal(a.indices.cpu(), b.indices) and torch.equal(a.distances.cpu(), b.distances)
+
+
+# -- k above 16: the instances at K = 32, 64 and 128 ------------------------------
+
+LARGE_K = [17, 20, 32, 64, 100, 128]
+LARGE_KNN_CASES = ["2049,129,3", "25000,1000,5", "40,300,0", "tail,16384,5000,16384", "dup", "slice masked",
+                   "all masked"]
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+@pytest.mark.parametrize("case", LARGE_KNN_CASES)
+def test_knn_k_large_k_equals_sorted_plain(case, k):
+    """knn_k above 16 equals the tie-ordered plain version bit for bit
+    (fewer targets than k and every target masked included), and its first
+    16 columns equal the k = 16 search."""
+    tgt, qry, mask = _case(case)
+    before = cuda_knn.launch_counts["knn_k"]
+    i, d = cuda_knn.knn_k(tgt, mask, qry, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k"] == before + 1
+    assert tuple(i.shape) == (qry.shape[0], k)
+    ri, rd = cuda_knn.knn_k_sorted_plain(tgt, mask, qry, k)
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    i16, d16 = cuda_knn.knn_k(tgt, mask, qry, 16)
+    assert torch.equal(i[:, :16], i16) and torch.equal(d[:, :16], d16)
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+def test_knn_k_batched_large_k(k):
+    """The batched instances above 16 equal a single launch a stream and the
+    tie-ordered plain version bit for bit (a stream all masked, exact ties
+    across slices)."""
+    B = 4
+    pts, mask = _ties(*_fleet_targets(B, 4099, 81))
+    prep = cuda_knn.prep_targets(pts, mask)
+    before = cuda_knn.launch_counts["knn_k_batched"]
+    i, d = cuda_knn.knn_k_batched(prep, pts, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k_batched"] == before + 1
+    for b in range(B):
+        si, sd = cuda_knn.knn_k_prepped(cuda_knn.prep_target(pts[b], mask[b]), pts[b].contiguous(), k)
+        assert torch.equal(i[b], si) and torch.equal(d[b], sd)
+        ri, rd = cuda_knn.knn_k_sorted_plain(pts[b], mask[b], pts[b], k)
+        assert torch.equal(i[b], ri) and torch.equal(d[b], rd)
+
+
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_grid_knn_large_k_matches_plain(case):
+    """grid_knn above 16 at each lane count equals the plain search bit for
+    bit; k above the 27 cells' slots is refused."""
+    from sycl_points_tpu_torch.ops import grid_knn as gk
+
+    grid, q, pose = _grid_case(case)
+    cap = 27 * grid.max_per_cell
+    for k in LARGE_K:
+        if k > cap:
+            with pytest.raises(ValueError):
+                gk.grid_search(grid, q, k, pose)
+            continue
+        ref = gk.grid_search_plain(grid, q, k, pose)
+        for lanes in (None, *cuda_knn.GRID_LANES):
+            got = gk.grid_search(grid, q, k, pose, lanes=lanes)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (k, lanes)
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+@pytest.mark.parametrize("case", ["full width", "collisions", "all masked", "masked, window (8, 4)", "n_az 1000",
+                                  "128 rings"])
+def test_range_image_window_large_k_matches_plain(case, k):
+    """The window kernel above 16 (a tile planned for its K) equals the
+    plain window search bit for bit, and range_image_knn on the card the
+    plain sequence."""
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    pts, mask, kw = _range_image_case(case)
+    n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
+    w_az, w_el = kw.get("window_az", 6), kw.get("window_el", 4)
+    img_p, img_i, cell, ok, _ = ri.range_image(pts, mask, n_az, n_rings)
+    got = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+    torch.cuda.synchronize()
+    ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    res = ri.range_image_knn(pts, mask, k, n_az, n_rings, w_az, w_el)
+    plain = ri.point_rows(*ref, cell, ok)
+    assert torch.equal(res.knn.indices, plain.indices) and torch.equal(res.knn.distances, plain.distances)
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+def test_morton_window_large_k_matches_plain(k):
+    from sycl_points_tpu_torch.ops import window_knn as wk
+
+    pts, mask = _raw_scan(1024, 32, seed=9)
+    mask[::11] = False
+    for order in ((0, 1, 2), (2, 0, 1)):
+        perm = torch.sort(wk.morton_codes(pts, mask, 0.5, order), stable=True)[1]
+        args = (pts[perm].contiguous(), mask[perm].contiguous(), perm.to(torch.int32), 64, k)
+        got = wk.window_search(*args)
+        torch.cuda.synchronize()
+        ref = wk.window_search_plain(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    with pytest.raises(ValueError):
+        wk.window_search(*args[:3], 8, k)  # 2 W = 16 candidates
+
+
+REFINE_K = [1, 10, 20, 128, 17, 32, 64, 100]
+
+
+@pytest.mark.parametrize("k", REFINE_K)
+@pytest.mark.parametrize("case", ["lidar-like", "small budget", "masked, lost cells", "all masked"])
+def test_coarse_refine_lanes_match_plain(case, k):
+    """The lane-group refine at 8, 16 and 32 lanes (and the planned count)
+    equals the plain refine bit for bit; k above P L is refused."""
+    from sycl_points_tpu_torch.ops import coarse_knn as ckm
+
+    ck, q = _coarse_case(case)
+    cells, lb = ck.select_cells(q, 8, 1e-2)
+    if k > 8 * ck.max_per_cell:
+        with pytest.raises(ValueError):
+            ckm.coarse_refine(ck, q, cells, lb, k)
+        return
+    ref = ckm.coarse_refine_plain(ck, q, cells, lb, k)
+    for lanes in (None, *cuda_knn.GRID_LANES):
+        got = ckm.coarse_refine(ck, q, cells, lb, k, lanes=lanes)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), (lanes, a.dtype)
+
+
+def _rank_case(name):
+    """(CoarseKNN, queries, P, margin) of a ranking case."""
+    from sycl_points_tpu_torch.ops.coarse_knn import CoarseKNN
+
+    if name == "lattice ties":
+        rng = np.random.default_rng(9)
+        cells = np.stack(np.meshgrid(np.arange(12), np.arange(12), np.arange(3), indexing="ij"), -1).reshape(-1, 3)
+        offs = np.stack(np.meshgrid(*[np.array([0.2, 0.5, 0.8])] * 3, indexing="ij"), -1).reshape(-1, 3)
+        pts = (cells[:, None, :] + offs[None]).reshape(-1, 3) + rng.normal(scale=0.01, size=(len(cells) * 27, 3))
+        q = rng.uniform([1, 1, 0.5], [11, 11, 2.5], size=(2000, 3)).astype(np.float32)
+        ck = CoarseKNN.build(_cloud_on_card(pts[rng.permutation(len(pts))]), coarse_cell=1.0, max_per_cell=32)
+        return ck, torch.from_numpy(q).cuda(), 6, 1.0
+    base = "lidar-like" if name in ("P = C", "whole capacity", "keep 33", "keep 100") else name
+    ck, q = _coarse_case(base)
+    if name == "P = C":
+        pts = ck.points[ck.mask].cpu().numpy()
+        return CoarseKNN.build(_cloud_on_card(pts), coarse_cell=8.0, cells_capacity=16), q, 16, 1e-2
+    if name == "whole capacity":  # every cell ranked, the empty ones by their flags
+        C = ck.centroids.shape[0]
+        return dataclasses.replace(ck, occupied=torch.tensor(C, dtype=torch.int32, device="cuda")), q, 8, 1e-2
+    if name.startswith("keep"):
+        return ck, q, int(name.split()[1]) - 1, 1e-2
+    return ck, q, 8, 1e-2
+
+
+@pytest.mark.parametrize("case", ["lidar-like", "lattice ties", "P = C", "all masked", "masked, lost cells",
+                                  "whole capacity", "keep 33", "keep 100"])
+def test_coarse_rank_matches_plain(case):
+    """coarse_rank equals the plain ranking bit for bit: the cells in order
+    (ties to the lower cell) and the unexplored bound."""
+    from sycl_points_tpu_torch.ops import coarse_knn as ckm
+
+    ck, q, P, margin = _rank_case(case)
+    before = cuda_knn.launch_counts["coarse_rank"]
+    cells, lb = ckm.coarse_rank(ck, q, P, margin)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["coarse_rank"] == before + 1
+    ref = ckm.rank_cells_plain(ck, q, P, margin)
+    assert torch.equal(cells, ref[0]) and torch.equal(lb, ref[1])
+    if case == "lattice ties":
+        assert float((lb == 0).float().mean()) > 0.9
+    if case in ("P = C", "all masked"):
+        assert bool(torch.isinf(lb).all())
+    if case == "all masked":
+        assert bool((cells == torch.arange(P, device="cuda", dtype=torch.int32)).all())
+    with pytest.raises(ValueError):
+        ckm.coarse_rank(ck, q, ckm.RANK_MAX_TAKE, margin) if ck.centroids.shape[0] > ckm.RANK_MAX_TAKE else \
+            ckm.coarse_rank(ck, q, ck.centroids.shape[0] + 1, margin)

@@ -12,8 +12,10 @@ JAX raw-features test uses:
     JAX_PLATFORMS=cpu python tests/test_torch_raw_ate.py --package jax
     PYTHONPATH=. python tests/test_torch_raw_ate.py --package torch [--device cuda]
 
-Each run prints one JSON line: the package, the deployment, the estimator,
-raw or standard, and the ATE. As a test module it checks that the JAX
+``--neighbor-num`` sets the covariances' neighbourhood (default 10, the
+trees' own), ``--estimators`` and ``--raw`` pick the runs. Each run prints
+one JSON line: the package, the deployment, the estimator, raw or
+standard, the neighbor_num and the ATE. As a test module it checks that the JAX
 parameter trees it builds convert to the port's deployments exactly, so the
 two packages run the same configurations.
 """
@@ -32,12 +34,13 @@ DEPLOYMENTS = ("replay deployment", "default tree", "LIO replay deployment")
 FRAMES, N_AZ, N_RINGS, SPEED = 20, 2048, 64, 0.35
 
 
-def jax_params(deployment: str, raw: bool, robust: bool, pose: np.ndarray):
+def jax_params(deployment: str, raw: bool, robust: bool, pose: np.ndarray, neighbor_num: int = 10):
     """The JAX parameter tree of ``deployment`` starting at ``pose``."""
     from sycl_points_tpu.imu.preintegration import IMUPreintegrationParams
     from sycl_points_tpu.pipeline import params as P
 
-    ce = P.CovarianceEstimationParams(m_estimation=P.MEstimationParams(enable=robust), raw_range_image=raw)
+    ce = P.CovarianceEstimationParams(m_estimation=P.MEstimationParams(enable=robust), raw_range_image=raw,
+                                      neighbor_num=neighbor_num)
     initial = P.PoseParams(initial=tuple(np.asarray(pose, np.float32).ravel().tolist()))
     if deployment == "default tree":
         return P.LidarOdometryParams(pose=initial, covariance_estimation=ce)
@@ -57,18 +60,20 @@ def jax_params(deployment: str, raw: bool, robust: bool, pose: np.ndarray):
             accel_bias_rw_density=1e-4)))
 
 
-def port_params(deployment: str, raw: bool, robust: bool, pose: np.ndarray):
-    """The port's deployment (``apps``) with the flag and the estimator."""
+def port_params(deployment: str, raw: bool, robust: bool, pose: np.ndarray, neighbor_num: int = 10):
+    """The port's deployment (``apps``) with the flag, the estimator and the
+    neighbourhood."""
     from sycl_points_tpu_torch.apps import lio_replay, odometry_replay
 
     p = {"replay deployment": odometry_replay.replay_params, "default tree": odometry_replay.default_params,
          "LIO replay deployment": lio_replay.lio_params}[deployment](pose)
     ce = p.covariance_estimation
     return dataclasses.replace(p, covariance_estimation=dataclasses.replace(
-        ce, raw_range_image=raw, m_estimation=dataclasses.replace(ce.m_estimation, enable=robust)))
+        ce, raw_range_image=raw, neighbor_num=neighbor_num,
+        m_estimation=dataclasses.replace(ce.m_estimation, enable=robust)))
 
 
-def run_jax(deployment: str, raw: bool, robust: bool, frames: int) -> float:
+def run_jax(deployment: str, raw: bool, robust: bool, frames: int, neighbor_num: int = 10) -> float:
     sys.path.insert(0, str(ROOT / "benchmarks"))
     import jax.numpy as jnp
     import synthetic_velodyne as S
@@ -82,7 +87,7 @@ def run_jax(deployment: str, raw: bool, robust: bool, frames: int) -> float:
 
     poses = S.figure8_trajectory(frames, speed=SPEED)
     world = S.World()
-    params = jax_params(deployment, raw, robust, poses[0])
+    params = jax_params(deployment, raw, robust, poses[0], neighbor_num)
     lio = deployment == "LIO replay deployment"
     odo = (LidarInertialOdometry if lio else LidarOdometry)(params)
     if lio:
@@ -111,16 +116,16 @@ def run_jax(deployment: str, raw: bool, robust: bool, frames: int) -> float:
     return ate(est, poses)
 
 
-def run_torch(deployment: str, raw: bool, robust: bool, frames: int, device: str) -> float:
+def run_torch(deployment: str, raw: bool, robust: bool, frames: int, device: str, neighbor_num: int = 10) -> float:
     from sycl_points_tpu_torch.apps import lio_replay, odometry_replay
 
     if deployment == "LIO replay deployment":
         inputs = lio_replay.make_lio_inputs(frames, N_AZ, N_RINGS, SPEED, device=device)
-        return lio_replay.run_lio_replay(port_params(deployment, raw, robust, inputs.poses[0]), inputs,
-                                         device=device)["ate_m"]
+        return lio_replay.run_lio_replay(port_params(deployment, raw, robust, inputs.poses[0], neighbor_num),
+                                         inputs, device=device)["ate_m"]
     poses, scans = odometry_replay.make_scans(frames, N_AZ, N_RINGS, SPEED, device=device,
                                               intensities=deployment == "default tree")
-    return odometry_replay.run_replay(port_params(deployment, raw, robust, poses[0]), poses, scans,
+    return odometry_replay.run_replay(port_params(deployment, raw, robust, poses[0], neighbor_num), poses, scans,
                                       device=device)["ate_m"]
 
 
@@ -130,17 +135,20 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cpu", help="the port's device (torch only)")
     ap.add_argument("--frames", type=int, default=FRAMES)
     ap.add_argument("--deployments", nargs="*", default=list(DEPLOYMENTS))
+    ap.add_argument("--neighbor-num", type=int, default=10)
+    ap.add_argument("--estimators", nargs="*", choices=("robust", "plain"), default=["robust", "plain"])
+    ap.add_argument("--raw", nargs="*", choices=("off", "on"), default=["off", "on"])
     args = ap.parse_args(argv)
     for deployment in args.deployments:
-        for robust in (True, False):
-            for raw in (False, True):
+        for robust in [e == "robust" for e in args.estimators]:
+            for raw in [r == "on" for r in args.raw]:
                 if args.package == "jax":
-                    ate = run_jax(deployment, raw, robust, args.frames)
+                    ate = run_jax(deployment, raw, robust, args.frames, args.neighbor_num)
                 else:
-                    ate = run_torch(deployment, raw, robust, args.frames, args.device)
+                    ate = run_torch(deployment, raw, robust, args.frames, args.device, args.neighbor_num)
                 print(json.dumps({"package": args.package, "deployment": deployment,
-                                  "estimator": "robust" if robust else "plain", "raw": raw, "ate_m": ate}),
-                      flush=True)
+                                  "estimator": "robust" if robust else "plain", "raw": raw,
+                                  "neighbor_num": args.neighbor_num, "ate_m": ate}), flush=True)
 
 
 def test_jax_trees_convert_to_the_port_deployments():
@@ -151,8 +159,9 @@ def test_jax_trees_convert_to_the_port_deployments():
     for deployment in DEPLOYMENTS:
         for raw in (False, True):
             for robust in (False, True):
-                assert params_from_reference(jax_params(deployment, raw, robust, pose)) == \
-                    port_params(deployment, raw, robust, pose), (deployment, raw, robust)
+                for k in (10, 20):
+                    assert params_from_reference(jax_params(deployment, raw, robust, pose, k)) == \
+                        port_params(deployment, raw, robust, pose, k), (deployment, raw, robust, k)
 
 
 if __name__ == "__main__":
