@@ -575,6 +575,10 @@ FLEET_KITTI_FRAMES = 20
 FLEET_KITTI_SHORT = 14
 FLEET_KITTI_MAX_ATE_M = 0.30
 FLEET_CDIST_MAX_PAIRS = 1 << 30  # the batched cdist yardstick launches up to here
+# The ragged fleet case's extents, spread over the streams (the last one the
+# capacity): none valid, one row, either side of a 32-row unit and of the
+# 512-row tile, a submap extraction's ~430.
+RAGGED_EXTENTS = (0, 1, 31, 33, 430, 511, 513)
 # The LIO fleet at the benchmark's --lio deployment: the JAX package's record
 # of it is a mean ATE of 0.145 m and a worst stream of 0.219 m, one
 # stream-frame of 312 not a success (benchmarks/FLEET_LIO_r4.json).
@@ -1166,16 +1170,21 @@ def check_lo_shapes(lo_out, path: str = LO_PATH, tag: str = "LO") -> list:
             check_equal("nn1", cuda_knn.nn1(tt, mm, q, pose), cuda_knn.nn1_plain(tt, mm, q, pose),
                         f"{tag} {label}, {what}")
         pr = cuda_knn.prep_target(t, m)
+        check_equal("nn1", cuda_knn.nn1_prepped(pr, q, pose), cuda_knn.nn1_prepped(full_sweep(pr), q, pose),
+                    f"{tag} {label}, against the full sweep")
         turns = in_turns({"plain_ms": lambda: cuda_knn.nn1_plain(t, m, q, pose),
-                          "ms": lambda: cuda_knn.nn1_prepped(pr, q, pose)})
+                          "ms": lambda: cuda_knn.nn1_prepped(pr, q, pose),
+                          "full_sweep_ms": lambda: cuda_knn.nn1_prepped(full_sweep(pr), q, pose)})
         moved = transform_points(q, pose).contiguous()
         lib = marginal_ms(lambda: cdist_min(moved, inf_masked(t, m)), dev)
         sb = nn1_bound(q.shape[0], t.shape[0], int(m.sum()))
-        shapes[label] = {"Q": q.shape[0], "M": t.shape[0], "valid": int(m.sum()), **turns, "library_ms": lib,
-                         "bound_ms": sb[0], "bound_by": sb[1]}
-        print(f"nn1 at the {tag} frame's shape, {label} target (Q={q.shape[0]}, M={t.shape[0]}, valid {int(m.sum())}): "
-              f"equal to nn1_plain bit for bit (all masked too); kernel {turns['ms']:.4f} ms, plain "
-              f"{turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
+        extent = int(pr.extent[0])
+        shapes[label] = {"Q": q.shape[0], "M": t.shape[0], "valid": int(m.sum()), "extent": extent, **turns,
+                         "library_ms": lib, "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"nn1 at the {tag} frame's shape, {label} target (Q={q.shape[0]}, M={t.shape[0]}, valid {int(m.sum())}, "
+              f"extent {extent}): equal to nn1_plain and to the full sweep bit for bit (all masked too); in turns: "
+              f"kernel {turns['ms']:.4f} ms, full sweep {turns['full_sweep_ms']:.4f}, plain {turns['plain_ms']:.4f}; "
+              f"cdist+min {lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
     last = shapes[list(shapes)[-1]]
     rows.append(row("nn1", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", path, 0.0,
                     (last["ms"], last["plain_ms"], last["library_ms"]), (last["bound_ms"], last["bound_by"]),
@@ -1195,20 +1204,24 @@ def check_lo_shapes(lo_out, path: str = LO_PATH, tag: str = "LO") -> list:
         if bad or err > D2_ATOL:
             raise AssertionError(f"knn_k disagrees with its plain version at the {tag} {label}'s shape")
         pr = cuda_knn.prep_target(pts, mask)
+        check_equal("knn_k", got, cuda_knn.knn_k_prepped(full_sweep(pr), pts, K), f"{tag} {label}, full sweep")
         turns = in_turns({"plain_ms": lambda: cuda_knn.knn_k_plain(pts, mask, pts, K),
                           "ms": lambda: cuda_knn.knn_k_prepped(pr, pts, K),
+                          "full_sweep_ms": lambda: cuda_knn.knn_k_prepped(full_sweep(pr), pts, K),
                           "public_ms": lambda: cuda_knn.knn_k(pts, mask, pts, K)})
         t_inf = inf_masked(pts, mask)
         lib = marginal_ms(lambda: torch.cdist(pts, t_inf, compute_mode="donot_use_mm_for_euclid_dist")
                           .topk(K, largest=False), dev)
         n = pts.shape[0]
         sb = knn_bound(n, n, int(mask.sum()), K)
-        shapes[label] = {"Q": n, "M": n, "valid": int(mask.sum()), **turns, "library_ms": lib, "max_abs_err": err,
-                         "bound_ms": sb[0], "bound_by": sb[1]}
-        print(f"knn_k at the {tag} frame's shape, {label} (k={K}, Q=M={n}, valid {int(mask.sum())}): equal to "
-              f"knn_k_simple bit for bit (all masked too), max |d2 - plain| = {err:.3g}; kernel {turns['ms']:.4f} ms, "
-              f"with prep {turns['public_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+topk {lib:.4f}, "
-              f"bound {sb[0]:.4f} ({sb[1]})")
+        extent = int(pr.extent[0])
+        shapes[label] = {"Q": n, "M": n, "valid": int(mask.sum()), "extent": extent, **turns, "library_ms": lib,
+                         "max_abs_err": err, "bound_ms": sb[0], "bound_by": sb[1]}
+        print(f"knn_k at the {tag} frame's shape, {label} (k={K}, Q=M={n}, valid {int(mask.sum())}, extent {extent}): "
+              f"equal to knn_k_simple and to the full sweep bit for bit (all masked too), max |d2 - plain| = "
+              f"{err:.3g}; in turns: kernel {turns['ms']:.4f} ms, full sweep {turns['full_sweep_ms']:.4f}, with prep "
+              f"{turns['public_ms']:.4f}, plain {turns['plain_ms']:.4f}; cdist+topk {lib:.4f}, bound {sb[0]:.4f} "
+              f"({sb[1]})")
     scan = shapes["scan"]
     rows.append(row("knn_k", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", path, scan["max_abs_err"],
                     (scan["ms"], scan["plain_ms"], scan["library_ms"]), (scan["bound_ms"], scan["bound_by"]),
@@ -2104,16 +2117,36 @@ def fleet_kernel_inputs(fleet, frame, cap: int, dev, intensities=None) -> dict:
 
 def fleet_cases(points, mask) -> dict:
     """The fleet's bit-equality cases: its targets, stream 1's masked, the
-    first odd number of rows, and each stream's first half twice over (every
-    point has an exact tie, in another slice)."""
+    first odd number of rows, each stream's first half twice over (every
+    point has an exact tie, in another slice), ragged extents (stream b's
+    valid rows cut at RAGGED_EXTENTS and the capacity, spread over the
+    streams) and a scattered mask (every stream's rows in one random order,
+    its valid rows spread over the capacity)."""
+    B, M = mask.shape
     one_masked = mask.clone()
     one_masked[1] = False
-    n_odd = (points.shape[1] - 1) | 1
-    h = points.shape[1] // 2
+    n_odd = (M - 1) | 1
+    h = M // 2
+    cuts = (*RAGGED_EXTENTS, M)
+    ext = torch.tensor([cuts[b * len(cuts) // B] for b in range(B)], device=mask.device)
+    perm = torch.randperm(M, generator=torch.Generator(device="cpu").manual_seed(SEED)).to(mask.device)
     return {"path": (points, mask), "stream 1 all masked": (points, one_masked),
             f"first {n_odd} rows": (points[:, :n_odd].contiguous(), mask[:, :n_odd].contiguous()),
             "halves duplicated (ties)": (torch.cat([points[:, :h], points[:, :h]], 1).contiguous(),
-                                         torch.cat([mask[:, :h], mask[:, :h]], 1).contiguous())}
+                                         torch.cat([mask[:, :h], mask[:, :h]], 1).contiguous()),
+            "ragged extents": (points, mask & (torch.arange(M, device=mask.device)[None, :] < ext[:, None])),
+            "scattered mask": (points[:, perm].contiguous(), mask[:, perm].contiguous())}
+
+
+def full_sweep(prep):
+    """``prep`` without its extents: the kernels sweep every row of Mp, as
+    they did before a prepared target carried its extents."""
+    return cuda_knn.PreppedTarget(prep.xyz, prep.M)
+
+
+def slice_turns(launch, counts) -> dict:
+    """Marginal ms of ``launch(slices)`` at each slice count, in turns."""
+    return in_turns({s: (lambda s=s: launch(s)) for s in counts}, rounds=1)
 
 
 def check_fleet_kernels(f, path: str = FLEET_PATH, tag: str = "fleet") -> list:
@@ -2131,26 +2164,42 @@ def check_fleet_kernels(f, path: str = FLEET_PATH, tag: str = "fleet") -> list:
         check_equal("nn1_batched", got, (torch.stack([s[0] for s in singles]), torch.stack([s[1] for s in singles])),
                     f"{tag}, {what}, against {B} single launches")
         check_equal("nn1_batched", got, cuda_knn.nn1_batched_plain(tt, mm, q, poses), f"{tag}, {what}, against plain")
+        check_equal("nn1_batched", got, cuda_knn.nn1_prepped_batched(full_sweep(prep), q, poses),
+                    f"{tag}, {what}, against the full sweep")
+        print(f"nn1_batched at the {tag}'s shape, {what}: valid {[int(v) for v in mm.sum(-1)]}, extent "
+              f"{prep.extent.tolist()}")
     valid = [int(v) for v in m.sum(-1)]
     prep = cuda_knn.prep_targets(t, m)
     preps = [cuda_knn.prep_target(t[b], m[b]) for b in range(B)]
     turns = in_turns({
         "ms": lambda: cuda_knn.nn1_prepped_batched(prep, q, poses),
+        "full_sweep_ms": lambda: cuda_knn.nn1_prepped_batched(full_sweep(prep), q, poses),
         "single_ms": lambda: [cuda_knn.nn1_prepped(preps[b], q[b], poses[b]) for b in range(B)],
         "plain_ms": lambda: cuda_knn.nn1_batched_plain(t, m, q, poses),
     })
+    qt, chosen = cuda_knn.cluster_shape(q.shape[1], cuda_knn.NN1_QUERY_TILES, n_sm(), B)
+    grids = {what: {f"{tile}x{s}": ms for tile in cuda_knn.NN1_QUERY_TILES for s, ms in slice_turns(
+        lambda s, tile=tile, pr=pr: cuda_knn._nn1_cluster("nn1_batched", pr, q, poses, tile, s),
+        cuda_knn.CLUSTER_SLICES).items()} for what, pr in (("extent", prep), ("full sweep", full_sweep(prep)))}
     moved = transform_points(q, poses[:, None]).contiguous()
     t_inf = torch.where(m[..., None], t, torch.inf).contiguous()
     lib = marginal_ms(lambda: torch.cdist(moved, t_inf, compute_mode="donot_use_mm_for_euclid_dist").min(dim=-1), dev)
     Q, M = q.shape[1], t.shape[1]
     sb = bound(Q * sum(valid), B * (13 * M + 20 * Q))
-    print(f"nn1_batched at the {tag}'s shape (B={B}, Q={Q}, M={M}, valid {valid}): equal to {B} single launches and "
-          f"to its plain version bit for bit ({', '.join(fleet_cases(t, m))}); kernel {turns['ms']:.4f} ms, {B} single "
-          f"launches {turns['single_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+min {lib:.4f}, bound {sb[0]:.4f} "
-          f"({sb[1]})")
+    print(f"nn1_batched at the {tag}'s shape (B={B}, Q={Q}, M={M}, valid {valid}, extent {prep.extent.tolist()}): "
+          f"equal to {B} single launches, to its plain version and to the full sweep bit for bit "
+          f"({', '.join(fleet_cases(t, m))}); in turns: kernel {turns['ms']:.4f} ms ({qt} queries x {chosen} slices), "
+          f"full sweep {turns['full_sweep_ms']:.4f}, {B} single launches {turns['single_ms']:.4f}, plain "
+          f"{turns['plain_ms']:.4f}; cdist+min {lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
+    for what, grid in grids.items():
+        print(f"nn1_batched at the {tag}'s shape, {what}, ms by query tile x slices, in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in grid.items()))
     rows.append(row("nn1_batched", KNN_SOURCE, "sycl_points_tpu/ops/pallas_knn.py:111", path, 0.0,
                     (turns["ms"], turns["plain_ms"], lib), sb, single_ms=turns["single_ms"],
-                    shapes={f"{tag} target": {"B": B, "Q": Q, "M": M, "valid": valid}}))
+                    full_sweep_ms=turns["full_sweep_ms"],
+                    shapes={f"{tag} target": {"B": B, "Q": Q, "M": M, "valid": valid,
+                                              "extent": prep.extent.tolist(), "query_tile": qt, "slices": chosen,
+                                              "tile_x_slices_ms": grids}}))
 
     shapes = {}
     for label, cloud in (("scan", f["scan"]), ("target", tgt)):
@@ -2162,6 +2211,8 @@ def check_fleet_kernels(f, path: str = FLEET_PATH, tag: str = "fleet") -> list:
             check_equal("knn_k_batched", got, (torch.stack([s[0] for s in singles]),
                                                torch.stack([s[1] for s in singles])),
                         f"{tag} {label}, {what}, against {B} single launches")
+            check_equal("knn_k_batched", got, cuda_knn.knn_k_batched(full_sweep(prep), pp, K),
+                        f"{tag} {label}, {what}, against the full sweep")
             for b in range(B):
                 check_equal("knn_k_batched", (got[0][b], got[1][b]), cuda_knn.knn_k_simple(pp[b], mm[b], pp[b], K),
                             f"{tag} {label}, {what}, stream {b} against knn_k_simple")
@@ -2177,9 +2228,14 @@ def check_fleet_kernels(f, path: str = FLEET_PATH, tag: str = "fleet") -> list:
         preps = [cuda_knn.prep_target(pts[b], mask[b]) for b in range(B)]
         turns = in_turns({
             "ms": lambda: cuda_knn.knn_k_batched(prep, pts, K),
+            "full_sweep_ms": lambda: cuda_knn.knn_k_batched(full_sweep(prep), pts, K),
             "single_ms": lambda: [cuda_knn.knn_k_prepped(preps[b], pts[b], K) for b in range(B)],
             "plain_ms": lambda: cuda_knn.knn_k_batched_plain(pts, mask, pts, K),
         })
+        _, chosen = cuda_knn.cluster_shape(pts.shape[1], (cuda_knn.KNN_QUERY_TILE,), n_sm(), B)
+        by_slices = {what: slice_turns(lambda s, pr=pr: cuda_knn._knn_k_cluster("knn_k_batched", pr, pts, K, s),
+                                       cuda_knn.CLUSTER_SLICES)
+                     for what, pr in (("extent", prep), ("full sweep", full_sweep(prep)))}
         t_inf = torch.where(mask[..., None], pts, torch.inf).contiguous()
         n = pts.shape[1]
         # one batched cdist over 8 x 16,384^2 pairs exceeds its launch grid on
@@ -2192,18 +2248,24 @@ def check_fleet_kernels(f, path: str = FLEET_PATH, tag: str = "fleet") -> list:
                            .topk(K, largest=False)), dev)
         valid = [int(v) for v in mask.sum(-1)]
         sb = bound(n * sum(valid), B * (13 * n + 12 * n + 8 * n * K))
-        shapes[label] = {"B": B, "Q": n, "M": n, "valid": valid, **turns, "library_ms": lib, "max_abs_err": err,
-                         "bound_ms": sb[0], "bound_by": sb[1],
+        shapes[label] = {"B": B, "Q": n, "M": n, "valid": valid, "extent": prep.extent.tolist(), **turns,
+                         "library_ms": lib, "max_abs_err": err, "bound_ms": sb[0], "bound_by": sb[1],
+                         "slices": chosen, "slices_ms": by_slices,
                          "library_call": "cdist + topk a stream" if per_stream else "one batched cdist + topk"}
-        print(f"knn_k_batched at the {tag}'s {label} (B={B}, k={K}, Q=M={n}, valid {valid}): equal to {B} single "
-              f"launches and to knn_k_simple bit for bit ({', '.join(fleet_cases(pts, mask))}), {bad} set mismatches "
-              f"against its plain version, max |d2 - plain| = {err:.3g}; kernel {turns['ms']:.4f} ms, {B} single "
-              f"launches {turns['single_ms']:.4f}, plain {turns['plain_ms']:.4f}, cdist+topk "
-              f"{f'a stream ({B} calls) ' if per_stream else ''}{lib:.4f}, bound {sb[0]:.4f} ({sb[1]})")
+        print(f"knn_k_batched at the {tag}'s {label} (B={B}, k={K}, Q=M={n}, valid {valid}, extent "
+              f"{prep.extent.tolist()}): equal to {B} single launches, to knn_k_simple and to the full sweep bit for "
+              f"bit ({', '.join(fleet_cases(pts, mask))}), {bad} set mismatches against its plain version, max "
+              f"|d2 - plain| = {err:.3g}; in turns: kernel {turns['ms']:.4f} ms ({chosen} slices), full sweep "
+              f"{turns['full_sweep_ms']:.4f}, {B} single launches {turns['single_ms']:.4f}, plain "
+              f"{turns['plain_ms']:.4f}; cdist+topk {f'a stream ({B} calls) ' if per_stream else ''}{lib:.4f}, "
+              f"bound {sb[0]:.4f} ({sb[1]})")
+        for what, ms in by_slices.items():
+            print(f"knn_k_batched at the {tag}'s {label}, {what}, ms by slices, in turns: "
+                  + ", ".join(f"{s} {v:.4f}" for s, v in ms.items()))
     scan = shapes["scan"]
     rows.append(row("knn_k_batched", KNN_SOURCE, "sycl_points_tpu/ops/knn.py:223", path, scan["max_abs_err"],
                     (scan["ms"], scan["plain_ms"], scan["library_ms"]), (scan["bound_ms"], scan["bound_by"]),
-                    single_ms=scan["single_ms"], shapes=shapes))
+                    single_ms=scan["single_ms"], full_sweep_ms=scan["full_sweep_ms"], shapes=shapes))
     for r in rows:
         r["launches"] = f["launches"][r["name"]]
     return rows

@@ -19,13 +19,27 @@
 // once per block. The first versions (knn.cu: one thread a query, the whole
 // target per block) filled few SMs with few warps: nn1 at 1000 queries ran
 // 8 blocks on 132 SMs, knn_k at 24,576 queries 1.45 waves of 4-warp blocks,
-// latency-bound on a compare chain.
+// latency-bound on a compare chain. The pairs that count are those against
+// the valid rows only: a submap extraction holds ~430 valid rows of its
+// 16,384-row capacity, so a sweep of the whole capacity spends ~97% of its
+// pairs on +inf rows. Each stream's extent (1 + the index of its last valid
+// row, made by prep_target on the device) bounds the sweep instead.
 //
 // The design:
 //   * The grid is query tiles x S target slices. The S blocks of one query
 //     tile form a thread-block cluster (S = 1 to 16, chosen by the wrapper
 //     from Q so the grid holds about 4 blocks an SM); block r scans only
-//     slice r of the target, so a small query count still fills the card.
+//     slice r of the stream's extent, so a small query count still fills the
+//     card.
+//   * The slices: the extent [0, extent) is cut into kUnit-row units (the
+//     float4 spans of every warp group), rounded up into the +inf padding
+//     (prep_target pads to a multiple of kTile, so the rounded extent stays
+//     inside Mp), and block r takes units [r n / S, (r + 1) n / S). The
+//     slices never overlap, so no target enters two blocks' lists, and a
+//     stream of a few hundred valid rows still spreads over every block of
+//     its cluster. A target prepared without an extent sweeps all of Mp.
+//     Every row past the extent is +inf, which no strict `<` takes, so
+//     cutting the sweep there cannot change a result.
 //   * One query a thread. A block's 4 warps form G = 4 / QW groups of QW
 //     warps: each group holds the block's QT = 32 * QW queries and scans 1/G
 //     of every staged tile, so a block of 32 queries still has 4 warps at
@@ -38,10 +52,10 @@
 //     128 threads x K floats (128 KiB at K = 128, one block an SM), fit a
 //     block's 227 KB at the 128-query tile; the wrapper gives them at most 8
 //     slices, so that a cluster never needs 16 SMs of one GPC at once.
-//   * The slice streams through two shared-memory tiles loaded with cp.async
-//     while the other is scanned: whole aligned tiles of the prepared target,
-//     no mask, no edge test. A float4 load is a warp-wide broadcast feeding
-//     4 distances.
+//   * The slice streams through two shared-memory tiles of up to kTile rows
+//     loaded with cp.async while the other is scanned: whole aligned units of
+//     the prepared target, no mask, no edge test. A float4 load is a
+//     warp-wide broadcast feeding 4 distances.
 //   * Each thread keeps a sorted partial best-k in registers, with knn.cu's
 //     insertion rule (strict `<`, after entries <= d, targets in index
 //     order), so a partial list is the k smallest (d, idx) of its targets.
@@ -53,26 +67,29 @@
 //     distributed shared memory, bounds the query's true k-th distance from
 //     above, and the full scan then inserts only distances <= that bound.
 //     Anything pruned has k real neighbours closer, so the result does not
-//     change.
+//     change. With fewer than k samples in every block the bound stays +inf.
 //   * Merge: each group writes its lists to its block's shared memory,
 //     cluster.sync(), then block r merges 1/S of the tile's queries by
 //     reading every peer's lists through cluster.map_shared_rank, by
 //     (d, idx) in lexicographic order, and writes idx/d2. A last
 //     cluster.sync() keeps every block's shared memory alive until all peers
-//     have read it.
+//     have read it. With the sweep cut to the extent, the merge and the
+//     launch are most of a fleet's nn1: the slice count trades the two.
 //
 // Why the result equals knn.cu's bit for bit, ties included: that kernel
 // returns the k smallest (d, idx) pairs in lexicographic order; a merge of
-// per-slice k-smallest lists by the same key returns the same pairs. Slots
-// with no valid neighbour stay idx 0, d2 = +inf: an +inf distance never
-// enters a list, and (inf, 0) loses to any finite entry in the merge.
+// per-slice k-smallest lists by the same key returns the same pairs, for any
+// partition of the rows into disjoint slices. Slots with no valid neighbour
+// stay idx 0, d2 = +inf: an +inf distance never enters a list, and (inf, 0)
+// loses to any finite entry in the merge; a stream of extent 0 scans nothing
+// and writes idx 0, d2 = +inf at every slot.
 //
 // The stream axis: a fleet of B independent streams runs as one launch, the
 // grid's z dimension numbering the streams. Block z offsets its target
-// (3 * Mp floats a stream), queries (3 * Q), pose (16) and outputs (Q * K)
-// by z; a cluster stays inside one stream, so every block computes what it
+// (3 * Mp floats a stream), extent (1 int), queries (3 * Q), pose (16) and
+// outputs (Q * K) by z; a cluster stays inside one stream, so every block computes what it
 // computes in a single-stream launch, and the result equals B single-stream
-// launches bit for bit. The single-stream entries are the B = 1 case.
+// launches bit for bit. A single stream is the B = 1 case of the same entries.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns the first error of cudaFuncSetAttribute, cudaLaunchKernelEx or
@@ -99,6 +116,7 @@ using spt::scan_span;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 512;         // targets a staged tile; prep_target pads to it
+constexpr int kUnit = 32;          // rows a unit of the slices: whole float4 spans of G <= 4 groups
 constexpr int kMaxSlices = 16;     // blocks a cluster; above 8 is a non-portable size
 constexpr int kSampleStride = 16;  // knn_k's pruning sample: every 16th target
 constexpr int kMaxQueryTiles = 65535;
@@ -108,7 +126,6 @@ template <int K, int QW, bool kPrune>
 struct Cfg {
   static constexpr int G = kWarps / QW;    // warp groups, each scans 1/G of a tile
   static constexpr int QT = 32 * QW;       // queries a block (and a cluster)
-  static constexpr int kChunk = kTile / G; // targets a group scans per tile
   static constexpr int kTileFloats = 2 * 3 * kTile;       // two staged tiles
   static constexpr int kListFloats = 2 * G * QT * K;      // (d, idx) lists
   static constexpr int kMain = kTileFloats > kListFloats ? kTileFloats : kListFloats;
@@ -118,14 +135,14 @@ struct Cfg {
   static constexpr int kMinBlocks = K <= 10 ? 8 : K <= spt::kFastK ? 6 : K <= 32 ? 2 : 1;
   static_assert(kWarps % QW == 0, "QW divides the block's warps");
   static_assert(QT % kMaxSlices == 0, "every slice count divides the query tile");
-  static_assert(kChunk % 8 == 0 && kTile % (kSampleStride * 8) == 0, "float4 spans");
+  static_assert(kUnit % (4 * G) == 0 && kTile % kUnit == 0, "a unit is whole float4 spans of every group");
 };
 
 template <int K, int QW, bool kPose, bool kPrune>
 __global__ void __launch_bounds__(kThreads, (Cfg<K, QW, kPrune>::kMinBlocks))
-knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restrict__ queries,
-                   int Q, const float* __restrict__ pose, int k, int* __restrict__ out_idx,
-                   float* __restrict__ out_d2) {
+knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const int* __restrict__ extent,
+                   const float* __restrict__ queries, int Q, const float* __restrict__ pose, int k,
+                   int* __restrict__ out_idx, float* __restrict__ out_d2) {
   using C = Cfg<K, QW, kPrune>;
   const int kw = spt::row_count<K>(k);  // entries a row of the output
   extern __shared__ __align__(16) float smem[];
@@ -167,29 +184,39 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
   }
   float cap = CUDART_INF_F, lim = CUDART_INF_F;
 
-  // This block's slice: tiles [t0, t1), in ascending index order.
-  const int n_tiles = Mp / kTile;
-  const int t0 = static_cast<int>(static_cast<long long>(rank) * n_tiles / S);
-  const int t1 = static_cast<int>(static_cast<long long>(rank + 1) * n_tiles / S);
+  // This block's slice: rows [r0, r1) of the stream's extent, whole units,
+  // in ascending index order.
+  const int ext = extent == nullptr ? Mp : min(max(extent[z], 0), Mp);
+  const int n_units = (ext + kUnit - 1) / kUnit;
+  const int r0 = static_cast<int>(static_cast<long long>(rank) * n_units / S) * kUnit;
+  const int r1 = static_cast<int>(static_cast<long long>(rank + 1) * n_units / S) * kUnit;
   float* tiles = smem;
 
   if constexpr (kPrune) {
-    // Phase 1: best-k of every kSampleStride-th target of the slice.
-    const int s_first = t0 * kTile;
-    const int n_sample = (t1 - t0) * (kTile / kSampleStride);
+    // Phase 1: best-k of every kSampleStride-th target of the slice, staged
+    // kTile samples at a time; a short last batch is padded with +inf to a
+    // whole unit.
+    const int n_sample = (r1 - r0) / kSampleStride;
     for (int c0 = 0; c0 < n_sample; c0 += kTile) {
       const int n = min(kTile, n_sample - c0);
+      const int n_pad = (n + kUnit - 1) / kUnit * kUnit;
       __syncthreads();
-      for (int j = threadIdx.x; j < n; j += kThreads) {
-        const size_t t = static_cast<size_t>(s_first) + static_cast<size_t>(c0 + j) * kSampleStride;
-        tiles[j] = tgt[t];
-        tiles[kTile + j] = tgt[static_cast<size_t>(Mp) + t];
-        tiles[2 * kTile + j] = tgt[2 * static_cast<size_t>(Mp) + t];
+      for (int j = threadIdx.x; j < n_pad; j += kThreads) {
+        float x = CUDART_INF_F, y = CUDART_INF_F, w = CUDART_INF_F;
+        if (j < n) {
+          const size_t t = static_cast<size_t>(r0) + static_cast<size_t>(c0 + j) * kSampleStride;
+          x = tgt[t];
+          y = tgt[static_cast<size_t>(Mp) + t];
+          w = tgt[2 * static_cast<size_t>(Mp) + t];
+        }
+        tiles[j] = x;
+        tiles[kTile + j] = y;
+        tiles[2 * kTile + j] = w;
       }
       __syncthreads();
-      const int span = n / C::G;  // n is a multiple of 32
+      const int span = n_pad / C::G;
       scan_span<K>(tiles, tiles + kTile, tiles + 2 * kTile, g * span, (g + 1) * span,
-                   s_first + c0 * kSampleStride, kSampleStride, qx, qy, qz, bd, bi, lim, cap);
+                   r0 + c0 * kSampleStride, kSampleStride, qx, qy, qz, bd, bi, lim, cap);
     }
     // The cluster's bound: the least sampled k-th distance over every block
     // and group. nextafter keeps a distance equal to it: such a target can
@@ -212,30 +239,35 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
     __syncthreads();  // the sample buffer is free for the tiles
   }
 
-  // Phase 2: the whole slice, double-buffered through cp.async.
-  auto stage = [&](int tile, int buf) {
+  // Phase 2: the whole slice, kTile rows a step (the last one n < kTile rows,
+  // whole units), double-buffered through cp.async.
+  auto stage = [&](int start, int n, int buf) {
     float* dst = tiles + buf * 3 * kTile;
-    for (int c = threadIdx.x; c < 3 * kTile / 4; c += kThreads) {
-      const int row = c / (kTile / 4);
-      const int off = (c % (kTile / 4)) * 4;
-      cp_async16(dst + row * kTile + off,
-                 tgt + static_cast<size_t>(row) * Mp + static_cast<size_t>(tile) * kTile + off);
+    const int n4 = n / 4;
+    for (int c = threadIdx.x; c < 3 * n4; c += kThreads) {
+      const int row = c / n4;
+      const int off = (c - row * n4) * 4;
+      cp_async16(dst + row * kTile + off, tgt + static_cast<size_t>(row) * Mp + start + off);
     }
     cp_async_commit();
   };
-  if (t0 < t1) stage(t0, 0);
-  for (int t = t0; t < t1; ++t) {
-    const int buf = (t - t0) & 1;
-    if (t + 1 < t1) {
-      stage(t + 1, buf ^ 1);
+  const int n_steps = (r1 - r0 + kTile - 1) / kTile;
+  if (n_steps > 0) stage(r0, min(kTile, r1 - r0), 0);
+  for (int t = 0; t < n_steps; ++t) {
+    const int start = r0 + t * kTile;
+    const int n = min(kTile, r1 - start);
+    const int buf = t & 1;
+    if (t + 1 < n_steps) {
+      stage(start + kTile, min(kTile, r1 - start - kTile), buf ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     const float* sx = tiles + buf * 3 * kTile;
-    scan_span<K>(sx, sx + kTile, sx + 2 * kTile, g * C::kChunk, (g + 1) * C::kChunk, t * kTile, 1,
-                 qx, qy, qz, bd, bi, lim, cap);
+    const int chunk = n / C::G;
+    scan_span<K>(sx, sx + kTile, sx + 2 * kTile, g * chunk, (g + 1) * chunk, start, 1, qx, qy, qz, bd, bi,
+                 lim, cap);
     __syncthreads();
   }
 
@@ -299,8 +331,8 @@ knn_cluster_kernel(const float* __restrict__ tgt, int Mp, const float* __restric
 }
 
 template <int K, int QW, bool kPose, bool kPrune>
-int launch(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices, int k,
-           int* out_idx, float* out_d2, void* stream) {
+int launch(const float* tgt, int Mp, const int* extent, const float* queries, int Q, const float* pose, int B,
+           int slices, int k, int* out_idx, float* out_d2, void* stream) {
   using C = Cfg<K, QW, kPrune>;
   if (Q <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   const int n_qtiles = (Q + C::QT - 1) / C::QT;
@@ -326,68 +358,56 @@ int launch(const float* tgt, int Mp, const float* queries, int Q, const float* p
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tgt, Mp, queries, Q, pose, k, out_idx, out_d2);
+  err = cudaLaunchKernelEx(&cfg, kernel, tgt, Mp, extent, queries, Q, pose, k, out_idx, out_d2);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int QW>
-int launch_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose, int B, int slices,
-               int* out_idx, float* out_d2, void* stream) {
+int launch_nn1(const float* tgt, int Mp, const int* extent, const float* queries, int Q, const float* pose, int B,
+               int slices, int* out_idx, float* out_d2, void* stream) {
   if (pose != nullptr)
-    return launch<1, QW, true, false>(tgt, Mp, queries, Q, pose, B, slices, 1, out_idx, out_d2, stream);
-  return launch<1, QW, false, false>(tgt, Mp, queries, Q, pose, B, slices, 1, out_idx, out_d2, stream);
+    return launch<1, QW, true, false>(tgt, Mp, extent, queries, Q, pose, B, slices, 1, out_idx, out_d2, stream);
+  return launch<1, QW, false, false>(tgt, Mp, extent, queries, Q, pose, B, slices, 1, out_idx, out_d2, stream);
 }
 
 }  // namespace
 
 // Exact 1-NN of the queries [B,Q,3] of B streams (moved by their poses
 // [B,4,4] row-major if not null) against their prepared targets [B,3,Mp]:
-// stream b's queries search stream b's target only. The wrapper chooses from
-// B * Q the queries a cluster (query_tile: 32, 64 or 128) and the target
-// slices, blocks a cluster (slices: 1, 2, 4, 8 or 16).
-extern "C" int spt_nn1_batched(const float* tgt, int Mp, const float* queries, int Q, const float* pose,
-                               int B, int query_tile, int slices, int* out_idx, float* out_d2,
+// stream b's queries search stream b's target only, its rows [0, extent[b])
+// (all Mp if extent is null). The wrapper chooses from B * Q the queries a
+// cluster (query_tile: 32, 64 or 128) and the target slices, blocks a
+// cluster (slices: 1, 2, 4, 8 or 16).
+extern "C" int spt_nn1_batched(const float* tgt, int Mp, const int* extent, const float* queries, int Q,
+                               const float* pose, int B, int query_tile, int slices, int* out_idx, float* out_d2,
                                void* stream) {
   switch (query_tile) {
     case 32:
-      return launch_nn1<1>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
+      return launch_nn1<1>(tgt, Mp, extent, queries, Q, pose, B, slices, out_idx, out_d2, stream);
     case 64:
-      return launch_nn1<2>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
+      return launch_nn1<2>(tgt, Mp, extent, queries, Q, pose, B, slices, out_idx, out_d2, stream);
     case 128:
-      return launch_nn1<4>(tgt, Mp, queries, Q, pose, B, slices, out_idx, out_d2, stream);
+      return launch_nn1<4>(tgt, Mp, extent, queries, Q, pose, B, slices, out_idx, out_d2, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Exact 1-NN of queries [Q,3] (moved by pose [4,4] row-major if not null)
-// against a prepared target [3, Mp]: the one-stream fleet.
-extern "C" int spt_nn1(const float* tgt, int Mp, const float* queries, int Q, const float* pose,
-                       int query_tile, int slices, int* out_idx, float* out_d2, void* stream) {
-  return spt_nn1_batched(tgt, Mp, queries, Q, pose, 1, query_tile, slices, out_idx, out_d2, stream);
-}
-
-#define SPT_KNN_CLUSTER_CASE(KV) \
-  case KV:                       \
-    return launch<KV, 4, false, true>(tgt, Mp, queries, Q, nullptr, B, slices, k, out_idx, out_d2, stream);
+#define SPT_KNN_CLUSTER_CASE(KV)                                                                          \
+  case KV:                                                                                                \
+    return launch<KV, 4, false, true>(tgt, Mp, extent, queries, Q, nullptr, B, slices, k, out_idx, out_d2, \
+                                      stream);
 
 // Exact k-NN (1 <= k <= 128) of the queries [B,Q,3] of B streams against
-// their prepared targets [B,3,Mp], ascending by (d, idx): 128 queries a
-// cluster and the slices the wrapper chooses from B * Q (as for nn1; at most
-// 8 for k above 16).
-extern "C" int spt_knn_k_batched(const float* tgt, int Mp, const float* queries, int Q, int B, int k,
-                                 int slices, int* out_idx, float* out_d2, void* stream) {
+// their prepared targets [B,3,Mp] and extents [B] (all Mp if null),
+// ascending by (d, idx): 128 queries a cluster and the slices the wrapper
+// chooses from B * Q (as for nn1; at most 8 for k above 16).
+extern "C" int spt_knn_k_batched(const float* tgt, int Mp, const int* extent, const float* queries, int Q, int B,
+                                 int k, int slices, int* out_idx, float* out_d2, void* stream) {
   switch (spt::instance_k(k)) {
     SPT_K_CASES(SPT_KNN_CLUSTER_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Exact k-NN of queries [Q,3] against a prepared target [3, Mp]: the
-// one-stream fleet.
-extern "C" int spt_knn_k(const float* tgt, int Mp, const float* queries, int Q, int k, int slices,
-                         int* out_idx, float* out_d2, void* stream) {
-  return spt_knn_k_batched(tgt, Mp, queries, Q, 1, k, slices, out_idx, out_d2, stream);
 }

@@ -5,9 +5,10 @@
 //
 // A prepared target (ops/cuda_knn.prep_target) is SoA [3, Mp] float32: the x
 // row, then y, then z, with masked rows and the padding up to Mp (a multiple
-// of kTile) set to +inf. An +inf target's distance is +inf, which no strict
-// `<` takes, so the kernels read whole aligned tiles with no mask and no edge
-// test.
+// of kTile) set to +inf, and an extent, 1 + its last valid row. An +inf
+// target's distance is +inf, which no strict `<` takes, so the kernels read
+// whole aligned 32-row units up to the extent, rounded up into the padding,
+// with no mask and no edge test.
 
 #pragma once
 

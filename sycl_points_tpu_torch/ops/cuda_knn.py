@@ -25,6 +25,9 @@ Both take a leading stream axis in one launch (``nn1_prepped_batched``,
 ``knn_k_batched`` on targets made by :func:`prep_targets`): stream ``b``'s
 queries search stream ``b``'s target only, and the result equals ``B``
 single-stream launches bit for bit. The fleet runs its streams through them.
+A prepared target carries each stream's extent (:func:`_target_extent`, 1 +
+its last valid row, made on the device), and the kernels sweep only the
+rows below it: a submap extraction holds ~430 valid rows of its 16,384.
 
 In ``csrc/knn.cu``, the first designs, one thread a query on the raw target
 and its mask: ``nn1_tiled``, the 1-NN at a chosen (threads per block, target
@@ -95,10 +98,11 @@ LARGE_K = (32, 64, 128)
 MAX_K = LARGE_K[-1]
 # The cluster kernels (csrc/knn_cluster.cu): a prepared target is padded to a
 # multiple of TARGET_TILE; a cluster is one query tile (one of
-# NN1_QUERY_TILES for nn1, KNN_QUERY_TILE for knn_k) against the target cut
-# into CLUSTER_SLICES slices (LARGE_K_SLICES for k above FAST_MAX_K, whose
-# blocks take up to 128 KiB of shared memory), a block each; cluster_shape()
-# chooses both.
+# NN1_QUERY_TILES for nn1, KNN_QUERY_TILE for knn_k) against the target's
+# extent cut into CLUSTER_SLICES slices of whole 32-row units
+# (LARGE_K_SLICES for k above FAST_MAX_K, whose blocks take up to 128 KiB of
+# shared memory), a block each; cluster_shape() chooses both from the host's
+# shapes (the extents stay on the device).
 TARGET_TILE = 512
 CLUSTER_SLICES = (1, 2, 4, 8, 16)
 LARGE_K_SLICES = (1, 2, 4, 8)
@@ -188,10 +192,8 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.spt_nn1.argtypes = [p, i, p, i, p, i, i, p, p, p]
-            lib.spt_knn_k.argtypes = [p, i, p, i, i, i, p, p, p]
-            lib.spt_nn1_batched.argtypes = [p, i, p, i, p, i, i, i, p, p, p]
-            lib.spt_knn_k_batched.argtypes = [p, i, p, i, i, i, i, p, p, p]
+            lib.spt_nn1_batched.argtypes = [p, i, p, p, i, p, i, i, i, p, p, p]
+            lib.spt_knn_k_batched.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
             lib.spt_knn_k_simple.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_tiled.argtypes = [p, p, i, p, i, i, i, p, p, p]
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
@@ -209,7 +211,7 @@ def load_library() -> ctypes.CDLL:
             lib.spt_coarse_refine_simple.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, p, p, p, p]
             lib.spt_coarse_rank.argtypes = [p, i, p, p, p, i, p, f, i, p, p, p]
             lib.spt_morton_window.argtypes = [p, p, p, i, i, i, p, p, p]
-            for fn in (lib.spt_nn1, lib.spt_knn_k, lib.spt_nn1_batched, lib.spt_knn_k_batched,
+            for fn in (lib.spt_nn1_batched, lib.spt_knn_k_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
                        lib.spt_range_image_window, lib.spt_range_image_window_simple,
@@ -307,10 +309,16 @@ class PreppedTarget(NamedTuple):
     """A kernel-ready target: ``xyz [3, Mp]`` float32, the x, y and z rows,
     with masked rows and the padding up to ``Mp`` (a multiple of
     :data:`TARGET_TILE`) at +inf; ``M`` is the true target count. A fleet's
-    targets (:func:`prep_targets`) are ``xyz [B, 3, Mp]``, one a stream."""
+    targets (:func:`prep_targets`) are ``xyz [B, 3, Mp]``, one a stream.
+
+    ``extent`` (int32 ``[B]``, ``[1]`` for one stream, on the target's
+    device) is 1 + the index of each stream's last valid row, 0 for a stream
+    with none: every row from it on is +inf, so the kernels sweep only
+    ``[0, extent)``. A target built without one sweeps all of ``Mp``."""
 
     xyz: torch.Tensor
     M: int
+    extent: Optional[torch.Tensor] = None
 
     def points(self) -> torch.Tensor:
         """``[M, 3]`` (``[B, M, 3]``) coordinates, +inf on masked rows (a view)."""
@@ -331,8 +339,20 @@ def _prep(points, mask) -> PreppedTarget:
         raise ValueError(f"inputs on more than one device: {points.device}, {mask.device}")
     M = points.shape[-2]
     Mp = -(-M // TARGET_TILE) * TARGET_TILE
-    xyz = torch.where(mask.bool()[..., None, :], points.transpose(-1, -2), torch.inf)
-    return PreppedTarget(torch.nn.functional.pad(xyz, (0, Mp - M), value=torch.inf).contiguous(), M)
+    valid = mask.bool()
+    xyz = torch.where(valid[..., None, :], points.transpose(-1, -2), torch.inf)
+    return PreppedTarget(torch.nn.functional.pad(xyz, (0, Mp - M), value=torch.inf).contiguous(), M,
+                         _target_extent(valid))
+
+
+def _target_extent(valid: torch.Tensor) -> torch.Tensor:
+    """1 + the index of the last true entry of each row of ``valid [..., M]``
+    (0 for a row with none), as int32 ``[B]`` (``[1]`` for one row), made on
+    ``valid``'s device with no host read."""
+    if valid.shape[-1] == 0:
+        return torch.zeros(valid.shape[:-1].numel(), dtype=torch.int32, device=valid.device)
+    rows = torch.arange(1, valid.shape[-1] + 1, dtype=torch.int32, device=valid.device)
+    return torch.where(valid, rows, 0).amax(-1).reshape(-1)
 
 
 def prep_targets(points: torch.Tensor, mask: torch.Tensor) -> PreppedTarget:
@@ -588,9 +608,37 @@ def _launch(name, device, shape, call):
 
 def _check_prepped_cuda(prep: PreppedTarget, queries, pose, device, name: str) -> None:
     _require_cuda(device, name)
-    _require_contiguous(prep.xyz, queries, pose)
+    _require_contiguous(prep.xyz, queries, pose, prep.extent)
     if prep.xyz.data_ptr() % 16:
         raise ValueError(f"{name} reads the prepared target in 16-byte copies: it must be 16-byte aligned")
+    e = prep.extent
+    streams = prep.xyz.shape[0] if prep.xyz.dim() == 3 else 1
+    if e is not None and (e.shape != (streams,) or e.dtype != torch.int32 or e.device != device):
+        raise ValueError(f"{name} takes an int32 [{streams}] extent on {device}, got "
+                         f"{e.dtype} {tuple(e.shape)} on {e.device}")
+
+
+def _extent_ptr(prep: PreppedTarget):
+    return None if prep.extent is None else prep.extent.data_ptr()
+
+
+def _nn1_cluster(name: str, prep: PreppedTarget, queries, poses, query_tile: int, slices: int):
+    """Launch the cluster nn1 once, at ``query_tile`` queries and ``slices``
+    blocks a cluster, on a checked target (``[3, Mp]`` with queries ``[Q,
+    3]``, or ``[B, 3, Mp]`` with ``[B, Q, 3]``), counted under ``name``."""
+    B, Q = (1, queries.shape[0]) if queries.dim() == 2 else queries.shape[:2]
+    pose_ptr = None if poses is None else poses.data_ptr()
+    return _launch(name, queries.device, queries.shape[:-1], lambda lib, i, d, s: lib.spt_nn1_batched(
+        prep.xyz.data_ptr(), prep.xyz.shape[-1], _extent_ptr(prep), queries.data_ptr(), Q, pose_ptr, B,
+        query_tile, slices, i, d, s))
+
+
+def _knn_k_cluster(name: str, prep: PreppedTarget, queries, k: int, slices: int):
+    """Launch the cluster knn_k once at ``slices`` blocks a cluster; as
+    :func:`_nn1_cluster`."""
+    B, Q = (1, queries.shape[0]) if queries.dim() == 2 else queries.shape[:2]
+    return _launch(name, queries.device, (*queries.shape[:-1], k), lambda lib, i, d, s: lib.spt_knn_k_batched(
+        prep.xyz.data_ptr(), prep.xyz.shape[-1], _extent_ptr(prep), queries.data_ptr(), Q, B, k, slices, i, d, s))
 
 
 def nn1_prepped(prep: PreppedTarget, queries, pose=None):
@@ -604,11 +652,8 @@ def nn1_prepped(prep: PreppedTarget, queries, pose=None):
     if device.type == "cpu":
         return _nn1_plain(prep.points(), None, queries, pose)
     _check_prepped_cuda(prep, queries, pose, device, "nn1")
-    Q = queries.shape[0]
-    qt, slices = cluster_shape(Q, NN1_QUERY_TILES, _sm_count(device.index))
-    pose_ptr = None if pose is None else pose.data_ptr()
-    return _launch("nn1", device, (Q,), lambda lib, i, d, s: lib.spt_nn1(
-        prep.xyz.data_ptr(), prep.xyz.shape[1], queries.data_ptr(), Q, pose_ptr, qt, slices, i, d, s))
+    return _nn1_cluster("nn1", prep, queries, pose,
+                        *cluster_shape(queries.shape[0], NN1_QUERY_TILES, _sm_count(device.index)))
 
 
 def nn1(target_xyz, target_mask, queries, pose=None):
@@ -631,10 +676,9 @@ def knn_k_prepped(prep: PreppedTarget, queries, k: int):
     if device.type == "cpu":
         return _knn_k_plain(prep.points(), None, queries, k)
     _check_prepped_cuda(prep, queries, None, device, "knn_k")
-    Q = queries.shape[0]
-    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), slice_counts=knn_slices(k))
-    return _launch("knn_k", device, (Q, k), lambda lib, i, d, s: lib.spt_knn_k(
-        prep.xyz.data_ptr(), prep.xyz.shape[1], queries.data_ptr(), Q, k, slices, i, d, s))
+    _, slices = cluster_shape(queries.shape[0], (KNN_QUERY_TILE,), _sm_count(device.index),
+                              slice_counts=knn_slices(k))
+    return _knn_k_cluster("knn_k", prep, queries, k, slices)
 
 
 def knn_k(target_xyz, target_mask, queries, k: int):
@@ -657,10 +701,8 @@ def nn1_prepped_batched(prep: PreppedTarget, queries, poses=None):
         return nn1_batched_plain(prep.points(), None, queries, poses)
     _check_prepped_cuda(prep, queries, poses, device, "nn1_batched")
     B, Q = queries.shape[:2]
-    qt, slices = cluster_shape(Q, NN1_QUERY_TILES, _sm_count(device.index), B)
-    pose_ptr = None if poses is None else poses.data_ptr()
-    return _launch("nn1_batched", device, (B, Q), lambda lib, i, d, s: lib.spt_nn1_batched(
-        prep.xyz.data_ptr(), prep.xyz.shape[2], queries.data_ptr(), Q, pose_ptr, B, qt, slices, i, d, s))
+    return _nn1_cluster("nn1_batched", prep, queries, poses,
+                        *cluster_shape(Q, NN1_QUERY_TILES, _sm_count(device.index), B))
 
 
 def knn_k_batched(prep: PreppedTarget, queries, k: int):
@@ -677,8 +719,7 @@ def knn_k_batched(prep: PreppedTarget, queries, k: int):
     _check_prepped_cuda(prep, queries, None, device, "knn_k_batched")
     B, Q = queries.shape[:2]
     _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), B, knn_slices(k))
-    return _launch("knn_k_batched", device, (B, Q, k), lambda lib, i, d, s: lib.spt_knn_k_batched(
-        prep.xyz.data_ptr(), prep.xyz.shape[2], queries.data_ptr(), Q, B, k, slices, i, d, s))
+    return _knn_k_cluster("knn_k_batched", prep, queries, k, slices)
 
 
 def _raw_launch(name, entry, target_xyz, target_mask, queries, shape, extra):

@@ -75,8 +75,9 @@ class BruteForceKNN:
     """Correspondence search over a target cloud.
 
     ``prepped()`` holds the kernel-ready target (``cuda_knn.prep_target``:
-    +inf on masked rows, padded to the kernels' tile), made once per align
-    outside the ICP loop."""
+    +inf on masked rows, padded to the kernels' tile, with each stream's
+    extent, 1 + its last valid row), made once per align outside the ICP
+    loop."""
 
     points: torch.Tensor  # [M, 3]
     mask: torch.Tensor  # [M]

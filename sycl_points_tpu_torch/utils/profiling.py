@@ -13,6 +13,12 @@ import os
 
 import torch
 
+# Device cycles of idle work (~10 ms at 2 GHz) queued when a trace starts.
+# The profiler keeps only device records time-stamped inside its capture
+# window, opened on the host's clock; the card's clock drifts from it over a
+# long process, and the first kernels of a block fell outside the window.
+_LEAD_CYCLES = 20_000_000
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
@@ -28,6 +34,8 @@ def trace(log_dir: str):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
+        if torch.cuda.is_available():
+            torch.cuda._sleep(_LEAD_CYCLES)  # the block's kernels start well inside the window
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()

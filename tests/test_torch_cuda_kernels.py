@@ -54,9 +54,18 @@ masked, lost cells, the whole capacity ranked (``occupied`` at C), and 33 and
 100 cells kept a query; the lane-group refine at 8, 16 and 32 lanes and k =
 1, 10, 20 and 128 equals the plain refine, certificates included.
 
-The cluster kernels split the target into 1 to 16 slices of whole
-512-target tiles, the count chosen from Q; the cases below put M off both,
-run every slice count, Q below one query tile, a slice with
+Ragged fleets: each stream's prepared target carries its extent (1 + its
+last valid row), and the cluster kernels sweep only the rows below it. In
+one launch, extents 0, 1, 31, 33, 430, 511, 513 and Mp (valid prefixes, a
+scattered mask, the duplicated-halves ties): ``nn1_batched`` with and
+without poses and ``knn_k_batched`` at k = 1, 10, 16, 20, 32 and 128 equal
+their plain versions (``knn_k_sorted_plain``, and ``knn_k_simple`` up to 16),
+B single launches and a hand-built target without an extent (the full
+sweep) bit for bit, at every query tile and slice count.
+
+The cluster kernels split each target's extent into 1 to 16 slices of
+whole 32-row units, the count chosen from Q; the cases below put M off the
+512-row tile, run every slice count, Q below one query tile, a slice with
 every target masked, every target masked, fewer valid targets than k,
 duplicated points whose exact ties span the slices, and the odometry
 frame's shapes (1,000 queries against a 16,384-row target with a masked
@@ -792,6 +801,124 @@ def test_knn_k_batched_large_k(k):
         assert torch.equal(i[b], si) and torch.equal(d[b], sd)
         ri, rd = cuda_knn.knn_k_sorted_plain(pts[b], mask[b], pts[b], k)
         assert torch.equal(i[b], ri) and torch.equal(d[b], rd)
+
+
+# ---- ragged fleets: each stream sweeps [0, extent) ---------------------------
+
+# The extents of one 8-stream launch on 16,384-row targets: none valid, one
+# row, either side of a 32-row unit and of the 512-row tile, a submap
+# extraction's ~430, and Mp itself.
+RAGGED = (0, 1, 31, 33, 430, 511, 513, 16384)
+RAGGED_CASES = ["prefix", "scattered", "ties"]
+RAGGED_K = [1, 10, 16, 20, 32, 128]
+
+
+def _ragged_targets(case):
+    """Targets [8, 16384, 3] whose extents are RAGGED ("prefix": valid
+    prefixes; "scattered": ~30% of each prefix valid, its last row kept;
+    "ties": the prefixes' first halves twice over, extents 8,192 + RAGGED
+    below 8,192) and 1,012 queries a stream, 512 of them on target rows."""
+    B, m = len(RAGGED), 16384
+    pts = torch.stack([_cloud(m, 140 + b)[0] for b in range(B)])
+    rows = torch.arange(m, device="cuda")[None, :]
+    ext = torch.tensor(RAGGED, device="cuda")[:, None]
+    mask = rows < ext
+    if case == "scattered":
+        keep = torch.rand((B, m), generator=torch.Generator(device="cuda").manual_seed(3), device="cuda") < 0.3
+        mask &= keep | (rows == ext - 1)
+    if case == "ties":
+        pts, mask = _ties(pts, mask)
+    qry = torch.cat([torch.stack([_cloud(500, 160 + b)[0] for b in range(B)]), pts[:, ::32]], 1).contiguous()
+    return pts, mask, qry
+
+
+def _check_extents(prep, mask):
+    last = [int(torch.nonzero(mb).max()) + 1 if bool(mb.any()) else 0 for mb in mask]
+    assert prep.extent.tolist() == last
+
+
+@pytest.mark.parametrize("with_pose", [False, True])
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_nn1_batched_ragged_extents(case, with_pose):
+    """nn1_batched on ragged targets equals its plain version, B single
+    launches and the full sweep of a hand-built target without an extent,
+    bit for bit."""
+    pts, mask, qry = _ragged_targets(case)
+    B = pts.shape[0]
+    poses = torch.stack([se3_exp(torch.tensor([0.01 * b, 0.0, 0.02, 0.3, -0.1 * b, 0.0]))
+                         for b in range(B)]).cuda() if with_pose else None
+    prep = cuda_knn.prep_targets(pts, mask)
+    _check_extents(prep, mask)
+    before = cuda_knn.launch_counts["nn1_batched"]
+    i, d = cuda_knn.nn1_prepped_batched(prep, qry, poses)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["nn1_batched"] == before + 1
+    ri, rd = cuda_knn.nn1_batched_plain(pts, mask, qry, poses)
+    assert torch.equal(i, ri) and torch.equal(d, rd)
+    fi, fd = cuda_knn.nn1_prepped_batched(cuda_knn.PreppedTarget(prep.xyz, prep.M), qry, poses)
+    assert torch.equal(i, fi) and torch.equal(d, fd)
+    for b in range(B):
+        si, sd = cuda_knn.nn1_prepped(cuda_knn.prep_target(pts[b], mask[b]), qry[b],
+                                      None if poses is None else poses[b])
+        assert torch.equal(i[b], si) and torch.equal(d[b], sd)
+    assert bool(torch.isinf(d[0]).all()) and bool((i[0] == 0).all())
+
+
+@pytest.mark.parametrize("k", RAGGED_K)
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_knn_k_batched_ragged_extents(case, k):
+    """knn_k_batched on ragged targets equals the tie-ordered plain version
+    (and knn_k_simple up to 16), B single launches and the full sweep of a
+    hand-built target without an extent, bit for bit."""
+    pts, mask, qry = _ragged_targets(case)
+    prep = cuda_knn.prep_targets(pts, mask)
+    _check_extents(prep, mask)
+    before = cuda_knn.launch_counts["knn_k_batched"]
+    i, d = cuda_knn.knn_k_batched(prep, qry, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k_batched"] == before + 1
+    fi, fd = cuda_knn.knn_k_batched(cuda_knn.PreppedTarget(prep.xyz, prep.M), qry, k)
+    assert torch.equal(i, fi) and torch.equal(d, fd)
+    for b in range(pts.shape[0]):
+        si, sd = cuda_knn.knn_k_prepped(cuda_knn.prep_target(pts[b], mask[b]), qry[b], k)
+        assert torch.equal(i[b], si) and torch.equal(d[b], sd)
+        ri, rd = cuda_knn.knn_k_sorted_plain(pts[b], mask[b], qry[b], k)
+        assert torch.equal(i[b], ri) and torch.equal(d[b], rd)
+        if k <= cuda_knn.FAST_MAX_K:
+            ri, rd = cuda_knn.knn_k_simple(pts[b], mask[b], qry[b], k)
+            assert torch.equal(i[b], ri) and torch.equal(d[b], rd)
+    assert bool(torch.isinf(d[0]).all()) and bool((i[0] == 0).all())
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_ragged_extents_every_slice_count(case):
+    """Every query tile and slice count cuts the extents into disjoint
+    slices: nn1 at 32 / 64 / 128 queries x 1..16 slices and knn_k at k = 10
+    (1..16 slices) and 20 (1..8) equal their plain versions bit for bit."""
+    pts, mask, qry = _ragged_targets(case)
+    prep = cuda_knn.prep_targets(pts, mask)
+    ri, rd = cuda_knn.nn1_batched_plain(pts, mask, qry)
+    for qt in cuda_knn.NN1_QUERY_TILES:
+        for s in cuda_knn.CLUSTER_SLICES:
+            i, d = cuda_knn._nn1_cluster("nn1_batched", prep, qry, None, qt, s)
+            torch.cuda.synchronize()
+            assert torch.equal(i, ri) and torch.equal(d, rd), (qt, s)
+    for k in (10, 20):
+        refs = [cuda_knn.knn_k_sorted_plain(pts[b], mask[b], qry[b], k) for b in range(pts.shape[0])]
+        for s in cuda_knn.knn_slices(k):
+            i, d = cuda_knn._knn_k_cluster("knn_k_batched", prep, qry, k, s)
+            torch.cuda.synchronize()
+            for b, (ri_b, rd_b) in enumerate(refs):
+                assert torch.equal(i[b], ri_b) and torch.equal(d[b], rd_b), (k, s, b)
+
+
+def test_prepped_target_extent_checked():
+    pts, mask, qry = _ragged_targets("prefix")
+    prep = cuda_knn.prep_targets(pts, mask)
+    with pytest.raises(ValueError, match="extent"):
+        cuda_knn.nn1_prepped_batched(prep._replace(extent=prep.extent[:3]), qry)
+    with pytest.raises(ValueError, match="extent"):
+        cuda_knn.knn_k_batched(prep._replace(extent=prep.extent.long()), qry, 10)
 
 
 @pytest.mark.parametrize("case", GRID_CASES)
