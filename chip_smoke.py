@@ -352,13 +352,19 @@
     for bit against its plain version (PR 14's matmul + topk ranking beside
     it: the rows whose cells differ), the refine and its first design bit for
     bit against the plain refine (k = 1 and K; an all-masked target), timed
-    in turns: the search, PR 14's sequence (the matmul ranking and the first
+    in turns: the search, the first sequence (the matmul ranking and the first
     refine design) and ``nn1`` on the same target, the ranking and the refine
     each beside its first design, with their bounds; the refine's instances
-    above 16; ``morton_window`` (``csrc/window_knn.cu``) through
+    above 16; the Morton window (``csrc/window_knn.cu``) through
     ``window_self_knn`` on one full-width scan (K, WINDOW_W, two passes):
-    launches, recall against the exact ``knn_k`` (above 0.70), each pass bit
-    for bit (an all-masked scan too), and its instances above 16.
+    one launch each of ``morton_min``, ``morton_codes``, ``morton_window``
+    and ``morton_window_union`` (device launches under the profiler beside
+    the first sequence), recall against the exact ``knn_k`` (above 0.70),
+    every kernel bit for bit against its plain version at k = K, 32, 64 and
+    128 (an all-masked scan and the shadowing scenes too), each kernel timed
+    in turns with its plain version (the pass with its first design,
+    ``morton_window_simple``), ``window_self_knn`` with the first sequence,
+    the plain two passes and ``knn_k``, and its instances above 16.
 44. ``preprocess_pair`` on the pair's raw scans against two sequential
     preprocesses (voxels, covariances, normals bit for bit; ms of each in
     turns); ``sharded_align`` on ``make_mesh()`` (the one card) equal to
@@ -376,9 +382,10 @@
     frame's scan, knn_k_batched on LARGE_BATCH streams of it and the
     range-image window on the raw full-width scan, bit for bit against the
     tie-ordered plain versions (``knn_k_sorted_plain``, one launch a stream)
-    and the first 16 columns against the k = 16 search, timed in turns with
-    k = K and with cdist + topk at the same k, beside their bounds. The
-    kernels' JSON line gains a row for each instance above 16.
+    and the one-thread instances (``knn_k_spill``), the first 16 columns against
+    the k = 16 search, timed in turns with k = K, with ``knn_k_spill`` and
+    with cdist + topk at the same k, beside their bounds. The kernels' JSON
+    line gains a row for each instance above 16, and for ``knn_k_spill``.
 
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
@@ -391,6 +398,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -441,6 +451,7 @@ from sycl_points_tpu_torch.apps.stream_odometry import OdometryStreamClient, Odo
 from sycl_points_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry
 from sycl_points_tpu_torch.parallel.fleet import stream_seeds
+from sycl_points_tpu_torch.scripts import window_scenes
 from sycl_points_tpu_torch.pipeline.params import CovarianceEstimationParams, MotionPredictionParams, PoseParams
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import PipelinedLidarOdometry
@@ -641,6 +652,8 @@ COARSE_RANK_REPLACES = "sycl_points_tpu/ops/coarse_knn.py:137"
 WINDOW_PATH = "window_self_knn"
 WINDOW_SOURCE = "sycl_points_tpu_torch/csrc/window_knn.cu"
 WINDOW_REPLACES = "sycl_points_tpu/ops/window_knn.py:103"
+WINDOW_CODES_REPLACES = "sycl_points_tpu/ops/window_knn.py:54"
+WINDOW_UNION_REPLACES = "sycl_points_tpu/ops/window_knn.py:146"
 MAX_GRID_ATE_GAP_M = 0.02
 C2F_QUERIES = 30000
 GRID_TURNS = ("brute", "grid", "grid", "brute", "brute", "grid")
@@ -3553,10 +3566,11 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
     streams of that scan (stream b masks every LARGE_BATCH-th row from b)
     and the range-image window on the raw full-width scan. Bit for bit:
     knn_k and each stream of knn_k_batched against knn_k_sorted_plain (the
-    first design stops at 16) and one launch a stream, the window against
-    its plain version; the first 16 columns against the k = 16 search.
-    Timed in turns with k = K (10) and with cdist + topk at the same k (a
-    stream at a time for the batched entry); bounds. Launches: the frame
+    first design stops at 16), the one-thread instances (knn_k_spill) and one
+    launch a stream, the window against its plain version; the first 16
+    columns against the k = 16 search. Timed in turns with k = K (10), with
+    knn_k_spill and with cdist + topk at the same k (a stream at a time for
+    the batched entry); bounds. Launches: the frame
     runs' for K = 32 (k = 20), one call of the public entry for K = 64 and
     128 (and the batched entry's K = 32)."""
     pts, mask = lo_out["scan"].points.contiguous(), lo_out["scan"].mask
@@ -3588,6 +3602,7 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
 
     def check_knn(k, got):
         check_equal("knn_k", got, cuda_knn.knn_k_sorted_plain(pts, mask, pts, k), f"the LO scan, k={k}")
+        check_equal("knn_k", got, cuda_knn.knn_k_spill(prep, pts, k), f"the one-thread instance (knn_k_spill), k={k}")
         first16(f"knn_k at k={k}", got, k16)
 
     b16 = cuda_knn.knn_k_batched(bprep, bpts, 16)
@@ -3599,6 +3614,8 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
                                                                      bpts[b], k), f"stream {b}, k={k}")
             check_equal("knn_k_batched", one, cuda_knn.knn_k_sorted_plain(bpts[b], bmask[b], bpts[b], k),
                         f"stream {b} against the tie-ordered plain version, k={k}")
+        check_equal("knn_k_batched", got, cuda_knn.knn_k_spill(bprep, bpts, k),
+                    f"the one-thread instance (knn_k_spill), k={k}")
         first16(f"knn_k_batched at k={k}", got, b16)
 
     w16 = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, 16)
@@ -3617,7 +3634,8 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
         lambda k: knn_bound(n, n, valid, k),
         lambda big: frames["standard"]["launches"]["knn_k"] if big == 32 else
         driven("knn_k", lambda: self_knn(pts, mask, big)),
-        library=lambda k: torch.cdist(pts, t_inf, compute_mode=cd).topk(k, largest=False))
+        library=lambda k: torch.cdist(pts, t_inf, compute_mode=cd).topk(k, largest=False),
+        variants={"spill_ms": lambda k: cuda_knn.knn_k_spill(prep, pts, k)})
     rows += instance_rows(
         "knn_k_batched", KNN_SOURCE, "sycl_points_tpu/parallel/fleet.py:133", "self_knn_streams", LARGE_KS,
         lambda k: cuda_knn.knn_k_batched(bprep, bpts, k), check_batched,
@@ -3625,7 +3643,13 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
         lambda k: bound(n * sum(b_valid), B * (13 * n + 12 * n + 8 * n * k)),
         lambda big: driven("knn_k_batched", lambda: knn_module.self_knn_streams(bpts, bmask, big)),
         library=lambda k: [torch.cdist(bpts[b], b_inf[b], compute_mode=cd).topk(k, largest=False)
-                           for b in range(B)])
+                           for b in range(B)],
+        variants={"spill_ms": lambda k: cuda_knn.knn_k_spill(bprep, bpts, k)})
+    # the one-thread instances (spilled lists), timed in the same turns
+    rows += [row(r["name"].replace("knn_k_batched", "knn_k_spill (batched)").replace("knn_k (", "knn_k_spill ("),
+                 KNN_SOURCE, r["replaces"], "timing only (the one-thread design)", 0.0,
+                 (r["shapes"][f"k={big}"]["spill_ms"], r["plain_ms"], r["library_ms"]), (r["bound_ms"], r["bound_by"]),
+                 launches=0) for big, r in zip(2 * cuda_knn.LARGE_K, rows)]
     rows += instance_rows(
         "range_image", RAW_SOURCE, RAW_REPLACES, LARGE_RAW_PATH, LARGE_KS,
         lambda k: ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k), check_window,
@@ -3644,7 +3668,7 @@ def rank_bound(Q: int, occupied: int, C: int, P: int):
 
 
 def coarse_turns(ck: CoarseKNN, q: torch.Tensor, prep, cells, lb, plain: bool) -> dict:
-    """In turns: the search (two launches), PR 14's sequence (the matmul +
+    """In turns: the search (two launches), the first sequence (the matmul +
     topk ranking, then the first refine design), nn1 on the same target,
     the ranking and the refine (at its planned lanes and at each of
     GRID_LANES) each beside its first design, and (``plain``) the refine's
@@ -3723,7 +3747,7 @@ def check_coarse(ck: CoarseKNN, q: torch.Tensor, label: str, plain_rows: slice) 
           f"bit for bit (PR 14's matmul ranking selects other cells in {mm_rows} rows, bounds apart by up to "
           f"{mm_err:.3g}); the refine ({lanes} lanes a query) and its first design equal to the plain refine bit "
           f"for bit (k=1 and k={K}); marginal CUDA-event ms, medians in turns: whole search "
-          f"{turns['search_ms']:.4f} (PR 14's sequence {turns['first_search_ms']:.4f}, nn1 on the same target "
+          f"{turns['search_ms']:.4f} (the first sequence {turns['first_search_ms']:.4f}, nn1 on the same target "
           f"{turns['nn1_ms']:.4f}; search / nn1 {turns['search_ms'] / turns['nn1_ms']:.3f}), ranking "
           f"{turns['rank_ms']:.4f} (PR 14's matmul + topk {turns['first_rank_ms']:.4f}"
           + (f", plain {turns['rank_plain_ms']:.4f}" if "rank_plain_ms" in turns else "")
@@ -3822,64 +3846,240 @@ def window_valid_pairs(ok_s: torch.Tensor, window: int) -> int:
     return pairs
 
 
-def check_window_kernel(lo_out, dev) -> dict:
-    """morton_window (kernel C) on one 2048 x 64 scan (k=10, W=64, two
-    passes): window_self_knn driven with the counts at 0 (its launches),
-    its recall against the exact knn_k; each pass bit for bit against its
-    plain version (an all-masked scan too); timed in turns with its plain
-    version, the whole two-pass search and knn_k at the same shape."""
+def shadow_scene(k: int, dev):
+    """scripts/window_scenes.py's shadowing scene at k on the card: points in
+    cells of 1e19 m, nearly all valid, so that most window distances overflow
+    to +inf, each pass's padding (3e38) reaches its top k, and a pass-1
+    padding entry (the index of the clipped partner at sorted position 0 or
+    N - 1) shadows the same index in pass 2; (points, mask, window)."""
+    pts, mask, window = window_scenes.shadow_scene(k)
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev), window
+
+
+def window_first_sequence(pts, mask, k):
+    """window_self_knn as the port first ran it on the card: each pass's codes in
+    torch ops, a sort, the gathered copies and the first window design
+    (morton_window_simple), then the union in torch ops."""
+    rows = []
+    for order in window_knn.AXES:
+        perm = torch.sort(window_knn.morton_codes(pts, mask, 0.5, order), stable=True)[1]
+        rows.append(window_knn.morton_window_simple(pts[perm].contiguous(), mask[perm].contiguous(),
+                                                    perm.to(torch.int32), WINDOW_W, k))
+    return window_knn.window_union_plain(*rows[0], *rows[1], k)
+
+
+def check_window_passes(pts, mask, window: int, k: int, cell: float, what: str):
+    """Every kernel of the Morton window against its plain version bit for
+    bit: the codes of both passes, pass 1 and the union pass in the gather
+    form, the sorted form and the first design on pass 1's sorted copies,
+    and window_self_knn against the plain two passes; (pass 1, pass 2)."""
+    codes = window_knn.morton_codes_passes(pts, mask, cell)
+    if not torch.equal(codes, window_knn.morton_codes_passes_plain(pts, mask, cell)):
+        raise AssertionError(f"morton_codes ({what}) differ from their plain version")
+    order = torch.sort(codes, dim=1, stable=True)[1]
+    p1 = window_knn.window_gather(pts, mask, order[0], window, k)
+    r1 = window_knn.window_gather_plain(pts, mask, order[0], window, k)
+    check_equal("morton_window", p1, r1, f"{what}, pass 1 (gathered through the sort), k={k}")
+    p2 = window_knn.window_gather(pts, mask, order[1], window, k)
+    check_equal("morton_window", p2, window_knn.window_gather_plain(pts, mask, order[1], window, k),
+                f"{what}, pass 2, k={k}")
+    check_equal("morton_window_union", window_knn.window_gather(pts, mask, order[1], window, k, prev=p1),
+                window_knn.window_gather_plain(pts, mask, order[1], window, k, prev=r1), f"{what}, k={k}")
+    args = (pts[order[0]].contiguous(), mask[order[0]].contiguous(), order[0].to(torch.int32), window, k)
+    ref = window_knn.window_search_plain(*args)
+    check_equal("morton_window", window_knn.window_search(*args), ref, f"{what}, sorted copies, k={k}")
+    check_equal("morton_window_simple", window_knn.morton_window_simple(*args), ref, f"{what}, k={k}")
+    got = window_knn.window_self_knn(pts, mask, k, window=window, cell_size=cell)
+    plain = window_knn.window_self_knn_plain(pts, mask, k, window, cell)
+    check_equal("window_self_knn", (got.indices, got.distances), (plain.indices, plain.distances),
+                f"{what}, against the plain two passes, k={k}")
+    torch.cuda.synchronize()
+    return p1, p2
+
+
+def check_window_kernel(lo_out, dev) -> list:
+    """The Morton window (csrc/window_knn.cu) on one 2048 x 64 scan (k=10,
+    W=64, two passes): window_self_knn driven with the counts at 0 (its
+    launches: morton_min, morton_codes, morton_window, morton_window_union),
+    its device launches under the profiler beside the first sequence, its
+    recall against the exact knn_k; every kernel bit for bit against its
+    plain version at k = 10, 32, 64 and 128 (an all-masked scan and the
+    shadowing scenes too); timed in turns: each kernel with its plain
+    version (and the pass with its first design, morton_window_simple),
+    window_self_knn with the first sequence, the plain two passes and knn_k;
+    the sort of both passes' codes in one call and in two."""
     _, _, scans, _ = lo_out["replay"]
     pts, mask = scans[-1].points.contiguous(), scans[-1].mask.contiguous()
+    N, valid, cell = pts.shape[0], int(mask.sum()), 0.5
     torch.cuda.synchronize()
     cuda_knn.reset_launch_counts()
     res = window_knn.window_self_knn(pts, mask, K, window=WINDOW_W)
     torch.cuda.synchronize()
-    launches = cuda_knn.launch_counts["morton_window"]
+    launches = dict(cuda_knn.launch_counts)
+    path_kernels = ("morton_min", "morton_codes", "morton_window", "morton_window_union")
+    if any(launches[n] != 1 for n in path_kernels) or sum(launches.values()) != len(path_kernels):
+        raise AssertionError(f"window_self_knn launched {launches}, not one of each of {path_kernels}")
+    n_dev = device_launches(lambda: window_knn.window_self_knn(pts, mask, K, window=WINDOW_W))
+    n_first = device_launches(lambda: window_first_sequence(pts, mask, K))
     exact = self_knn(pts, mask, K)
     rows = torch.nonzero(mask)[::13, 0]
-    hits = (res.indices[rows][:, :, None] == exact.indices[rows][:, None, :]).any(-1).float().mean()
-    recall = float(hits)
+    recall = float((res.indices[rows][:, :, None] == exact.indices[rows][:, None, :]).any(-1).float().mean())
     if recall <= 0.70:
         raise AssertionError(f"window_self_knn recall {recall:.4f} below the 0.70 envelope")
-    sorted_in = {}
-    for order in ((0, 1, 2), (2, 0, 1)):
-        for what, m in (("scan", mask), ("all masked", torch.zeros_like(mask))):
-            perm = torch.sort(window_knn.morton_codes(pts, m, 0.5, order), stable=True)[1]
-            args = (pts[perm].contiguous(), m[perm].contiguous(), perm.to(torch.int32), WINDOW_W, K)
-            got, ref = window_knn.window_search(*args), window_knn.window_search_plain(*args)
-            torch.cuda.synchronize()
-            check_equal("morton_window", got, ref, f"axes {order}, {what}")
-            if what == "scan":
-                sorted_in[order] = args
-    args = sorted_in[(0, 1, 2)]
+    for k in (K, *cuda_knn.LARGE_K):
+        check_window_passes(pts, mask, WINDOW_W, k, cell, "the scan")
+        check_window_passes(pts, torch.zeros_like(mask), WINDOW_W, k, cell, "all masked")
+    n_shadowed = {}
+    for k in window_scenes.SHADOW:
+        sp, sm, sw = shadow_scene(k, dev)
+        p1, p2 = check_window_passes(sp, sm, sw, k, window_scenes.SHADOW_CELL, f"the shadowing scene, k={k}")
+        n_shadowed[k] = window_scenes.shadowed(*p1, *p2)
+        if not n_shadowed[k]:
+            raise AssertionError(f"the shadowing scene at k={k} holds no shadowed entry")
+
+    codes = window_knn.morton_codes_passes(pts, mask, cell)
+    order = torch.sort(codes, dim=1, stable=True)[1]
+    args = (pts[order[0]].contiguous(), mask[order[0]].contiguous(), order[0].to(torch.int32), WINDOW_W, K)
+    p1 = window_knn.window_gather(pts, mask, order[0], WINDOW_W, K)
+    r1 = window_knn.window_gather_plain(pts, mask, order[0], WINDOW_W, K)
+    cmin = torch.empty(3, dtype=torch.int32, device=dev)
+    lib, stream = cuda_knn.load_library(), lambda: torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(codes)
+    pack = sum((o[0] | o[1] << 2 | o[2] << 4) << (6 * p) for p, o in enumerate(window_knn.AXES))
+    min_call = lambda: lib.spt_morton_min(pts.data_ptr(), mask.data_ptr(), N, 1.0 / cell, cmin.data_ptr(), stream())
+    codes_call = lambda: lib.spt_morton_codes(pts.data_ptr(), mask.data_ptr(), N, 1.0 / cell, cmin.data_ptr(), pack, 2,
+                                              out.data_ptr(), stream())
+    min_call()
     prep = cuda_knn.prep_target(pts, mask)
-    turns = in_turns({"plain_ms": lambda: window_knn.window_search_plain(*args),
-                      "ms": lambda: window_knn.window_search(*args),
-                      "window_self_knn_ms": lambda: window_knn.window_self_knn(pts, mask, K, window=WINDOW_W),
-                      "knn_k_ms": lambda: cuda_knn.knn_k_prepped(prep, pts, K)})
-    N = pts.shape[0]
+    t = in_turns({"pass_plain_ms": lambda: window_knn.window_gather_plain(pts, mask, order[0], WINDOW_W, K),
+                  "pass_ms": lambda: window_knn.window_gather(pts, mask, order[0], WINDOW_W, K),
+                  "sorted_ms": lambda: window_knn.window_search(*args),
+                  "simple_ms": lambda: window_knn.morton_window_simple(*args),
+                  "union_ms": lambda: window_knn.window_gather(pts, mask, order[1], WINDOW_W, K, prev=p1),
+                  "union_plain_ms": lambda: window_knn.window_gather_plain(pts, mask, order[1], WINDOW_W, K, prev=r1),
+                  "min_ms": min_call, "codes_ms": codes_call,
+                  "codes_plain_ms": lambda: window_knn.morton_codes_passes_plain(pts, mask, cell),
+                  "sort_one_ms": lambda: torch.sort(codes, dim=1, stable=True),
+                  "sort_two_ms": lambda: (torch.sort(codes[0], stable=True), torch.sort(codes[1], stable=True)),
+                  "window_self_knn_ms": lambda: window_knn.window_self_knn(pts, mask, K, window=WINDOW_W),
+                  "first_sequence_ms": lambda: window_first_sequence(pts, mask, K),
+                  "plain_two_passes_ms": lambda: window_knn.window_self_knn_plain(pts, mask, K, WINDOW_W, cell),
+                  "knn_k_ms": lambda: cuda_knn.knn_k_prepped(prep, pts, K)})
     pairs = window_valid_pairs(args[1], WINDOW_W)
-    sb = bound(pairs, 17 * N + 8 * N * K)
-    print(f"morton_window (one 2048 x 64 scan: N={N}, valid {int(mask.sum())}, k={K}, W={WINDOW_W}, two passes, "
-          f"{pairs} valid window pairs a pass): {launches} launches in window_self_knn; recall {recall:.4f} against "
-          f"the exact knn_k (every 13th valid row); each pass equal to its plain version bit for bit (all masked "
-          f"too); one pass {turns['ms']:.4f} ms, plain {turns['plain_ms']:.4f}, window_self_knn "
-          f"{turns['window_self_knn_ms']:.4f}, knn_k {turns['knn_k_ms']:.4f}; bound {sb[0]:.4f} ({sb[1]}); no "
-          f"library call computes this search")
-    r = row("morton_window", WINDOW_SOURCE, WINDOW_REPLACES, WINDOW_PATH, 0.0, (turns["ms"], turns["plain_ms"], None),
-            sb, shapes={"2048 x 64 scan": {"N": N, "valid": int(mask.sum()), "k": K, "window": WINDOW_W,
-                                           "pairs": pairs, "recall": recall, **turns}}, library="none computes it")
-    r["launches"] = launches
+    b_pass = bound(pairs, 13 * N + 8 * N + 8 * N * K)  # the cloud, its mask and the order in; the rows out
+    b_union = bound(pairs, 13 * N + 8 * N + 16 * N * K)  # and pass 1's rows in
+    b_min, b_codes = bound(0, 13 * N + 12), bound(0, 13 * N + 12 + 8 * N)
+    b_call = bound(2 * pairs, 2 * (13 * N + 8 * N) + 8 * N * K)  # the codes written / sorted aside
+    print(f"morton_window (one 2048 x 64 scan: N={N}, valid {valid}, k={K}, W={WINDOW_W}, two passes, {pairs} valid "
+          f"window pairs a pass): window_self_knn launched {launches} ({n_dev} device launches under the profiler, "
+          f"the first sequence {n_first}); recall {recall:.4f} against the exact knn_k (every 13th valid row); every "
+          f"kernel equal to its plain version bit for bit at k = {(K, *cuda_knn.LARGE_K)} (all masked too) and on the "
+          f"shadowing scenes (shadowed entries {n_shadowed}); marginal CUDA-event ms, medians in turns: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in t.items())
+          + f"; bounds: pass {b_pass[0]:.6f} ({b_pass[1]}), union pass {b_union[0]:.6f} ({b_union[1]}), "
+          f"morton_min {b_min[0]:.6f} ({b_min[1]}), morton_codes {b_codes[0]:.6f}, window_self_knn "
+          f"{b_call[0]:.6f} ({b_call[1]}); "
+          f"window_self_knn / the first sequence {t['window_self_knn_ms'] / t['first_sequence_ms']:.4f}, pass / first "
+          f"design {t['pass_ms'] / t['simple_ms']:.4f}; sort of both passes: one call {t['sort_one_ms']:.4f}, two "
+          f"{t['sort_two_ms']:.4f} (window_self_knn sorts in one); no library call computes these")
+    shapes = {"2048 x 64 scan": {"N": N, "valid": valid, "k": K, "window": WINDOW_W, "pairs": pairs, "recall": recall,
+                                 "device_launches": n_dev, "first_sequence_device_launches": n_first, **t}}
+    none = {"library": "none computes it"}
+    out_rows = [
+        row("morton_window", WINDOW_SOURCE, WINDOW_REPLACES, WINDOW_PATH, 0.0, (t["pass_ms"], t["pass_plain_ms"], None),
+            b_pass, launches=launches["morton_window"], previous_ms=t["simple_ms"], sorted_ms=t["sorted_ms"],
+            shapes=shapes, **none),
+        row("morton_window_union", WINDOW_SOURCE, WINDOW_UNION_REPLACES, WINDOW_PATH, 0.0,
+            (t["union_ms"], t["union_plain_ms"], None), b_union, launches=launches["morton_window_union"], **none),
+        row("morton_min", WINDOW_SOURCE, WINDOW_CODES_REPLACES, WINDOW_PATH, 0.0,
+            (t["min_ms"], t["codes_plain_ms"], None), b_min, launches=launches["morton_min"], **none),
+        row("morton_codes", WINDOW_SOURCE, WINDOW_CODES_REPLACES, WINDOW_PATH, 0.0,
+            (t["codes_ms"], t["codes_plain_ms"], None), b_codes, launches=launches["morton_codes"], **none),
+        row("morton_window_simple", WINDOW_SOURCE, WINDOW_REPLACES, "timing only (the first design)", 0.0,
+            (t["simple_ms"], t["pass_plain_ms"], None), b_pass, launches=launches["morton_window_simple"], **none),
+    ]
     # the instances above 16 on the same pass (2 W = 128 candidates)
-    out = instance_rows(
+    first = {k: window_knn.window_gather(pts, mask, order[0], WINDOW_W, k) for k in cuda_knn.LARGE_K}
+    out_rows += instance_rows(
         "morton_window", WINDOW_SOURCE, WINDOW_REPLACES, WINDOW_PATH, cuda_knn.LARGE_K,
-        lambda k: window_knn.window_search(*args[:4], k),
-        lambda k, got: check_equal("morton_window", got, window_knn.window_search_plain(*args[:4], k),
-                                   f"axes (0, 1, 2), k={k}"),
-        lambda k: window_knn.window_search_plain(*args[:4], k),
-        lambda k: bound(pairs, 17 * N + 8 * N * k),
-        lambda big: driven("morton_window", lambda: window_knn.window_self_knn(pts, mask, big, window=WINDOW_W)))
-    return [r, *out]
+        lambda k: window_knn.window_gather(pts, mask, order[0], WINDOW_W, k),
+        lambda k, got: check_equal("morton_window", got,
+                                   window_knn.window_gather_plain(pts, mask, order[0], WINDOW_W, k), f"pass 1, k={k}"),
+        lambda k: window_knn.window_gather_plain(pts, mask, order[0], WINDOW_W, k),
+        lambda k: bound(pairs, 13 * N + 8 * N + 8 * N * k),
+        lambda big: driven("morton_window", lambda: window_knn.window_self_knn(pts, mask, big, window=WINDOW_W)),
+        variants={"simple_ms": lambda k: window_knn.morton_window_simple(*args[:4], k),
+                  "union_ms": lambda k: window_knn.window_gather(pts, mask, order[1], WINDOW_W, k, prev=first[k]),
+                  "window_self_knn_ms": lambda k: window_knn.window_self_knn(pts, mask, k, window=WINDOW_W),
+                  "first_sequence_ms": lambda k: window_first_sequence(pts, mask, k)})
+    return out_rows
+
+
+# -Xptxas -v of the sources redesigned above k = 16: every instance of these
+# kernels must report 0 spill bytes; the one-thread instances (knn_cluster_kernel at
+# K = 32 / 64 / 128, kept as knn_k_spill, and the first window design) are
+# printed beside them
+SPILL_SOURCES = ("window_knn.cu", "knn_cluster.cu")
+NO_SPILL_KERNELS = ("knn_warp_kernel", "morton_warp_kernel", "morton_tile_kernel", "morton_codes_kernel",
+                    "morton_min_kernel")
+
+
+def start_spill_report():
+    """nvcc -Xptxas -v of SPILL_SOURCES, one process a source, started in the
+    background (its build is not the library's)."""
+    work = tempfile.mkdtemp()
+    procs = [(src, subprocess.Popen([cuda_knn.find_nvcc(), *cuda_knn.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                                     os.path.join(work, src + ".o"), os.path.join(cuda_knn.CSRC_DIR, src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for src in SPILL_SOURCES]
+    return procs, work
+
+
+def spill_report(started) -> dict:
+    """Registers and spill bytes of every instance of the redesigned kernels
+    and of the one-thread large instances; fails if a redesigned one spills."""
+    procs, work = started
+    out = {}
+    for src, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise AssertionError(f"nvcc -Xptxas -v {src} failed:\n{text[-4000:]}")
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"Function properties for (\S+)", line)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                              lines[i + 1]) if m and i + 1 < len(lines) else None
+            if spill:
+                regs = next((re.search(r"Used (\d+) registers", l) for l in lines[i + 2:i + 4]
+                             if "Used" in l), None)
+                out[m.group(1)] = {"stack": int(spill.group(1)), "spill_stores": int(spill.group(2)),
+                                   "spill_loads": int(spill.group(3)),
+                                   "registers": int(regs.group(1)) if regs else None}
+    shutil.rmtree(work, ignore_errors=True)
+    names = list(out)
+    filt = shutil.which("c++filt")
+    plain = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True).stdout.splitlines() \
+        if filt else names
+    report = {}
+    for mangled, name in zip(names, plain):
+        short = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::", "")).replace("void ", "")
+        kernel = next((k for k in NO_SPILL_KERNELS if k in short), None)
+        old = ("knn_cluster_kernel" in short or "morton_window_kernel" in short) and \
+            any(f"<{K}" in short for K in cuda_knn.LARGE_K)
+        if kernel or old:
+            report[short] = out[mangled]
+    redesigned = {n: r for n, r in report.items() if any(k in n for k in NO_SPILL_KERNELS)}
+    bad = {n: r for n, r in redesigned.items() if r["spill_stores"] or r["spill_loads"]}
+    line = lambda n, r: f"{n} {r['registers']} registers, {r['spill_stores']} / {r['spill_loads']} B spilled"
+    print(f"-Xptxas -v: {len(redesigned)} instances of {', '.join(NO_SPILL_KERNELS)}: "
+          f"{sum(r['spill_stores'] for r in redesigned.values())} bytes of spill stores, at most "
+          f"{max(r['registers'] or 0 for r in redesigned.values())} registers; "
+          + "; ".join(line(n, r) for n, r in sorted(redesigned.items()) if "warp" in n)
+          + "; the one-thread instances: "
+          + "; ".join(line(n, r) for n, r in sorted(report.items()) if n not in redesigned))
+    if bad:
+        raise AssertionError(f"redesigned kernel instances spill: {bad}")
+    return report
 
 
 def pair_preprocess_phase(src_raw, tgt_raw, cap) -> None:
@@ -3951,6 +4151,7 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_knn.load_library()
     print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
+    spills = start_spill_report()
 
     # --- data: a synthetic HDL-64 pair raycast on the card -----------------
     t0 = time.perf_counter()
@@ -4090,6 +4291,7 @@ def main() -> None:
     t0 = time.perf_counter()
     results += check_large_k(lo_out, large_k_frames(lo_out, dev), dev)
     print(f"k above 16 phase: {time.perf_counter() - t0:.1f} s")
+    spill_report(spills)
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

@@ -47,11 +47,12 @@
 //   * Registers set the occupancy: 64 a thread up to k = 10 (8 blocks, 32
 //     warps an SM), 80 above (6 blocks). Two queries a thread, which would
 //     share each shared-memory load, cost more in occupancy than they saved.
-//     The instances above 16 take what the compiler asks (their lists of 64
-//     to 256 registers spill at K = 64 and 128), and their merge lists, 2 x
-//     128 threads x K floats (128 KiB at K = 128, one block an SM), fit a
-//     block's 227 KB at the 128-query tile; the wrapper gives them at most 8
-//     slices, so that a cluster never needs 16 SMs of one GPC at once.
+//     The first instances above 16 (kept as spt_knn_k_spill_batched
+//     for timing) took what the compiler asked: their lists of 64 to 256
+//     registers spill at K = 64 and 128, and their merge lists, 2 x 128
+//     threads x K floats (128 KiB at K = 128, one block an SM), fit a block's
+//     227 KB at the 128-query tile; at most 8 slices, so that a cluster never
+//     needs 16 SMs of one GPC at once.
 //   * The slice streams through two shared-memory tiles of up to kTile rows
 //     loaded with cp.async while the other is scanned: whole aligned units of
 //     the prepared target, no mask, no edge test. A float4 load is a
@@ -75,6 +76,23 @@
 //     cluster.sync() keeps every block's shared memory alive until all peers
 //     have read it. With the sweep cut to the extent, the merge and the
 //     launch are most of a fleet's nn1: the slice count trades the two.
+//
+// Above 16 (K = 32, 64, 128: knn_warp_kernel), a warp a query, 8 queries a
+// block, the same slices, staging, extent and sampled bound tau:
+//   * The warp's list is the K smallest keys (d2 bits << 32 | idx) so far,
+//     K/32 a lane in registers (warp_sort.cuh): d2 >= 0, so the key orders
+//     as (d, idx), and any visiting order gives the same list.
+//   * Lanes split each staged tile, one target a lane a step: a target is
+//     admitted when d <= tau and its key is below the list's last. The
+//     admitted go to a K-key buffer of the warp in shared memory (ballot and
+//     popcount place them); a full buffer, and the last one, is bitonic-sorted
+//     and merged into the list. No insertion shifts a list.
+//   * Phase 1 fills the list from every 16th target of the slice; its last
+//     distance, the least over the cluster, is tau, and the list restarts.
+//   * The cluster's S lists of a query are merged by warp w of block w % S,
+//     a bitonic merge a peer, through distributed shared memory.
+//   * Query tiles run along the grid's x with the slices (x = tile * S +
+//     rank), so Q is bounded by the grid's 2^31 blocks, not y's 65,535.
 //
 // Why the result equals knn.cu's bit for bit, ties included: that kernel
 // returns the k smallest (d, idx) pairs in lexicographic order; a merge of
@@ -101,6 +119,7 @@
 
 #include "best_k.cuh"
 #include "knn_cluster.cuh"
+#include "warp_sort.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -363,6 +382,229 @@ int launch(const float* tgt, int Mp, const int* extent, const float* queries, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// k above 16: a warp a query
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpQueries = 8;  // queries a block (and a cluster), a warp each
+constexpr int kWarpThreads = 32 * kWarpQueries;
+constexpr int kMaxWarpSlices = 8;
+constexpr unsigned long long kInitKey = 0x7f80000000000000ull;  // (+inf, idx 0): an empty slot
+
+template <int K>
+struct WarpCfg {
+  static constexpr int P = K / 32;                          // list keys a lane
+  static constexpr int kTileFloats = 2 * 3 * kTile;         // two staged tiles
+  static constexpr int kListFloats = 2 * kWarpQueries * K;  // the lists the cluster merges (64-bit keys)
+  static constexpr int kMain = kTileFloats > kListFloats ? kTileFloats : kListFloats;
+  static constexpr int kBufFloats = 2 * kWarpQueries * K;   // the admitted candidates, K keys a warp
+  static constexpr size_t kSmemBytes = sizeof(float) * (kMain + kBufFloats + kWarpQueries);
+  static_assert(K % 32 == 0 && kMain % 2 == 0, "whole keys a lane; the buffer 8-byte aligned");
+};
+
+// The warp's buffer (cnt keys, warp-uniform) sorted and merged into its list.
+template <int P>
+__device__ __forceinline__ void flush_admitted(unsigned long long (&L)[P], const unsigned long long* buf, int& cnt,
+                                               unsigned long long& last, int lane) {
+  __syncwarp();
+  unsigned long long c[P];
+#pragma unroll
+  for (int r = 0; r < P; ++r) c[r] = lane * P + r < cnt ? buf[lane * P + r] : spt::kEmptyKey;
+  __syncwarp();
+  spt::warp_sort<P>(c);
+  spt::warp_merge<P>(L, c);
+  last = spt::warp_last<P>(L);
+  cnt = 0;
+}
+
+// One target a lane: admitted when live, d <= tau and its key below the
+// list's last; the admitted take the next buffer slots in lane order, a full
+// buffer being merged first.
+template <int P>
+__device__ __forceinline__ void admit(float d, int idx, bool live, float tau, unsigned long long (&L)[P],
+                                      unsigned long long* buf, int& cnt, unsigned long long& last, int lane) {
+  const unsigned long long key = spt::pack_key(__float_as_uint(d), static_cast<unsigned>(idx));
+  bool in = live && d <= tau && key < last;
+  unsigned b = __ballot_sync(0xffffffffu, in);
+  if (b == 0) return;
+  if (cnt + __popc(b) > 32 * P) {
+    flush_admitted<P>(L, buf, cnt, last, lane);
+    in = in && key < last;
+    b = __ballot_sync(0xffffffffu, in);
+  }
+  if (in) buf[cnt + __popc(b & ((1u << lane) - 1u))] = key;
+  cnt += __popc(b);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWarpThreads)
+knn_warp_kernel(const float* __restrict__ tgt, int Mp, const int* __restrict__ extent,
+                const float* __restrict__ queries, int Q, int k, int* __restrict__ out_idx,
+                float* __restrict__ out_d2) {
+  using C = WarpCfg<K>;
+  constexpr int P = C::P;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = static_cast<int>(blockIdx.x / S) * kWarpQueries + warp;
+  const bool live = q < Q;
+  // this block's stream
+  const size_t z = blockIdx.z;
+  tgt += z * 3 * static_cast<size_t>(Mp);
+  queries += z * 3 * static_cast<size_t>(Q);
+  out_idx += z * static_cast<size_t>(Q) * k;
+  out_d2 += z * static_cast<size_t>(Q) * k;
+
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (live) {
+    qx = queries[3 * static_cast<size_t>(q)];
+    qy = queries[3 * static_cast<size_t>(q) + 1];
+    qz = queries[3 * static_cast<size_t>(q) + 2];
+  }
+  unsigned long long* const buf = reinterpret_cast<unsigned long long*>(smem + C::kMain) + warp * K;
+  float* const pub = smem + C::kMain + C::kBufFloats;
+  unsigned long long L[P];
+#pragma unroll
+  for (int r = 0; r < P; ++r) L[r] = kInitKey;
+  unsigned long long last = kInitKey;
+  int cnt = 0;
+  float tau = CUDART_INF_F;
+
+  const int ext = extent == nullptr ? Mp : min(max(extent[z], 0), Mp);
+  const int n_units = (ext + kUnit - 1) / kUnit;
+  const int r0 = static_cast<int>(static_cast<long long>(rank) * n_units / S) * kUnit;
+  const int r1 = static_cast<int>(static_cast<long long>(rank + 1) * n_units / S) * kUnit;
+  float* tiles = smem;
+
+  // Phase 1: the list of every kSampleStride-th target of the slice, kTile
+  // samples a step, a short last batch padded with +inf to whole warps.
+  const int n_sample = (r1 - r0) / kSampleStride;
+  for (int c0 = 0; c0 < n_sample; c0 += kTile) {
+    const int n = min(kTile, n_sample - c0);
+    const int n_pad = (n + 31) / 32 * 32;
+    __syncthreads();
+    for (int j = threadIdx.x; j < n_pad; j += kWarpThreads) {
+      float x = CUDART_INF_F, y = CUDART_INF_F, w = CUDART_INF_F;
+      if (j < n) {
+        const size_t t = static_cast<size_t>(r0) + static_cast<size_t>(c0 + j) * kSampleStride;
+        x = tgt[t];
+        y = tgt[static_cast<size_t>(Mp) + t];
+        w = tgt[2 * static_cast<size_t>(Mp) + t];
+      }
+      tiles[j] = x;
+      tiles[kTile + j] = y;
+      tiles[2 * kTile + j] = w;
+    }
+    __syncthreads();
+    for (int j = lane; j < n_pad; j += 32)
+      admit<P>(spt::sqdist(qx, qy, qz, tiles[j], tiles[kTile + j], tiles[2 * kTile + j]),
+               r0 + (c0 + j) * kSampleStride, live, tau, L, buf, cnt, last, lane);
+  }
+  if (cnt) flush_admitted<P>(L, buf, cnt, last, lane);
+  // The cluster's bound: the least sampled K-th distance of the query over
+  // its blocks (+inf with fewer than K samples in each).
+  if (lane == 0) pub[warp] = __uint_as_float(spt::key_hi(last));
+  cluster.sync();
+  for (int r = 0; r < S; ++r) tau = fminf(tau, cluster.map_shared_rank(pub, r)[warp]);
+#pragma unroll
+  for (int r = 0; r < P; ++r) L[r] = kInitKey;
+  last = kInitKey;
+
+  // Phase 2: the whole slice, kTile rows a step, double-buffered through
+  // cp.async.
+  auto stage = [&](int start, int n, int b) {
+    float* dst = tiles + b * 3 * kTile;
+    const int n4 = n / 4;
+    for (int c = threadIdx.x; c < 3 * n4; c += kWarpThreads) {
+      const int row = c / n4;
+      const int off = (c - row * n4) * 4;
+      cp_async16(dst + row * kTile + off, tgt + static_cast<size_t>(row) * Mp + start + off);
+    }
+    cp_async_commit();
+  };
+  const int n_steps = (r1 - r0 + kTile - 1) / kTile;
+  if (n_steps > 0) stage(r0, min(kTile, r1 - r0), 0);
+  for (int t = 0; t < n_steps; ++t) {
+    const int start = r0 + t * kTile;
+    const int n = min(kTile, r1 - start);
+    const int b = t & 1;
+    if (t + 1 < n_steps) {
+      stage(start + kTile, min(kTile, r1 - start - kTile), b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sx = tiles + b * 3 * kTile;
+    for (int j = lane; j < n; j += 32)
+      admit<P>(spt::sqdist(qx, qy, qz, sx[j], sx[kTile + j], sx[2 * kTile + j]), start + j, live, tau, L, buf, cnt,
+               last, lane);
+    __syncthreads();
+  }
+  if (cnt) flush_admitted<P>(L, buf, cnt, last, lane);
+
+  // Merge: warp w of block w % S merges the query's lists of every block.
+  if (S > 1) {
+    unsigned long long* lists = reinterpret_cast<unsigned long long*>(smem);
+#pragma unroll
+    for (int r = 0; r < P; ++r) lists[warp * K + lane * P + r] = L[r];
+    cluster.sync();
+    if (warp % S == rank) {
+      for (int rr = 0; rr < S; ++rr) {
+        if (rr == rank) continue;
+        const unsigned long long* peer = cluster.map_shared_rank(lists, rr) + warp * K;
+        unsigned long long c[P];
+#pragma unroll
+        for (int r = 0; r < P; ++r) c[r] = peer[lane * P + r];
+        spt::warp_merge<P>(L, c);
+      }
+    }
+  }
+  if (warp % S == rank && live) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int i = lane * P + r;
+      if (i < k) {
+        out_idx[static_cast<size_t>(q) * k + i] = static_cast<int>(spt::key_lo(L[r]));
+        out_d2[static_cast<size_t>(q) * k + i] = __uint_as_float(spt::key_hi(L[r]));
+      }
+    }
+  }
+  if (S > 1) cluster.sync();  // no block exits while a peer may still read its lists
+}
+
+template <int K>
+int launch_warp(const float* tgt, int Mp, const int* extent, const float* queries, int Q, int B, int slices, int k,
+                int* out_idx, float* out_d2, void* stream) {
+  using C = WarpCfg<K>;
+  if (Q <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
+  const long long n_blocks = static_cast<long long>((Q + kWarpQueries - 1) / kWarpQueries) * slices;
+  const bool pow2 = slices > 0 && (slices & (slices - 1)) == 0;
+  if (Mp % kTile != 0 || n_blocks > 0x7fffffffll || B > kMaxStreams || !pow2 || slices > kMaxWarpSlices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = knn_warp_kernel<K>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_blocks), 1, B);
+  cfg.blockDim = dim3(kWarpThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tgt, Mp, extent, queries, Q, k, out_idx, out_d2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int QW>
 int launch_nn1(const float* tgt, int Mp, const int* extent, const float* queries, int Q, const float* pose, int B,
                int slices, int* out_idx, float* out_d2, void* stream) {
@@ -401,12 +643,33 @@ extern "C" int spt_nn1_batched(const float* tgt, int Mp, const int* extent, cons
 
 // Exact k-NN (1 <= k <= 128) of the queries [B,Q,3] of B streams against
 // their prepared targets [B,3,Mp] and extents [B] (all Mp if null),
-// ascending by (d, idx): 128 queries a cluster and the slices the wrapper
+// ascending by (d, idx): up to 16, 128 queries a cluster; above, a warp a
+// query (knn_warp_kernel), 8 queries a cluster; the slices the wrapper
 // chooses from B * Q (as for nn1; at most 8 for k above 16).
 extern "C" int spt_knn_k_batched(const float* tgt, int Mp, const int* extent, const float* queries, int Q, int B,
                                  int k, int slices, int* out_idx, float* out_d2, void* stream) {
   switch (spt::instance_k(k)) {
-    SPT_K_CASES(SPT_KNN_CLUSTER_CASE)
+    SPT_FAST_K_CASES(SPT_KNN_CLUSTER_CASE)
+    case 32:
+      return launch_warp<32>(tgt, Mp, extent, queries, Q, B, slices, k, out_idx, out_d2, stream);
+    case 64:
+      return launch_warp<64>(tgt, Mp, extent, queries, Q, B, slices, k, out_idx, out_d2, stream);
+    case 128:
+      return launch_warp<128>(tgt, Mp, extent, queries, Q, B, slices, k, out_idx, out_d2, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The first instances above 16: one thread a query with its K-list
+// in registers (spilled at K = 64 and 128), 128 queries a cluster; for
+// timing against knn_warp_kernel. 16 < k <= 128.
+extern "C" int spt_knn_k_spill_batched(const float* tgt, int Mp, const int* extent, const float* queries, int Q,
+                                       int B, int k, int slices, int* out_idx, float* out_d2, void* stream) {
+  switch (k > spt::kFastK ? spt::instance_k(k) : 0) {
+    SPT_KNN_CLUSTER_CASE(32)
+    SPT_KNN_CLUSTER_CASE(64)
+    SPT_KNN_CLUSTER_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,7 +10,11 @@ target prepared once by :func:`prep_target`:
               correspondence search);
   * ``knn_k`` exact k-NN, k <= 128 on the card (any k on the CPU); replaces
               ``_approx_knn_single``, which rests on the TPU-only
-              ``lax.approx_max_k``.
+              ``lax.approx_max_k``. Up to :data:`FAST_MAX_K` one thread a
+              query; above, a warp a query (:data:`KNN_WARP_QUERY_TILE`
+              queries a cluster) with its list spread over the lanes. PR
+              16's one-thread instances above 16, whose lists spill, stay
+              as :func:`knn_k_spill` for timing.
 
 Every production search kernel (``knn_k``, ``grid_knn``, the range-image
 window, ``morton_window``, ``coarse_refine``) is built at ``k = 1 ..
@@ -52,7 +56,12 @@ wrapper :func:`..grid_knn.grid_search`, lanes a query from
 and ``coarse_refine`` (``csrc/coarse_knn.cu``, :func:`..coarse_knn.coarse_rank`
 and :func:`..coarse_knn.coarse_refine`, lanes a query from
 :func:`refine_lanes`; the refine's first design ``coarse_refine_simple``) and
-``morton_window`` (``csrc/window_knn.cu``, :func:`..window_knn.window_search`).
+the Morton window (``csrc/window_knn.cu``): ``morton_min`` and
+``morton_codes`` (:func:`..window_knn.morton_codes_passes`), ``morton_window``
+(:func:`..window_knn.window_search` and the passes of
+:func:`..window_knn.window_gather`), ``morton_window_union`` (the second
+pass with the union folded in) and the first design ``morton_window_simple``
+(:func:`..window_knn.morton_window_simple`).
 
 On first use every source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` (one ``nvcc`` a source, all started together) and linked into one
@@ -98,16 +107,17 @@ LARGE_K = (32, 64, 128)
 MAX_K = LARGE_K[-1]
 # The cluster kernels (csrc/knn_cluster.cu): a prepared target is padded to a
 # multiple of TARGET_TILE; a cluster is one query tile (one of
-# NN1_QUERY_TILES for nn1, KNN_QUERY_TILE for knn_k) against the target's
-# extent cut into CLUSTER_SLICES slices of whole 32-row units
-# (LARGE_K_SLICES for k above FAST_MAX_K, whose blocks take up to 128 KiB of
-# shared memory), a block each; cluster_shape() chooses both from the host's
-# shapes (the extents stay on the device).
+# NN1_QUERY_TILES for nn1, KNN_QUERY_TILE for knn_k, KNN_WARP_QUERY_TILE
+# above FAST_MAX_K) against the target's extent cut into CLUSTER_SLICES
+# slices of whole 32-row units (LARGE_K_SLICES above FAST_MAX_K: a cluster of
+# at most 8 blocks, the portable size), a block each; cluster_shape() chooses
+# both from the host's shapes (the extents stay on the device).
 TARGET_TILE = 512
 CLUSTER_SLICES = (1, 2, 4, 8, 16)
 LARGE_K_SLICES = (1, 2, 4, 8)
 NN1_QUERY_TILES = (32, 64, 128)
 KNN_QUERY_TILE = 128
+KNN_WARP_QUERY_TILE = 8
 BLOCKS_PER_SM = 4
 # Shared memory a block can have on the H100 (227 KB).
 SMEM_BYTES = 232448
@@ -125,7 +135,8 @@ launch_counts = {
     "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
     "range_image_elevation": 0, "range_image_cells": 0, "range_image_rows": 0, "range_image_simple": 0,
     "grid_knn": 0, "grid_knn_simple": 0, "coarse_rank": 0, "coarse_refine": 0, "coarse_refine_simple": 0,
-    "morton_window": 0,
+    "morton_min": 0, "morton_codes": 0, "morton_window": 0, "morton_window_union": 0, "morton_window_simple": 0,
+    "knn_k_spill": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -194,6 +205,7 @@ def load_library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.spt_nn1_batched.argtypes = [p, i, p, p, i, p, i, i, i, p, p, p]
             lib.spt_knn_k_batched.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
+            lib.spt_knn_k_spill_batched.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
             lib.spt_knn_k_simple.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_tiled.argtypes = [p, p, i, p, i, i, i, p, p, p]
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
@@ -211,13 +223,19 @@ def load_library() -> ctypes.CDLL:
             lib.spt_coarse_refine_simple.argtypes = [p, i, p, i, p, p, p, i, p, p, p, i, p, p, i, p, p, p, p]
             lib.spt_coarse_rank.argtypes = [p, i, p, p, p, i, p, f, i, p, p, p]
             lib.spt_morton_window.argtypes = [p, p, p, i, i, i, p, p, p]
-            for fn in (lib.spt_nn1_batched, lib.spt_knn_k_batched,
+            lib.spt_morton_window_simple.argtypes = [p, p, p, i, i, i, p, p, p]
+            lib.spt_morton_window_gather.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+            lib.spt_morton_min.argtypes = [p, p, i, f, p, p]
+            lib.spt_morton_codes.argtypes = [p, p, i, f, p, i, i, p, p]
+            for fn in (lib.spt_nn1_batched, lib.spt_knn_k_batched, lib.spt_knn_k_spill_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
                        lib.spt_range_image_window, lib.spt_range_image_window_simple,
                        lib.spt_range_image_elevation, lib.spt_range_image_cells, lib.spt_range_image_rows,
                        lib.spt_grid_knn, lib.spt_grid_knn_simple, lib.spt_coarse_refine,
-                       lib.spt_coarse_refine_simple, lib.spt_coarse_rank, lib.spt_morton_window):
+                       lib.spt_coarse_refine_simple, lib.spt_coarse_rank, lib.spt_morton_window,
+                       lib.spt_morton_window_simple, lib.spt_morton_window_gather, lib.spt_morton_min,
+                       lib.spt_morton_codes):
                 fn.restype = i
             _lib = lib
     return _lib
@@ -553,6 +571,17 @@ def knn_slices(k: int) -> tuple:
     return CLUSTER_SLICES if k <= FAST_MAX_K else LARGE_K_SLICES
 
 
+def knn_cluster_slices(Q: int, k: int, n_sm: int, streams: int = 1) -> int:
+    """The slices a cluster of knn_k at ``k`` for ``Q`` queries in each of
+    ``streams`` streams: :func:`cluster_shape` at its query tile
+    (:data:`KNN_QUERY_TILE` up to :data:`FAST_MAX_K`, a warp a query's
+    :data:`KNN_WARP_QUERY_TILE` above). On the H100 the LO scan's 5,000
+    queries take 1 slice above 16 (625 blocks of 8 queries), where the one-thread
+    128-query tiles took 8."""
+    tile = KNN_QUERY_TILE if k <= FAST_MAX_K else KNN_WARP_QUERY_TILE
+    return cluster_shape(Q, (tile,), n_sm, streams, knn_slices(k))[1]
+
+
 def grid_lanes(Q: int, n_sm: int) -> int:
     """Lanes a query of the ``grid_knn`` kernel for ``Q`` queries: the fewest
     of :data:`GRID_LANES` whose ``Q x G`` threads give the card
@@ -676,9 +705,7 @@ def knn_k_prepped(prep: PreppedTarget, queries, k: int):
     if device.type == "cpu":
         return _knn_k_plain(prep.points(), None, queries, k)
     _check_prepped_cuda(prep, queries, None, device, "knn_k")
-    _, slices = cluster_shape(queries.shape[0], (KNN_QUERY_TILE,), _sm_count(device.index),
-                              slice_counts=knn_slices(k))
-    return _knn_k_cluster("knn_k", prep, queries, k, slices)
+    return _knn_k_cluster("knn_k", prep, queries, k, knn_cluster_slices(queries.shape[0], k, _sm_count(device.index)))
 
 
 def knn_k(target_xyz, target_mask, queries, k: int):
@@ -718,8 +745,26 @@ def knn_k_batched(prep: PreppedTarget, queries, k: int):
         return knn_k_batched_plain(prep.points(), None, queries, k)
     _check_prepped_cuda(prep, queries, None, device, "knn_k_batched")
     B, Q = queries.shape[:2]
-    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), B, knn_slices(k))
-    return _knn_k_cluster("knn_k_batched", prep, queries, k, slices)
+    return _knn_k_cluster("knn_k_batched", prep, queries, k, knn_cluster_slices(Q, k, _sm_count(device.index), B))
+
+
+def knn_k_spill(prep: PreppedTarget, queries, k: int):
+    """:func:`knn_k_prepped` (``queries [Q,3]``, a ``[3, Mp]`` target) or
+    :func:`knn_k_batched` (``[B,Q,3]``, ``[B, 3, Mp]``) above
+    :data:`FAST_MAX_K` through the first instances: one thread a query, its
+    K-list in registers (spilled at K = 64 and 128), 128 queries a cluster.
+    Kept for timing against the warp-a-query instances; the same result."""
+    if not FAST_MAX_K < k <= MAX_K:
+        raise ValueError(f"knn_k_spill serves {FAST_MAX_K} < k <= {MAX_K}, got {k}")
+    batched = queries.dim() == 3
+    device = (_check_prepped_batched if batched else _check_prepped)(prep, queries, None)
+    if device.type == "cpu":
+        return (knn_k_batched_plain if batched else _knn_k_plain)(prep.points(), None, queries, k)
+    _check_prepped_cuda(prep, queries, None, device, "knn_k_spill")
+    B, Q = queries.shape[:2] if batched else (1, queries.shape[0])
+    _, slices = cluster_shape(Q, (KNN_QUERY_TILE,), _sm_count(device.index), B, LARGE_K_SLICES)
+    return _launch("knn_k_spill", device, (*queries.shape[:-1], k), lambda lib, i, d, s: lib.spt_knn_k_spill_batched(
+        prep.xyz.data_ptr(), prep.xyz.shape[-1], _extent_ptr(prep), queries.data_ptr(), Q, B, k, slices, i, d, s))
 
 
 def _raw_launch(name, entry, target_xyz, target_mask, queries, shape, extra):

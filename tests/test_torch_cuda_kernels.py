@@ -81,6 +81,7 @@ import torch
 import sycl_points_tpu_torch  # noqa: F401  (float32 settings)
 from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.scripts import bench_nn1_tiles, bench_nn1_variants
+from sycl_points_tpu_torch.scripts.window_scenes import SHADOW, SHADOW_CELL, shadow_scene, shadowed
 from sycl_points_tpu_torch.utils.lie import se3_exp
 
 pytestmark = [
@@ -782,6 +783,39 @@ def test_knn_k_large_k_equals_sorted_plain(case, k):
     assert torch.equal(i, ri) and torch.equal(d, rd)
     i16, d16 = cuda_knn.knn_k(tgt, mask, qry, 16)
     assert torch.equal(i[:, :16], i16) and torch.equal(d[:, :16], d16)
+    before = cuda_knn.launch_counts["knn_k_spill"]
+    si, sd = cuda_knn.knn_k_spill(cuda_knn.prep_target(tgt, mask), qry, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k_spill"] == before + 1
+    assert torch.equal(i, si) and torch.equal(d, sd)
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+@pytest.mark.parametrize("case", LARGE_KNN_CASES)
+def test_knn_k_batched_large_k_cases(case, k):
+    """knn_k_batched above 16 on three streams of each case's target
+    (stream b masks every third row from b as well) equals B single launches,
+    the tie-ordered plain version and the one-thread instances (knn_k_spill) bit for
+    bit, in one launch."""
+    tgt, qry, mask = _case(case)
+    B, m = 3, tgt.shape[0]
+    rows = torch.arange(m, device="cuda")
+    bmask = torch.stack([mask & (rows % 3 != b) for b in range(B)]).contiguous()
+    bpts = tgt.expand(B, m, 3).contiguous()
+    bqry = qry.expand(B, *qry.shape).contiguous()
+    prep = cuda_knn.prep_targets(bpts, bmask)
+    before = dict(cuda_knn.launch_counts)
+    i, d = cuda_knn.knn_k_batched(prep, bqry, k)
+    torch.cuda.synchronize()
+    assert cuda_knn.launch_counts["knn_k_batched"] == before["knn_k_batched"] + 1
+    assert cuda_knn.launch_counts["knn_k_spill"] == before["knn_k_spill"]
+    si, sd = cuda_knn.knn_k_spill(prep, bqry, k)
+    assert torch.equal(i, si) and torch.equal(d, sd)
+    for b in range(B):
+        oi, od = cuda_knn.knn_k_prepped(cuda_knn.prep_target(bpts[b], bmask[b]), qry, k)
+        assert torch.equal(i[b], oi) and torch.equal(d[b], od)
+        ri, rd = cuda_knn.knn_k_sorted_plain(bpts[b], bmask[b], qry, k)
+        assert torch.equal(i[b], ri) and torch.equal(d[b], rd)
 
 
 @pytest.mark.parametrize("k", LARGE_K)
@@ -978,6 +1012,134 @@ def test_morton_window_large_k_matches_plain(k):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     with pytest.raises(ValueError):
         wk.window_search(*args[:3], 8, k)  # 2 W = 16 candidates
+
+
+# -- the Morton window in a few launches: codes, the gather-form passes, the union --
+
+WINDOW_K = [1, 10, 16, 20, 64, 128]
+
+
+def _window_case(name, window):
+    pts, mask = _raw_scan(1024, 32, seed=9)
+    mask[::11] = False
+    if name == "all masked":
+        mask = torch.zeros_like(mask)
+    if name == "N < 2W":
+        pts, mask = pts[: 2 * window - 5].contiguous(), mask[: 2 * window - 5].contiguous()
+    return pts, mask
+
+
+def _equal(got, ref, what):
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), what
+
+
+def _check_window_kernels(pts, mask, window, k, cell):
+    """Every window kernel against its plain version bit for bit, and
+    window_self_knn (a memset and four kernels) against the plain two-pass
+    version, with its launches."""
+    from sycl_points_tpu_torch.ops import window_knn as wk
+
+    codes = wk.morton_codes_passes(pts, mask, cell)
+    assert torch.equal(codes, wk.morton_codes_passes_plain(pts, mask, cell))
+    for p, order in enumerate(wk.AXES):
+        assert torch.equal(wk.morton_codes_passes(pts, mask, cell, (order,))[0], codes[p])
+    order = torch.sort(codes, dim=1, stable=True)[1]
+    p1 = wk.window_gather(pts, mask, order[0], window, k)
+    ref1 = wk.window_gather_plain(pts, mask, order[0], window, k)
+    _equal(p1, ref1, "pass 1")
+    _equal(wk.window_gather(pts, mask, order[0], window, k, final=True),
+           wk.window_gather_plain(pts, mask, order[0], window, k, final=True), "pass 1, final")
+    p2 = wk.window_gather(pts, mask, order[1], window, k)
+    _equal(p2, wk.window_gather_plain(pts, mask, order[1], window, k), "pass 2")
+    _equal(wk.window_gather(pts, mask, order[1], window, k, prev=p1),
+           wk.window_gather_plain(pts, mask, order[1], window, k, prev=ref1), "the union pass")
+    args = (pts[order[0]].contiguous(), mask[order[0]].contiguous(), order[0].to(torch.int32), window, k)
+    ref = wk.window_search_plain(*args)
+    _equal(wk.window_search(*args), ref, "the sorted form")
+    _equal(wk.morton_window_simple(*args), ref, "the first design")
+    torch.cuda.synchronize()
+    before = dict(cuda_knn.launch_counts)
+    got = wk.window_self_knn(pts, mask, k, window=window, cell_size=cell)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in cuda_knn.launch_counts.items() if c != before[n]}
+    want = {"morton_min": 1, "morton_codes": 1, "morton_window": 1, "morton_window_union": 1}
+    assert moved == (want if pts.shape[0] else {}), moved
+    ref = wk.window_self_knn_plain(pts, mask, k, window, cell)
+    _equal((got.indices, got.distances), (ref.indices, ref.distances), "window_self_knn")
+    one = wk.window_self_knn(pts, mask, k, window=window, cell_size=cell, passes=1)
+    ref = wk.window_self_knn_plain(pts, mask, k, window, cell, passes=1)
+    _equal((one.indices, one.distances), (ref.indices, ref.distances), "one pass")
+    return p1, p2
+
+
+@pytest.mark.parametrize("k", WINDOW_K)
+@pytest.mark.parametrize("window", [8, 64])
+@pytest.mark.parametrize("case", ["scan", "all masked", "N < 2W"])
+def test_morton_window_kernels_match_plain(case, window, k):
+    """The codes kernels, the gather-form passes (3e38 kept, and +inf), the
+    union pass, the sorted form and the first design equal their plain
+    versions bit for bit on a scan with repeated Morton codes and masked
+    points, every point masked, and fewer points than 2 W; window_self_knn
+    is a launch of each of morton_min, morton_codes, morton_window and
+    morton_window_union; k above 2 W is refused."""
+    from sycl_points_tpu_torch.ops import window_knn as wk
+
+    pts, mask = _window_case(case, window)
+    if k > 2 * window:
+        with pytest.raises(ValueError, match="candidates"):
+            wk.window_self_knn(pts, mask, k, window=window)
+        return
+    _check_window_kernels(pts, mask, window, k, 0.5)
+
+
+@pytest.mark.parametrize("k", sorted(SHADOW))
+def test_morton_window_kernels_on_the_shadowing_scene(k):
+    """The same on scenes where a pass-1 padding entry shadows the same index
+    in pass 2 (the union keeps JAX's rule: that entry turns into a 3e38
+    duplicate), at k = 6, 20 and 64 and, on the k = 64 scene, at every
+    window instance up to 2 W."""
+    pts, mask, window = shadow_scene(k)
+    pts, mask = torch.from_numpy(pts).cuda(), torch.from_numpy(mask).cuda()
+    p1, p2 = _check_window_kernels(pts, mask, window, k, SHADOW_CELL)
+    assert shadowed(*p1, *p2) > 0
+    if k == 64:
+        for kk in (kk for kk in WINDOW_K if kk <= 2 * window):
+            _check_window_kernels(pts, mask, window, kk, SHADOW_CELL)
+
+
+def test_morton_window_empty_cloud():
+    from sycl_points_tpu_torch.ops import window_knn as wk
+
+    pts, mask = torch.zeros((0, 3), device="cuda"), torch.zeros(0, dtype=torch.bool, device="cuda")
+    r = wk.window_self_knn(pts, mask, 10, window=8)
+    assert tuple(r.indices.shape) == (0, 10) and tuple(r.distances.shape) == (0, 10)
+
+
+@pytest.mark.parametrize("k", [10, 64])
+def test_morton_window_refuses_a_tile_beyond_shared_memory(k):
+    """The widest window whose staged tile fits a block's shared memory runs
+    and equals the plain version (both passes and the union); one more
+    position a side raises a ValueError naming the limit before any launch."""
+    from sycl_points_tpu_torch.ops import window_knn as wk
+
+    fits = lambda w, union: wk.window_smem(w, k, union) <= cuda_knn.SMEM_BYTES
+    widest = max(w for w in range(1, 8000) if fits(w, True))
+    pts, mask = _raw_scan(64, 8, seed=3)
+    _check_window_kernels(pts, mask, widest, k, 0.5)
+    order = torch.sort(wk.morton_codes_passes(pts, mask, 0.5), dim=1, stable=True)[1]
+    p1 = wk.window_gather(pts, mask, order[0], widest, k)
+    torch.cuda.synchronize()
+    before = dict(cuda_knn.launch_counts)
+    for call in (lambda: wk.window_self_knn(pts, mask, k, window=widest + 1),
+                 lambda: wk.window_gather(pts, mask, order[1], widest + 1, k, prev=p1)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert cuda_knn.launch_counts == before
+    widest_pass = max(w for w in range(1, 8000) if fits(w, False))
+    args = (pts[order[0]].contiguous(), mask[order[0]].contiguous(), order[0].to(torch.int32))
+    _equal(wk.window_search(*args, widest_pass, k), wk.window_search_plain(*args, widest_pass, k), "widest pass")
+    with pytest.raises(ValueError, match="shared memory"):
+        wk.window_search(*args, widest_pass + 1, k)
 
 
 REFINE_K = [1, 10, 20, 128, 17, 32, 64, 100]

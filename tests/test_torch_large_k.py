@@ -33,7 +33,11 @@ JAX runs any k; the port's CPU path does too, and the card up to
     margin absorbs, rounds the product and the elementwise sum apart by up
     to ~3e-5 relative), and on the lattice every cell, index for index;
   * the refusals: no CPU search refuses k for being above 16; the first
-    designs still do; a structured search refuses k above its candidates.
+    designs still do; a structured search refuses k above its candidates;
+  * ``knn_k_spill`` (the one-thread instances above 16, kept for timing) on the
+    CPU equal to ``knn_k`` / ``knn_k_batched`` bit for bit, refusing k up
+    to 16 and above 128; the warp-a-query instances' slice plan
+    (``knn_cluster_slices``).
 """
 
 import dataclasses
@@ -386,3 +390,29 @@ def test_instances_serve_every_k_up_to_128():
     assert cuda_knn.cluster_shape(1000, (128,), 132, slice_counts=cuda_knn.knn_slices(16))[1] == 16
     assert [cuda_knn.refine_lanes(c, 10) for c in (2048, 128, 100, 40, 8)] == [32, 32, 16, 8, 8]
     assert [cuda_knn.refine_lanes(2048, k) for k in (16, 17, 128)] == [32, 8, 8]
+
+
+@pytest.mark.parametrize("k", [17, 20, 64, 128])
+def test_knn_k_spill_on_the_cpu_equals_knn_k(k):
+    rng = np.random.default_rng(11)
+    pts = torch.from_numpy(rng.uniform(-5, 5, size=(300, 3)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=300) > 0.2)
+    prep = cuda_knn.prep_target(pts, mask)
+    got, ref = cuda_knn.knn_k_spill(prep, pts[:40], k), cuda_knn.knn_k_prepped(prep, pts[:40], k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    bprep = cuda_knn.prep_targets(pts[None], mask[None])
+    got, ref = cuda_knn.knn_k_spill(bprep, pts[None, :40], k), cuda_knn.knn_k_batched(bprep, pts[None, :40], k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for bad in (16, 129):
+        with pytest.raises(ValueError, match="knn_k_spill"):
+            cuda_knn.knn_k_spill(prep, pts[:40], bad)
+
+
+def test_knn_cluster_slices_plan():
+    # above 16 a cluster holds 8 queries (a warp each): the LO scan's 5,000
+    # queries fill the H100's 132 SMs with one slice, 1,000 take 8
+    assert [cuda_knn.knn_cluster_slices(q, 20, 132) for q in (5000, 1000, 30000)] == [1, 8, 1]
+    assert cuda_knn.knn_cluster_slices(5000, 128, 132, streams=8) == 1
+    # up to 16 the 128-query tile as before
+    for q in (1000, 5000, 24576):
+        assert cuda_knn.knn_cluster_slices(q, 10, 132) == cuda_knn.cluster_shape(q, (128,), 132)[1]
