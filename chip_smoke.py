@@ -387,6 +387,25 @@
     with cdist + topk at the same k, beside their bounds. The kernels' JSON
     line gains a row for each instance above 16, and for ``knn_k_spill``.
 
+46. The fleet split over a mesh (``FleetOdometry(mesh=...)``, a shard of B /
+    n streams a device, on a host thread and a CUDA stream of its own) at
+    phase 23's deployment: first whether a blocking read (``sync.to_host``,
+    ``DeferredFetch.get``) lets another Python thread run (its spins a
+    second beside the same thread's alone; fails under SHARDED_GIL_MIN; the
+    shards take turns on the host and give the turn up while they wait);
+    then the one-entry mesh ``[cuda:0]`` bit-equal to the unsharded fleet in
+    every pose; then the two-shard mesh ``[cuda:0, cuda:0]`` in turns with
+    the unsharded fleet (SHARDED_TURNS), the counts at 0 before each sharded
+    run: ms a fleet frame (median, max), stream-frames a second, reads a
+    fleet frame by source for each shard, batched launches a fleet frame (a
+    shard's and the total); each stream's poses, frame by frame, within
+    SHARDED_M / SHARDED_DEG of the unsharded fleet's, the fleet's ATE
+    bounds, the same growth events. ``FleetLIO`` on the same mesh at the
+    ``--lio`` deployment (SHARDED_LIO_FRAMES frames) against the unsharded
+    ``FleetLIO``, in turns, within the same bounds. The batched ``nn1`` and
+    ``knn_k`` at a shard's shapes (B / 2 streams), as in 24, their launches
+    those of the sharded LO runs.
+
 Prints per-phase results, then a JSON line of kernel results, the card's name
 and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -407,6 +426,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -450,7 +470,7 @@ from sycl_points_tpu_torch.ops.voxel import voxel_coords, voxel_downsample
 from sycl_points_tpu_torch.apps.stream_odometry import OdometryStreamClient, OdometryStreamServer, StreamServerConfig
 from sycl_points_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
 from sycl_points_tpu_torch.pipeline.lidar_odometry import LidarOdometry
-from sycl_points_tpu_torch.parallel.fleet import stream_seeds
+from sycl_points_tpu_torch.parallel.fleet import ShardedFleetLIO, ShardedFleetOdometry, stream_seeds
 from sycl_points_tpu_torch.scripts import window_scenes
 from sycl_points_tpu_torch.pipeline.params import CovarianceEstimationParams, MotionPredictionParams, PoseParams
 from sycl_points_tpu_torch.pipeline.pc_processor import PCProcessor
@@ -680,6 +700,16 @@ LARGE_MAX_ATE_M = {"standard": 0.20, "raw": 0.24}
 LARGE_BATCH = 8
 RANK_OPS = 14  # FP32 operations of a (query, cell) bound: q.c 5, q2 + c2 - 2 q.c 3, two clamps, sqrt, two subs, compare
 SHARDED_T_TOL = 1e-4  # tests/test_multichip.py's bound on T for a split source
+# The fleet split over a mesh of the one card: the two-shard fleets against
+# the unsharded ones (the batched products sum in another order at B / 2
+# streams), in turns; a blocking read must let another thread run at
+# SHARDED_GIL_MIN of its spins alone at least.
+SHARDED_FLEET_PATH = "FleetOdometry.process_batch (mesh [cuda:0, cuda:0], a shard)"
+SHARDED_M, SHARDED_DEG = 1e-3, 0.01
+SHARDED_TURNS = ("unsharded", "two shards", "two shards", "unsharded")
+SHARDED_LIO_FRAMES = 20
+SHARDED_LIO_WARMUP = 3
+SHARDED_GIL_MIN = 0.25
 RAW_ATE_MARGIN_M = 0.02
 RAW_CPU_FRAMES = 4
 # The deployments run the robust (IRLS) covariance estimator. On the raw
@@ -4135,6 +4165,170 @@ def sharded_phase(source, target) -> None:
                              f"{int(ref.inlier)}")
 
 
+def gil_during_reads(dev) -> dict:
+    """Spins a second of a Python thread while the main thread blocks in a
+    read of ~100 ms of device work, over its spins a second alone (the main
+    thread asleep): near 1 when the read lets go of the GIL, near 0 when it
+    holds it."""
+    a = torch.randn(4096, 4096, device=dev) / 64.0
+
+    def busy():
+        x = a
+        for _ in range(30):
+            x = torch.tanh(x @ a)
+        return x.sum()
+
+    def spins_while(wait) -> float:
+        stop, spins = threading.Event(), [0]
+
+        def spin():
+            while not stop.is_set():
+                spins[0] += 1
+
+        torch.cuda.synchronize()
+        t = threading.Thread(target=spin)
+        t.start()
+        t0 = time.perf_counter()
+        wait()
+        dt = time.perf_counter() - t0
+        stop.set()
+        t.join()
+        return spins[0] / dt
+
+    alone = spins_while(lambda: time.sleep(0.1))
+    return {name: spins_while(read) / alone for name, read in (
+        ("sync.to_host", lambda: sync.to_host(busy())),
+        ("DeferredFetch.get", lambda: sync.DeferredFetch(busy()).get()))}
+
+
+def shard_counts_per_frame(fleet, warm: int) -> list:
+    """Each shard's host reads by source and launches a fleet frame after
+    the warm-up."""
+    rows = fleet.shard_counts[warm:]
+    out = []
+    for i in range(len(fleet.mesh)):
+        reads, launches = {}, {}
+        for r in rows:
+            for src, k in r[i]["reads"].items():
+                reads[src] = reads.get(src, 0) + k / len(rows)
+            for name, k in r[i]["launches"].items():
+                launches[name] = launches.get(name, 0) + k / len(rows)
+        out.append((reads, launches))
+    return out
+
+
+def sharded_gap(a_poses, b_poses) -> tuple[float, float]:
+    """The largest translation (m) and rotation (deg) gap of any stream's
+    pose in any frame between two runs."""
+    gaps = [stream0_gap(a, b) for a, b in zip(a_poses, b_poses, strict=True)]
+    return max(g[0] for g in gaps), max(g[1] for g in gaps)
+
+
+def sharded_turns(tag: str, run, mesh, warm: int, n_frames: int, ate_bounds) -> dict:
+    """The unsharded fleet and the fleet on ``mesh`` in turns
+    (SHARDED_TURNS), the counts at 0 before each run; the checks against
+    the first unsharded run. Returns the last sharded run's output and
+    launches."""
+    outs, ms = {"unsharded": [], "two shards": []}, {"unsharded": [], "two shards": []}
+    for which in SHARDED_TURNS:
+        torch.cuda.synchronize()
+        sync.reset_sync_count()
+        cuda_knn.reset_launch_counts()
+        out = run(None if which == "unsharded" else mesh)
+        torch.cuda.synchronize()
+        out["launches"] = Counter(cuda_knn.launch_counts)
+        if min(out["launches"]["nn1_batched"], out["launches"]["knn_k_batched"]) <= 0:
+            raise AssertionError(f"a kernel of the {tag}, {which}, never launched: {dict(out['launches'])}")
+        outs[which].append(out)
+        ms[which] += [r["ms"] for r in out["rows"][warm:]]
+    B = outs["unsharded"][0]["fleet"].B
+    for which, frame_ms in ms.items():
+        print_fleet_timing(f"{tag}, {which} (both runs)", frame_ms, B)
+    base = outs["unsharded"][0]
+    print(f"{tag}: the unsharded runs' poses apart by at most "
+          f"{max(sharded_gap(o['poses'], base['poses'])[0] for o in outs['unsharded']):.3g} m")
+    for k, out in enumerate(outs["two shards"]):
+        fleet = out["fleet"]
+        if not isinstance(fleet, (ShardedFleetOdometry, ShardedFleetLIO)) or fleet.mesh != mesh:
+            raise AssertionError(f"{tag}: mesh={mesh} made {type(fleet).__name__} on {fleet.mesh}")
+        gap_m, gap_deg = sharded_gap(out["poses"], base["poses"])
+        ates = print_fleet_results(f"{tag}, two shards, run {k}", out, n_frames)
+        per_shard = shard_counts_per_frame(fleet, warm)
+        reads, bl = per_fleet_frame(out["rows"][warm:])
+        print(f"{tag}, two shards, run {k}: every pose within {gap_m * 1e3:.4f} mm and {gap_deg:.5f} deg of the "
+              f"unsharded fleet's (bounds {SHARDED_M * 1e3:.0f} mm, {SHARDED_DEG} deg); ATE mean "
+              f"{statistics.mean(ates):.4f} m (unsharded {statistics.mean(base['ates']):.4f}); growth events "
+              f"{fleet.growth_events} (unsharded {base['fleet'].growth_events}); host reads a fleet frame "
+              f"{sum(reads.values()):.2f}, batched launches a fleet frame "
+              + ", ".join(f"{n} {v:.2f}" for n, v in sorted(bl.items())) + "; the last frame's stages (added "
+              "over the shards; unsharded in brackets) "
+              + ", ".join(f"{k} {v * 1e3:.2f} [{base['fleet'].processing_times.get(k, 0.0) * 1e3:.2f}] ms"
+                          for k, v in sorted(fleet.processing_times.items())))
+        for i, (r, lc) in enumerate(per_shard):
+            print(f"{tag}, two shards, run {k}, shard {i} ({fleet.mesh[i]}, streams {fleet._rows[i].start}.."
+                  f"{fleet._rows[i].stop - 1}): host reads a fleet frame {sum(r.values()):.2f}: "
+                  + ", ".join(f"{src} {v:.2f}" for src, v in sorted(r.items(), key=lambda kv: -kv[1]))
+                  + "; launches a fleet frame " + ", ".join(f"{n} {v:.2f}" for n, v in sorted(lc.items())))
+        if gap_m > SHARDED_M or gap_deg > SHARDED_DEG:
+            raise AssertionError(f"{tag}: two shards stray from the unsharded fleet ({gap_m} m, {gap_deg} deg)")
+        if not statistics.mean(ates) <= ate_bounds[0] or not max(ates) <= ate_bounds[1]:
+            raise AssertionError(f"{tag}: two shards' ATE {ates} above the bounds")
+        if fleet.growth_events != base["fleet"].growth_events:
+            raise AssertionError(f"{tag}: growth events differ from the unsharded fleet's")
+    return outs["two shards"][-1]
+
+
+def sharded_fleet_phase(dev, trajs, scans) -> list:
+    """Phase 46: the fleet split over the card's mesh of one and of two
+    entries, held to the unsharded fleet, and the batched kernels at a
+    shard's shapes."""
+    t_phase = time.perf_counter()
+    gil = gil_during_reads(dev)
+    print("a blocking read: another thread's spins a second while it waits, over its spins alone: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in gil.items()) + f" (fails under {SHARDED_GIL_MIN})")
+    if min(gil.values()) < SHARDED_GIL_MIN:
+        raise AssertionError(f"a blocking read holds the GIL: {gil}")
+
+    B, n_frames, warm = fleet_replay.FLEET_STREAMS, fleet_replay.FLEET_FRAMES, fleet_replay.FLEET_WARMUP
+    cap = pad_capacity_for(fleet_replay.FLEET_RAYS[0] * fleet_replay.FLEET_RAYS[1])
+    params = fleet_replay.fleet_params()
+
+    def run(mesh):
+        kw = {} if mesh is None else {"mesh": mesh}
+        return fleet_replay.run_fleet_replay(params, trajs, scans, device=dev, capacity=cap, **kw)
+
+    plain, one = run(None), run([dev])
+    torch.cuda.synchronize()
+    gap = sharded_gap(one["poses"], plain["poses"])
+    same = all(np.array_equal(a, b) for pa, pb in zip(one["poses"], plain["poses"]) for a, b in zip(pa, pb))
+    print(f"sharded fleet on [{dev}]: every pose of every stream bit-equal to the unsharded fleet's: {same} "
+          f"(largest gap {gap[0]:.3g} m, {gap[1]:.3g} deg); growth events {one['fleet'].growth_events}")
+    if not same or one["fleet"].growth_events != plain["fleet"].growth_events:
+        raise AssertionError(f"the fleet on the one-entry mesh [{dev}] differs from the unsharded fleet")
+
+    two = [dev, dev]
+    lo = sharded_turns("sharded fleet", run, two, warm, n_frames, (FLEET_MAX_MEAN_ATE_M, FLEET_MAX_ATE_M))
+
+    lio_params = fleet_replay.fleet_lio_params()
+    lio_scans = scans[:SHARDED_LIO_FRAMES]
+
+    def run_lio(mesh):
+        kw = {} if mesh is None else {"mesh": mesh}
+        return fleet_replay.run_fleet_lio_replay(lio_params, trajs, lio_scans, device=dev, capacity=cap, **kw)
+
+    lio = sharded_turns("sharded fleet LIO", run_lio, two, SHARDED_LIO_WARMUP, SHARDED_LIO_FRAMES,
+                        (FLEET_LIO_MAX_MEAN_ATE_M, FLEET_LIO_MAX_ATE_M))
+    print_lio_fleet_state("sharded fleet LIO", lio["fleet"])
+
+    fleet = lo["fleet"]
+    torch.cuda.synchronize()
+    shard = fleet._shards[0]
+    rows = check_fleet_kernels({**fleet_kernel_inputs(shard, scans[-1][: shard.B], cap, dev),
+                                "launches": lo["launches"]}, SHARDED_FLEET_PATH, "sharded fleet's shard")
+    print(f"sharded fleet phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -4292,6 +4486,9 @@ def main() -> None:
     results += check_large_k(lo_out, large_k_frames(lo_out, dev), dev)
     print(f"k above 16 phase: {time.perf_counter() - t0:.1f} s")
     spill_report(spills)
+
+    # --- the fleet split over a mesh of the card ------------------------------------------
+    results += sharded_fleet_phase(dev, fleet_out["trajs"], fleet_out["scans"])
 
     print(f"smoke run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

@@ -84,6 +84,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -141,14 +142,36 @@ launch_counts = {
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# launch_counts is updated under a lock (a fleet's shards launch from one
+# host thread each); each thread also keeps its own count.
+_count_lock = threading.Lock()
+_local = threading.local()
 
 # Plain versions bound the [rows, M] distance block they materialise.
 _PLAIN_BLOCK_ELEMS = 1 << 24
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def thread_launches() -> Counter:
+    """The launches made on the calling thread since it began, by wrapper
+    (never reset: a caller takes differences)."""
+    launches = getattr(_local, "launches", None)
+    if launches is None:
+        launches = _local.launches = Counter()
+    return launches
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of ``name`` in :data:`launch_counts` and in the
+    calling thread's :func:`thread_launches`."""
+    with _count_lock:
+        launch_counts[name] += 1
+    thread_launches()[name] += 1
 
 
 def find_nvcc() -> str:
@@ -619,7 +642,7 @@ def _run(name, device, call) -> None:
     with torch.cuda.device(device):
         rc = call(lib, torch.cuda.current_stream(device).cuda_stream)
     _check_rc(rc, name)
-    launch_counts[name] += 1
+    count_launch(name)
 
 
 def _launch(name, device, shape, call):

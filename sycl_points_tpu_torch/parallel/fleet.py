@@ -48,21 +48,44 @@ streams. The two fleets differ only in the hooks that the JAX classes name
 ``_upload_inputs`` (a frame's host inputs, sent before the preprocess) and
 ``_iter_col`` (where a stream's align iterations sit in the stats).
 
-The JAX class's ``mesh=`` (GSPMD sharding of the stream axis over chips)
-raises here: a fleet split over several cards is ROADMAP Queue 1 item 13
-(``parallel/sharded.py`` splits one pair, a query batch or a batch of pairs,
-not a fleet).
+``mesh=`` splits the stream axis over devices, as the JAX class's GSPMD
+sharding does. The mesh is a list of torch devices
+(:func:`~.sharded.make_mesh`; the CPU tests pass ``[torch.device("cpu")] *
+n``), and either class then makes its sharded form
+(:class:`ShardedFleetOdometry`, :class:`ShardedFleetLIO`): shard ``i`` of
+``n`` holds streams ``[i B / n, (i + 1) B / n)`` on ``mesh[i]`` as an
+unsharded fleet of ``B / n`` streams, each stream with its global seeds.
+The shards exchange nothing on the device. They agree on the host on what
+JAX's one sharded array makes fleet-wide (:class:`_Exchange`): which
+frames to resolve (in lockstep, frame ``f`` in every shard before ``f +
+1``), and when the map grows, so that one capacity and one list of growth
+events hold for the fleet. Each shard runs on a persistent host thread of
+its own, on its device and on a CUDA stream of its own. The shards take
+turns on the host (one lock, :func:`..utils.sync.set_host_turn`), and a
+shard gives its turn up while it waits for its device or for the other
+shards, so one shard's reads do not hold back another's launches, and the
+threads do not hand the GIL to each other at every torch call (on the H100
+a two-shard fleet frame takes 0.60-0.67 of its time without the turns;
+PERF.md §6). The accessors read the whole fleet in stream order.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
+import inspect
+import queue
+import threading
 import time
-from collections import deque
+import weakref
+from collections import Counter, deque
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from sycl_points_tpu_torch import require_device
 from sycl_points_tpu_torch.imu.factor import State
 from sycl_points_tpu_torch.imu.preintegration import (
     IMUMeasurement,
@@ -72,6 +95,7 @@ from sycl_points_tpu_torch.imu.preintegration import (
 )
 from sycl_points_tpu_torch.lio import lio_registration as lio
 from sycl_points_tpu_torch.mapping.voxel_hash_map import select_streams, stack_streams
+from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.ops.knn import BruteForceKNN
 from sycl_points_tpu_torch.ops.sampling import random_sampling_streams
 from sycl_points_tpu_torch.ops.transform import transform_cloud
@@ -84,6 +108,7 @@ from sycl_points_tpu_torch.pipeline.pipelined_lio import LIOCarry, PipelinedLida
 from sycl_points_tpu_torch.pipeline.pipelined_odometry import OdomCarry, PipelinedLidarOdometry
 from sycl_points_tpu_torch.points.point_cloud import PointCloud, compact_device
 from sycl_points_tpu_torch.registration.map_prior import MapPriorParams
+from sycl_points_tpu_torch.utils import sync
 from sycl_points_tpu_torch.utils.sync import DeferredFetch, to_device, to_host
 
 _F32 = torch.float32
@@ -111,8 +136,26 @@ class _Pending(NamedTuple):
     frame_index: int
 
 
-class FleetOdometry:
-    """``n_streams`` LiDAR odometry streams, one launch sequence a frame."""
+class _MeshDispatch:
+    """``cls(..., mesh=[...])`` makes the class's sharded form, whose
+    ``__init__`` splits the fleet (a base class, so that the fleets' own
+    ``__init__`` signatures are the ones ``inspect`` reads)."""
+
+    def __new__(cls, *args, **kwargs):
+        if not issubclass(cls, _ShardedFleet) and _arguments(cls, args, kwargs)["mesh"] is not None:
+            cls = ShardedFleetLIO if issubclass(cls, FleetLIO) else ShardedFleetOdometry
+        return super().__new__(cls)
+
+
+class FleetOdometry(_MeshDispatch):
+    """``n_streams`` LiDAR odometry streams, one launch sequence a frame;
+    with ``mesh=`` (a list of devices) the call makes a
+    :class:`ShardedFleetOdometry` (the module's docstring)."""
+
+    # set on each shard of a sharded fleet: where the shards agree, and which
+    # of them this one is (an unsharded fleet decides alone)
+    _exchange: Optional["_Exchange"] = None
+    _rank = 0
 
     def __init__(
         self,
@@ -126,10 +169,6 @@ class FleetOdometry:
         seed: int = 0,
         device: torch.device | str = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh= (sharding the {mesh_axis!r} axis over cards) is not ported: a fleet split over "
-                "several cards is ROADMAP Queue 1 item 13")
         # the template holds the parameters, the preprocessor and the submap
         # config; its own single-stream map is freed
         t = self._make_template(params, map_prior_params, device)
@@ -234,6 +273,11 @@ class FleetOdometry:
         :meth:`~..pipeline.lidar_odometry.LidarOdometry.precompile_growth`)."""
         return 0
 
+    def _across(self, value) -> list:
+        """``value`` of every shard of the fleet, in shard order (this
+        fleet's alone when it is not a shard)."""
+        return [value] if self._exchange is None else self._exchange.gather(self._rank, value)
+
     def _stage(self, name: str, t0: float) -> float:
         now = time.perf_counter()
         self.processing_times[name] = now - t0
@@ -281,7 +325,8 @@ class FleetOdometry:
             prev_map_state=prev_map_state, T_eff=T_eff, timestamps=ts, frame_index=self.frame_count))
         t0 = self._stage("4a. submap dispatch", t0)
 
-        while self._pending and (len(self._pending) > self._max_in_flight or self._pending[0].stats.ready()):
+        while self._pending and (len(self._pending) > self._max_in_flight
+                                 or all(self._across(self._pending[0].stats.ready()))):
             self._resolve_one(self._pending.popleft())
         self._stage("4b. stats fetch", t0)
         self.frame_count += 1
@@ -322,7 +367,7 @@ class FleetOdometry:
             new_state, _, load, overflow = sm.insert_extract(self.map_state, sampled, poses)
             s0 = np.asarray(to_host(torch.stack([load, overflow.to(_F32), new_state.dropped.to(_F32),
                                                  new_state.budget_lost.to(_F32)], -1)))
-            if (s0[:, 2] == 0).all() or attempt == submap.MAX_GROW:
+            if all(self._across(bool((s0[:, 2] == 0).all()))) or attempt == submap.MAX_GROW:
                 break
             self.map_state, sm.map_config = sm.map_module.grow(self.map_state, sm.map_config)
             self.growth_events.append({"frame": 0, "capacity": sm.map_capacity})
@@ -335,7 +380,7 @@ class FleetOdometry:
         self._dropped_seen = s0[:, 2].astype(np.int64)
         self.extract_overflow = s0[:, 1].astype(np.int64)
         self.budget_lost = s0[:, 3].astype(np.int64)
-        if float(s0[:, 0].max()) > submap.MAX_LOAD:
+        if max(self._across(float(s0[:, 0].max()))) > submap.MAX_LOAD:
             self._grow_fleet()
         self._last_ts = ts
         self.frame_count += 1
@@ -358,11 +403,11 @@ class FleetOdometry:
 
         if pend.frame_index <= self._reconciled_until:
             return
-        if (dropped > self._dropped_seen).any():
+        if any(self._across(bool((dropped > self._dropped_seen).any()))):
             self._retry_after_drop(pend)
             return
         self._dropped_seen = dropped
-        if float(load.max()) > submap.MAX_LOAD and pend.frame_index > self._load_grown_until:
+        if max(self._across(float(load.max()))) > submap.MAX_LOAD and pend.frame_index > self._load_grown_until:
             self._grow_fleet()
             self._load_grown_until = self._pending[-1].frame_index if self._pending else pend.frame_index
 
@@ -382,27 +427,36 @@ class FleetOdometry:
         state from before its insert, grow the WHOLE fleet and run the same
         stacked insert again until nothing is dropped, then re-apply every
         later frame in flight (growing again only on a new drop); the target
-        of each stream that inserted is rebuilt from its last extraction."""
+        of each stream that inserted is rebuilt from its last extraction. A
+        shard grows as its fleet does; where none of its streams is a
+        keyframe, it inserts nothing."""
         sm = self._t.submap
         state = pend.prev_map_state
         extracted, inserted = None, torch.zeros(self.B, dtype=torch.bool, device=self.device)
         for j, p in enumerate([pend, *self._pending]):
-            if p.sampled is None:
+            if not any(self._across(bool(p.is_kf.any()))):
                 continue
-            kf = torch.from_numpy(p.is_kf).to(self.device)
+            kf = None if p.sampled is None else torch.from_numpy(p.is_kf).to(self.device)
             for attempt in range(submap.MAX_GROW + 1):
                 if attempt > 0 or j == 0:
                     state = self._grow_state(state)
-                new, ex, _, _ = sm.insert_extract(state, p.sampled, p.T_eff)
-                new = select_streams(kf, new, state)
-                if to_host((new.dropped == state.dropped).all()) or attempt == submap.MAX_GROW:
+                if kf is None:
+                    new, kept = state, True
+                else:
+                    new, ex, _, _ = sm.insert_extract(state, p.sampled, p.T_eff)
+                    new = select_streams(kf, new, state)
+                    kept = to_host((new.dropped == state.dropped).all())
+                if all(self._across(kept)) or attempt == submap.MAX_GROW:
                     break
             state = new
-            extracted = ex if extracted is None else pick_clouds(kf, ex, extracted)
-            inserted = inserted | kf
+            if kf is not None:
+                extracted = ex if extracted is None else pick_clouds(kf, ex, extracted)
+                inserted = inserted | kf
             self._reconciled_until = max(self._reconciled_until, p.frame_index)
         self.map_state = state
         self._dropped_seen = np.asarray(to_host(state.dropped), np.int64)
+        if extracted is None:
+            return
         ok = inserted & (extracted.count() >= self.params.registration.min_num_points)
         target = PointCloud(points=extracted.points, mask=extracted.mask)
         if sm._need_covs or sm._need_normals:
@@ -541,3 +595,367 @@ class FleetLIO(FleetOdometry):
         horizon = meas.timestamp - self.params.imu.buffer_duration_sec
         while buf and buf[0].timestamp < horizon:
             buf.popleft()
+
+
+# ---- the fleet split over devices ------------------------------------------------
+
+
+def _arguments(cls, args, kwargs) -> dict:
+    """The arguments of ``cls(*args, **kwargs)`` by name, defaults filled in."""
+    bound = inspect.signature(cls.__init__).bind(None, *args, **kwargs)
+    bound.apply_defaults()
+    return dict(list(bound.arguments.items())[1:])
+
+
+def _mesh_devices(mesh, device) -> list:
+    """The mesh's entries as torch devices, each of ``device``'s type and
+    usable; anything else is refused, not replaced."""
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError("mesh= is empty: a fleet needs at least one device")
+    kind = require_device(device).type
+    out = []
+    for d in devices:
+        if d.type != kind or kind not in ("cpu", "cuda"):
+            raise ValueError(f"mesh entry {d} is not a {kind} device (the fleet's device is {device!r}; a CPU "
+                             "fleet takes a mesh of CPUs, a card's fleet a mesh of cards)")
+        if kind == "cuda":
+            require_device(d)
+            d = torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
+            if d.index >= torch.cuda.device_count():
+                raise ValueError(f"mesh entry {d}: only {torch.cuda.device_count()} cards are visible")
+        out.append(d)
+    return out
+
+
+def _tensors(tree):
+    """Every tensor of a cloud, a map state, a filter state or a tensor."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _combine(fn, trees):
+    """Trees of one structure (clouds, map states, filter states, tensors)
+    combined leaf by leaf: ``fn(list of tensors)`` at each tensor."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return fn(trees)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{f.name: _combine(fn, [getattr(t, f.name) for t in trees])
+                                             for f in dataclasses.fields(first)})
+    return type(first)(*(_combine(fn, list(vs)) for vs in zip(*trees)))
+
+
+def _caller_streams(tree) -> dict:
+    """The calling thread's current stream on each card that holds a tensor
+    of ``tree``."""
+    return {t.device: torch.cuda.current_stream(t.device) for t in _tensors(tree) if t.is_cuda}
+
+
+def _receive(tree, rows: slice, device: torch.device, streams: dict):
+    """Rows ``rows`` of the caller's ``tree`` on ``device``, for use on the
+    calling (shard) thread's stream: that stream waits for the caller's
+    (``streams``, taken on the caller's thread), and the caller's memory is
+    recorded on it, so the allocator does not hand it out while the shard's
+    work may still read it."""
+    def part(ts):
+        x = ts[0][rows]
+        if x.is_cuda:
+            use = torch.cuda.current_stream(x.device)
+            use.wait_stream(streams[x.device])
+            x.record_stream(use)
+        return x.to(device)
+
+    return _combine(part, [tree])
+
+
+class _Exchange:
+    """The shards of one fleet agreeing on host values: each shard's thread
+    puts its own in and takes every shard's, in shard order. A barrier
+    before the read and one after it keep a value from being overwritten
+    while another shard still reads it. A shard that raises aborts the
+    barrier, so the others stop waiting for it."""
+
+    def __init__(self, n: int):
+        self._barrier = threading.Barrier(n)
+        self._values = [None] * n
+
+    def gather(self, rank: int, value) -> list:
+        with sync.waiting():
+            self._values[rank] = value
+            self._barrier.wait()
+            values = list(self._values)
+            self._barrier.wait()
+        return values
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+def _host_turn():
+    """The lock the shards of one fleet take turns on for their host work
+    (:func:`..utils.sync.set_host_turn`)."""
+    return threading.Lock()
+
+
+class _ShardThread:
+    """A shard's persistent host thread: it runs the shard's work in the
+    order given, inside ``torch.cuda.device(device)``, on a CUDA stream of
+    its own (on the CPU, as it is) and holding the fleet's host turn but
+    while it waits."""
+
+    def __init__(self, device: torch.device, exchange: _Exchange, turn, name: str):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._exchange = exchange
+        self._turn = turn
+        self._jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self._results: queue.SimpleQueue = queue.SimpleQueue()
+        threading.Thread(target=self._serve, name=name, daemon=True).start()
+
+    def _serve(self) -> None:
+        sync.set_host_turn(self._turn)
+        with contextlib.ExitStack() as ctx:
+            if self.stream is not None:
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self.stream))
+            while (job := self._jobs.get()) is not None:
+                try:
+                    with self._turn:
+                        out = (True, job())
+                except BaseException as e:  # noqa: BLE001 (handed to the caller, never dropped)
+                    self._exchange.abort()
+                    out = (False, e)
+                self._results.put(out)
+                del job, out
+
+    def submit(self, job) -> None:
+        self._jobs.put(job)
+
+    def result(self) -> tuple:
+        """``(True, value)`` or ``(False, exception)`` of the oldest job."""
+        return self._results.get()
+
+    def stop(self) -> None:
+        self._jobs.put(None)
+
+
+def _stop_threads(threads) -> None:
+    for t in threads:
+        t.stop()
+
+
+class _ShardedFleet:
+    """A fleet whose ``B`` streams are cut into ``n = len(mesh)`` shards, an
+    unsharded fleet of ``B / n`` streams each on its device and its host
+    thread (:class:`_ShardThread`), made by ``FleetOdometry(mesh=...)`` /
+    ``FleetLIO(mesh=...)``.
+
+    A call runs every shard's part on its thread and returns when all are
+    done; the first exception of a shard is raised in the caller's thread,
+    and the fleet then refuses further calls (its shards may be out of
+    step). On the card each shard's stream waits for the caller's before it
+    reads the caller's tensors, and the caller's streams wait for the
+    shards' when a call returns. ``mesh_axis`` is accepted and names
+    nothing: a list has no axis names."""
+
+    _fleet_cls: type
+
+    def __init__(self, *args, **kwargs):
+        a = _arguments(self._fleet_cls, args, kwargs)
+        mesh = _mesh_devices(a.pop("mesh"), a.pop("device"))
+        a.pop("mesh_axis")
+        B, n = int(a["n_streams"]), len(mesh)
+        if B % n:
+            raise ValueError(f"{B} streams do not split evenly over the {n} devices of the mesh")
+        b = B // n
+        initial_poses = a.pop("initial_poses")
+        if initial_poses is None:
+            initial_poses = np.broadcast_to(a["params"].pose.initial_matrix(), (B, 4, 4))
+        self.params, self.B, self.mesh, self.device = a["params"], B, mesh, mesh[0]
+        self._initial_poses = np.array(initial_poses, np.float32)
+        self._rows = [slice(i * b, (i + 1) * b) for i in range(n)]
+        self._failed: Optional[BaseException] = None
+        self._exchange = _Exchange(n)
+        turn = _host_turn()
+        self._threads = [_ShardThread(d, self._exchange, turn, f"fleet shard {i}") for i, d in enumerate(mesh)]
+        weakref.finalize(self, _stop_threads, self._threads)
+        # per process_batch call, each shard's host reads by file:line and
+        # launches by wrapper, counted on its own thread
+        self.shard_counts: List[list] = []
+
+        del a["n_streams"]
+        seed = a.pop("seed")
+
+        def make(i):
+            # stream s of the fleet keeps its seeds: stream_seeds(seed, s) is
+            # stream_seeds(seed + i b, s - i b)
+            shard = self._fleet_cls(**a, n_streams=b, initial_poses=self._initial_poses[self._rows[i]],
+                                    seed=seed + i * b, device=mesh[i])
+            shard._exchange, shard._rank = self._exchange, i
+            return shard
+
+        self._shards = self._run(make)
+
+    def _run(self, job) -> list:
+        """``job(i)`` on shard ``i``'s thread for every shard, joined; the
+        results in shard order."""
+        if self._failed is not None:
+            raise RuntimeError("a shard of this fleet raised in an earlier call; its shards may be out of step") \
+                from self._failed
+        for i, t in enumerate(self._threads):
+            t.submit(functools.partial(job, i))
+        outs = [t.result() for t in self._threads]
+        errors = [v for ok, v in outs if not ok]
+        if errors:
+            # the shard that raised first, not the ones its abort released
+            self._failed = next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)), errors[0])
+            raise self._failed
+        return [v for _, v in outs]
+
+    def _join_streams(self, *devices) -> None:
+        """The caller's current streams on the mesh's cards (and on
+        ``devices``) wait for every shard's stream."""
+        for d in {*self.mesh, *devices}:
+            if d.type == "cuda":
+                for t in self._threads:
+                    torch.cuda.current_stream(d).wait_stream(t.stream)
+
+    def _gather(self, trees):
+        """The shards' trees stacked in stream order on ``mesh[0]``, read on
+        the caller's streams."""
+        def cat(parts):
+            moved = []
+            for x, t in zip(parts, self._threads):
+                if x.is_cuda:
+                    use = torch.cuda.current_stream(x.device)
+                    use.wait_stream(t.stream)
+                    x.record_stream(use)
+                moved.append(x.to(self.device))
+            return torch.cat(moved)
+
+        return _combine(cat, trees)
+
+    # ------------------------------------------------------------------
+    def process_batch(self, clouds: PointCloud, timestamps) -> None:
+        """Process one frame of every stream, as the unsharded fleet does:
+        each shard its rows of ``clouds [B, N]`` and ``timestamps``."""
+        B = self.B
+        if clouds.points.shape[0] != B:
+            raise ValueError(f"expected clouds of {B} streams, got {tuple(clouds.points.shape)}")
+        ts = np.broadcast_to(np.asarray(timestamps, np.float64), (B,)).copy()
+        streams = _caller_streams(clouds)
+
+        def frame(i):
+            reads, launches = Counter(sync.thread_reads()), Counter(cuda_knn.thread_launches())
+            self._shards[i].process_batch(_receive(clouds, self._rows[i], self.mesh[i], streams), ts[self._rows[i]])
+            return {"reads": Counter(sync.thread_reads()) - reads,
+                    "launches": Counter(cuda_knn.thread_launches()) - launches}
+
+        self.shard_counts.append(self._run(frame))
+        self._join_streams(clouds.points.device)
+
+    def flush(self) -> None:
+        self._run(lambda i: self._shards[i].flush())
+        self._join_streams()
+
+    def _scatter(self, name: str, value) -> None:
+        """Set ``name`` of every shard to its rows of the caller's ``value``."""
+        streams = _caller_streams(value)
+        self._run(lambda i: setattr(self._shards[i], name, _receive(value, self._rows[i], self.mesh[i], streams)))
+
+    @property
+    def map_capacity(self) -> int:
+        return self._shards[0].map_capacity
+
+    @property
+    def growth_events(self) -> List[dict]:
+        """The fleet's growths (every shard grows with it)."""
+        return self._shards[0].growth_events
+
+    @property
+    def frame_count(self) -> int:
+        return self._shards[0].frame_count
+
+    @property
+    def processing_times(self) -> dict:
+        """Each stage's seconds in the last call, added over the shards."""
+        out: dict = {}
+        for s in self._shards:
+            for k, v in s.processing_times.items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+
+def _stream_lists(name: str):
+    """A per-stream list attribute of the shards, joined in stream order
+    (the shards' own lists: they grow as the shards resolve frames)."""
+    return property(lambda self: [x for s in self._shards for x in getattr(s, name)],
+                    doc=f"``{name}`` of every stream, in stream order.")
+
+
+def _stream_arrays(name: str):
+    """A per-stream host array of the shards, concatenated; set row-wise."""
+    def put(self, value):
+        value = np.asarray(value)
+        for s, rows in zip(self._shards, self._rows):
+            setattr(s, name, value[rows].copy())
+
+    return property(lambda self: np.concatenate([getattr(s, name) for s in self._shards]), put,
+                    doc=f"``{name}`` of every stream, in stream order.")
+
+
+def _stream_tensors(name: str):
+    """A stacked device attribute of the shards, gathered on ``mesh[0]``
+    (None before the shards have one); set row-wise on the shards."""
+    def get(self):
+        parts = [getattr(s, name) for s in self._shards]
+        return None if parts[0] is None else self._gather(parts)
+
+    return property(get, lambda self, value: self._scatter(name, value),
+                    doc=f"``{name}`` of every stream, stacked on ``mesh[0]``.")
+
+
+for _name in ("pose_log", "deferred_results", "align_iterations"):
+    setattr(_ShardedFleet, _name, _stream_lists(_name))
+for _name in ("keyframe_counts", "extract_overflow", "budget_lost"):
+    setattr(_ShardedFleet, _name, _stream_arrays(_name))
+for _name in ("map_state", "submap_cloud"):
+    setattr(_ShardedFleet, _name, _stream_tensors(_name))
+
+
+class ShardedFleetOdometry(_ShardedFleet, FleetOdometry):
+    """:class:`FleetOdometry` split over a mesh (``FleetOdometry(mesh=...)``
+    makes one)."""
+
+    _fleet_cls = FleetOdometry
+
+
+class ShardedFleetLIO(_ShardedFleet, FleetLIO):
+    """:class:`FleetLIO` split over a mesh (``FleetLIO(mesh=...)`` makes
+    one): the filter state, the covariance and the bias and velocity mirrors
+    read as the whole fleet's; a stream's IMU goes to its shard."""
+
+    _fleet_cls = FleetLIO
+    x = _stream_tensors("x")
+    P = _stream_tensors("P")
+    gyro_bias_np = _stream_arrays("gyro_bias_np")
+    accel_bias_np = _stream_arrays("accel_bias_np")
+    velocity_np = _stream_arrays("velocity_np")
+
+    @property
+    def align_loops(self) -> List[int]:
+        """A fleet frame's align loop: its slowest shard's."""
+        return [max(v) for v in zip(*(s.align_loops for s in self._shards))]
+
+    def add_imu_measurement(self, stream: int, meas: IMUMeasurement) -> None:
+        b = self.B // len(self._shards)
+        self._shards[stream // b].add_imu_measurement(stream % b, meas)

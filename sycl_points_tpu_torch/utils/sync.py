@@ -11,10 +11,16 @@ drained; in eager PyTorch they stand where the JAX package has a
 :class:`DeferredFetch` is the one read that does not block at once: the
 counterpart of ``copy_to_host_async`` + ``jax.Array.is_ready``, which the
 pipelined frames use for their per-frame stats.
+
+The counts are exact under threads (a fleet split over devices reads from
+one thread a shard), and each thread also counts its own
+(:func:`thread_reads`). A thread may hold a host turn (:func:`set_host_turn`),
+which it gives up while a read waits for the card (:func:`waiting`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -28,25 +34,70 @@ import torch
 counts = {"host_syncs": 0, "blocking_fetches": 0}
 # Host reads since the last reset_sync_count(), by the file:line that asked.
 by_source: Counter = Counter()
+# The counts are updated under a lock: a fleet split over devices reads from
+# one host thread a shard, and ``+=`` on a shared dict is not atomic.
+_lock = threading.Lock()
+_local = threading.local()
 
 
 def reset_sync_count() -> None:
-    for k in counts:
-        counts[k] = 0
-    by_source.clear()
+    with _lock:
+        for k in counts:
+            counts[k] = 0
+        by_source.clear()
 
 
-def _count(depth: int) -> None:
+def thread_reads() -> Counter:
+    """The host reads made on the calling thread since it began, by
+    ``file:line`` (never reset: a caller takes differences)."""
+    reads = getattr(_local, "reads", None)
+    if reads is None:
+        reads = _local.reads = Counter()
+    return reads
+
+
+def _count(depth: int, blocking: bool = False) -> None:
     frame = sys._getframe(depth + 1)
-    counts["host_syncs"] += 1
-    by_source[f"{os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno}"] += 1
+    source = f"{os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno}"
+    with _lock:
+        counts["host_syncs"] += 1
+        counts["blocking_fetches"] += blocking
+        by_source[source] += 1
+    thread_reads()[source] += 1
+
+
+def set_host_turn(turn) -> None:
+    """Give the calling thread a host turn: a lock it holds while it runs
+    host work and gives up while it waits for the card (:func:`waiting`).
+    The shards of a fleet split over devices share one, so that one shard
+    launches while another waits, and their threads do not hand the GIL
+    to each other at every torch call."""
+    _local.turn = turn
+
+
+@contextlib.contextmanager
+def waiting():
+    """A blocking wait of the calling thread: its host turn, if it has one,
+    is given up for the wait and taken back after it."""
+    turn = getattr(_local, "turn", None)
+    if turn is None:
+        yield
+        return
+    turn.release()
+    try:
+        yield
+    finally:
+        turn.acquire()
 
 
 def to_host(value: torch.Tensor):
     """``value.tolist()`` (a Python scalar for a 0-dim tensor), counted as
     one host sync."""
     _count(1)
-    return value.tolist()
+    if not value.is_cuda:
+        return value.tolist()
+    with waiting():
+        return value.tolist()
 
 
 def to_device(device: torch.device, *arrays) -> list:
@@ -102,7 +153,7 @@ class DeferredFetch:
     def get(self) -> np.ndarray:
         """The value on the host, as a numpy array."""
         if not self.ready():
-            _count(1)
-            counts["blocking_fetches"] += 1
-            self._event.synchronize()
+            _count(1, blocking=True)
+            with waiting():
+                self._event.synchronize()
         return self._host.numpy()

@@ -12,8 +12,9 @@
     ``og_state_from_reference``, holds the same voxels in every stream, with
     equal counts and sums within 1e-4 relative (float32 sums in another
     order).
-  * ``mesh=`` raises (no use on one card), ``precompile_growth`` is 0, and a
-    wrong stream count is refused.
+  * A mesh the streams do not split over evenly is refused
+    (``tests/test_torch_fleet_sharded.py`` tests the sharded fleet),
+    ``precompile_growth`` is 0, and a wrong stream count is refused.
 """
 
 import dataclasses
@@ -144,8 +145,8 @@ def test_fleet_matches_jax(world_scans, map_type):
 
 def test_fleet_refusals():
     p = params_from_reference(small_params())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        FleetOdometry(p, n_streams=2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="2 streams do not split evenly over the 3 devices"):
+        FleetOdometry(p, n_streams=2, mesh=[torch.device("cpu")] * 3, device="cpu")
     fleet = FleetOdometry(p, n_streams=2, device="cpu")
     assert fleet.precompile_growth(1 << 20) == 0
     with pytest.raises(ValueError, match="2 streams"):

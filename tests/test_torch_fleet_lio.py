@@ -20,9 +20,10 @@
     inertial=True)``: every pose, the final state and covariance bit for
     bit, the same result types, the maps equal as sets of voxels.
   * The refusals: the initial alignment (which JAX refuses too), the IMU
-    deskew and ``mesh=``; the rotation constraint and coarse-to-fine,
-    refused before they were ported, run (coarse-to-fine leaves every bit
-    as it was: it is no branch of the LIO solve, as in JAX).
+    deskew and a mesh the streams do not split over evenly; the rotation
+    constraint and coarse-to-fine, refused before they were ported, run
+    (coarse-to-fine leaves every bit as it was: it is no branch of the LIO
+    solve, as in JAX).
   * Zero-loss growth with the LIO stats layout (the JAX
     ``test_fleet_growth_zero_loss`` on ``FleetLIO``): a 2^10-slot fleet at 8
     probes a key drops on a frame after the first, retries it on the grown
@@ -372,8 +373,8 @@ def test_fleet_lio_refusals():
     with pytest.raises(ValueError, match="deskew"):
         FleetLIO(dataclasses.replace(p, imu=dataclasses.replace(
             imu, deskew=dataclasses.replace(imu.deskew, enable=True))), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        FleetLIO(p, n_streams=2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="2 streams do not split evenly over the 3 devices"):
+        FleetLIO(p, n_streams=2, mesh=[torch.device("cpu")] * 3, device="cpu")
     # the rotation constraint and coarse-to-fine, which FleetLIO refused
     # before they were ported, run; coarse-to-fine is no branch of the LIO
     # solve (as in JAX), so it leaves every bit as it was
