@@ -13,11 +13,13 @@
    plain versions on the CPU and compares the poses; runs register_pair's
    stages after the voxel step through the production kernels and through
    knn_k_simple + nn1_plain, and requires equal poses, bit for bit.
-3. Holds every instance of the study kernels (nn1_tiled, nn1_bias,
-   nn1_lanes, nn1_unroll2) against nn1_plain at the nn1 shape, on queries
-   moved by the ground-truth pose, with some targets masked, with every
-   target masked, and on an odd count of targets: equal indices and equal
-   distances, bit for bit.
+3. Holds every instance of the study kernels (nn1_tiled, the tile study's
+   kernel for the card, at every query tile x chunk; its first design
+   nn1_tiled_simple; nn1_bias, nn1_lanes, nn1_unroll2) against nn1_plain at
+   the nn1 shape, on queries moved by the ground-truth pose, with some
+   targets masked, with every target masked, and on an odd count of
+   targets: equal indices and equal distances, bit for bit; times each
+   instance (nn1_tiled through its packed target, made once).
 4. Times every kernel, its plain version and a PyTorch yardstick that the
    port never calls (``torch.cdist`` over +inf-masked targets, then ``min``
    or ``topk``), as marginal per-launch CUDA-event times, and computes each
@@ -30,10 +32,11 @@
    synthetic HDL-64 pair (2048 x 64 rays raycast on the card, two poses of a
    figure-8 about 1 m apart) and checks the pose against the ground truth,
    that every output lies on the card, and that nn1 and knn_k launched.
-6. Drives the two study entry points (``scripts.bench_nn1_tiles`` and
-   ``scripts.bench_nn1_variants``) at one small shape, each with the launch
-   counts set to 0 just before and read just after, and fails if a study
-   kernel never launched or an instance differs from nn1_plain there.
+6. Drives the two study entry points (``scripts.bench_nn1_tiles``, both of
+   its designs and the cluster nn1, and ``scripts.bench_nn1_variants``) at
+   one small shape, each with the launch counts set to 0 just before and
+   read just after, and fails if a study kernel never launched or an
+   instance differs from nn1_plain there.
 7. Drives the LiDAR-odometry frame, ``LidarOdometry.process``, over a
    20-frame replay at the full width of the replay deployment
    (``apps.odometry_replay``: 2048 x 64 rays a scan, 5,000-point scans, a
@@ -384,8 +387,14 @@
     tie-ordered plain versions (``knn_k_sorted_plain``, one launch a stream)
     and the one-thread instances (``knn_k_spill``), the first 16 columns against
     the k = 16 search, timed in turns with k = K, with ``knn_k_spill`` and
-    with cdist + topk at the same k, beside their bounds. The kernels' JSON
-    line gains a row for each instance above 16, and for ``knn_k_spill``.
+    with cdist + topk at the same k, beside their bounds; the range-image
+    window (a warp a cell above 16) at k = 20, 32, 64 and 117 (the default
+    window's 117 candidates: its K = 128 instance), bit for bit against its
+    plain version and its one-thread instances (``range_image_window_spill``),
+    timed in turns with them and k = 10. ``-Xptxas -v`` of ``range_image.cu``
+    beside the others: no warp instance may spill. The kernels' JSON line
+    gains a row for each instance above 16, for ``knn_k_spill`` and for
+    ``range_image_spill``.
 
 46. The fleet split over a mesh (``FleetOdometry(mesh=...)``, a shard of B /
     n streams a device, on a host thread and a CUDA stream of its own) at
@@ -504,6 +513,7 @@ MAX_TRANS_ERR_M = 0.05
 MAX_ROT_ERR_DEG = 0.5
 KNN_SOURCE = "sycl_points_tpu_torch/csrc/knn_cluster.cu"
 FIRST_SOURCE = "sycl_points_tpu_torch/csrc/knn.cu"
+TILES_SOURCE = "sycl_points_tpu_torch/csrc/nn1_tiles.cu"
 VARIANTS_SOURCE = "sycl_points_tpu_torch/csrc/nn1_variants.cu"
 STUDY_SHAPE = ((1024, 6144),)  # the TPU variant study's small shape
 MASK_EVERY = 37
@@ -824,7 +834,7 @@ def check_nn1(target, queries, pose) -> dict:
     under the path's pose in every exact case. Times, in turns, at the path's
     shape and at Q=M=22,528: ``ms`` the kernel through nn1_prepped (the ICP
     loop's per-iteration call, target prepared once), ``public_ms`` nn1
-    (prep_target included), ``previous_ms`` the first design (nn1_tiled
+    (prep_target included), ``previous_ms`` the first design (nn1_tiled_simple
     <128, 2048>), the nn1_lanes <32> and <8> study kernels, and nn1_plain.
     The first design and the lanes kernels take no pose, so they get the
     queries already moved."""
@@ -849,7 +859,7 @@ def check_nn1(target, queries, pose) -> dict:
         check_equal("nn1", cuda_knn.nn1_prepped(pr, q, p), cuda_knn.nn1_plain(tt, m, q, p), label)
         turns = in_turns({
             "ms": lambda: cuda_knn.nn1_prepped(pr, q, p),
-            "previous_ms": lambda: cuda_knn.nn1_tiled(tt, m, qm, 128, 2048),
+            "previous_ms": lambda: cuda_knn.nn1_tiled_simple(tt, m, qm, 128, 2048),
             "lanes32_ms": lambda: cuda_knn.nn1_lanes(tt, m, qm, 32),
             "lanes8_ms": lambda: cuda_knn.nn1_lanes(tt, m, qm, 8),
             "public_ms": lambda: cuda_knn.nn1(tt, m, q, p),
@@ -929,7 +939,8 @@ STUDIES = (bench_nn1_tiles, bench_nn1_variants)
 # Each study kernel's launch-count key -> (its source, the TPU kernel it
 # replaces). The studies' v0 is the production nn1, checked above.
 STUDY_KERNELS = {
-    "nn1_tiled": (FIRST_SOURCE, "scripts/bench_pallas_tiles.py:27"),
+    "nn1_tiled": (TILES_SOURCE, "scripts/bench_pallas_tiles.py:27"),
+    "nn1_tiled_simple": (FIRST_SOURCE, "scripts/bench_pallas_tiles.py:27"),
     "nn1_bias": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:106"),
     "nn1_lanes": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:134"),
     "nn1_unroll2": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:168"),
@@ -971,18 +982,19 @@ def check_study_kernels(target, queries, pose) -> list:
     dev = t.device
     per, study = {name: {} for name in STUDY_KERNELS}, {}
     for module in STUDIES:
-        for label, (name, fn) in module.INSTANCES.items():
+        for label, (name, prepare, fn) in module.INSTANCES.items():
             if name not in STUDY_KERNELS:
                 continue
             for what, (tt, m) in cases.items():
-                idx, d2 = fn(tt, m, moved)
+                idx, d2 = fn(prepare(tt, m), moved)
                 torch.cuda.synchronize()
                 ri, rd = refs[what]
                 bad = int((idx != ri).sum())
                 if bad or not torch.equal(d2, rd):
                     raise AssertionError(f"{name} {label} ({what}): {bad} index mismatches, "
                                          f"distances equal: {torch.equal(d2, rd)}")
-            ms = statistics.median(marginal_ms(lambda: fn(t, mask, moved), dev) for _ in range(3))
+            target = prepare(t, mask)
+            ms = statistics.median(marginal_ms(lambda: fn(target, moved), dev) for _ in range(3))
             per[name][label], study[name] = ms, study_name(module)
             print(f"{name} {label}: equal to nn1_plain ({', '.join(cases)}); kernel {ms:.4f} ms")
     rows = []
@@ -999,7 +1011,7 @@ def run_studies(results: list) -> None:
     and every kernel of the study must have launched."""
     for module in STUDIES:
         path = study_name(module)
-        names = {name for name, _ in module.INSTANCES.values() if name in STUDY_KERNELS}
+        names = {name for name, _, _ in module.INSTANCES.values() if name in STUDY_KERNELS}
         cuda_knn.reset_launch_counts()
         rows = module.main(shapes=STUDY_SHAPE)
         torch.cuda.synchronize()
@@ -3489,8 +3501,9 @@ def driven(name: str, call) -> int:
 def instance_rows(name, source, replaces, path, ks, search, check, plain, bound_of, launches_of,
                   library=None, variants=None) -> list:
     """The rows of a kernel's instances above FAST_MAX_K (one a K of
-    cuda_knn.LARGE_K, at k = K; any other k of ``ks`` in the shapes of its
-    instance's row): at each k of ``ks``, ``check(k, search(k))`` holds the
+    cuda_knn.LARGE_K, at the largest k of ``ks`` that K serves, k = K but
+    where the search has fewer candidates; any other k of ``ks`` in the
+    shapes of its instance's row): at each k of ``ks``, ``check(k, search(k))`` holds the
     kernel to its plain version, then in turns the kernel at k, at k = K
     (10), ``library(k)`` (where one computes the same function) and each
     of ``variants`` (name -> call of k: the kernel at another launch
@@ -3520,10 +3533,12 @@ def instance_rows(name, source, replaces, path, ks, search, check, plain, bound_
               + f", plain {t['plain_ms']:.4f}; bound {sb[0]:.6f} ({sb[1]})")
     rows = []
     for big in cuda_knn.LARGE_K:
-        r = per_k[big]
+        top = max(k for k in ks if cuda_knn.instance_k(k) == big)
+        r = per_k[top]
         rows.append(row(f"{name} (K={big})", source, replaces, path, 0.0,
                         (r["ms"], r["plain_ms"], r.get("library_ms")), (r["bound_ms"], r["bound_by"]),
-                        launches=launches_of(big), k10_ms=r["k10_ms"],
+                        launches=launches_of(big), k10_ms=r["k10_ms"], k=top,
+                        **{v: r[v] for v in variants or {}},
                         shapes={f"k={k}": per_k[k] for k in ks if cuda_knn.instance_k(k) == big}))
     return rows
 
@@ -3649,10 +3664,14 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
         first16(f"knn_k_batched at k={k}", got, b16)
 
     w16 = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, 16)
+    W = ri.window_candidates(w_az, w_el)
+    win_ks = tuple(min(k, W) for k in LARGE_KS)  # the default window holds 117 candidates: K = 128 at k = 117
+    win = (img_p, img_i, n_az, n_rings, w_az, w_el)
 
     def check_window(k, got):
-        check_equal("range_image", got, ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k),
-                    f"the full-width image, k={k}")
+        check_equal("range_image", got, ri.range_image_window_plain(*win, k), f"the full-width image, k={k}")
+        check_equal("range_image", got, ri.range_image_window_spill(*win, k),
+                    f"the one-thread instance (range_image_window_spill), k={k}")
         first16(f"range_image at k={k}", got, w16)
 
     cd = "donot_use_mm_for_euclid_dist"
@@ -3680,13 +3699,30 @@ def check_large_k(lo_out, frames: dict, dev) -> list:
                  KNN_SOURCE, r["replaces"], "timing only (the one-thread design)", 0.0,
                  (r["shapes"][f"k={big}"]["spill_ms"], r["plain_ms"], r["library_ms"]), (r["bound_ms"], r["bound_by"]),
                  launches=0) for big, r in zip(2 * cuda_knn.LARGE_K, rows)]
-    rows += instance_rows(
-        "range_image", RAW_SOURCE, RAW_REPLACES, LARGE_RAW_PATH, LARGE_KS,
-        lambda k: ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k), check_window,
-        lambda k: ri.range_image_window_plain(img_p, img_i, n_az, n_rings, w_az, w_el, k),
+    before = dict(cuda_knn.launch_counts)
+    for call in (lambda k: ri.range_image_knn(rp, rm, k), lambda k: ri.range_image_window_plain(*win, k),
+                 lambda k: ri.range_image_window(*win, k)):
+        try:
+            call(W + 1)
+        except ValueError as e:
+            if "candidates" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"the range-image search took k = {W + 1} above its window's {W} candidates")
+    if cuda_knn.launch_counts != before:
+        raise AssertionError("a refused range-image search launched")
+    print(f"range_image: k = {W + 1} above the window's {W} candidates refused (ValueError) before any launch")
+    win_rows = instance_rows(
+        "range_image", RAW_SOURCE, RAW_REPLACES, LARGE_RAW_PATH, win_ks,
+        lambda k: ri.range_image_window(*win, k), check_window, lambda k: ri.range_image_window_plain(*win, k),
         lambda k: bound(wpairs, C * 16 + C * k * 8),
         lambda big: frames["raw"]["launches"]["range_image"] if big == 32 else
-        driven("range_image", lambda: ri.range_image_knn(rp, rm, big)))
+        driven("range_image", lambda: ri.range_image_knn(rp, rm, min(big, W))),
+        variants={"spill_ms": lambda k: ri.range_image_window_spill(*win, k)})
+    rows += win_rows
+    rows += [row(r["name"].replace("range_image (", "range_image_spill ("), RAW_SOURCE, r["replaces"],
+                 "timing only (the one-thread design)", 0.0, (r["spill_ms"], r["plain_ms"], None),
+                 (r["bound_ms"], r["bound_by"]), launches=0, k=r["k"]) for r in win_rows]
     return rows
 
 
@@ -4047,11 +4083,12 @@ def check_window_kernel(lo_out, dev) -> list:
 
 # -Xptxas -v of the sources redesigned above k = 16: every instance of these
 # kernels must report 0 spill bytes; the one-thread instances (knn_cluster_kernel at
-# K = 32 / 64 / 128, kept as knn_k_spill, and the first window design) are
-# printed beside them
-SPILL_SOURCES = ("window_knn.cu", "knn_cluster.cu")
+# K = 32 / 64 / 128, kept as knn_k_spill, range_image_tile_kernel at K = 32 /
+# 64 / 128, kept as range_image_window_spill, and the first Morton window
+# design) are printed beside them
+SPILL_SOURCES = ("window_knn.cu", "knn_cluster.cu", "range_image.cu")
 NO_SPILL_KERNELS = ("knn_warp_kernel", "morton_warp_kernel", "morton_tile_kernel", "morton_codes_kernel",
-                    "morton_min_kernel")
+                    "morton_min_kernel", "range_image_warp_kernel")
 
 
 def start_spill_report():
@@ -4094,7 +4131,8 @@ def spill_report(started) -> dict:
     for mangled, name in zip(names, plain):
         short = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::", "")).replace("void ", "")
         kernel = next((k for k in NO_SPILL_KERNELS if k in short), None)
-        old = ("knn_cluster_kernel" in short or "morton_window_kernel" in short) and \
+        old = ("knn_cluster_kernel" in short or "morton_window_kernel" in short or
+               "range_image_tile_kernel" in short) and \
             any(f"<{K}" in short for K in cuda_knn.LARGE_K)
         if kernel or old:
             report[short] = out[mangled]

@@ -3,8 +3,9 @@
 // kernels of knn_cluster.cu; these stay as the exact references and the
 // earlier designs they are timed against.
 //
-// nn1_tiled replaces the TPU tile sweep `make_nn1(query_tile,
-//       target_chunk).nn1` (scripts/bench_pallas_tiles.py), and was the first
+// nn1_tiled_simple is the first design of the TPU tile sweep `make_nn1(
+//       query_tile, target_chunk).nn1` (scripts/bench_pallas_tiles.py),
+//       redesigned for the card in nn1_tiles.cu, and was the first
 //       production nn1 (the Pallas `nn1_pallas_prepped`,
 //       sycl_points_tpu/ops/pallas_knn.py) at its <128, 2048> instance:
 //       instances over threads per block {64, 128, 256, 512} x shared-memory
@@ -178,7 +179,7 @@ inline int num_blocks(int Q, int threads = kThreads) { return (Q + threads - 1) 
     break;
 
 // nn1 without a pose at a chosen (threads per block, target tile) instance.
-extern "C" int spt_nn1_tiled(const float* tgt, const unsigned char* mask, int M,
+extern "C" int spt_nn1_tiled_simple(const float* tgt, const unsigned char* mask, int M,
                              const float* queries, int Q, int threads, int tile,
                              int* out_idx, float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

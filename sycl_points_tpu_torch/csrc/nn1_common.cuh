@@ -1,5 +1,5 @@
 // Device helpers shared by the nearest-neighbour kernels (knn.cu,
-// nn1_variants.cu): target staging into shared memory and the exact squared
+// nn1_variants.cu, nn1_tiles.cu): target staging into shared memory and the exact squared
 // distance. Every kernel that uses them computes its distances with the same
 // operation order, so all of them agree bit for bit (the library is built
 // with --fmad=false).

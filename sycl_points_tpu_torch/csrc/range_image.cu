@@ -45,7 +45,9 @@
 // kernel meets first is instructions a candidate (a load, the distance, the
 // compare) and the sorted insertion, which the threads of a warp take at
 // different candidates, so that every candidate where one thread inserts
-// costs the warp a whole insertion.
+// costs the warp a whole insertion. Above k = 16 the rows grow to 8 k B a
+// cell (~0.037 ms of bytes at k = 117) and a one-thread list of K keys no
+// longer fits the registers: the warp kernel below.
 //
 // range_image_window_simple_kernel, the first design (kept as the reference
 // the new one is timed against): one thread a cell reads its window as 468
@@ -81,13 +83,36 @@
 // fewer than k candidates, the cell itself goes in first and the ring is
 // visited like the others.)
 //
-// The tile kernel is built at K = 1 .. 16, 32, 64 and 128 (best_k.cuh); above
-// 16 a request for k runs the smallest K >= k and writes the first k entries
-// of each list (keys order as JAX's columns, so they are the k-list). Those
-// instances skip the ring fill (its i-th candidate costs i compare-exchanges,
-// K^2 / 2 in all), put the cell itself in first and visit its ring like the
-// others; their block's result rows take 8 K B a thread, so
-// ops/range_image_knn.range_image_tile plans fewer columns a block for them.
+// The window search is built at K = 1 .. 16, 32, 64 and 128 (best_k.cuh);
+// above 16 a request for k runs the smallest K >= k and writes the first k
+// entries of each list (keys order as JAX's columns, so they are the
+// k-list). Up to 16 it runs the tile kernel above; above 16 it runs
+// range_image_warp_kernel<K, gather>, a warp a cell:
+//   - the block stages its columns as the tile kernel does (same cp.async
+//     copies, empty cells at +inf, the gather form), at an odd column stride
+//     (n_rings | 1) so that the lanes reading one ring's columns hit 32
+//     distinct banks;
+//   - the cell's list of K 64-bit keys (the tile kernel's total key) is
+//     spread over the lanes, P = K / 32 a lane, and sorted and merged with
+//     warp_sort.cuh. The window's W candidates are taken 32 P at a time, one
+//     a lane register, nearest first (ring offset 0, -1, +1, -2, ... and the
+//     columns of each ring in order); a chunk is bitonic-sorted and merged
+//     into the list, and skipped whole by one warp vote when none of its
+//     keys is below the list's last. A later chunk with at most kInsertMax
+//     such keys puts each in at its rank instead (warp_insert: a ballot a
+//     register and a lane shift, against a 15- to 28-step sort and a 6- to
+//     8-step merge). At the default window (W = 117) the K = 128 list is
+//     one chunk and one sort;
+//   - the cell's row goes out coalesced, lane j writing entries j, j + 32,
+//     ..., through K keys of shared memory a warp: no result rows a thread,
+//     so ops/range_image_knn.range_image_tile plans its columns from the
+//     staged tile alone (64 cells a block of 8 warps: one column at 64
+//     rings, 2,048 blocks at 2048 x 64). No register is indexed at run
+//     time, so the list never spills.
+// The one-thread tile kernel's instances above 16 (whose K-key lists spill)
+// stay as spt_range_image_window_spill, the reference the warp kernel is
+// timed against; its block's result rows take 8 K B a thread, so their
+// tile (ops/range_image_knn.spill_tile) has fewer columns.
 //
 // There is no tensor-core work: the search is compares and selects, not
 // products.
@@ -98,13 +123,19 @@
 #include <cuda_runtime.h>
 
 #include "best_k.cuh"
+#include "warp_sort.cuh"
 
 namespace {
+
+using spt::kEmptyKey;
 
 constexpr float kBig = 3.0e38f;
 constexpr int kSimpleThreads = 256;
 constexpr int kPointThreads = 256;
 constexpr int kTileThreads = 512;
+constexpr int kWarpThreads = 256;  // range_image_warp_kernel: 8 warps a block, a warp a cell
+constexpr int kWarpsPerBlock = kWarpThreads / 32;
+constexpr int kInsertMax = 12;     // a later chunk of at most this many keys goes in by insertion
 constexpr int kElevationBlocks = 128;  // blocks of the elevation bounds' grid-stride pass
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's limit on sm_90
 
@@ -209,6 +240,61 @@ __device__ __forceinline__ float sqdist(Point3 p, Point3 c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
+// Stages a block's columns a0 - window_az .. a0 + cols - window_az - 1,
+// wrapped into [0, n_az), cell (column tc, ring e) at tc * stride + e: its
+// point into rec and its index into sid. A column's rings are contiguous
+// rows. The image is copied as it is and its empty cells set to +inf after;
+// the gather form (ids: the winner's index + 1, pts: the scan) reads a
+// winner's point once its index is in. Ends in __syncthreads().
+template <bool kGather>
+__device__ __forceinline__ void stage_columns(const float* __restrict__ pts, const int* __restrict__ ids, int n_az,
+                                              int n_rings, int window_az, int a0, int cols, int stride,
+                                              Point3* rec, int* sid) {
+  const float inf = __int_as_float(0x7f800000);
+  const int span = cols * n_rings;
+  for (int i = threadIdx.x; i < span; i += blockDim.x) {
+    const int tc = i / n_rings;
+    const int e = i - tc * n_rings;
+    int a = (a0 - window_az + tc) % n_az;
+    if (a < 0) a += n_az;
+    const long long c = static_cast<long long>(a) * n_rings + e;
+    const int at = tc * stride + e;
+    float* const r = &rec[at].x;
+    if (kGather) {
+      const int id = __ldg(ids + c) - 1;
+      sid[at] = id;
+      if (id >= 0) {
+        cp_async4(r, pts + 3ll * id);
+        cp_async4(r + 1, pts + 3ll * id + 1);
+        cp_async4(r + 2, pts + 3ll * id + 2);
+      } else {
+        r[0] = inf;
+        r[1] = inf;
+        r[2] = inf;
+      }
+    } else {
+      cp_async4(r, pts + 3 * c);
+      cp_async4(r + 1, pts + 3 * c + 1);
+      cp_async4(r + 2, pts + 3 * c + 2);
+      sid[at] = __ldg(ids + c);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (!kGather) {
+    for (int i = threadIdx.x; i < span; i += blockDim.x) {
+      const int tc = i / n_rings;
+      const int at = tc * stride + i - tc * n_rings;
+      if (sid[at] < 0) {
+        rec[at].x = inf;
+        rec[at].y = inf;
+        rec[at].z = inf;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // The window search of TA columns a block. gather: ids holds the winner's
 // point index + 1 a cell (0: empty) and pts the scan's [N, 3] points; else
 // ids holds the index (-1: empty) and pts the image's [C, 3] points.
@@ -230,50 +316,7 @@ range_image_tile_kernel(const float* __restrict__ pts, const int* __restrict__ i
   Point3* const rec = reinterpret_cast<Point3*>(smem4);
   int* const sid = reinterpret_cast<int*>(rec + span);
   const int a0 = blockIdx.x * tile_az;
-  const float inf = __int_as_float(0x7f800000);
-
-  // stage the tile's columns, a0 - window_az .. a0 + TA + window_az - 1,
-  // wrapped into [0, n_az); a column's rings are contiguous rows. The image
-  // is copied as it is and its empty cells set to +inf after; the gather
-  // form reads a winner's point once its index is in
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const int tc = i / n_rings;
-    const int e = i - tc * n_rings;
-    int a = (a0 - window_az + tc) % n_az;
-    if (a < 0) a += n_az;
-    const long long c = static_cast<long long>(a) * n_rings + e;
-    float* const r = &rec[i].x;
-    if (kGather) {
-      const int id = __ldg(ids + c) - 1;
-      sid[i] = id;
-      if (id >= 0) {
-        cp_async4(r, pts + 3ll * id);
-        cp_async4(r + 1, pts + 3ll * id + 1);
-        cp_async4(r + 2, pts + 3ll * id + 2);
-      } else {
-        r[0] = inf;
-        r[1] = inf;
-        r[2] = inf;
-      }
-    } else {
-      cp_async4(r, pts + 3 * c);
-      cp_async4(r + 1, pts + 3 * c + 1);
-      cp_async4(r + 2, pts + 3 * c + 2);
-      sid[i] = __ldg(ids + c);
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  if (!kGather) {
-    for (int i = threadIdx.x; i < span; i += blockDim.x) {
-      if (sid[i] < 0) {
-        rec[i].x = inf;
-        rec[i].y = inf;
-        rec[i].z = inf;
-      }
-    }
-    __syncthreads();
-  }
+  stage_columns<kGather>(pts, ids, n_az, n_rings, window_az, a0, cols, n_rings, rec, sid);
 
   const int rows = 2 * window_el + 1;
   const unsigned long long unfilled = (static_cast<unsigned long long>(__float_as_uint(kBig)) << 32) | 0xffffffffu;
@@ -388,6 +431,111 @@ range_image_tile_kernel(const float* __restrict__ pts, const int* __restrict__ i
       out_d2[first + i] = s_od[i];
     }
     __syncthreads();
+  }
+}
+
+// The window search above 16, a warp a cell (the header note): K = 32, 64 or
+// 128, the arguments of range_image_tile_kernel. A cell's list holds the
+// same keys as the tile kernel's (the distance's bits above w, its position
+// in JAX's column order), so it is the same list, ties included; a
+// candidate enters only below kBig, and a slot left empty is written
+// unfilled (-1, 3e38), as the plain version leaves it.
+template <int K, bool kGather>
+__global__ void __launch_bounds__(kWarpThreads, 2)  // up to 128 registers: no list spills
+range_image_warp_kernel(const float* __restrict__ pts, const int* __restrict__ ids, int n_az, int n_rings,
+                        int window_az, int window_el, int tile_az, int k, int* __restrict__ out_idx,
+                        float* __restrict__ out_d2) {
+  constexpr int P = K / 32;  // list keys a lane
+  extern __shared__ float4 smem4[];
+  const int cols = tile_az + 2 * window_az;
+  const int stride = n_rings | 1;  // odd: a ring's columns fall in distinct banks
+  Point3* const rec = reinterpret_cast<Point3*>(smem4);
+  int* const sid = reinterpret_cast<int*>(rec + cols * stride);
+  // a warp's row of keys, on its way out (16 cols * stride bytes in: aligned)
+  unsigned long long* const row = reinterpret_cast<unsigned long long*>(sid + cols * stride) + (threadIdx.x >> 5) * K;
+  const int a0 = blockIdx.x * tile_az;
+  stage_columns<kGather>(pts, ids, n_az, n_rings, window_az, a0, cols, stride, rec, sid);
+
+  const int lane = threadIdx.x & 31;
+  const int width = 2 * window_az + 1;  // candidates a ring
+  const int W = width * (2 * window_el + 1);
+  const int tile_cells = min(tile_az, n_az - a0) * n_rings;
+  // visit v: ring offset 0, -1, +1, -2, ... (v / width), its columns in
+  // order. Lane and register r take v = v0 + 32 r + lane, so a lane's
+  // visits run 32 apart: (ring, column) of its first, and of a step of 32
+  const int ring_l = lane / width, col_l = lane - ring_l * width;
+  const int step_ring = 32 / width, step_col = 32 - step_ring * width;
+  for (int l = threadIdx.x >> 5; l < tile_cells; l += kWarpsPerBlock) {
+    const int ta = l / n_rings;
+    const int e = l - ta * n_rings;
+    const int ctr = (ta + window_az) * stride + e;
+    unsigned long long L[P];
+#pragma unroll
+    for (int r = 0; r < P; ++r) L[r] = kEmptyKey;
+    if (sid[ctr] >= 0) {  // the same for the whole warp
+      const Point3 me = rec[ctr];
+      int ring = ring_l, col = col_l;
+      for (int v0 = 0; v0 < W; v0 += 32 * P) {
+        const unsigned long long last = spt::warp_last<P>(L);
+        unsigned long long C[P];
+#pragma unroll
+        for (int r = 0; r < P; ++r) {
+          const int v = v0 + 32 * r + lane;
+          C[r] = kEmptyKey;
+          const int de = (ring & 1) ? -((ring + 1) >> 1) : ring >> 1;
+          const int da = col - window_az;
+          col += step_col;  // on to the lane's next visit, v + 32
+          const bool wrap = col >= width;
+          ring += step_ring + wrap;
+          col -= wrap ? width : 0;
+          if (v < W && e + de >= 0 && e + de < n_rings) {
+            const float d = sqdist(me, rec[ctr + da * stride + de]);
+            const unsigned long long key = spt::pack_key(
+                __float_as_uint(d), (static_cast<unsigned>(da + window_az) << 16) | static_cast<unsigned>(de + window_el));
+            if (d < kBig && key < last) C[r] = key;
+          }
+        }
+        unsigned held[P];  // a register's lanes with a key below the last
+        int keys = 0;
+#pragma unroll
+        for (int r = 0; r < P; ++r) {
+          held[r] = __ballot_sync(0xffffffffu, C[r] != kEmptyKey);
+          keys += __popc(held[r]);
+        }
+        if (!keys) continue;  // the vote: the whole chunk turned away
+        if (v0 && keys <= kInsertMax) {
+          // a few keys: each goes in at its rank (no sort, no merge)
+#pragma unroll
+          for (int r = 0; r < P; ++r) {
+            for (unsigned b = held[r]; b; b &= b - 1)
+              spt::warp_insert<P>(L, __shfl_sync(0xffffffffu, C[r], __ffs(b) - 1));
+          }
+        } else {
+          spt::warp_sort<P>(C);
+          if (v0 == 0) {  // the list is empty: the chunk is the list
+#pragma unroll
+            for (int r = 0; r < P; ++r) L[r] = C[r];
+          } else {
+            spt::warp_merge<P>(L, C);
+          }
+        }
+      }
+    }
+    // out through shared memory: lane j writes entries j, j + 32, ...
+#pragma unroll
+    for (int r = 0; r < P; ++r) row[lane * P + r] = L[r];
+    __syncwarp();
+    const long long first = (static_cast<long long>(a0) * n_rings + l) * k;
+    for (int i = lane; i < k; i += 32) {
+      const unsigned long long key = row[i];
+      const bool filled = key != kEmptyKey;
+      const unsigned w = spt::key_lo(key);
+      out_idx[first + i] = filled ? sid[ctr + (static_cast<int>(w >> 16) - window_az) * stride +
+                                        static_cast<int>(w & 0xffffu) - window_el]
+                                  : -1;
+      out_d2[first + i] = filled ? __uint_as_float(spt::key_hi(key)) : kBig;
+    }
+    __syncwarp();  // the next cell reuses the row
   }
 }
 
@@ -523,14 +671,50 @@ cudaError_t launch_tile(const float* pts, const int* ids, int n_az, int n_rings,
   return cudaGetLastError();
 }
 
+template <int K, bool kGather>
+cudaError_t launch_warp(const float* pts, const int* ids, int n_az, int n_rings, int window_az, int window_el,
+                        int tile_az, int k, int* out_idx, float* out_d2, cudaStream_t s) {
+  const long long smem = 16ll * (n_rings | 1) * (tile_az + 2 * window_az) + 8ll * kWarpsPerBlock * K;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(range_image_warp_kernel<K, kGather>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (n_az + tile_az - 1) / tile_az;
+  range_image_warp_kernel<K, kGather><<<blocks, kWarpThreads, static_cast<size_t>(smem), s>>>(
+      pts, ids, n_az, n_rings, window_az, window_el, tile_az, k, out_idx, out_d2);
+  return cudaGetLastError();
+}
+
+// The production window search: the tile kernel up to kFastK, the warp
+// kernel above.
+template <int K, bool kGather>
+cudaError_t launch_window(const float* pts, const int* ids, int n_az, int n_rings, int window_az, int window_el,
+                          int tile_az, int k, int* out_idx, float* out_d2, cudaStream_t s) {
+  if constexpr (K <= spt::kFastK)
+    return launch_tile<K, kGather>(pts, ids, n_az, n_rings, window_az, window_el, tile_az, k, out_idx, out_d2, s);
+  else
+    return launch_warp<K, kGather>(pts, ids, n_az, n_rings, window_az, window_el, tile_az, k, out_idx, out_d2, s);
+}
+
+// The window's arguments as every entry checks them: 1 <= k <= the window's
+// candidates, the window within the keys' 16-bit fields.
+bool window_args_ok(int window_az, int window_el, int k, int tile_az) {
+  if (tile_az <= 0 || window_az < 0 || window_el < 0 || window_el > 0xffff || window_az > 0x7fff) return false;
+  return k >= 1 && static_cast<long long>(k) <= (2ll * window_az + 1) * (2ll * window_el + 1);
+}
+
 }  // namespace
 
-#define SPT_RANGE_IMAGE_TILE_CASE(KK)                                                                        \
-  case KK:                                                                                                   \
-    return static_cast<int>(gather ? launch_tile<KK, true>(pts, ids, n_az, n_rings, window_az, window_el,  \
-                                                           tile_az, k, out_idx, out_d2, s)                  \
-                                   : launch_tile<KK, false>(pts, ids, n_az, n_rings, window_az, window_el, \
-                                                            tile_az, k, out_idx, out_d2, s));
+#define SPT_RANGE_IMAGE_CASE(KK, LAUNCH)                                                                       \
+  case KK:                                                                                                     \
+    return static_cast<int>(gather ? LAUNCH<KK, true>(pts, ids, n_az, n_rings, window_az, window_el, tile_az, \
+                                                      k, out_idx, out_d2, s)                                   \
+                                   : LAUNCH<KK, false>(pts, ids, n_az, n_rings, window_az, window_el, tile_az, \
+                                                       k, out_idx, out_d2, s));
+#define SPT_RANGE_IMAGE_WINDOW_CASE(KK) SPT_RANGE_IMAGE_CASE(KK, launch_window)
+#define SPT_RANGE_IMAGE_SPILL_CASE(KK) SPT_RANGE_IMAGE_CASE(KK, launch_tile)
 
 #define SPT_RANGE_IMAGE_SIMPLE_CASE(KK)                                         \
   case KK:                                                                      \
@@ -543,16 +727,33 @@ cudaError_t launch_tile(const float* pts, const int* ids, int n_az, int n_rings,
 // unoccupied), row a * n_rings + e; gather = 1: pts the scan [N, 3] f32 and
 // ids the winner's index + 1 a cell (0: unoccupied). out_idx / out_d2
 // [n_az * n_rings, k], 1 <= k <= 128 (the instance best_k.cuh's instance_k
-// picks; the tile planned for it).
+// picks; the tile planned for it) and k at most the window's candidates.
 extern "C" int spt_range_image_window(const float* pts, const int* ids, int gather, int n_az, int n_rings,
                                       int window_az, int window_el, int k, int tile_az, int* out_idx,
                                       float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_az <= 0 || n_rings <= 0) return static_cast<int>(cudaSuccess);
-  if (tile_az <= 0 || window_az < 0 || window_el < 0 || window_el > 0xffff || window_az > 0x7fff)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!window_args_ok(window_az, window_el, k, tile_az)) return static_cast<int>(cudaErrorInvalidValue);
   switch (spt::instance_k(k)) {
-    SPT_K_CASES(SPT_RANGE_IMAGE_TILE_CASE)
+    SPT_K_CASES(SPT_RANGE_IMAGE_WINDOW_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The one-thread tile kernel above 16 (its K-key list spills), kept for
+// timing: the arguments of spt_range_image_window, 16 < k <= 128, the tile
+// planned for it (ops/range_image_knn.spill_tile).
+extern "C" int spt_range_image_window_spill(const float* pts, const int* ids, int gather, int n_az, int n_rings,
+                                            int window_az, int window_el, int k, int tile_az, int* out_idx,
+                                            float* out_d2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_az <= 0 || n_rings <= 0) return static_cast<int>(cudaSuccess);
+  if (!window_args_ok(window_az, window_el, k, tile_az)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (spt::instance_k(k)) {
+    SPT_RANGE_IMAGE_SPILL_CASE(32)
+    SPT_RANGE_IMAGE_SPILL_CASE(64)
+    SPT_RANGE_IMAGE_SPILL_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,5 @@
 // Warp-wide sorted lists of 64-bit keys for the search kernels above k = 16
-// (window_knn.cu, knn_cluster.cu).
+// (window_knn.cu, knn_cluster.cu, range_image.cu).
 //
 // A list of n = 32 P keys lives in the registers of one warp, P a lane:
 // element i sits in lane i / P, register i % P. A key packs what the list is
@@ -11,7 +11,10 @@
 //     below P exchange registers of one lane; the rest exchange a register
 //     with the lane i / P ^ (j / P) by a shuffle.
 //   - warp_merge: the n smallest of two ascending lists: min(a[i], b[n-1-i])
-//     is a bitonic sequence holding them, which log2(n) steps sort.
+//     is a bitonic sequence holding them, which log2(n) steps sort;
+//   - warp_insert: one key into a sorted list at its rank (a ballot a
+//     register and one lane shift), cheaper than a sort and a merge for a
+//     few keys.
 //
 // Every loop unrolls at compile time, so no register is indexed at run time
 // and nothing spills (-Xptxas -v reports 0 bytes at P = 1, 2, 4 and 8).
@@ -76,6 +79,23 @@ __device__ __forceinline__ void warp_merge(unsigned long long (&a)[P], const uns
   }
 #pragma unroll
   for (int lj = log2_of(16 * P); lj >= 0; --lj) bitonic_step<P>(a, 64 * P, 1 << lj, lane);
+}
+
+// Puts key (the same in every lane) into the ascending list a at its rank;
+// the keys above it move up one place and the last falls off.
+template <int P>
+__device__ __forceinline__ void warp_insert(unsigned long long (&a)[P], unsigned long long key) {
+  const int lane = threadIdx.x & 31;
+  int at = 0;  // the keys below key
+#pragma unroll
+  for (int r = 0; r < P; ++r) at += __popc(__ballot_sync(0xffffffffu, a[r] < key));
+  const unsigned long long up = __shfl_up_sync(0xffffffffu, a[P - 1], 1);  // element lane P - 1
+#pragma unroll
+  for (int r = P - 1; r >= 0; --r) {
+    const int i = lane * P + r;
+    const unsigned long long below = r ? a[r - 1] : up;
+    a[r] = i < at ? a[r] : i == at ? key : below;
+  }
 }
 
 // The list's last (largest) key, in every lane.

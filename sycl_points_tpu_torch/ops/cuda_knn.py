@@ -33,12 +33,18 @@ A prepared target carries each stream's extent (:func:`_target_extent`, 1 +
 its last valid row, made on the device), and the kernels sweep only the
 rows below it: a submap extraction holds ~430 valid rows of its 16,384.
 
-In ``csrc/knn.cu``, the first designs, one thread a query on the raw target
-and its mask: ``nn1_tiled``, the 1-NN at a chosen (threads per block, target
-tile) instance, which replaces the tile sweep's ``make_nn1``
-(``scripts/bench_pallas_tiles.py``) and whose ``(128, 2048)`` instance was
-the first production ``nn1``; and ``knn_k_simple``, the first ``knn_k``, kept
-as the exact reference for ties. In ``csrc/nn1_variants.cu``, the
+``nn1_tiled`` (``csrc/nn1_tiles.cu``) replaces the TPU tile sweep's
+``make_nn1`` (``scripts/bench_pallas_tiles.py``) with the sweep's two
+parameters, queries a block (:data:`NN1_QUERY_TILES_STUDY`) and target points
+a chunk (:data:`NN1_TILES`): two queries a thread, the target packed once
+(:func:`pack_target`) and streamed by bulk copies through a two-stage ring,
+split over the grid (:func:`nn1_tiled_span`) and merged by a 64-bit
+``atomicMin`` (its plain model :func:`nn1_tiled_plain`). In
+``csrc/knn.cu``, the first designs, one thread a query on the raw target
+and its mask: ``nn1_tiled_simple``, the study's first design at a chosen
+(threads per block, target tile) instance, whose ``(128, 2048)`` instance
+was the first production ``nn1``; and ``knn_k_simple``, the first ``knn_k``,
+kept as the exact reference for ties. In ``csrc/nn1_variants.cu``, the
 formulations of the variant study (``scripts/bench_nn1_variants.py``) on
 queries already moved by the pose: ``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8
 or 32 lanes a query) and ``nn1_unroll2`` (v3). Every 1-NN kernel equals
@@ -125,19 +131,30 @@ SMEM_BYTES = 232448
 # The grid search (csrc/grid_knn.cu): lanes a query, chosen by grid_lanes().
 GRID_LANES = (8, 16, 32)
 GRID_THREADS_PER_SM = 1024
-# Instances compiled into the library (csrc/knn.cu, csrc/nn1_variants.cu).
+# Instances compiled into the library (csrc/knn.cu, csrc/nn1_tiles.cu,
+# csrc/nn1_variants.cu): the first tile design's threads a block, the target
+# tile (first design) or chunk (nn1_tiled), nn1_tiled's queries a block.
 NN1_THREADS = (64, 128, 256, 512)
 NN1_TILES = (512, 1024, 2048, 4096)
+NN1_QUERY_TILES_STUDY = (64, 128, 256, 512)
 NN1_LANES = (8, 32)
+# nn1_tiled's split of the target over the grid (nn1_tiled_span): enough
+# blocks for NN1_TILED_WARPS_PER_SM warps an SM (a thread holds
+# NN1_TILED_QUERIES_A_THREAD queries), no split under NN1_TILED_MIN_SPAN rows;
+# on the CPU the plan of an H100's H100_SMS.
+NN1_TILED_QUERIES_A_THREAD = 2
+NN1_TILED_WARPS_PER_SM = 32
+NN1_TILED_MIN_SPAN = 256
+H100_SMS = 132
 
 # Kernel launches per wrapper; reset with reset_launch_counts().
 launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
-    "nn1_tiled": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
+    "nn1_tiled": 0, "nn1_tiled_simple": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
     "range_image_elevation": 0, "range_image_cells": 0, "range_image_rows": 0, "range_image_simple": 0,
     "grid_knn": 0, "grid_knn_simple": 0, "coarse_rank": 0, "coarse_refine": 0, "coarse_refine_simple": 0,
     "morton_min": 0, "morton_codes": 0, "morton_window": 0, "morton_window_union": 0, "morton_window_simple": 0,
-    "knn_k_spill": 0,
+    "knn_k_spill": 0, "range_image_spill": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -230,12 +247,14 @@ def load_library() -> ctypes.CDLL:
             lib.spt_knn_k_batched.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
             lib.spt_knn_k_spill_batched.argtypes = [p, i, p, p, i, i, i, i, p, p, p]
             lib.spt_knn_k_simple.argtypes = [p, p, i, p, i, i, p, p, p]
-            lib.spt_nn1_tiled.argtypes = [p, p, i, p, i, i, i, p, p, p]
+            lib.spt_nn1_tiled_simple.argtypes = [p, p, i, p, i, i, i, p, p, p]
+            lib.spt_nn1_tiled.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
             lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
             f = ctypes.c_float
             lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
+            lib.spt_range_image_window_spill.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
             lib.spt_range_image_window_simple.argtypes = [p, p, i, i, i, i, i, p, p, p]
             lib.spt_range_image_elevation.argtypes = [p, p, i, p, p]
             lib.spt_range_image_cells.argtypes = [p, p, i, i, i, p, f, f, i, i, f, f, p, p, p, p, p]
@@ -251,9 +270,10 @@ def load_library() -> ctypes.CDLL:
             lib.spt_morton_min.argtypes = [p, p, i, f, p, p]
             lib.spt_morton_codes.argtypes = [p, p, i, f, p, i, i, p, p]
             for fn in (lib.spt_nn1_batched, lib.spt_knn_k_batched, lib.spt_knn_k_spill_batched,
-                       lib.spt_knn_k_simple, lib.spt_nn1_tiled,
+                       lib.spt_knn_k_simple, lib.spt_nn1_tiled_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
-                       lib.spt_range_image_window, lib.spt_range_image_window_simple,
+                       lib.spt_range_image_window, lib.spt_range_image_window_spill,
+                       lib.spt_range_image_window_simple,
                        lib.spt_range_image_elevation, lib.spt_range_image_cells, lib.spt_range_image_rows,
                        lib.spt_grid_knn, lib.spt_grid_knn_simple, lib.spt_coarse_refine,
                        lib.spt_coarse_refine_simple, lib.spt_coarse_rank, lib.spt_morton_window,
@@ -823,15 +843,97 @@ def _nn1_launch(name, entry, target_xyz, target_mask, queries, extra=()):
     return _raw_launch(name, entry, target_xyz, target_mask, queries, (queries.shape[0],), extra)
 
 
-def nn1_tiled(target_xyz, target_mask, queries, threads: int, tile: int):
-    """:func:`nn1` without a pose, through the first design (one thread a
-    query, ``csrc/knn.cu``) at the instance with ``threads`` per block (one
-    of :data:`NN1_THREADS`) and a shared-memory target tile of ``tile``
-    points (one of :data:`NN1_TILES`). ``(128, 2048)`` was the first
-    production instance."""
+def nn1_tiled_simple(target_xyz, target_mask, queries, threads: int, tile: int):
+    """:func:`nn1` without a pose, through the TPU tile study's first design
+    (one thread a query, ``csrc/knn.cu``) at the instance with ``threads``
+    per block (one of :data:`NN1_THREADS`) and a shared-memory target tile of
+    ``tile`` points (one of :data:`NN1_TILES`). ``(128, 2048)`` was the first
+    production instance. Kept as the reference :func:`nn1_tiled` is timed
+    against."""
     if threads not in NN1_THREADS or tile not in NN1_TILES:
-        raise ValueError(f"nn1_tiled has threads in {NN1_THREADS} and tile in {NN1_TILES}, got {threads}, {tile}")
-    return _nn1_launch("nn1_tiled", "spt_nn1_tiled", target_xyz, target_mask, queries, (threads, tile))
+        raise ValueError(f"nn1_tiled_simple has threads in {NN1_THREADS} and tile in {NN1_TILES}, got {threads}, "
+                         f"{tile}")
+    return _nn1_launch("nn1_tiled_simple", "spt_nn1_tiled_simple", target_xyz, target_mask, queries, (threads, tile))
+
+
+def pack_target(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The target as :func:`nn1_tiled` reads it, made once for any number of
+    searches: ``[M, 4]`` float32, x, y, z and a 0 pad a row, masked rows at
+    +inf, so that a bulk copy moves a chunk of rows as it lies."""
+    _check_target(points, mask)
+    xyz = torch.where(mask.bool()[:, None], points, torch.inf)
+    return torch.nn.functional.pad(xyz, (0, 1)).contiguous()
+
+
+def nn1_tiled_span(Q: int, M: int, query_tile: int, n_sm: int) -> int:
+    """Target rows a split of :func:`nn1_tiled` at ``query_tile`` queries a
+    block: the target is cut into as many spans as give the card
+    :data:`NN1_TILED_WARPS_PER_SM` warps an SM over the ``ceil(Q /
+    query_tile)`` query tiles, none under :data:`NN1_TILED_MIN_SPAN` rows.
+    On the H100 (132 SMs) 1,000 queries against 24,576 rows take 96 spans
+    of 256 at every query tile; 22,528 against 22,528 take 12 spans of
+    1,878 at 64 queries a block."""
+    warps = max(1, query_tile // (32 * NN1_TILED_QUERIES_A_THREAD))
+    tiles = -(-Q // query_tile)
+    blocks = -(-NN1_TILED_WARPS_PER_SM * n_sm // warps)
+    splits = max(1, min(-(-blocks // max(tiles, 1)), -(-M // NN1_TILED_MIN_SPAN)))
+    return max(1, -(-M // splits))
+
+
+_NO_KEY = torch.iinfo(torch.int64).max
+
+
+def nn1_tiled_plain(packed: torch.Tensor, queries: torch.Tensor, span: int):
+    """The plain model of :func:`nn1_tiled`'s split merge on a packed target
+    (:func:`pack_target`): each span of ``span`` rows finds its first least
+    distance (the kernel's strict ``<`` in index order), packs it as
+    ``(d2 bits << 32) | index``, and the least word over the spans wins; a
+    span with no finite distance leaves no word, and a query with none is idx
+    0, d2 = +inf. Equal to :func:`nn1_plain` on the unpacked target."""
+    Q, M = queries.shape[0], packed.shape[0]
+    word = torch.full((Q,), _NO_KEY, dtype=torch.int64, device=queries.device)
+    for s in range(0, M, span):
+        i, d = _nn1_plain(packed[s : s + span, :3], None, queries, None)
+        bits = d.view(torch.int32).to(torch.int64)
+        word = torch.minimum(word, torch.where(d < torch.inf, (bits << 32) | (i.to(torch.int64) + s), _NO_KEY))
+    none = word == _NO_KEY
+    idx = torch.where(none, 0, word & 0xFFFFFFFF).to(torch.int32)
+    d2 = torch.where(none, torch.inf, (word >> 32).to(torch.int32).view(torch.float32))
+    return idx, d2
+
+
+def nn1_tiled_prepped(packed: torch.Tensor, queries, query_tile: int, chunk: int):
+    """:func:`nn1` without a pose against a target made by
+    :func:`pack_target`, through the tile study's kernel for this card
+    (``csrc/nn1_tiles.cu``) at ``query_tile`` queries a block (one of
+    :data:`NN1_QUERY_TILES_STUDY`) and ``chunk`` target points a stage (one
+    of :data:`NN1_TILES`); the target split by :func:`nn1_tiled_span`.
+    ``(idx [Q] int32, d2 [Q] f32)``, equal to :func:`nn1_plain`. CPU
+    tensors run :func:`nn1_tiled_plain` at the split an H100 takes."""
+    if query_tile not in NN1_QUERY_TILES_STUDY or chunk not in NN1_TILES:
+        raise ValueError(f"nn1_tiled has query_tile in {NN1_QUERY_TILES_STUDY} and chunk in {NN1_TILES}, got "
+                         f"{query_tile}, {chunk}")
+    M = packed.shape[0]
+    if packed.shape != (M, 4) or packed.dtype != torch.float32:
+        raise ValueError(f"expected a packed [M, 4] float32 target, got {tuple(packed.shape)} {packed.dtype}")
+    device = _check_queries(queries, None, packed)
+    Q = queries.shape[0]
+    if device.type == "cpu":
+        return nn1_tiled_plain(packed, queries, nn1_tiled_span(Q, M, query_tile, H100_SMS))
+    _require_cuda(device, "nn1_tiled")
+    _require_contiguous(packed, queries)
+    if packed.data_ptr() % 16:
+        raise ValueError("nn1_tiled reads the packed target in 16-byte bulk copies: it must be 16-byte aligned")
+    span = nn1_tiled_span(Q, M, query_tile, _sm_count(device.index))
+    best = torch.empty(Q, dtype=torch.int64, device=device)
+    return _launch("nn1_tiled", device, (Q,), lambda lib, i, d, s: lib.spt_nn1_tiled(
+        packed.data_ptr(), M, queries.data_ptr(), Q, query_tile, chunk, span, best.data_ptr(), i, d, s))
+
+
+def nn1_tiled(target_xyz, target_mask, queries, query_tile: int, chunk: int):
+    """:func:`nn1_tiled_prepped` with the target packed for this one call."""
+    _check_inputs(target_xyz, target_mask, queries)
+    return nn1_tiled_prepped(pack_target(target_xyz, target_mask), queries, query_tile, chunk)
 
 
 def nn1_bias(target_xyz, target_mask, queries):

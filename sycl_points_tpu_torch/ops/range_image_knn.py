@@ -13,13 +13,16 @@ default window (6, 4) instead of the whole cloud.
      share a cell with another) and the dense image: a cell holds the point of
      the highest index that falls in it, as the JAX scatter leaves it on the
      CPU (a scatter-max of the index, so the card gives the same winner);
-  3. the window distances and the k smallest of each cell:
+  3. the window distances and the k smallest of each cell (k at most the
+     window's ``(2 window_az + 1)(2 window_el + 1)`` candidates, as JAX's
+     ``top_k`` takes; a larger k raises a ``ValueError`` on every path):
      :func:`range_image_window`, the ``range_image`` kernel of
      ``csrc/range_image.cu`` on the card (a shared-memory tile of
-     :func:`range_image_tile` azimuth columns a block),
-     :func:`range_image_window_plain` on the CPU;
-     :func:`range_image_window_simple` is the kernel's first design (one
-     thread a cell), the reference it is timed against;
+     :func:`range_image_tile` azimuth columns a block; a thread a cell up to
+     k = 16, a warp a cell above), :func:`range_image_window_plain` on the
+     CPU; :func:`range_image_window_simple` is the kernel's first design (one
+     thread a cell, k <= 16) and :func:`range_image_window_spill` the
+     one-thread tile above 16, the references they are timed against;
   4. each point reads its cell's row; missing slots and invalid points fall
      back to the point itself at an infinite distance.
 
@@ -48,9 +51,12 @@ from sycl_points_tpu_torch.ops import cuda_knn
 from sycl_points_tpu_torch.ops.knn import KNNResult
 
 BIG = 3.0e38
-# The window kernel's tile: about TILE_CELLS cells (one a thread) a block,
+# The window kernel's tile: about TILE_CELLS cells (one a thread) a block up
+# to k = 16, WARP_TILE_CELLS (one a warp of the WARP_THREADS // 32) above,
 # within a block's SMEM_BYTES of shared memory (227 KB on the H100).
 TILE_CELLS = 512
+WARP_TILE_CELLS = 64
+WARP_THREADS = 256
 SMEM_BYTES = cuda_knn.SMEM_BYTES
 # The bins' constants as PyTorch's CUDA kernels apply them: pi rounded to
 # f32, and the division by the CPU scalar 2 pi as a product with the f32
@@ -77,7 +83,9 @@ def range_image_window_plain(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int
     is empty, row ``a * n_rings + e``), the ``k`` smallest squared distances
     ``dx*dx + dy*dy + dz*dz`` to the points of its window's occupied cells,
     ascending, the earlier window column first on ties: ``(idx [C, k] int32,
-    d2 [C, k] f32)``, slots not filled at 3e38 with index -1."""
+    d2 [C, k] f32)``, slots not filled at 3e38 with index -1. ``k`` above
+    the window's candidates raises, as JAX's ``top_k`` does."""
+    check_candidates(k, window_az, window_el)
     C = n_az * n_rings
     dev = img_p.device
     offs = torch.tensor(window_offsets(window_az, window_el), dtype=torch.int64, device=dev)  # [W, 2]
@@ -93,18 +101,29 @@ def range_image_window_plain(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int
     dy = img_p[:, None, 1] - P2[..., 1]
     dz = img_p[:, None, 2] - P2[..., 2]
     D = torch.where(valid, dx * dx + dy * dy + dz * dz, BIG)
-    d_sorted, order = torch.sort(D, dim=1, stable=True)
-    kk = min(k, D.shape[1])
-    d2 = torch.full((C, k), BIG, dtype=torch.float32, device=dev)
-    idx = torch.full((C, k), -1, dtype=torch.int32, device=dev)
-    d2[:, :kk] = d_sorted[:, :kk]
-    filled = d_sorted[:, :kk] < BIG
-    idx[:, :kk] = torch.where(filled, J.gather(1, order[:, :kk]), -1).to(torch.int32)
-    return idx, d2
+    d_sorted, order = (x[:, :k] for x in torch.sort(D, dim=1, stable=True))
+    idx = torch.where(d_sorted < BIG, J.gather(1, order), -1).to(torch.int32)
+    return idx, d_sorted.contiguous()
+
+
+def window_candidates(window_az: int, window_el: int) -> int:
+    """The window's candidate cells, ``(2 window_az + 1)(2 window_el + 1)``:
+    117 at the default (6, 4)."""
+    return (2 * window_az + 1) * (2 * window_el + 1)
+
+
+def check_candidates(k: int, window_az: int, window_el: int) -> None:
+    """Refuse ``k`` outside ``[1, window_candidates]``, as JAX's ``top_k``
+    over the window's columns does, on every device."""
+    cap = window_candidates(window_az, window_el)
+    if not 1 <= k <= cap:
+        raise ValueError(f"the range-image search takes 1 <= k <= {cap} (its window's candidates at window "
+                         f"({window_az}, {window_el})), got {k}")
 
 
 def tile_smem(n_rings: int, window_az: int, tile_az: int, k: int = cuda_knn.FAST_MAX_K) -> int:
-    """Shared memory of a window-kernel block: the ``tile_az + 2 window_az``
+    """Shared memory of a block of the one-thread tile kernel (``k <= 16``,
+    and :func:`range_image_window_spill`): the ``tile_az + 2 window_az``
     staged columns (16 B a ring) and the block's rows of the result (8 K B a
     thread, one thread a cell up to TILE_CELLS), K the kernel instance that
     serves ``k`` (``cuda_knn.instance_k``)."""
@@ -112,30 +131,57 @@ def tile_smem(n_rings: int, window_az: int, tile_az: int, k: int = cuda_knn.FAST
     return 16 * n_rings * (tile_az + 2 * window_az) + 8 * cuda_knn.instance_k(k) * threads
 
 
-def range_image_tile(n_rings: int, window_az: int, k: int = cuda_knn.FAST_MAX_K) -> int:
-    """Azimuth columns a block of the window kernel owns (TA) for a search of
-    ``k``: the largest power of two whose ``TA x n_rings`` cells stay within
-    :data:`TILE_CELLS` (at least one column) and whose :func:`tile_smem` at
-    ``k`` fits :data:`SMEM_BYTES`. Raises when one column and its halo do
-    not fit. 2048 x 64 at the default window takes 8 columns (512 cells,
-    84 KB) up to k = 32, 4 at k = 64 and 2 at k = 128."""
-    smem = lambda ta: tile_smem(n_rings, window_az, ta, k)
+def warp_tile_smem(n_rings: int, window_az: int, tile_az: int, k: int) -> int:
+    """Shared memory of a block of the warp kernel (``k > 16``): the staged
+    columns at the odd column stride ``n_rings | 1`` (16 B a ring) and one
+    row of K keys (8 B each) a warp."""
+    return 16 * (n_rings | 1) * (tile_az + 2 * window_az) + 8 * cuda_knn.instance_k(k) * (WARP_THREADS // 32)
+
+
+def _plan(n_rings: int, window_az: int, cells: int, smem) -> int:
+    """The largest power of two ``ta`` with ``ta x n_rings <= cells`` (at
+    least 1) whose ``smem(ta)`` fits :data:`SMEM_BYTES`; raises when one
+    column and its halo do not fit."""
     if n_rings < 1 or window_az < 0:
         raise ValueError(f"range_image_tile takes n_rings >= 1 and window_az >= 0, got {n_rings}, {window_az}")
     if smem(1) > SMEM_BYTES:
         raise ValueError(f"one azimuth column of {n_rings} rings and its halo of 2 x {window_az} columns take "
                          f"{smem(1)} B of shared memory, above a block's {SMEM_BYTES}")
-    ta = 1 << (max(1, TILE_CELLS // n_rings).bit_length() - 1)
+    ta = 1 << (max(1, cells // n_rings).bit_length() - 1)
     while smem(ta) > SMEM_BYTES:
         ta //= 2
     return ta
 
 
+def range_image_tile(n_rings: int, window_az: int, k: int = cuda_knn.FAST_MAX_K) -> int:
+    """Azimuth columns a block of the window kernel owns (TA) for a search of
+    ``k``: up to 16 (a thread a cell) the largest power of two whose ``TA x
+    n_rings`` cells stay within :data:`TILE_CELLS` and whose
+    :func:`tile_smem` fits :data:`SMEM_BYTES`; above 16 (a warp a cell) the
+    same within :data:`WARP_TILE_CELLS` and :func:`warp_tile_smem`. Raises
+    when one column and its halo do not fit. 2048 x 64 at the default window
+    takes 8 columns (512 cells, 84 KB) up to k = 16 and 1 above (64 cells,
+    15,568 B at K = 32, 21,712 B at K = 128): 2,048 blocks, which spread
+    over the H100's 132 SMs more evenly than 512 of 4 columns (PERF.md §6)."""
+    if cuda_knn.instance_k(k) <= cuda_knn.FAST_MAX_K:
+        return _plan(n_rings, window_az, TILE_CELLS, lambda ta: tile_smem(n_rings, window_az, ta, k))
+    return _plan(n_rings, window_az, WARP_TILE_CELLS, lambda ta: warp_tile_smem(n_rings, window_az, ta, k))
+
+
+def spill_tile(n_rings: int, window_az: int, k: int) -> int:
+    """TA of :func:`range_image_window_spill` (the one-thread tile above 16):
+    as :func:`range_image_tile` up to 16, with the block's 8 K B a thread of
+    result rows in its :func:`tile_smem`. 2048 x 64 at the default window
+    takes 8 columns at k = 32, 4 at 64 and 2 at 128."""
+    return _plan(n_rings, window_az, TILE_CELLS, lambda ta: tile_smem(n_rings, window_az, ta, k))
+
+
 def _check_k_window(k: int, window_az: int, window_el: int, device) -> None:
-    cuda_knn.check_k(k, "the range-image search", device)
     if not (0 <= window_az < 1 << 15 and 0 <= window_el < 1 << 16):
         raise ValueError(f"the range-image search takes windows in [0, 2^15) x [0, 2^16), got {window_az}, "
                          f"{window_el}")
+    check_candidates(k, window_az, window_el)
+    cuda_knn.check_k(k, "the range-image search", device)
 
 
 def _check_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
@@ -156,8 +202,9 @@ def _check_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: 
 def range_image_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
                        window_el: int, k: int):
     """:func:`range_image_window_plain` through the ``range_image`` kernel
-    (``csrc/range_image.cu``, :func:`range_image_tile` columns a block) for
-    CUDA tensors; CPU tensors run the plain version."""
+    (``csrc/range_image.cu``, :func:`range_image_tile` columns a block: a
+    thread a cell up to k = 16, a warp a cell above) for CUDA tensors; CPU
+    tensors run the plain version."""
     device = _check_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
     if device.type == "cpu":
         return range_image_window_plain(img_p, img_i, n_az, n_rings, window_az, window_el, k)
@@ -166,6 +213,27 @@ def range_image_window(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_ri
     ta = range_image_tile(n_rings, window_az, k)
     return cuda_knn._launch("range_image", device, (n_az * n_rings, k),
                             lambda lib, i, d, s: lib.spt_range_image_window(
+                                img_p.data_ptr(), img_i.data_ptr(), 0, n_az, n_rings, window_az, window_el, k, ta,
+                                i, d, s))
+
+
+def range_image_window_spill(img_p: torch.Tensor, img_i: torch.Tensor, n_az: int, n_rings: int, window_az: int,
+                             window_el: int, k: int):
+    """:func:`range_image_window` above 16 through the one-thread tile
+    kernel's instances (``csrc/range_image.cu``, a cell's K-key list in
+    registers, spilled; :func:`spill_tile` columns a block), kept for timing
+    against the warp kernel, counted under ``range_image_spill``; the same
+    result. CPU tensors run the plain version."""
+    if not cuda_knn.FAST_MAX_K < k <= cuda_knn.MAX_K:
+        raise ValueError(f"range_image_window_spill serves {cuda_knn.FAST_MAX_K} < k <= {cuda_knn.MAX_K}, got {k}")
+    device = _check_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
+    if device.type == "cpu":
+        return range_image_window_plain(img_p, img_i, n_az, n_rings, window_az, window_el, k)
+    cuda_knn._require_cuda(device, "range_image_window_spill")
+    cuda_knn._require_contiguous(img_p, img_i)
+    ta = spill_tile(n_rings, window_az, k)
+    return cuda_knn._launch("range_image_spill", device, (n_az * n_rings, k),
+                            lambda lib, i, d, s: lib.spt_range_image_window_spill(
                                 img_p.data_ptr(), img_i.data_ptr(), 0, n_az, n_rings, window_az, window_el, k, ta,
                                 i, d, s))
 
@@ -251,7 +319,9 @@ def range_image_knn(
 
     ``el_min`` / ``el_max`` bound the elevation fan; ``None`` takes them from
     the scan (its masked min and max: right for a full scan; pass the
-    sensor's constants for a partial one)."""
+    sensor's constants for a partial one). ``k`` above the window's
+    candidates raises before any work, on either device."""
+    _check_k_window(k, window_az, window_el, points.device)
     if points.device.type != "cpu":
         return _range_image_knn_cuda(points, mask, k, n_az, n_rings, window_az, window_el, el_min, el_max)
     img_p, img_i, cell, ok, collisions = range_image(points, mask, n_az, n_rings, el_min, el_max)
@@ -335,11 +405,11 @@ def range_image_window_gather(points: torch.Tensor, win1: torch.Tensor, n_az: in
     if win1.shape != (C,) or win1.dtype != torch.int32 or win1.device != points.device:
         raise ValueError(f"expected [{C}] int32 winners on {points.device}, got {tuple(win1.shape)} {win1.dtype} "
                          f"on {win1.device}")
+    _check_k_window(k, window_az, window_el, points.device)
     if points.device.type == "cpu":
         img_i = win1 - 1
         img_p = torch.where((img_i >= 0)[:, None], points[img_i.clamp_min(0)], 0.0)
         return range_image_window(img_p, img_i, n_az, n_rings, window_az, window_el, k)
-    _check_k_window(k, window_az, window_el, points.device)
     cuda_knn._require_cuda(points.device, "range_image_window_gather")
     cuda_knn._require_contiguous(points, win1)
     ta = range_image_tile(n_rings, window_az, k)
@@ -370,7 +440,6 @@ def _range_image_knn_cuda(points, mask, k, n_az, n_rings, window_az, window_el, 
     memset and one or two kernels), the window search on the winners'
     points, the rows: at most 5 device launches."""
     _check_scan(points, mask, n_az, n_rings)
-    _check_k_window(k, window_az, window_el, points.device)
     range_image_tile(n_rings, window_az, k)  # raises before any launch when the tile does not fit
     points = points.contiguous()
     cell, win1, _, collisions = range_image_cells(points, mask, n_az, n_rings, el_min, el_max)

@@ -31,14 +31,22 @@ from sycl_points_tpu_torch.scripts.measure import marginal_ms, nn1_bound
 SHAPES = ((22528, 22528), (8192, 131072), (1024, 6144))
 MASK_EVERY = 37
 
-# label -> (its key in cuda_knn.launch_counts, the call on (targets, mask,
-# queries)); the first is v0, the production instance.
+
+
+def raw_target(t, m):
+    """The target as the first designs read it: the raw points and mask."""
+    return t, m
+
+
+# label -> (its key in cuda_knn.launch_counts, the target's preparation on
+# (targets, mask), made once a shape and not timed, the call on (prepared
+# target, queries)); the first is v0, the production instance.
 INSTANCES = {
-    "v0-prod": ("nn1", lambda t, m, q: cuda_knn.nn1(t, m, q)),
-    "v1-bias": ("nn1_bias", cuda_knn.nn1_bias),
-    "v2-lanes8": ("nn1_lanes", lambda t, m, q: cuda_knn.nn1_lanes(t, m, q, 8)),
-    "v2-lanes32": ("nn1_lanes", lambda t, m, q: cuda_knn.nn1_lanes(t, m, q, 32)),
-    "v3-unroll2": ("nn1_unroll2", cuda_knn.nn1_unroll2),
+    "v0-prod": ("nn1", raw_target, lambda tm, q: cuda_knn.nn1(*tm, q)),
+    "v1-bias": ("nn1_bias", raw_target, lambda tm, q: cuda_knn.nn1_bias(*tm, q)),
+    "v2-lanes8": ("nn1_lanes", raw_target, lambda tm, q: cuda_knn.nn1_lanes(*tm, q, 8)),
+    "v2-lanes32": ("nn1_lanes", raw_target, lambda tm, q: cuda_knn.nn1_lanes(*tm, q, 32)),
+    "v3-unroll2": ("nn1_unroll2", raw_target, lambda tm, q: cuda_knn.nn1_unroll2(*tm, q)),
 }
 
 
@@ -63,8 +71,9 @@ def agreement(idx, d2, ref_idx, ref_d2) -> tuple[float, float]:
 
 
 def run_study(instances: dict, shapes, mask_every: int, device) -> list[dict]:
-    """Each instance at each (Q, M), held against ``nn1_plain`` (``agree``,
-    ``dmax``) and against the first instance (``agree_v0``)."""
+    """Each instance at each (Q, M), its target prepared once, held against
+    ``nn1_plain`` (``agree``, ``dmax``) and against the first instance
+    (``agree_v0``); each row carries the shape's bound (``bound_ms``)."""
     rng = np.random.default_rng(0)
     rows = []
     for Q, M in shapes:
@@ -73,15 +82,16 @@ def run_study(instances: dict, shapes, mask_every: int, device) -> list[dict]:
         print(f"Q={Q} M={M} (valid {int(m.sum())}): bound {b_ms:.4g} ms ({b_by})", flush=True)
         plain = cuda_knn.nn1_plain(t, m, q)
         first = None
-        for name, (_, fn) in instances.items():
-            idx, d2 = fn(t, m, q)
+        for name, (_, prepare, fn) in instances.items():
+            target = prepare(t, m)
+            idx, d2 = fn(target, q)
             if first is None:
                 first = idx
             agree, dmax = agreement(idx, d2, *plain)
             agree_v0 = float((idx == first).double().mean())
-            ms = marginal_ms(lambda: fn(t, m, q), device)
+            ms = marginal_ms(lambda: fn(target, q), device)
             rows.append({"Q": Q, "M": M, "name": name, "ms": ms, "agree": agree, "dmax": dmax,
-                         "agree_v0": agree_v0})
+                         "agree_v0": agree_v0, "bound_ms": b_ms})
             print(f"Q={Q} M={M} {name}: {ms:8.4f} ms ({Q / ms / 1e3:8.1f} Mq/s) "
                   f"idx_agree(plain)={agree:.4f} dmax(plain)={dmax:.2e} idx_agree(v0)={agree_v0:.4f}",
                   flush=True)

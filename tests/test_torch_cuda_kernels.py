@@ -12,8 +12,11 @@ bit for bit, ties included, and ``knn_k_plain`` in its sets beyond ties
 within 1e-6 (``knn_mismatches``; ``topk`` on the card orders ties in no
 stated way), with distances within 1e-5 absolute (the remaining slack covers
 the [Q,M] reduction order of the plain version). The study kernels
-(nn1_tiled, nn1_bias, nn1_lanes, nn1_unroll2) and ``knn_k_simple`` against
-``knn_k_plain`` as before.
+(nn1_tiled at every query tile x chunk, its first design nn1_tiled_simple,
+nn1_bias, nn1_lanes, nn1_unroll2) equal ``nn1_plain`` bit for bit, with Q off
+every query tile, M off every chunk, every target masked, and exact ties
+across nn1_tiled's splits; ``knn_k_simple`` against ``knn_k_plain`` as
+before.
 
 The batched instances (``nn1_prepped_batched``, ``knn_k_batched``: a
 fleet's streams on the grid's z axis) must equal one single-stream launch
@@ -27,8 +30,11 @@ tail tile) goes through both entries bit-equal to the plain versions.
 The range-image window kernel (a shared-memory tile of azimuth columns)
 and its first design (one thread a cell) must equal the plain window search
 bit for bit on n_az off every tile width, 16 / 32 / 64 / 128 rings, windows
-(0, 0), (6, 4), (2, 7), (8, 4), k above the window's candidates and an empty
-image; ``range_image_knn`` on the card (a memset and four kernels: 5
+(0, 0), (6, 4), (2, 7), (8, 4) and an empty image, and refuse k above the
+window's candidates before any launch; above 16 the warp kernel (a warp a
+cell) equals the plain search and the one-thread tile kept for timing
+(``range_image_window_spill``) at k = 17, 20, 32, 64, 100 and 117 on every
+case (all empty, collisions, the gather form through ``range_image_knn``); ``range_image_knn`` on the card (a memset and four kernels: 5
 device launches under the profiler, 4 with both bounds given) must equal
 the plain sequence (``range_image`` + ``range_image_window_plain`` +
 ``point_rows``) in every
@@ -93,7 +99,8 @@ TIE = 1e-6
 D_ATOL = 1e-5
 
 # Every study kernel instance of the two study entry points: label ->
-# (launch-count key, call on (t, m, q)); the production nn1 is tested above.
+# (launch-count key, the target's preparation on (t, m), call on (prepared
+# target, q)); the production nn1 is tested above.
 STUDY = {
     label: inst
     for study in (bench_nn1_tiles, bench_nn1_variants)
@@ -237,11 +244,12 @@ def test_nn1_empty():
 @pytest.mark.parametrize("m,q,masked_every", [(1, 33, 0), (300, 70, 0), (2049, 129, 3), (25000, 1000, 37)])
 @pytest.mark.parametrize("label", sorted(STUDY))
 def test_study_kernels_equal_plain(label, m, q, masked_every):
-    key, fn = STUDY[label]
+    key, prepare, fn = STUDY[label]
     tgt, mask = _cloud(m, 11, masked_every=masked_every)
     qry = _cloud(q, 12)[0]
+    target = prepare(tgt, mask.to(torch.uint8))
     before = cuda_knn.launch_counts[key]
-    i, d = fn(tgt, mask.to(torch.uint8), qry)
+    i, d = fn(target, qry)
     torch.cuda.synchronize()
     assert cuda_knn.launch_counts[key] == before + 1
     ri, rd = cuda_knn.nn1_plain(tgt, mask, qry)
@@ -251,9 +259,46 @@ def test_study_kernels_equal_plain(label, m, q, masked_every):
 @pytest.mark.parametrize("label", sorted(STUDY))
 def test_study_kernels_all_masked(label):
     tgt, mask = _cloud(3000, 13)
-    i, d = STUDY[label][1](tgt, torch.zeros_like(mask), _cloud(100, 14)[0])
+    _, prepare, fn = STUDY[label]
+    i, d = fn(prepare(tgt, torch.zeros_like(mask)), _cloud(100, 14)[0])
     torch.cuda.synchronize()
     assert bool(torch.isinf(d).all()) and bool((i == 0).all())
+
+
+@pytest.mark.parametrize("query_tile", cuda_knn.NN1_QUERY_TILES_STUDY)
+@pytest.mark.parametrize("case", ["dup", "M off the chunks", "pair", "empty target", "no queries"])
+def test_nn1_tiled_ties_chunks_and_splits(case, query_tile):
+    """nn1_tiled at every chunk: exact ties whose twins lie in other splits
+    (the lower index wins), a target streamed in several chunks a split with
+    its last chunk partial (12,345 rows, 30,000 queries: 10 splits of 1,235
+    rows at 64 queries a block, 3 chunks of 512 a split), the pair's 1,000 queries against 24,576
+    rows, an empty target and no queries; bit-equal to nn1_plain and to its
+    plain model at the card's split."""
+    if case == "dup":
+        tgt, mask = _dup_cloud(1000, 9, 40)
+        qry = torch.cat([tgt[::7], _cloud(300, 41)[0]]).contiguous()
+    elif case == "M off the chunks":
+        (tgt, mask), qry = _cloud(12345, 42, masked_every=5), _cloud(30000, 43)[0]
+    elif case == "pair":
+        (tgt, mask), qry = _cloud(24576, 44, masked_every=37), _cloud(1000, 45)[0]
+    elif case == "empty target":
+        tgt, mask, qry = torch.zeros(0, 3, device="cuda"), torch.zeros(0, dtype=torch.bool, device="cuda"), \
+            _cloud(70, 46)[0]
+    else:
+        (tgt, mask), qry = _cloud(500, 47), torch.zeros(0, 3, device="cuda")
+    packed = cuda_knn.pack_target(tgt, mask)
+    ref = cuda_knn.nn1_plain(tgt, mask, qry)
+    span = cuda_knn.nn1_tiled_span(qry.shape[0], tgt.shape[0], query_tile, cuda_knn._sm_count(0))
+    model = cuda_knn.nn1_tiled_plain(packed, qry, span)
+    assert torch.equal(model[0], ref[0]) and torch.equal(model[1], ref[1])
+    for chunk in cuda_knn.NN1_TILES:
+        got = cuda_knn.nn1_tiled_prepped(packed, qry, query_tile, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), chunk
+    if case == "dup":
+        assert bool((ref[0][: -300] < 1000).all()) and bool((ref[1][: -300] == 0).all())
+    if case == "M off the chunks" and query_tile == 64:
+        assert span == 1235 and -(-span // 512) == 3
 
 
 @pytest.mark.parametrize("k", [1, 4, 10, 16])
@@ -487,20 +532,26 @@ def test_range_image_window_matches_plain(case, k):
 @pytest.mark.parametrize("case", ["full width", "n_az 1000", "16 rings", "128 rings", "all masked"])
 def test_range_image_window_kernels_over_windows(case, window, k):
     """The tiled window kernel and the first design equal the plain window
-    search bit for bit at each window, k above the window's candidates at
-    (0, 0) (one candidate: the cell itself) included."""
+    search bit for bit at each window; k above the window's candidates (at
+    (0, 0) one candidate, the cell itself) is refused before any launch, as
+    JAX's top_k refuses it."""
     from sycl_points_tpu_torch.ops import range_image_knn as ri
 
     pts, mask, kw = _range_image_case(case)
     n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
     img_p, img_i, _, _, _ = ri.range_image(pts, mask, n_az, n_rings)
+    if k > ri.window_candidates(*window):
+        before = dict(cuda_knn.launch_counts)
+        for fn in (ri.range_image_window_plain, ri.range_image_window, ri.range_image_window_simple):
+            with pytest.raises(ValueError, match="candidates"):
+                fn(img_p, img_i, n_az, n_rings, *window, k)
+        assert cuda_knn.launch_counts == before
+        return
     ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, *window, k)
     for fn in (ri.range_image_window, ri.range_image_window_simple):
         got = fn(img_p, img_i, n_az, n_rings, *window, k)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), fn.__name__
-    if window == (0, 0) and k > 1:
-        assert bool((ref[0][:, 1:] == -1).all())
 
 
 def _device_launches(fn) -> int:
@@ -979,14 +1030,21 @@ def test_grid_knn_large_k_matches_plain(case):
 @pytest.mark.parametrize("case", ["full width", "collisions", "all masked", "masked, window (8, 4)", "n_az 1000",
                                   "128 rings"])
 def test_range_image_window_large_k_matches_plain(case, k):
-    """The window kernel above 16 (a tile planned for its K) equals the
-    plain window search bit for bit, and range_image_knn on the card the
-    plain sequence."""
+    """The window kernel above 16 (a warp a cell, a tile planned for its K)
+    equals the plain window search bit for bit, and range_image_knn on the
+    card the plain sequence; k above the window's candidates (128 at the
+    default window's 117) is refused by both before any launch."""
     from sycl_points_tpu_torch.ops import range_image_knn as ri
 
     pts, mask, kw = _range_image_case(case)
     n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
     w_az, w_el = kw.get("window_az", 6), kw.get("window_el", 4)
+    if k > ri.window_candidates(w_az, w_el):
+        before = dict(cuda_knn.launch_counts)
+        with pytest.raises(ValueError, match="candidates"):
+            ri.range_image_knn(pts, mask, k, n_az, n_rings, w_az, w_el)
+        assert cuda_knn.launch_counts == before
+        k = ri.window_candidates(w_az, w_el)
     img_p, img_i, cell, ok, _ = ri.range_image(pts, mask, n_az, n_rings)
     got = ri.range_image_window(img_p, img_i, n_az, n_rings, w_az, w_el, k)
     torch.cuda.synchronize()
@@ -995,6 +1053,42 @@ def test_range_image_window_large_k_matches_plain(case, k):
     res = ri.range_image_knn(pts, mask, k, n_az, n_rings, w_az, w_el)
     plain = ri.point_rows(*ref, cell, ok)
     assert torch.equal(res.knn.indices, plain.indices) and torch.equal(res.knn.distances, plain.distances)
+
+
+@pytest.mark.parametrize("window", [(6, 4), (8, 4), (2, 7)])
+@pytest.mark.parametrize("k", [17, 20, 32, 64, 100, 117])
+@pytest.mark.parametrize("case", ["full width", "collisions", "all masked", "partial fan", "n_az 1000", "16 rings",
+                                  "128 rings"])
+def test_range_image_warp_kernel_matches_plain(case, k, window):
+    """The warp kernel (k above 16) bit-equal to the plain window search and
+    to the one-thread tile (range_image_window_spill) on the image, and in
+    the gather form (range_image_knn on the card) to the plain sequence;
+    (2, 7) has 75 candidates, so k = 100 and 117 are refused there."""
+    from sycl_points_tpu_torch.ops import range_image_knn as ri
+
+    pts, mask, kw = _range_image_case(case)
+    n_az, n_rings = kw.get("n_az", 2048), kw.get("n_rings", 64)
+    el = {b: kw[b] for b in ("el_min", "el_max") if b in kw}
+    if k > ri.window_candidates(*window):
+        with pytest.raises(ValueError, match="candidates"):
+            ri.range_image_window_gather(pts, torch.zeros(n_az * n_rings, dtype=torch.int32, device="cuda"),
+                                         n_az, n_rings, *window, k)
+        return
+    img_p, img_i, cell, ok, _ = ri.range_image(pts, mask, n_az, n_rings, **el)
+    ref = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, *window, k)
+    before = dict(cuda_knn.launch_counts)
+    got = ri.range_image_window(img_p, img_i, n_az, n_rings, *window, k)
+    spill = ri.range_image_window_spill(img_p, img_i, n_az, n_rings, *window, k)
+    res = ri.range_image_knn(pts, mask, k, n_az, n_rings, *window, **el)
+    torch.cuda.synchronize()
+    counted = {name: cuda_knn.launch_counts[name] - before[name] for name in before}
+    assert counted["range_image"] == 2 and counted["range_image_spill"] == 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(spill[0], ref[0]) and torch.equal(spill[1], ref[1])
+    plain = ri.point_rows(*ref, cell, ok)
+    assert torch.equal(res.knn.indices, plain.indices) and torch.equal(res.knn.distances, plain.distances)
+    if case == "all masked":
+        assert bool((got[0] == -1).all())
 
 
 @pytest.mark.parametrize("k", LARGE_K)

@@ -33,11 +33,14 @@ JAX runs any k; the port's CPU path does too, and the card up to
     margin absorbs, rounds the product and the elementwise sum apart by up
     to ~3e-5 relative), and on the lattice every cell, index for index;
   * the refusals: no CPU search refuses k for being above 16; the first
-    designs still do; a structured search refuses k above its candidates;
+    designs still do; a structured search refuses k above its candidates
+    (the range-image window above its (2 window_az + 1)(2 window_el + 1), as
+    JAX's top_k does);
   * ``knn_k_spill`` (the one-thread instances above 16, kept for timing) on the
     CPU equal to ``knn_k`` / ``knn_k_batched`` bit for bit, refusing k up
     to 16 and above 128; the warp-a-query instances' slice plan
-    (``knn_cluster_slices``).
+    (``knn_cluster_slices``); the range-image window's tile plans (a warp a
+    cell above 16, and the one-thread tile kept for timing).
 """
 
 import dataclasses
@@ -360,7 +363,11 @@ def test_no_cpu_search_refuses_k_above_16():
         t_win.window_search(pts, mask, order, 8, 17)
     img_p = torch.zeros(64 * 8, 3)
     img_i = torch.full((64 * 8,), -1, dtype=torch.int32)
-    assert tuple(ri.range_image_window(img_p, img_i, 64, 8, 6, 4, big)[0].shape) == (64 * 8, big)
+    # the window at (6, 4) has 117 candidates: k = 200 is refused, as JAX's
+    # top_k refuses it; a window of 17 x 13 = 221 takes it
+    with pytest.raises(ValueError, match="candidates"):
+        ri.range_image_window(img_p, img_i, 64, 8, 6, 4, big)
+    assert tuple(ri.range_image_window(img_p, img_i, 64, 8, 8, 6, big)[0].shape) == (64 * 8, big)
     # the first designs keep their k <= 16
     for call in (lambda: cuda_knn.knn_k_simple(pts, mask, pts, 17),
                  lambda: t_grid_knn.grid_search_simple(tg, pts[:10], 17),
@@ -382,10 +389,15 @@ def test_instances_serve_every_k_up_to_128():
     for k in (0, 129):
         with pytest.raises(ValueError):
             cuda_knn.instance_k(k)
-    # the range-image tile shrinks for the large instances' rows of results
-    assert [ri.range_image_tile(64, 6, k) for k in (10, 16, 20, 32, 64, 100, 128)] == [8, 8, 8, 8, 4, 2, 2]
+    # the range-image window above 16 runs a warp a cell on 1-column tiles
+    # (no result rows a thread); the one-thread tile kept for timing shrinks
+    # for its rows of results
+    assert [ri.range_image_tile(64, 6, k) for k in (10, 16, 20, 32, 64, 100, 128)] == [8, 8, 1, 1, 1, 1, 1]
+    assert [ri.range_image_tile(n, 6, 32) for n in (16, 32, 128)] == [4, 2, 1]
+    assert [ri.spill_tile(64, 6, k) for k in (20, 32, 64, 100, 128)] == [8, 8, 4, 2, 2]
     for k in (16, 32, 64, 128):
-        assert ri.tile_smem(64, 6, ri.range_image_tile(64, 6, k), k) <= ri.SMEM_BYTES
+        assert ri.tile_smem(64, 6, ri.spill_tile(64, 6, k), k) <= ri.SMEM_BYTES
+        assert ri.warp_tile_smem(64, 6, ri.range_image_tile(64, 6, k), k) <= ri.SMEM_BYTES
     assert cuda_knn.cluster_shape(1000, (128,), 132, slice_counts=cuda_knn.knn_slices(20))[1] == 8
     assert cuda_knn.cluster_shape(1000, (128,), 132, slice_counts=cuda_knn.knn_slices(16))[1] == 16
     assert [cuda_knn.refine_lanes(c, 10) for c in (2048, 128, 100, 40, 8)] == [32, 32, 16, 8, 8]

@@ -6,7 +6,13 @@ their files; on the loaded module objects only, ``pl`` is replaced by a
 namespace whose ``pallas_call`` runs in interpret mode. The same seeded
 numpy inputs (M=3000 targets with every 37th masked, Q=700 queries, uniform
 +-50 m) go through each Pallas kernel and the port's wrapper, which runs
-``nn1_plain`` for CPU tensors.
+``nn1_plain`` for CPU tensors (``nn1_tiled``: ``nn1_tiled_plain``, the plain
+model of its split merge, at the split an H100 takes).
+
+``nn1_tiled_plain`` (the least ``(d2 bits << 32) | index`` over the target's
+splits) is held bit for bit to ``nn1_plain`` and to ``make_nn1`` at spans of
+1 row to more than the target, on exact ties across splits, masked rows and
+every row masked; ``nn1_tiled_span``'s plan on the H100's 132 SMs.
 
 Tolerances: indices equal except where the two distances are tied within
 1e-6; distances within atol=1e-5 (both sides are exact f32 difference-form
@@ -21,6 +27,7 @@ of d >= 3e38 to inf and return d = 3e38, and v2 also returns idx 2**31 - 1.
 import functools
 import importlib.util
 import types
+from collections import Counter
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -73,12 +80,20 @@ CASES = {
     "v2(512,1024) / nn1_lanes 32": (lambda s: s.variants.make_v2(512, 1024),
                                     functools.partial(cuda_knn.nn1_lanes, lanes=32)),
     "v3(512,1024) / nn1_unroll2": (lambda s: s.variants.make_v3(512, 1024), cuda_knn.nn1_unroll2),
+    # the first design, nn1_tiled_simple (threads x tile)
     "make_nn1(1024,512) / nn1_tiled 128x2048": (lambda s: s.tiles.make_nn1(1024, 512),
-                                                functools.partial(cuda_knn.nn1_tiled, threads=128, tile=2048)),
+                                                functools.partial(cuda_knn.nn1_tiled_simple, threads=128, tile=2048)),
     "make_nn1(1024,512) / nn1_tiled 64x512": (lambda s: s.tiles.make_nn1(1024, 512),
-                                              functools.partial(cuda_knn.nn1_tiled, threads=64, tile=512)),
+                                              functools.partial(cuda_knn.nn1_tiled_simple, threads=64, tile=512)),
     "make_nn1(1024,512) / nn1_tiled 512x4096": (lambda s: s.tiles.make_nn1(1024, 512),
-                                                functools.partial(cuda_knn.nn1_tiled, threads=512, tile=4096)),
+                                                functools.partial(cuda_knn.nn1_tiled_simple, threads=512, tile=4096)),
+    # the design for the card, nn1_tiled (query tile x chunk)
+    "make_nn1(1024,512) / nn1_tiled queries 64 chunk 512": (
+        lambda s: s.tiles.make_nn1(1024, 512), functools.partial(cuda_knn.nn1_tiled, query_tile=64, chunk=512)),
+    "make_nn1(256,2048) / nn1_tiled queries 256 chunk 2048": (
+        lambda s: s.tiles.make_nn1(256, 2048), functools.partial(cuda_knn.nn1_tiled, query_tile=256, chunk=2048)),
+    "make_nn1(512,4096) / nn1_tiled queries 512 chunk 4096": (
+        lambda s: s.tiles.make_nn1(512, 4096), functools.partial(cuda_knn.nn1_tiled, query_tile=512, chunk=4096)),
 }
 
 
@@ -115,7 +130,8 @@ def test_all_masked(studies, kernel):
     args = (torch.from_numpy(t), torch.from_numpy(none), torch.from_numpy(q))
     for port in (cuda_knn.nn1, cuda_knn.nn1_bias, cuda_knn.nn1_unroll2,
                  functools.partial(cuda_knn.nn1_lanes, lanes=8),
-                 functools.partial(cuda_knn.nn1_tiled, threads=256, tile=1024)):
+                 functools.partial(cuda_knn.nn1_tiled_simple, threads=256, tile=1024),
+                 functools.partial(cuda_knn.nn1_tiled, query_tile=128, chunk=1024)):
         ti, td = port(*args)
         assert bool((ti == 0).all()) and bool(torch.isinf(td).all())
 
@@ -123,9 +139,9 @@ def test_all_masked(studies, kernel):
 def test_wrappers_reject_instances_not_built():
     t, mask, q = (torch.from_numpy(a) for a in _inputs(seed=6))
     with pytest.raises(ValueError):
-        cuda_knn.nn1_tiled(t, mask, q, threads=96, tile=2048)
+        cuda_knn.nn1_tiled_simple(t, mask, q, threads=96, tile=2048)
     with pytest.raises(ValueError):
-        cuda_knn.nn1_tiled(t, mask, q, threads=128, tile=8192)
+        cuda_knn.nn1_tiled_simple(t, mask, q, threads=128, tile=8192)
     with pytest.raises(ValueError):
         cuda_knn.nn1_lanes(t, mask, q, lanes=16)
     with pytest.raises(ValueError):
@@ -134,11 +150,19 @@ def test_wrappers_reject_instances_not_built():
 
 @pytest.mark.parametrize("study,n_instances", [(bench_nn1_tiles, 16), (bench_nn1_variants, 5)])
 def test_study_entry_points_on_the_cpu(study, n_instances):
+    """``n_instances`` a design: the tile sweep runs both of its designs'
+    16 instances and the cluster nn1 at each shape."""
     shapes = ((70, 300), (33, 1100))
     rows = study.main(shapes=shapes, device="cpu")
-    assert len(rows) == n_instances * len(shapes)
+    per_shape = len(study.INSTANCES)
+    if study is bench_nn1_tiles:
+        assert Counter(name for name, _, _ in study.INSTANCES.values()) == {
+            "nn1_tiled_simple": n_instances, "nn1_tiled": n_instances, "nn1": 1}
+    else:
+        assert per_shape == n_instances
+    assert len(rows) == per_shape * len(shapes)
     assert all(r["agree"] == 1.0 and r["dmax"] == 0.0 and r["agree_v0"] == 1.0 for r in rows)
-    assert [(r["Q"], r["M"]) for r in rows[::n_instances]] == list(shapes)
+    assert [(r["Q"], r["M"]) for r in rows[::per_shape]] == list(shapes)
 
 
 def test_study_inputs_follow_the_tpu_scripts():
@@ -148,3 +172,79 @@ def test_study_inputs_follow_the_tpu_scripts():
     np.testing.assert_array_equal(np_(t), rng.uniform(-50, 50, (100, 3)).astype(np.float32))
     np.testing.assert_array_equal(np_(q), rng.uniform(-50, 50, (40, 3)).astype(np.float32))
     assert np_(m).tolist() == [0 if i % MASK_EVERY == 0 else 1 for i in range(100)]
+
+
+# -- nn1_tiled: the split merge's plain model, its plan, its refusals ---------
+
+
+SPANS = [1, 7, 256, 1500, 2999, 3000, 5000]
+MERGE_CASES = ["every 37th masked", "exact ties across splits", "masked head and tail", "every row masked"]
+
+
+def _merge_case(case):
+    t, mask, q = _inputs(seed=8)
+    if case == "exact ties across splits":  # the target twice: each point's twin in a later split
+        half = M // 2
+        t = np.concatenate([t[:half], t[:half]])
+        mask = np.concatenate([mask[:half], mask[:half]])
+        q = np.concatenate([q[:100], t[:50], t[::97]])  # queries on target points: d2 = 0, tied
+    elif case == "masked head and tail":
+        mask[:1000] = False
+        mask[2500:] = False
+    elif case == "every row masked":
+        mask[:] = False
+    return t, mask, q
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_split_merge_model_equals_nn1_plain_and_the_tpu_study(studies, case, span):
+    """The least packed word over the splits is nn1_plain bit for bit, the
+    lower index on ties, idx 0 and d2 = +inf where no row is valid; and it
+    agrees with the TPU study's make_nn1 as test_port_matches_tpu_study holds
+    the other ports (the study's own all-masked traits apart)."""
+    t, mask, q = _merge_case(case)
+    tt, tm, tq = (torch.from_numpy(a) for a in (t, mask, q))
+    got = cuda_knn.nn1_tiled_plain(cuda_knn.pack_target(tt, tm), tq, span)
+    ref = cuda_knn.nn1_plain(tt, tm, tq)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    ji, jd = studies.tiles.make_nn1(1024, 512)(jnp.asarray(t), jnp.asarray(mask), jnp.asarray(q))
+    ji, jd = torch.from_numpy(np.array(ji)), torch.from_numpy(np.array(jd))
+    if case == "every row masked":
+        assert bool((got[0] == 0).all()) and bool(torch.isinf(got[1]).all())
+        assert bool((ji == 0).all()) and bool((jd == np.float32(BIG)).all())
+        return
+    assert cuda_knn.nn1_mismatches(got[0], got[1], ji, jd, TIE) == 0
+    np.testing.assert_allclose(np_(got[1]), np_(jd), rtol=0, atol=D_ATOL)
+    if case == "exact ties across splits":
+        assert bool((got[0] < M // 2).all())  # the first of two equal points
+        assert int((got[1] == 0).sum()) >= 50 + len(range(0, M // 2, 97))
+
+
+def test_nn1_tiled_span_plan():
+    # 1,000 queries against the pair's 24,576 rows: 96 splits of 256 rows
+    # (the least span) at every query tile
+    assert [cuda_knn.nn1_tiled_span(1000, 24576, qt, 132) for qt in cuda_knn.NN1_QUERY_TILES_STUDY] == [256] * 4
+    # the study's shapes: as many splits as give 32 warps an SM (4,224 warps:
+    # 12 splits of 352 one-warp tiles; 33 of 128; 33 of 16 eight-warp tiles)
+    assert cuda_knn.nn1_tiled_span(22528, 22528, 64, 132) == 1878
+    assert cuda_knn.nn1_tiled_span(8192, 131072, 64, 132) == 3972
+    assert cuda_knn.nn1_tiled_span(8192, 22528, 512, 132) == 683
+    for Q, Mt, qt in ((1, 1, 64), (70, 300, 512), (50000, 2049, 64)):
+        span = cuda_knn.nn1_tiled_span(Q, Mt, qt, 132)
+        assert 1 <= span <= Mt and -(-Mt // span) <= max(1, -(-Mt // cuda_knn.NN1_TILED_MIN_SPAN))
+
+
+def test_nn1_tiled_refuses_instances_not_built_before_any_launch():
+    t, mask, q = (torch.from_numpy(a) for a in _inputs(seed=9))
+    before = dict(cuda_knn.launch_counts)
+    for qt, tc in ((96, 2048), (32, 512), (1024, 512), (128, 256), (128, 8192), (128, 3000)):
+        with pytest.raises(ValueError, match="nn1_tiled"):
+            cuda_knn.nn1_tiled(t, mask, q, query_tile=qt, chunk=tc)
+    packed = cuda_knn.pack_target(t, mask)
+    assert packed.shape == (M, 4) and bool(torch.isinf(packed[~mask, :3]).all())
+    with pytest.raises(ValueError):
+        cuda_knn.nn1_tiled_prepped(packed[:, :3].contiguous(), q, 128, 2048)
+    with pytest.raises(ValueError):
+        cuda_knn.nn1_tiled_prepped(packed, q[:, :2].contiguous(), 128, 2048)
+    assert cuda_knn.launch_counts == before

@@ -14,9 +14,16 @@ the JAX package, on the CPU.
     16 / 128 rings; ``range_image_knn`` at n_az = 1000 against JAX's;
   * the tile planner of the card's window kernel (``range_image_tile``) over
     rings and windows, and its refusal when one column and its halo do not
-    fit a block; the wrappers of the card's path on the CPU (cells, the
-    gathered window, the rows, the first window design) equal the plain
-    sequence and count no launch;
+    fit a block; the warp design's (k above 16) and the one-thread tile's
+    (``spill_tile``) plans at K = 32 / 64 / 128 for windows up to (8, 4);
+    the wrappers of the card's path on the CPU (cells, the gathered window,
+    the rows, the first window design, the one-thread tile above 16) equal
+    the plain sequence and count no launch;
+  * k above 16: ``range_image_knn`` at k = 32 and 64 (window (6, 4)) and 128
+    (window (8, 4), 153 candidates) against JAX's, indices exact and
+    distances rtol 1e-6; k above the window's candidates refused with a
+    ``ValueError`` naming them by every entry and by ``PCProcessor``'s raw
+    branch, before any work, where JAX's ``top_k`` raises too;
   * ``PCProcessor`` with ``raw_range_image`` against JAX's, voxel and polar
     grids: points 1e-5, covariances after each grid rtol 1e-5 with the plain
     estimator; with the robust one at least 98% of the voxels within 5e-3 of
@@ -32,6 +39,7 @@ The frames and the fleets at ``raw_range_image=True`` are in
 ``test_torch_raw_fleet.py``.
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -71,7 +79,9 @@ def _port_knn(pts, mask, k, **kw):
     return np_(out.knn.indices), np_(out.knn.distances), int(out.collisions)
 
 
-def _assert_knn_equal(got, ref):
+def _assert_knn_equal(got, ref, relative_ties=False):
+    """``relative_ties``: a tie is within max(TIE, D_RTOL d2), for lists
+    that reach tens of m^2, where one ulp is above TIE."""
     (ti, td, tc), (ji, jd, jc) = got, ref
     assert tc == jc
     np.testing.assert_array_equal(np.isfinite(td), np.isfinite(jd))
@@ -79,7 +89,9 @@ def _assert_knn_equal(got, ref):
     np.testing.assert_allclose(td[fin], jd[fin], rtol=D_RTOL)
     differ = ti != ji
     # an index may differ only where its distance ties another within TIE
-    assert (np.abs(td[differ & fin] - jd[differ & fin]) <= TIE).all()
+    sel = differ & fin
+    tie = np.maximum(TIE, D_RTOL * np.abs(jd[sel])) if relative_ties else TIE
+    assert (np.abs(td[sel] - jd[sel]) <= tie).all()
     assert not (differ & ~fin).any()
 
 
@@ -177,17 +189,22 @@ def test_window_plain_equals_the_rolls(velodyne_scan, window):
 
 @pytest.mark.parametrize("n_az,n_rings,window", [(1000, 32, (6, 4)), (1000, 16, (2, 7)), (602, 128, (0, 0))])
 def test_window_plain_equals_the_rolls_off_the_tiles(velodyne_scan, n_az, n_rings, window):
-    """An azimuth count no tile width divides, and 16 / 128 rings."""
+    """An azimuth count no tile width divides, and 16 / 128 rings; k = 10,
+    or the window's candidates where it has fewer (the window (0, 0) holds
+    the cell alone), and one more than those refused, as JAX's top_k
+    refuses it."""
     pts = torch.from_numpy(velodyne_scan[::3].copy())
     mask = torch.ones(pts.shape[0], dtype=torch.bool)
     img_p, img_i, _, _, _ = ri.range_image(pts, mask, n_az, n_rings)
-    k, w = 10, (2 * window[0] + 1) * (2 * window[1] + 1)
+    w = (2 * window[0] + 1) * (2 * window[1] + 1)
+    k = min(10, w)
     idx, d2 = ri.range_image_window_plain(img_p, img_i, n_az, n_rings, *window, k)
     ref_i, ref_d = _window_by_rolls(np_(img_p), np_(img_i), n_az, n_rings, *window, k)
-    np.testing.assert_array_equal(np_(idx)[:, :w], ref_i)
-    np.testing.assert_array_equal(np_(d2)[:, :w], ref_d)
-    # slots beyond the window's candidates stay unfilled
-    assert (np_(idx)[:, w:] == -1).all() and (np_(d2)[:, w:] == np.float32(ri.BIG)).all()
+    np.testing.assert_array_equal(np_(idx), ref_i)
+    np.testing.assert_array_equal(np_(d2), ref_d)
+    if k < 10:
+        with pytest.raises(ValueError, match="candidates"):
+            ri.range_image_window_plain(img_p, img_i, n_az, n_rings, *window, 10)
     assert n_az % ri.range_image_tile(n_rings, window[0])
 
 
@@ -215,6 +232,24 @@ def test_tile_planner(n_rings, window_az, tile):
 def test_tile_planner_refuses_a_column_that_does_not_fit(n_rings, window_az):
     with pytest.raises(ValueError, match="shared memory"):
         ri.range_image_tile(n_rings, window_az)
+
+
+@pytest.mark.parametrize("window", [(0, 0), (2, 1), (6, 4), (2, 7), (8, 4)])
+@pytest.mark.parametrize("K", [32, 64, 128])
+def test_warp_tile_planner(K, window):
+    """Above 16 a warp a cell: TA x 64 rings within WARP_TILE_CELLS (one
+    column), the staged columns at the odd stride 65 and one row of K keys a
+    warp within a block's shared memory; the one-thread tile's plan
+    (spill_tile) keeps 8 K B of result rows a thread. (The plan does not
+    depend on window_el, nor on whether k fits the window.)"""
+    ta = ri.range_image_tile(64, window[0], K)
+    assert ta == 1 and ta * 64 <= ri.WARP_TILE_CELLS
+    smem = ri.warp_tile_smem(64, window[0], ta, K)
+    assert smem == 16 * 65 * (ta + 2 * window[0]) + 8 * K * ri.WARP_THREADS // 32 <= ri.SMEM_BYTES
+    assert ri.range_image_tile(64, window[0], K - 1) == ta  # a k between instances plans for its instance
+    spill = ri.spill_tile(64, window[0], K)
+    assert ri.tile_smem(64, window[0], spill, K) <= ri.SMEM_BYTES < ri.tile_smem(64, window[0], 2 * spill, K) \
+        or spill * 64 == ri.TILE_CELLS
 
 
 def test_tile_planner_shrinks_the_tile_to_fit():
@@ -246,6 +281,112 @@ def test_card_path_wrappers_on_the_cpu_equal_the_plain_sequence(velodyne_scan, e
     rows, plain = ri.cell_rows(*ref, cell), ri.point_rows(*ref, cell64, ok)
     assert torch.equal(rows.indices, plain.indices) and torch.equal(rows.distances, plain.distances)
     assert cuda_knn.launch_counts == before
+
+
+def test_large_k_wrappers_on_the_cpu_equal_the_plain_version(velodyne_scan):
+    pts = torch.from_numpy(velodyne_scan[::2].copy())
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    before = dict(cuda_knn.launch_counts)
+    img_p, img_i, _, _, _ = ri.range_image(pts, mask, 512, 32)
+    for k in (17, 32, 64, 100, 117):
+        ref = ri.range_image_window_plain(img_p, img_i, 512, 32, 6, 4, k)
+        for got in (ri.range_image_window(img_p, img_i, 512, 32, 6, 4, k),
+                    ri.range_image_window_spill(img_p, img_i, 512, 32, 6, 4, k),
+                    ri.range_image_window_gather(pts, (img_i + 1).contiguous(), 512, 32, 6, 4, k)):
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        full = ri.range_image_window_plain(img_p, img_i, 512, 32, 6, 4, 117)
+        assert torch.equal(ref[0], full[0][:, :k]) and torch.equal(ref[1], full[1][:, :k])
+    for k in (16, 129):
+        with pytest.raises(ValueError, match="range_image_window_spill"):
+            ri.range_image_window_spill(img_p, img_i, 512, 32, 8, 4, k)
+    assert cuda_knn.launch_counts == before
+
+
+@pytest.mark.parametrize("k,window", [(32, (6, 4)), (64, (6, 4)), (128, (8, 4))])
+def test_large_k_matches_jax(velodyne_scan, k, window):
+    """range_image_knn above 16 against JAX's (jitted) on the recall scene
+    with every 11th point masked: indices equal except between distances
+    tied within max(1e-6, 1e-6 d2) (XLA rounds a distance one ulp away from
+    the plain f32 operations now and then: 2 of 1,048,576 entries at k = 32,
+    a pair at 0.66343623 m^2 where JAX's has 0.6634363; at k = 128 the lists
+    reach ~50 m^2, where one ulp is 3.8e-6), distances rtol 1e-6;
+    test_window_plain_equals_the_rolls_above_16 holds the window to JAX's
+    formulation in plain f32 bit for bit."""
+    mask = np.ones(len(velodyne_scan), bool)
+    mask[::11] = False
+    kw = dict(n_az=1024, n_rings=32, window_az=window[0], window_el=window[1])
+    got, ref = _port_knn(velodyne_scan, mask, k, **kw), _jax_knn(velodyne_scan, mask, k, **kw)
+    _assert_knn_equal(got, ref, relative_ties=True)
+    assert (got[0] != ref[0]).mean() < 1e-4
+    assert np.isfinite(got[1][:, k - 1]).any()  # rows of k finite neighbours
+
+
+@pytest.mark.parametrize("k,window", [(17, (6, 4)), (32, (6, 4)), (64, (6, 4)), (117, (6, 4)), (128, (8, 4))])
+def test_window_plain_equals_the_rolls_above_16(velodyne_scan, k, window):
+    """The window search above 16 equals JAX's rolls and stable top-k in
+    plain f32 (numpy), indices and distances bit for bit."""
+    pts = torch.from_numpy(velodyne_scan[::2].copy())
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    mask[::13] = False
+    img_p, img_i, _, _, _ = ri.range_image(pts, mask, 512, 32)
+    idx, d2 = ri.range_image_window_plain(img_p, img_i, 512, 32, *window, k)
+    ref_i, ref_d = _window_by_rolls(np_(img_p), np_(img_i), 512, 32, *window, k)
+    np.testing.assert_array_equal(np_(idx), ref_i)
+    np.testing.assert_array_equal(np_(d2), ref_d)
+
+
+@pytest.mark.parametrize("window", [(6, 4), (8, 4), (2, 1), (0, 0)])
+def test_k_above_the_window_candidates_is_refused_as_jax_refuses_it(velodyne_scan, window):
+    """k = W + 1 (W the window's candidates): JAX's top_k raises, and so does
+    every entry of the port with a ValueError naming the candidates, before
+    any launch; k = W runs."""
+    W = ri.window_candidates(*window)
+    assert W == (2 * window[0] + 1) * (2 * window[1] + 1)
+    pts_np = velodyne_scan[::4].copy()
+    kw = dict(n_az=256, n_rings=32, window_az=window[0], window_el=window[1])
+    with pytest.raises(ValueError, match="top_k"):
+        j_range_image_knn(jnp.asarray(pts_np), jnp.asarray(np.ones(len(pts_np), bool)), W + 1, **kw)
+    pts, mask = torch.from_numpy(pts_np), torch.ones(len(pts_np), dtype=torch.bool)
+    img_p, img_i, _, _, _ = ri.range_image(pts, mask, 256, 32)
+    args = (256, 32, *window)
+    before = dict(cuda_knn.launch_counts)
+    calls = [lambda k: ri.range_image_knn(pts, mask, k, **kw),
+             lambda k: ri.range_image_window_plain(img_p, img_i, *args, k),
+             lambda k: ri.range_image_window(img_p, img_i, *args, k),
+             lambda k: ri.range_image_window_gather(pts, (img_i + 1).contiguous(), *args, k)]
+    for call in calls:
+        with pytest.raises(ValueError, match="candidates"):
+            call(W + 1)
+    if W + 1 <= cuda_knn.FAST_MAX_K:
+        with pytest.raises(ValueError, match="candidates"):
+            ri.range_image_window_simple(img_p, img_i, *args, W + 1)
+    elif W + 1 <= cuda_knn.MAX_K:
+        with pytest.raises(ValueError, match="candidates"):
+            ri.range_image_window_spill(img_p, img_i, *args, W + 1)
+    assert calls[0](W).knn.indices.shape[-1] == W
+    for call in calls[1:]:
+        assert call(W)[0].shape[-1] == W
+    assert cuda_knn.launch_counts == before
+
+
+def test_pc_processor_refuses_neighbors_above_the_window_as_jax_does(velodyne_scan):
+    """PCProcessor's raw branch (the prefilter, before the voxel grid) at
+    neighbor_num = 118 over the default window's 117 candidates: JAX's raises
+    in top_k, the port's with the range-image search's ValueError; at 117
+    both run."""
+    base = _raw_params()
+    jc, tc = clouds(velodyne_scan, capacity=1 << 15)
+    for k in (118, 117):
+        params = dataclasses.replace(base, covariance_estimation=dataclasses.replace(
+            base.covariance_estimation, neighbor_num=k))
+        jp, tp = JPCProcessor(params), TPCProcessor(params_from_reference(params), device="cpu")
+        if k == 118:
+            with pytest.raises(ValueError, match="top_k"):
+                jp.prefilter(jc)
+            with pytest.raises(ValueError, match="candidates"):
+                tp.prefilter(tc)
+        else:
+            assert tp.prefilter(tc).covs is not None
 
 
 def test_window_wrapper_counts_no_cpu_launch(velodyne_scan):
