@@ -15,11 +15,14 @@
    knn_k_simple + nn1_plain, and requires equal poses, bit for bit.
 3. Holds every instance of the study kernels (nn1_tiled, the tile study's
    kernel for the card, at every query tile x chunk; its first design
-   nn1_tiled_simple; nn1_bias, nn1_lanes, nn1_unroll2) against nn1_plain at
-   the nn1 shape, on queries moved by the ground-truth pose, with some
-   targets masked, with every target masked, and on an odd count of
-   targets: equal indices and equal distances, bit for bit; times each
-   instance (nn1_tiled through its packed target, made once).
+   nn1_tiled_simple; nn1_bias and nn1_unroll2 in nn1_tiled's ring and their
+   first designs nn1_bias_simple and nn1_unroll2_simple; nn1_lanes) against
+   nn1_plain at the nn1 shape, on queries moved by the ground-truth pose,
+   with some targets masked, with every target masked, on an odd count of
+   targets, on a target of equal adjacent rows whose twins lie in other
+   splits, and with masked rows on the queries: equal indices and equal
+   distances, bit for bit; times each instance (the ring's kernels through
+   their packed targets, made once).
 4. Times every kernel, its plain version and a PyTorch yardstick that the
    port never calls (``torch.cdist`` over +inf-masked targets, then ``min``
    or ``topk``), as marginal per-launch CUDA-event times, and computes each
@@ -942,8 +945,10 @@ STUDY_KERNELS = {
     "nn1_tiled": (TILES_SOURCE, "scripts/bench_pallas_tiles.py:27"),
     "nn1_tiled_simple": (FIRST_SOURCE, "scripts/bench_pallas_tiles.py:27"),
     "nn1_bias": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:106"),
+    "nn1_bias_simple": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:106"),
     "nn1_lanes": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:134"),
     "nn1_unroll2": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:168"),
+    "nn1_unroll2_simple": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:168"),
 }
 
 
@@ -954,17 +959,25 @@ def study_name(module) -> str:
 def check_study_kernels(target, queries, pose) -> list:
     """Every study kernel instance against nn1_plain at the nn1 shape, on the
     queries moved by ``pose``: equal indices and bit-equal distances with
-    every 37th target (and the padding) masked, with every target masked, and
-    on the first odd number of targets (a partial last tile at every tile
-    size, and an odd tail for nn1_unroll2); then its time (median of 3
-    marginal times). A wrapper's row carries its fastest instance."""
+    every 37th target (and the padding) masked, with every target masked, on
+    the first odd number of targets (a partial last tile at every tile size,
+    an odd tail for the first nn1_unroll2, a masked pad row for the ring's),
+    on the target with each row doubled and then repeated (ties inside
+    nn1_unroll2's pairs, and twins in other splits: the lowest index must
+    win), and with the queries as masked rows ahead of the target (masked
+    rows at d = 0 must lose); then its time (median of 3 marginal times). A
+    wrapper's row carries its fastest instance."""
     t = target.points
     moved = transform_points(queries, pose).contiguous()
     keep = torch.arange(target.capacity, device=t.device) % MASK_EVERY != 0
     mask = (target.mask & keep).to(torch.uint8)
     n_odd = (target.capacity - 1) | 1
     cases = {"some masked": (t, mask), "all masked": (t, torch.zeros_like(mask)),
-             f"first {n_odd} targets": (t[:n_odd], mask[:n_odd])}
+             f"first {n_odd} targets": (t[:n_odd], mask[:n_odd]),
+             "equal adjacent rows, twins across splits": (t.repeat_interleave(2, 0).repeat(2, 1).contiguous(),
+                                                          mask.repeat_interleave(2).repeat(2)),
+             "masked rows on the queries": (torch.cat([moved, t]).contiguous(),
+                                            torch.cat([torch.zeros_like(mask[: moved.shape[0]]), mask]))}
     refs = {what: cuda_knn.nn1_plain(tt, m, moved) for what, (tt, m) in cases.items()}
     i0, d0 = refs["all masked"]
     if not (bool((i0 == 0).all()) and bool(torch.isinf(d0).all())):

@@ -1,49 +1,77 @@
 // Three formulations of the exact 1-NN for Hopper (sm_90a), plain C
 // interface. They replace the TPU variant study `wrap(kernel, query_tile,
-// target_chunk, with_bias).nn1` (scripts/bench_nn1_variants.py); its v0 is
-// the production `nn1` of knn.cu.
+// target_chunk, with_bias).nn1` (scripts/bench_nn1_variants.py:37-74,
+// pallas_call at :55); its v0 is the production `nn1`, knn_cluster.cu's
+// cluster kernel.
 //
-// nn1_bias     (v1, `make_v1`) adds a staged 0 / 3.0e38 bias to every
-//              distance in place of the +inf staging of masked targets.
-// nn1_lanes<L> (v2, `make_v2`) gives each query L lanes with their own
-//              running (best, idx), reduced once at the end.
-// nn1_unroll2  (v3, `make_v3`) takes two targets a step and folds the pair
-//              into the running best.
+// nn1_bias     (v1, `make_v1`, :106-131) adds a 0 / 3.0e38 bias to every
+//              distance in place of a select on the mask.
+// nn1_lanes<L> (v2, `make_v2`, :134-165) gives each query L lanes with their
+//              own running (best, idx), reduced once at the end.
+// nn1_unroll2  (v3, `make_v3`, :168-200) is v1 with two targets a step,
+//              folded into one candidate before the running best.
 //
-// What bounds them on the card: the same as nn1 (knn.cu). About 9 FP32 ALU
-// operations a query/target pair and a target that is read from L2 into
-// shared memory once per block, so FP32 ALU issue is the limit, and how many
-// SMs the grid fills decides how close a kernel gets to it. What each design
-// does about that:
-//   - nn1_bias trades the masked targets' +inf coordinates for one add a
-//     pair. On the TPU the bias replaced a select; here the +inf staging
-//     already costs nothing a pair, so this measures the price of the add.
-//   - nn1_lanes<L> runs L consecutive threads on one query: lane l scans
-//     targets l, l+L, ... of each shared tile with a strict `<`, and a
-//     __shfl_xor_sync reduce at the end takes the smaller distance and, on
-//     equal distance, the smaller index (v2's tie rule). The grid has L times
-//     as many threads as there are queries, so 1000 queries fill the card.
-//   - nn1_unroll2 keeps one thread a query and halves the loop's compare-
-//     and-branch count against the running best.
+// What bounds them on the card: FP32 issue. A query/target pair costs 9
+// FP32 operations of the distance and its compare (3 sub, 3 mul, 2 add, 1
+// compare; the bias adds one); the target is 16 B a row, read once a query
+// tile from L2. ~0.006 ms at 1,000 queries against 24,000 valid rows.
 //
-// All three are exact: the distance is spt::sqdist (nn1_common.cuh) and the
-// library is built with --fmad=false, so each equals nn1 and the plain
-// PyTorch version bit for bit. Masked and none-valid semantics are nn1's:
-// idx 0, d2 = +inf. The queries come already moved by the pose, as in the TPU
-// study. Every entry point launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError().
+// nn1_bias and nn1_unroll2 run in nn1_ring.cuh's pipeline, as nn1_tiled does
+// (nn1_tiles.cu): two queries a thread, the target packed once and streamed
+// by bulk copies through a two-stage mbarrier ring, split over gridDim.y,
+// each (query, split) merged by a 64-bit atomicMin of (d2 bits << 32) |
+// index. Their forms read a bias-packed target (ops/cuda_knn.pack_bias_target):
+// [M', 4] f32 rows x, y, z, b, b = 0 for a valid row and kBig for a masked
+// one, masked rows keeping their coordinates, M' even (one masked pad row
+// (0, 0, 0, kBig) after an odd M). The bias rides in the pad lane that the
+// 16-byte row moves anyway, so v1 costs one FADD a pair and no load.
+//   - Trait: valid squared distances must stay below kBig (coordinates below
+//     ~1e19). A masked row's biased distance is kBig or above (+inf for an
+//     infinite coordinate, NaN for a NaN one), and the running best starts
+//     at kBig, so the strict `<` never takes it; a split whose best is still
+//     kBig posts nothing, so a query with no valid row unpacks to idx 0,
+//     d2 = +inf.
+//   - Bit-equality with nn1_plain: d + 0.0f == d for d >= 0, and the library
+//     is built with --fmad=false, so the biased distance of a valid row is
+//     spt::sqdist's, and the merge keeps the first least index.
+//   - nn1_unroll2 takes rows j and j + 1, adjacent, a step. For each query
+//     the pair folds to fminf(d0, d1) with index j where it equals d0: v3's
+//     `d0 <= d1` select, j on a tie, written so that a NaN on either side
+//     loses to its partner. The fold's winner meets the running best with a
+//     strict `<`, so pairs taken in index order keep the first least index
+//     (a row paired with one half a stage away would let a later low index
+//     beat an earlier high one on a tie). The last lone row of an odd M is
+//     handled by the packing, not the kernel: M' is even, every span is
+//     rounded up to even by the wrapper (ops/cuda_knn.nn1_even_span) and every
+//     chunk is a multiple of 512, so each chunk a bulk copy fills holds an
+//     even count of rows and row j + 1 is never stale.
+//
+// The first designs stay for timing (nn1_bias_simple, nn1_unroll2_simple):
+// one thread a query, 128 threads a block, the raw target and its mask
+// staged by the computing threads between two __syncthreads. At 1,000
+// queries they fill 8 of the 132 SMs, stall on each tile's copy, and issue
+// one scalar shared-memory load a coordinate (and the bias) a pair.
+// nn1_lanes<L> runs L consecutive threads on one query: lane l scans targets
+// l, l+L, ... of each shared tile with a strict `<`, and a __shfl_xor_sync
+// reduce at the end takes the smaller distance and, on equal distance, the
+// smaller index (v2's tie rule).
+//
+// All are exact and equal nn1_plain bit for bit. The queries come already
+// moved by the pose, as in the TPU study. Every entry point launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "nn1_common.cuh"
+#include "nn1_ring.cuh"
 
 namespace {
 
 using spt::sqdist;
 using spt::stage_tile;
 
-constexpr int kThreads = 128;       // nn1_bias, nn1_unroll2: one thread a query
+constexpr int kThreads = 128;       // nn1_bias_simple, nn1_unroll2_simple: one thread a query
 constexpr int kLaneThreads = 256;   // nn1_lanes: 256 / L queries a block
 constexpr int kTile = 2048;
 constexpr float kBig = 3.0e38f;     // the TPU kernels' _BIG
@@ -58,7 +86,7 @@ __device__ __forceinline__ void load_query(const float* __restrict__ queries, in
   }
 }
 
-// v1. A masked or padded target keeps its coordinates and gets the bias
+// v1, first design. A masked or padded target keeps its coordinates and gets the bias
 // kBig, so its biased distance rounds to kBig (or above) and the running
 // best, which starts at kBig, never takes it: a row with no valid target keeps
 // idx 0. Valid squared distances must stay below kBig (coordinates below
@@ -160,7 +188,7 @@ nn1_lanes_kernel(const float* __restrict__ tgt, const unsigned char* __restrict_
   }
 }
 
-// v3. kTile is even and targets past M are staged as +inf, so target j + 1
+// v3, first design. kTile is even and targets past M are staged as +inf, so target j + 1
 // can always be read; `<=` keeps the earlier of an equal pair and the strict
 // `<` against the running best keeps the earliest index overall.
 __global__ void __launch_bounds__(kThreads)
@@ -201,11 +229,63 @@ nn1_unroll2_kernel(const float* __restrict__ tgt, const unsigned char* __restric
   }
 }
 
+// v1 in the ring: the biased distance, a strict `<` from kBig, a row a step.
+struct BiasForm {
+  static constexpr int kStep = 1;
+  __device__ __forceinline__ static float none() { return kBig; }
+  template <int R>
+  __device__ __forceinline__ static void sweep(const float4* t, int n, int base, const float (&qx)[R],
+                                               const float (&qy)[R], const float (&qz)[R], float (&bd)[R],
+                                               int (&bi)[R]) {
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float4 p = t[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float d = sqdist(qx[r], qy[r], qz[r], p.x, p.y, p.z) + p.w;
+        if (d < bd[r]) {
+          bd[r] = d;
+          bi[r] = base + j;
+        }
+      }
+    }
+  }
+};
+
+// v3 in the ring: rows j and j + 1 a step (n is even), folded per query,
+// then a strict `<` from kBig.
+struct Unroll2Form {
+  static constexpr int kStep = 2;
+  __device__ __forceinline__ static float none() { return kBig; }
+  template <int R>
+  __device__ __forceinline__ static void sweep(const float4* t, int n, int base, const float (&qx)[R],
+                                               const float (&qy)[R], const float (&qz)[R], float (&bd)[R],
+                                               int (&bi)[R]) {
+#pragma unroll 2
+    for (int j = 0; j < n; j += 2) {
+      const float4 p0 = t[j];
+      const float4 p1 = t[j + 1];
+      const int i0 = base + j;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float d0 = sqdist(qx[r], qy[r], qz[r], p0.x, p0.y, p0.z) + p0.w;
+        const float d1 = sqdist(qx[r], qy[r], qz[r], p1.x, p1.y, p1.z) + p1.w;
+        const float cd = fminf(d0, d1);
+        const int ci = cd == d0 ? i0 : i0 + 1;
+        if (cd < bd[r]) {
+          bd[r] = cd;
+          bi[r] = ci;
+        }
+      }
+    }
+  }
+};
+
 inline int blocks_for(int rows, int per_block) { return (rows + per_block - 1) / per_block; }
 
 }  // namespace
 
-extern "C" int spt_nn1_bias(const float* tgt, const unsigned char* mask, int M,
+extern "C" int spt_nn1_bias_simple(const float* tgt, const unsigned char* mask, int M,
                             const float* queries, int Q, int* out_idx, float* out_d2,
                             void* stream) {
   nn1_bias_kernel<<<blocks_for(Q, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -232,10 +312,25 @@ extern "C" int spt_nn1_lanes(const float* tgt, const unsigned char* mask, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int spt_nn1_unroll2(const float* tgt, const unsigned char* mask, int M,
+extern "C" int spt_nn1_unroll2_simple(const float* tgt, const unsigned char* mask, int M,
                                const float* queries, int Q, int* out_idx, float* out_d2,
                                void* stream) {
   nn1_unroll2_kernel<<<blocks_for(Q, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       tgt, mask, M, queries, Q, out_idx, out_d2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// v1 and v3 in the ring, against a bias-packed target (tgt [M, 4] f32, M
+// even, 16-byte aligned): query_tile in {64, 128, 256, 512}, chunk in {512,
+// 1024, 2048, 4096}, span >= 2 rows a split and even; best [Q] u64 scratch;
+// out_idx [Q] i32, out_d2 [Q] f32. A memset and two kernels.
+extern "C" int spt_nn1_bias(const float* tgt, int M, const float* queries, int Q, int query_tile, int chunk,
+                            int span, unsigned long long* best, int* out_idx, float* out_d2, void* stream) {
+  return spt::run_nn1_ring<BiasForm>(tgt, M, queries, Q, query_tile, chunk, span, best, out_idx, out_d2, stream);
+}
+
+extern "C" int spt_nn1_unroll2(const float* tgt, int M, const float* queries, int Q, int query_tile, int chunk,
+                               int span, unsigned long long* best, int* out_idx, float* out_d2, void* stream) {
+  return spt::run_nn1_ring<Unroll2Form>(tgt, M, queries, Q, query_tile, chunk, span, best, out_idx, out_d2,
+                                        stream);
 }

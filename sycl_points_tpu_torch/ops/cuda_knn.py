@@ -46,9 +46,13 @@ and its mask: ``nn1_tiled_simple``, the study's first design at a chosen
 was the first production ``nn1``; and ``knn_k_simple``, the first ``knn_k``,
 kept as the exact reference for ties. In ``csrc/nn1_variants.cu``, the
 formulations of the variant study (``scripts/bench_nn1_variants.py``) on
-queries already moved by the pose: ``nn1_bias`` (v1), ``nn1_lanes`` (v2, 8
-or 32 lanes a query) and ``nn1_unroll2`` (v3). Every 1-NN kernel equals
-:func:`nn1_plain`.
+queries already moved by the pose: ``nn1_bias`` (v1) and ``nn1_unroll2``
+(v3) run in ``nn1_tiled``'s ring (``csrc/nn1_ring.cuh``) on a target made
+once by :func:`pack_bias_target` (``*_prepped``; plain models
+:func:`nn1_bias_plain`, :func:`nn1_unroll2_plain`), their first designs
+(one thread a query on the raw target) kept as ``nn1_bias_simple`` and
+``nn1_unroll2_simple``; ``nn1_lanes`` (v2, 8 or 32 lanes a query). Every
+1-NN kernel equals :func:`nn1_plain`.
 
 ``csrc/range_image.cu`` holds the range-image k-NN of the raw scans; its
 wrappers in :mod:`..range_image_knn` count their launches here: the window
@@ -146,11 +150,22 @@ NN1_TILED_QUERIES_A_THREAD = 2
 NN1_TILED_WARPS_PER_SM = 32
 NN1_TILED_MIN_SPAN = 256
 H100_SMS = 132
+# The variant study's v1 / v3 in the ring: the bias of a masked row (the TPU
+# study's _BIG; valid squared distances must stay below it), and each form's
+# (queries a block, target rows a chunk), the instance fastest at the pair's
+# shape (1,000 queries against 24,576 rows) in the study's sweep
+# (scripts/bench_nn1_variants.py --sweep): 256 queries a block; there a
+# split is 256 rows, under any chunk, so every chunk reads the same, and
+# 1,024 is the fastest chunk at 256 queries at the study's larger shapes.
+BIAS_BIG = 3.0e38
+NN1_BIAS_INSTANCE = (256, 1024)
+NN1_UNROLL2_INSTANCE = (256, 1024)
 
 # Kernel launches per wrapper; reset with reset_launch_counts().
 launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
-    "nn1_tiled": 0, "nn1_tiled_simple": 0, "nn1_bias": 0, "nn1_lanes": 0, "nn1_unroll2": 0, "range_image": 0,
+    "nn1_tiled": 0, "nn1_tiled_simple": 0, "nn1_bias": 0, "nn1_bias_simple": 0, "nn1_lanes": 0, "nn1_unroll2": 0,
+    "nn1_unroll2_simple": 0, "range_image": 0,
     "range_image_elevation": 0, "range_image_cells": 0, "range_image_rows": 0, "range_image_simple": 0,
     "grid_knn": 0, "grid_knn_simple": 0, "coarse_rank": 0, "coarse_refine": 0, "coarse_refine_simple": 0,
     "morton_min": 0, "morton_codes": 0, "morton_window": 0, "morton_window_union": 0, "morton_window_simple": 0,
@@ -249,9 +264,11 @@ def load_library() -> ctypes.CDLL:
             lib.spt_knn_k_simple.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_tiled_simple.argtypes = [p, p, i, p, i, i, i, p, p, p]
             lib.spt_nn1_tiled.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
-            lib.spt_nn1_bias.argtypes = [p, p, i, p, i, p, p, p]
+            lib.spt_nn1_bias.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
+            lib.spt_nn1_unroll2.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
+            lib.spt_nn1_bias_simple.argtypes = [p, p, i, p, i, p, p, p]
             lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
-            lib.spt_nn1_unroll2.argtypes = [p, p, i, p, i, p, p, p]
+            lib.spt_nn1_unroll2_simple.argtypes = [p, p, i, p, i, p, p, p]
             f = ctypes.c_float
             lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
             lib.spt_range_image_window_spill.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
@@ -271,7 +288,8 @@ def load_library() -> ctypes.CDLL:
             lib.spt_morton_codes.argtypes = [p, p, i, f, p, i, i, p, p]
             for fn in (lib.spt_nn1_batched, lib.spt_knn_k_batched, lib.spt_knn_k_spill_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled_simple, lib.spt_nn1_tiled,
-                       lib.spt_nn1_bias, lib.spt_nn1_lanes, lib.spt_nn1_unroll2,
+                       lib.spt_nn1_bias, lib.spt_nn1_unroll2, lib.spt_nn1_bias_simple, lib.spt_nn1_lanes,
+                       lib.spt_nn1_unroll2_simple,
                        lib.spt_range_image_window, lib.spt_range_image_window_spill,
                        lib.spt_range_image_window_simple,
                        lib.spt_range_image_elevation, lib.spt_range_image_cells, lib.spt_range_image_rows,
@@ -865,6 +883,22 @@ def pack_target(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(xyz, (0, 1)).contiguous()
 
 
+def pack_bias_target(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The target as :func:`nn1_bias_prepped` and :func:`nn1_unroll2_prepped`
+    read it (the variant study's v1 / v3), made once: ``[M', 4]`` float32
+    rows x, y, z, b, with b = 0 for a valid row and :data:`BIAS_BIG` for a
+    masked one, whose coordinates stay as they are. ``M'`` is ``M`` rounded
+    up to even: after an odd ``M`` one masked row (0, 0, 0, BIAS_BIG), so
+    that v3's pairs of adjacent rows never reach past the target."""
+    _check_target(points, mask)
+    M = points.shape[0]
+    packed = points.new_zeros((M + M % 2, 4))
+    packed[:, 3] = BIAS_BIG
+    packed[:M, :3] = points
+    packed[:M, 3] = torch.where(mask.bool(), 0.0, BIAS_BIG)
+    return packed
+
+
 def nn1_tiled_span(Q: int, M: int, query_tile: int, n_sm: int) -> int:
     """Target rows a split of :func:`nn1_tiled` at ``query_tile`` queries a
     block: the target is cut into as many spans as give the card
@@ -880,7 +914,33 @@ def nn1_tiled_span(Q: int, M: int, query_tile: int, n_sm: int) -> int:
     return max(1, -(-M // splits))
 
 
+def nn1_even_span(Q: int, M: int, query_tile: int, n_sm: int) -> int:
+    """Target rows a split of :func:`nn1_bias_prepped` and
+    :func:`nn1_unroll2_prepped`: :func:`nn1_tiled_span` rounded up to even,
+    so that every split of an even target holds whole pairs of rows."""
+    span = nn1_tiled_span(Q, M, query_tile, n_sm)
+    return span + span % 2
+
+
 _NO_KEY = torch.iinfo(torch.int64).max
+
+
+def _split_merge(packed: torch.Tensor, queries: torch.Tensor, span: int, search, none: float):
+    """The plain model of the ring's split merge: ``search(rows, queries)``
+    gives each span's ``(idx, d2)``, the first least distance in index
+    order; a span whose best is below ``none`` packs it as ``(d2 bits << 32)
+    | index`` and the least word over the spans wins; a query with no word
+    is idx 0, d2 = +inf."""
+    Q, M = queries.shape[0], packed.shape[0]
+    word = torch.full((Q,), _NO_KEY, dtype=torch.int64, device=queries.device)
+    for s in range(0, M, span):
+        i, d = search(packed[s : s + span], queries)
+        bits = d.view(torch.int32).to(torch.int64)
+        word = torch.minimum(word, torch.where(d < none, (bits << 32) | (i.to(torch.int64) + s), _NO_KEY))
+    none_found = word == _NO_KEY
+    idx = torch.where(none_found, 0, word & 0xFFFFFFFF).to(torch.int32)
+    d2 = torch.where(none_found, torch.inf, (word >> 32).to(torch.int32).view(torch.float32))
+    return idx, d2
 
 
 def nn1_tiled_plain(packed: torch.Tensor, queries: torch.Tensor, span: int):
@@ -890,16 +950,98 @@ def nn1_tiled_plain(packed: torch.Tensor, queries: torch.Tensor, span: int):
     ``(d2 bits << 32) | index``, and the least word over the spans wins; a
     span with no finite distance leaves no word, and a query with none is idx
     0, d2 = +inf. Equal to :func:`nn1_plain` on the unpacked target."""
-    Q, M = queries.shape[0], packed.shape[0]
-    word = torch.full((Q,), _NO_KEY, dtype=torch.int64, device=queries.device)
-    for s in range(0, M, span):
-        i, d = _nn1_plain(packed[s : s + span, :3], None, queries, None)
-        bits = d.view(torch.int32).to(torch.int64)
-        word = torch.minimum(word, torch.where(d < torch.inf, (bits << 32) | (i.to(torch.int64) + s), _NO_KEY))
-    none = word == _NO_KEY
-    idx = torch.where(none, 0, word & 0xFFFFFFFF).to(torch.int32)
-    d2 = torch.where(none, torch.inf, (word >> 32).to(torch.int32).view(torch.float32))
+    return _split_merge(packed, queries, span, lambda rows, q: _nn1_plain(rows[:, :3], None, q, None), torch.inf)
+
+
+def _biased_blocks(rows: torch.Tensor, queries: torch.Tensor):
+    """``(query offset, [q, n] biased distances ((e0*e0 + e1*e1) + e2*e2) +
+    b)`` of bias-packed ``rows`` for bounded blocks of the queries, with NaN
+    (a masked row's NaN coordinate) at +inf: the kernels' strict ``<`` never
+    takes either."""
+    step = _query_chunk(rows.shape[0])
+    for s in range(0, queries.shape[0], step):
+        d = _sqdist_block(queries[s : s + step], rows[:, :3], None) + rows[:, 3]
+        yield s, torch.nan_to_num(d, nan=torch.inf, posinf=torch.inf)
+
+
+def _bias_search(rows: torch.Tensor, queries: torch.Tensor):
+    idx = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    d2 = torch.full((queries.shape[0],), torch.inf, dtype=torch.float32, device=queries.device)
+    for s, block in _biased_blocks(rows, queries):
+        d, i = torch.min(block, dim=1)
+        idx[s : s + d.shape[0]], d2[s : s + d.shape[0]] = i.to(torch.int32), d
     return idx, d2
+
+
+def _unroll2_search(rows: torch.Tensor, queries: torch.Tensor):
+    idx = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    d2 = torch.full((queries.shape[0],), torch.inf, dtype=torch.float32, device=queries.device)
+    for s, block in _biased_blocks(rows, queries):
+        d0, d1 = block[:, 0::2], block[:, 1::2]  # rows j and j + 1 of each step
+        cd = torch.fmin(d0, d1)
+        pair = torch.arange(0, rows.shape[0], 2, dtype=torch.int64, device=rows.device)
+        ci = torch.where(cd == d0, pair, pair + 1)  # j on a tie
+        d, p = torch.min(cd, dim=1)  # the first least pair: the strict `<` in order
+        idx[s : s + d.shape[0]] = ci.gather(1, p[:, None])[:, 0].to(torch.int32)
+        d2[s : s + d.shape[0]] = d
+    return idx, d2
+
+
+def _check_pairs(rows: int, span: int, name: str) -> None:
+    if rows % 2 or span % 2:
+        raise ValueError(f"{name} takes pairs of rows: an even packed target (pack_bias_target) and an even span, "
+                         f"got {rows} rows, span {span}")
+
+
+def nn1_bias_plain(packed: torch.Tensor, queries: torch.Tensor, span: int):
+    """The plain model of :func:`nn1_bias_prepped` on a bias-packed target
+    (:func:`pack_bias_target`): each span of ``span`` rows finds its first
+    least biased distance ``sqdist + b`` (the kernel's strict ``<`` from
+    :data:`BIAS_BIG`), and the spans merge as in :func:`nn1_tiled_plain`; a
+    span with no row below BIAS_BIG leaves no word. Equal to
+    :func:`nn1_plain` while valid distances stay below BIAS_BIG."""
+    return _split_merge(packed, queries, span, _bias_search, BIAS_BIG)
+
+
+def nn1_unroll2_plain(packed: torch.Tensor, queries: torch.Tensor, span: int):
+    """The plain model of :func:`nn1_unroll2_prepped`: as
+    :func:`nn1_bias_plain`, but each span folds rows ``j`` and ``j + 1``
+    (adjacent; ``span`` even) into ``fmin(d0, d1)``, index ``j`` where it
+    equals ``d0``, before the first least fold wins."""
+    _check_pairs(packed.shape[0], span, "nn1_unroll2_plain")
+    return _split_merge(packed, queries, span, _unroll2_search, BIAS_BIG)
+
+
+def _nn1_ring(name: str, entry: str, packed: torch.Tensor, queries, query_tile: int, chunk: int, plain,
+              pairs: bool):
+    """The ring's wrappers' shared body: refuse an instance not built or a
+    packed target of the wrong shape (an odd row count where the form reads
+    ``pairs`` of rows), type or alignment before any launch; CPU tensors run
+    ``plain(packed, queries, span)`` at the split an H100 takes, CUDA tensors
+    launch ``lib.<entry>`` once (a memset, the kernel and the unpack) at the
+    card's split (:func:`nn1_even_span` for ``pairs``, else
+    :func:`nn1_tiled_span`), counted under ``name``."""
+    if query_tile not in NN1_QUERY_TILES_STUDY or chunk not in NN1_TILES:
+        raise ValueError(f"{name} has query_tile in {NN1_QUERY_TILES_STUDY} and chunk in {NN1_TILES}, got "
+                         f"{query_tile}, {chunk}")
+    M = packed.shape[0]
+    if packed.shape != (M, 4) or packed.dtype != torch.float32:
+        raise ValueError(f"expected a packed [M, 4] float32 target, got {tuple(packed.shape)} {packed.dtype}")
+    if pairs:
+        _check_pairs(M, 0, name)
+    span_of = nn1_even_span if pairs else nn1_tiled_span
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{name} reads the packed target in 16-byte bulk copies: it must be 16-byte aligned")
+    device = _check_queries(queries, None, packed)
+    Q = queries.shape[0]
+    if device.type == "cpu":
+        return plain(packed, queries, span_of(Q, M, query_tile, H100_SMS))
+    _require_cuda(device, name)
+    _require_contiguous(packed, queries)
+    span = span_of(Q, M, query_tile, _sm_count(device.index))
+    best = torch.empty(Q, dtype=torch.int64, device=device)
+    return _launch(name, device, (Q,), lambda lib, i, d, s: getattr(lib, entry)(
+        packed.data_ptr(), M, queries.data_ptr(), Q, query_tile, chunk, span, best.data_ptr(), i, d, s))
 
 
 def nn1_tiled_prepped(packed: torch.Tensor, queries, query_tile: int, chunk: int):
@@ -910,24 +1052,7 @@ def nn1_tiled_prepped(packed: torch.Tensor, queries, query_tile: int, chunk: int
     of :data:`NN1_TILES`); the target split by :func:`nn1_tiled_span`.
     ``(idx [Q] int32, d2 [Q] f32)``, equal to :func:`nn1_plain`. CPU
     tensors run :func:`nn1_tiled_plain` at the split an H100 takes."""
-    if query_tile not in NN1_QUERY_TILES_STUDY or chunk not in NN1_TILES:
-        raise ValueError(f"nn1_tiled has query_tile in {NN1_QUERY_TILES_STUDY} and chunk in {NN1_TILES}, got "
-                         f"{query_tile}, {chunk}")
-    M = packed.shape[0]
-    if packed.shape != (M, 4) or packed.dtype != torch.float32:
-        raise ValueError(f"expected a packed [M, 4] float32 target, got {tuple(packed.shape)} {packed.dtype}")
-    device = _check_queries(queries, None, packed)
-    Q = queries.shape[0]
-    if device.type == "cpu":
-        return nn1_tiled_plain(packed, queries, nn1_tiled_span(Q, M, query_tile, H100_SMS))
-    _require_cuda(device, "nn1_tiled")
-    _require_contiguous(packed, queries)
-    if packed.data_ptr() % 16:
-        raise ValueError("nn1_tiled reads the packed target in 16-byte bulk copies: it must be 16-byte aligned")
-    span = nn1_tiled_span(Q, M, query_tile, _sm_count(device.index))
-    best = torch.empty(Q, dtype=torch.int64, device=device)
-    return _launch("nn1_tiled", device, (Q,), lambda lib, i, d, s: lib.spt_nn1_tiled(
-        packed.data_ptr(), M, queries.data_ptr(), Q, query_tile, chunk, span, best.data_ptr(), i, d, s))
+    return _nn1_ring("nn1_tiled", "spt_nn1_tiled", packed, queries, query_tile, chunk, nn1_tiled_plain, False)
 
 
 def nn1_tiled(target_xyz, target_mask, queries, query_tile: int, chunk: int):
@@ -936,10 +1061,45 @@ def nn1_tiled(target_xyz, target_mask, queries, query_tile: int, chunk: int):
     return nn1_tiled_prepped(pack_target(target_xyz, target_mask), queries, query_tile, chunk)
 
 
-def nn1_bias(target_xyz, target_mask, queries):
+def nn1_bias_prepped(packed: torch.Tensor, queries, query_tile: int = NN1_BIAS_INSTANCE[0],
+                     chunk: int = NN1_BIAS_INSTANCE[1]):
     """:func:`nn1` without a pose, masking by an added 0 / 3e38 bias (the TPU
-    study's v1); masked and none-valid rows as in :func:`nn1`."""
-    return _nn1_launch("nn1_bias", "spt_nn1_bias", target_xyz, target_mask, queries)
+    study's v1), against a target made once by :func:`pack_bias_target`:
+    ``nn1_tiled``'s ring (``csrc/nn1_ring.cuh``) with the biased compare
+    (``csrc/nn1_variants.cu``) at :data:`NN1_BIAS_INSTANCE` unless another
+    query tile and chunk are given, the target split by
+    :func:`nn1_even_span`. ``(idx [Q] int32, d2 [Q] f32)``, equal to
+    :func:`nn1_plain`: idx 0, d2 = +inf where no row is valid. CPU tensors
+    run :func:`nn1_bias_plain` at the split an H100 takes."""
+    return _nn1_ring("nn1_bias", "spt_nn1_bias", packed, queries, query_tile, chunk, nn1_bias_plain, True)
+
+
+def nn1_unroll2_prepped(packed: torch.Tensor, queries, query_tile: int = NN1_UNROLL2_INSTANCE[0],
+                        chunk: int = NN1_UNROLL2_INSTANCE[1]):
+    """:func:`nn1_bias_prepped` with two adjacent rows a step, folded per
+    query before the running best (the TPU study's v3), at
+    :data:`NN1_UNROLL2_INSTANCE` unless given; CPU tensors run
+    :func:`nn1_unroll2_plain`."""
+    return _nn1_ring("nn1_unroll2", "spt_nn1_unroll2", packed, queries, query_tile, chunk, nn1_unroll2_plain, True)
+
+
+def nn1_bias(target_xyz, target_mask, queries):
+    """:func:`nn1_bias_prepped` with the target packed for this one call."""
+    _check_inputs(target_xyz, target_mask, queries)
+    return nn1_bias_prepped(pack_bias_target(target_xyz, target_mask), queries)
+
+
+def nn1_unroll2(target_xyz, target_mask, queries):
+    """:func:`nn1_unroll2_prepped` with the target packed for this one call."""
+    _check_inputs(target_xyz, target_mask, queries)
+    return nn1_unroll2_prepped(pack_bias_target(target_xyz, target_mask), queries)
+
+
+def nn1_bias_simple(target_xyz, target_mask, queries):
+    """:func:`nn1_bias` through its first design (one thread a query, the
+    raw target and mask staged into shared memory, the bias added there),
+    kept for timing; counted under ``nn1_bias_simple``."""
+    return _nn1_launch("nn1_bias_simple", "spt_nn1_bias_simple", target_xyz, target_mask, queries)
 
 
 def nn1_lanes(target_xyz, target_mask, queries, lanes: int):
@@ -951,6 +1111,7 @@ def nn1_lanes(target_xyz, target_mask, queries, lanes: int):
     return _nn1_launch("nn1_lanes", "spt_nn1_lanes", target_xyz, target_mask, queries, (lanes,))
 
 
-def nn1_unroll2(target_xyz, target_mask, queries):
-    """:func:`nn1` without a pose, two targets a step (the TPU study's v3)."""
-    return _nn1_launch("nn1_unroll2", "spt_nn1_unroll2", target_xyz, target_mask, queries)
+def nn1_unroll2_simple(target_xyz, target_mask, queries):
+    """:func:`nn1_unroll2` through its first design (one thread a query, two
+    targets a step), kept for timing; counted under ``nn1_unroll2_simple``."""
+    return _nn1_launch("nn1_unroll2_simple", "spt_nn1_unroll2_simple", target_xyz, target_mask, queries)

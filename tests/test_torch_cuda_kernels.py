@@ -13,10 +13,13 @@ within 1e-6 (``knn_mismatches``; ``topk`` on the card orders ties in no
 stated way), with distances within 1e-5 absolute (the remaining slack covers
 the [Q,M] reduction order of the plain version). The study kernels
 (nn1_tiled at every query tile x chunk, its first design nn1_tiled_simple,
-nn1_bias, nn1_lanes, nn1_unroll2) equal ``nn1_plain`` bit for bit, with Q off
-every query tile, M off every chunk, every target masked, and exact ties
-across nn1_tiled's splits; ``knn_k_simple`` against ``knn_k_plain`` as
-before.
+nn1_bias and nn1_unroll2 in nn1_tiled's ring at every query tile x chunk and
+their first designs, nn1_lanes) equal ``nn1_plain`` bit for bit, with Q off
+every query tile, M off every chunk, an odd M, every target masked, exact
+ties across the ring's splits, equal adjacent rows (ties inside
+nn1_unroll2's pairs) and masked rows on the queries; the ring's kernels also
+equal their plain models at the card's split; ``knn_k_simple`` against
+``knn_k_plain`` as before.
 
 The batched instances (``nn1_prepped_batched``, ``knn_k_batched``: a
 fleet's streams on the grid's z axis) must equal one single-stream launch
@@ -299,6 +302,78 @@ def test_nn1_tiled_ties_chunks_and_splits(case, query_tile):
         assert bool((ref[0][: -300] < 1000).all()) and bool((ref[1][: -300] == 0).all())
     if case == "M off the chunks" and query_tile == 64:
         assert span == 1235 and -(-span // 512) == 3
+
+
+# The variant study's v1 / v3 in nn1_tiled's ring: (the prepped wrapper, its
+# plain model, the wrapper on the raw target)
+RING_FORMS = {
+    "nn1_bias": (cuda_knn.nn1_bias_prepped, cuda_knn.nn1_bias_plain, cuda_knn.nn1_bias),
+    "nn1_unroll2": (cuda_knn.nn1_unroll2_prepped, cuda_knn.nn1_unroll2_plain, cuda_knn.nn1_unroll2),
+}
+RING_CASES = ["dup", "equal adjacent rows", "masked rows on the queries", "odd M", "M off the chunks", "pair",
+              "empty target", "no queries"]
+
+
+@pytest.mark.parametrize("form", sorted(RING_FORMS))
+@pytest.mark.parametrize("query_tile", cuda_knn.NN1_QUERY_TILES_STUDY)
+@pytest.mark.parametrize("case", RING_CASES)
+def test_nn1_bias_forms_ties_chunks_and_splits(case, query_tile, form):
+    """nn1_bias and nn1_unroll2 at every chunk, on a target made by
+    pack_bias_target: exact ties whose twins lie in other splits, equal
+    adjacent rows (a tie inside each of nn1_unroll2's pairs: the even row
+    wins), the queries as masked rows ahead of the target (at d = 0 they must
+    lose to far valid rows), an odd M (a masked pad row), a target streamed
+    in several chunks a split with its last chunk partial (12,345 rows,
+    30,000 queries), the pair's 1,000 queries against 24,576 rows, an empty
+    target and no queries; bit-equal to nn1_plain, to the plain model at the
+    card's split and through the wrapper on the raw target; one launch a
+    call."""
+    prepped, plain, wrapper = RING_FORMS[form]
+    if case == "dup":
+        tgt, mask = _dup_cloud(1000, 9, 40)
+        qry = torch.cat([tgt[::7], _cloud(300, 41)[0]]).contiguous()
+    elif case == "equal adjacent rows":
+        pts, m0 = _cloud(3000, 48, masked_every=7)
+        tgt, mask = pts.repeat_interleave(2, 0).contiguous(), m0.repeat_interleave(2)
+        qry = torch.cat([pts[::5], _cloud(500, 49)[0]]).contiguous()
+    elif case == "masked rows on the queries":
+        (pts, m0), qry = _cloud(4000, 50, masked_every=37), _cloud(2000, 51)[0]
+        tgt = torch.cat([qry, pts]).contiguous()
+        mask = torch.cat([torch.zeros(2000, dtype=torch.bool, device="cuda"), m0])
+    elif case == "odd M":
+        (tgt, mask), qry = _cloud(4099, 52, masked_every=3), _cloud(1500, 53)[0]
+    elif case == "M off the chunks":
+        (tgt, mask), qry = _cloud(12345, 42, masked_every=5), _cloud(30000, 43)[0]
+    elif case == "pair":
+        (tgt, mask), qry = _cloud(24576, 44, masked_every=37), _cloud(1000, 45)[0]
+    elif case == "empty target":
+        tgt, mask, qry = torch.zeros(0, 3, device="cuda"), torch.zeros(0, dtype=torch.bool, device="cuda"), \
+            _cloud(70, 46)[0]
+    else:
+        (tgt, mask), qry = _cloud(500, 47), torch.zeros(0, 3, device="cuda")
+    packed = cuda_knn.pack_bias_target(tgt, mask)
+    Q = qry.shape[0]
+    ref = cuda_knn.nn1_plain(tgt, mask, qry)
+    span = cuda_knn.nn1_even_span(Q, packed.shape[0], query_tile, cuda_knn._sm_count(0))
+    model = plain(packed, qry, span)
+    assert torch.equal(model[0], ref[0]) and torch.equal(model[1], ref[1])
+    for chunk in cuda_knn.NN1_TILES:
+        before = cuda_knn.launch_counts[form]
+        got = prepped(packed, qry, query_tile, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), chunk
+        assert cuda_knn.launch_counts[form] == before + (1 if Q else 0)
+    got = wrapper(tgt, mask, qry)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if case == "dup":
+        assert bool((ref[0][: -300] < 1000).all()) and bool((ref[1][: -300] == 0).all())
+    elif case == "equal adjacent rows":
+        assert bool((ref[0] % 2 == 0).all())
+    elif case == "masked rows on the queries":
+        assert bool((ref[0] >= 2000).all())
+    elif case == "empty target":
+        assert bool((ref[0] == 0).all()) and bool(torch.isinf(ref[1]).all())
 
 
 @pytest.mark.parametrize("k", [1, 4, 10, 16])

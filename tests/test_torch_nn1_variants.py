@@ -6,17 +6,27 @@ their files; on the loaded module objects only, ``pl`` is replaced by a
 namespace whose ``pallas_call`` runs in interpret mode. The same seeded
 numpy inputs (M=3000 targets with every 37th masked, Q=700 queries, uniform
 +-50 m) go through each Pallas kernel and the port's wrapper, which runs
-``nn1_plain`` for CPU tensors (``nn1_tiled``: ``nn1_tiled_plain``, the plain
-model of its split merge, at the split an H100 takes).
+``nn1_plain`` for CPU tensors (``nn1_tiled``, ``nn1_bias``, ``nn1_unroll2``:
+``nn1_tiled_plain``, ``nn1_bias_plain``, ``nn1_unroll2_plain``, the plain
+models of the ring's split merge, at the split an H100 takes).
 
 ``nn1_tiled_plain`` (the least ``(d2 bits << 32) | index`` over the target's
 splits) is held bit for bit to ``nn1_plain`` and to ``make_nn1`` at spans of
 1 row to more than the target, on exact ties across splits, masked rows and
-every row masked; ``nn1_tiled_span``'s plan on the H100's 132 SMs.
+every row masked; ``nn1_tiled_span``'s plan on the H100's 132 SMs. So are
+``nn1_bias_plain`` (v1's biased distance) and ``nn1_unroll2_plain`` (v3's
+fold of adjacent rows) on the bias-packed target (``pack_bias_target``: x,
+y, z, b, masked rows keeping their coordinates, an even row count) at the
+same spans rounded up to even, with the queries as masked rows of the
+target and an odd M besides, against ``nn1_plain`` bit for bit and JAX's
+v1 / v3 as below; ties inside a pair; the packing's layout; the refusals
+before any launch.
 
 Tolerances: indices equal except where the two distances are tied within
 1e-6; distances within atol=1e-5 (both sides are exact f32 difference-form
-distances; a probe measured 7.6e-6 at this size).
+distances; a probe measured 7.6e-6 at this size: XLA's CPU sum is not the
+plain version's operation order, so about a fifth of JAX's distances differ
+from it in the last bits).
 
 With every target masked the port keeps ``pallas_knn.nn1_pallas``'s
 semantics (idx 0, d2 = +inf). The TPU studies do not: they lack its mapping
@@ -80,6 +90,9 @@ CASES = {
     "v2(512,1024) / nn1_lanes 32": (lambda s: s.variants.make_v2(512, 1024),
                                     functools.partial(cuda_knn.nn1_lanes, lanes=32)),
     "v3(512,1024) / nn1_unroll2": (lambda s: s.variants.make_v3(512, 1024), cuda_knn.nn1_unroll2),
+    # the first designs of v1 and v3, kept for timing
+    "v1(1024,2048) / nn1_bias_simple": (lambda s: s.variants.make_v1(1024, 2048), cuda_knn.nn1_bias_simple),
+    "v3(512,1024) / nn1_unroll2_simple": (lambda s: s.variants.make_v3(512, 1024), cuda_knn.nn1_unroll2_simple),
     # the first design, nn1_tiled_simple (threads x tile)
     "make_nn1(1024,512) / nn1_tiled 128x2048": (lambda s: s.tiles.make_nn1(1024, 512),
                                                 functools.partial(cuda_knn.nn1_tiled_simple, threads=128, tile=2048)),
@@ -128,7 +141,10 @@ def test_all_masked(studies, kernel):
     assert np.all(np.asarray(jd) == np.float32(BIG)) and np.all(np.asarray(ji) == tpu_idx)
     # the port keeps nn1_pallas's semantics for every wrapper
     args = (torch.from_numpy(t), torch.from_numpy(none), torch.from_numpy(q))
-    for port in (cuda_knn.nn1, cuda_knn.nn1_bias, cuda_knn.nn1_unroll2,
+    for port in (cuda_knn.nn1, cuda_knn.nn1_bias, cuda_knn.nn1_unroll2, cuda_knn.nn1_bias_simple,
+                 cuda_knn.nn1_unroll2_simple,
+                 lambda t, m, q: cuda_knn.nn1_bias_prepped(cuda_knn.pack_bias_target(t, m), q, 64, 512),
+                 lambda t, m, q: cuda_knn.nn1_unroll2_prepped(cuda_knn.pack_bias_target(t, m), q, 512, 4096),
                  functools.partial(cuda_knn.nn1_lanes, lanes=8),
                  functools.partial(cuda_knn.nn1_tiled_simple, threads=256, tile=1024),
                  functools.partial(cuda_knn.nn1_tiled, query_tile=128, chunk=1024)):
@@ -148,7 +164,7 @@ def test_wrappers_reject_instances_not_built():
         cuda_knn.nn1_bias(t[:, :2].contiguous(), mask, q)
 
 
-@pytest.mark.parametrize("study,n_instances", [(bench_nn1_tiles, 16), (bench_nn1_variants, 5)])
+@pytest.mark.parametrize("study,n_instances", [(bench_nn1_tiles, 16), (bench_nn1_variants, 7)])
 def test_study_entry_points_on_the_cpu(study, n_instances):
     """``n_instances`` a design: the tile sweep runs both of its designs'
     16 instances and the cluster nn1 at each shape."""
@@ -248,3 +264,148 @@ def test_nn1_tiled_refuses_instances_not_built_before_any_launch():
     with pytest.raises(ValueError):
         cuda_knn.nn1_tiled_prepped(packed, q[:, :2].contiguous(), 128, 2048)
     assert cuda_knn.launch_counts == before
+
+
+# -- nn1_bias / nn1_unroll2 in the ring: the plain models, the packing, the refusals
+
+
+BIAS_FORMS = {  # TPU kernel on the loaded studies, the port's plain model
+    "v1 / nn1_bias_plain": (lambda s: s.variants.make_v1(1024, 2048), cuda_knn.nn1_bias_plain),
+    "v3 / nn1_unroll2_plain": (lambda s: s.variants.make_v3(512, 1024), cuda_knn.nn1_unroll2_plain),
+}
+BIAS_CASES = MERGE_CASES + ["masked rows on the queries", "odd M"]
+N_ON_QUERIES = 300
+
+
+def _bias_case(case):
+    if case in MERGE_CASES:
+        return _merge_case(case)
+    t, mask, q = _inputs(seed=10)
+    if case == "masked rows on the queries":  # a masked row at d = 0 from each of the first queries
+        t = np.concatenate([q[:N_ON_QUERIES], t])
+        mask = np.concatenate([np.zeros(N_ON_QUERIES, bool), mask])
+    else:  # "odd M": a masked pad row follows
+        t, mask = t[:-1], mask[:-1]
+    return t, mask, q
+
+
+@pytest.fixture(scope="module")
+def tpu_bias_forms(studies):
+    """JAX's v1 / v3 on each case, run once: (form, case) -> (idx, d2)."""
+    cache = {}
+
+    def get(form, case):
+        if (form, case) not in cache:
+            t, mask, q = _bias_case(case)
+            ji, jd = BIAS_FORMS[form][0](studies)(jnp.asarray(t), jnp.asarray(mask), jnp.asarray(q))
+            cache[form, case] = torch.from_numpy(np.array(ji)), torch.from_numpy(np.array(jd))
+        return cache[form, case]
+
+    return get
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case", BIAS_CASES)
+@pytest.mark.parametrize("form", sorted(BIAS_FORMS))
+def test_bias_forms_plain_equal_nn1_plain_and_the_tpu_study(tpu_bias_forms, form, case, span):
+    """The biased distance (v1) and the fold of adjacent rows (v3), split and
+    merged at the span rounded up to even (the wrappers' nn1_even_span), are
+    nn1_plain bit for bit: the lower index on ties, idx 0 and d2 = +inf where
+    no row is valid, masked rows at d = 0 losing to far valid rows; and they
+    agree with JAX's v1 / v3 as test_port_matches_tpu_study holds the other
+    ports (the study's all-masked traits apart)."""
+    t, mask, q = _bias_case(case)
+    tt, tm, tq = (torch.from_numpy(a) for a in (t, mask, q))
+    packed = cuda_knn.pack_bias_target(tt, tm)
+    got = BIAS_FORMS[form][1](packed, tq, span + span % 2)
+    ref = cuda_knn.nn1_plain(tt, tm, tq)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    ji, jd = tpu_bias_forms(form, case)
+    if case == "every row masked":
+        assert bool((got[0] == 0).all()) and bool(torch.isinf(got[1]).all())
+        assert bool((ji == 0).all()) and bool((jd == np.float32(BIG)).all())
+        return
+    assert cuda_knn.nn1_mismatches(got[0], got[1], ji, jd, TIE) == 0
+    np.testing.assert_allclose(np_(got[1]), np_(jd), rtol=0, atol=D_ATOL)
+    if case == "exact ties across splits":
+        assert bool((got[0] < M // 2).all())
+    elif case == "masked rows on the queries":
+        assert bool((got[0] >= N_ON_QUERIES).all()) and bool((got[1][:N_ON_QUERIES] > 0).all())
+
+
+@pytest.mark.parametrize("span", [2, 8, 256, 3000, 6000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ties_inside_a_pair(offset, span):
+    """Every row doubled, so rows 2i and 2i + 1 are equal (offset 0: a tie
+    inside each of v3's pairs) or, after one far row, 2i + 1 and 2i + 2
+    (offset 1: twins in adjacent pairs): the lower index wins in both plain
+    models, as in nn1_plain."""
+    t, mask, q = _inputs(seed=11)
+    t2 = np.concatenate([np.full((offset, 3), 1e4, np.float32), np.repeat(t[: M // 2], 2, axis=0)])
+    m2 = np.concatenate([np.ones(offset, bool), np.repeat(mask[: M // 2], 2)])
+    q2 = np.concatenate([t2[offset::14], q])  # queries on the points: d2 = 0, tied
+    tt, tm, tq = (torch.from_numpy(a) for a in (t2, m2, q2))
+    ref = cuda_knn.nn1_plain(tt, tm, tq)
+    assert bool(((ref[0] - offset) % 2 == 0).all())  # the first of each equal pair
+    packed = cuda_knn.pack_bias_target(tt, tm)
+    for plain in (cuda_knn.nn1_bias_plain, cuda_knn.nn1_unroll2_plain):
+        got = plain(packed, tq, span)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), plain.__name__
+
+
+@pytest.mark.parametrize("n", [3000, 2999, 1, 0])
+def test_pack_bias_target_layout_and_even_padding(n):
+    """x, y, z, b a row: masked rows keep their coordinates, b is 0 / 3e38
+    (float32), and an odd count gets one masked pad row (0, 0, 0, 3e38)."""
+    t, mask, _ = _inputs(seed=12)
+    tt, tm = torch.from_numpy(t[:n]), torch.from_numpy(mask[:n])
+    for m in (tm, tm.to(torch.uint8)):
+        packed = cuda_knn.pack_bias_target(tt, m)
+        assert packed.shape == (n + n % 2, 4) and packed.dtype == torch.float32 and packed.is_contiguous()
+        assert packed.data_ptr() % 16 == 0
+        assert torch.equal(packed[:n, :3], tt)
+        assert torch.equal(packed[:n, 3], torch.where(tm, 0.0, float(np.float32(BIG))))
+        if n % 2:
+            assert packed[n].tolist() == [0.0, 0.0, 0.0, float(np.float32(BIG))]
+    with pytest.raises(ValueError):
+        cuda_knn.pack_bias_target(tt[:, :2], tm)
+
+
+@pytest.mark.parametrize("name", ["nn1_bias_prepped", "nn1_unroll2_prepped"])
+def test_bias_forms_refuse_bad_targets_before_any_launch(name):
+    """A packed target of the wrong shape (three columns, an odd row count, a
+    batch axis), type or alignment (not on 16 bytes), an instance not built
+    and queries of the wrong shape raise before any launch; so does an odd
+    span in v3's plain model."""
+    fn = getattr(cuda_knn, name)
+    t, mask, q = (torch.from_numpy(a) for a in _inputs(seed=13))
+    packed = cuda_knn.pack_bias_target(t, mask)
+    buf = torch.empty(packed.numel() + 1)
+    buf[1:] = packed.flatten()
+    unaligned = buf[1:].view(M, 4)
+    assert unaligned.data_ptr() % 16 and torch.equal(unaligned, packed)
+    before = dict(cuda_knn.launch_counts)
+    for bad in (packed[:, :3].contiguous(), packed[:-1], packed[None], packed.double()):
+        with pytest.raises(ValueError, match="packed|pairs"):
+            fn(bad, q)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(unaligned, q)
+    for qt, tc in ((96, 1024), (128, 8192), (1024, 512)):
+        with pytest.raises(ValueError, match=name.removesuffix("_prepped")):
+            fn(packed, q, qt, tc)
+    with pytest.raises(ValueError):
+        fn(packed, q[:, :2].contiguous())
+    with pytest.raises(ValueError, match="pairs"):
+        cuda_knn.nn1_unroll2_plain(packed, q, 7)
+    assert cuda_knn.launch_counts == before
+
+
+def test_nn1_even_span_plan():
+    """nn1_tiled_span rounded up to even: the pair's 256, the study's 1,878
+    and 3,972 as they are; an odd plan one row longer."""
+    for Q, Mt, qt in ((1000, 24576, 128), (22528, 22528, 64), (8192, 131072, 64), (50000, 2049, 64), (1, 1, 64),
+                      (70, 301, 512)):
+        span = cuda_knn.nn1_tiled_span(Q, Mt, qt, 132)
+        assert cuda_knn.nn1_even_span(Q, Mt, qt, 132) == span + span % 2
+    assert cuda_knn.nn1_even_span(1000, 24576, 128, 132) == 256
+    assert cuda_knn.nn1_even_span(1, 1, 64, 132) == 2
