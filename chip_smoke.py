@@ -15,9 +15,10 @@
    knn_k_simple + nn1_plain, and requires equal poses, bit for bit.
 3. Holds every instance of the study kernels (nn1_tiled, the tile study's
    kernel for the card, at every query tile x chunk; its first design
-   nn1_tiled_simple; nn1_bias and nn1_unroll2 in nn1_tiled's ring and their
-   first designs nn1_bias_simple and nn1_unroll2_simple; nn1_lanes) against
-   nn1_plain at the nn1 shape, on queries moved by the ground-truth pose,
+   nn1_tiled_simple; nn1_bias, nn1_lanes <8> and <32> and nn1_unroll2 in
+   nn1_tiled's ring and their first designs nn1_bias_simple,
+   nn1_lanes_simple and nn1_unroll2_simple) against nn1_plain at the nn1
+   shape, on queries moved by the ground-truth pose,
    with some targets masked, with every target masked, on an odd count of
    targets, on a target of equal adjacent rows whose twins lie in other
    splits, and with masked rows on the queries: equal indices and equal
@@ -29,8 +30,10 @@
    kernel's bound (``scripts.measure``): the larger of its bytes over
    3.35 TB/s and its FP32 operations (9 a query/target pair) over 33.5e12 a
    second. nn1 and knn_k are timed in turns with their first designs (and
-   nn1 with nn1_lanes <32> and <8>) at the path's shape and at Q=M=22,528;
-   their kernel rows carry these as ``previous_ms`` and ``shapes``.
+   nn1 with nn1_lanes <32> and <8>, the ring's lane form on a target
+   packed once and held to nn1_plain there, and their first designs) at the
+   path's shape and at Q=M=22,528; their kernel rows carry these as
+   ``previous_ms`` and ``shapes``.
 5. Drives the main path, ``apps.example_registration.register_pair``, on a
    synthetic HDL-64 pair (2048 x 64 rays raycast on the card, two poses of a
    figure-8 about 1 m apart) and checks the pose against the ground truth,
@@ -838,9 +841,11 @@ def check_nn1(target, queries, pose) -> dict:
     shape and at Q=M=22,528: ``ms`` the kernel through nn1_prepped (the ICP
     loop's per-iteration call, target prepared once), ``public_ms`` nn1
     (prep_target included), ``previous_ms`` the first design (nn1_tiled_simple
-    <128, 2048>), the nn1_lanes <32> and <8> study kernels, and nn1_plain.
-    The first design and the lanes kernels take no pose, so they get the
-    queries already moved."""
+    <128, 2048>), the nn1_lanes <32> and <8> study kernels (the ring's lane
+    form through nn1_lanes_prepped on a target packed once, held to
+    nn1_plain bit for bit there, and their first designs as
+    ``lanes{32,8}_simple_ms``), and nn1_plain. The first design and the
+    lanes kernels take no pose, so they get the queries already moved."""
     mask = target.mask.to(torch.uint8)
     t = target.points
     for what, (tt, m) in exact_cases(t, mask).items():
@@ -859,12 +864,18 @@ def check_nn1(target, queries, pose) -> dict:
     for label, (tt, m, q, p) in {"path": (t, mask, queries, pose), "Q=M=22528": (*second_shape(), None)}.items():
         qm = q if p is None else moved
         pr = cuda_knn.prep_target(tt, m)
+        pb = cuda_knn.pack_bias_target(tt, m)
         check_equal("nn1", cuda_knn.nn1_prepped(pr, q, p), cuda_knn.nn1_plain(tt, m, q, p), label)
+        for lanes in cuda_knn.NN1_LANES:
+            check_equal("nn1_lanes", cuda_knn.nn1_lanes_prepped(pb, qm, lanes), cuda_knn.nn1_plain(tt, m, qm),
+                        f"{label}, {lanes} lanes")
         turns = in_turns({
             "ms": lambda: cuda_knn.nn1_prepped(pr, q, p),
             "previous_ms": lambda: cuda_knn.nn1_tiled_simple(tt, m, qm, 128, 2048),
-            "lanes32_ms": lambda: cuda_knn.nn1_lanes(tt, m, qm, 32),
-            "lanes8_ms": lambda: cuda_knn.nn1_lanes(tt, m, qm, 8),
+            "lanes32_ms": lambda: cuda_knn.nn1_lanes_prepped(pb, qm, 32),
+            "lanes8_ms": lambda: cuda_knn.nn1_lanes_prepped(pb, qm, 8),
+            "lanes32_simple_ms": lambda: cuda_knn.nn1_lanes_simple(tt, m, qm, 32),
+            "lanes8_simple_ms": lambda: cuda_knn.nn1_lanes_simple(tt, m, qm, 8),
             "public_ms": lambda: cuda_knn.nn1(tt, m, q, p),
             "plain_ms": lambda: cuda_knn.nn1_plain(tt, m, q, p),
         })
@@ -947,6 +958,7 @@ STUDY_KERNELS = {
     "nn1_bias": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:106"),
     "nn1_bias_simple": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:106"),
     "nn1_lanes": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:134"),
+    "nn1_lanes_simple": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:134"),
     "nn1_unroll2": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:168"),
     "nn1_unroll2_simple": (VARIANTS_SOURCE, "scripts/bench_nn1_variants.py:168"),
 }
@@ -4094,14 +4106,15 @@ def check_window_kernel(lo_out, dev) -> list:
     return out_rows
 
 
-# -Xptxas -v of the sources redesigned above k = 16: every instance of these
-# kernels must report 0 spill bytes; the one-thread instances (knn_cluster_kernel at
-# K = 32 / 64 / 128, kept as knn_k_spill, range_image_tile_kernel at K = 32 /
-# 64 / 128, kept as range_image_window_spill, and the first Morton window
-# design) are printed beside them
-SPILL_SOURCES = ("window_knn.cu", "knn_cluster.cu", "range_image.cu")
+# -Xptxas -v of the sources redesigned above k = 16 and of the study kernels'
+# ring: every instance of these kernels must report 0 spill bytes; the
+# one-thread instances (knn_cluster_kernel at K = 32 / 64 / 128, kept as
+# knn_k_spill, range_image_tile_kernel at K = 32 / 64 / 128, kept as
+# range_image_window_spill, and the first Morton window design) are printed
+# beside them
+SPILL_SOURCES = ("window_knn.cu", "knn_cluster.cu", "range_image.cu", "nn1_tiles.cu", "nn1_variants.cu")
 NO_SPILL_KERNELS = ("knn_warp_kernel", "morton_warp_kernel", "morton_tile_kernel", "morton_codes_kernel",
-                    "morton_min_kernel", "range_image_warp_kernel")
+                    "morton_min_kernel", "range_image_warp_kernel", "nn1_ring_kernel")
 
 
 def start_spill_report():
@@ -4155,7 +4168,7 @@ def spill_report(started) -> dict:
     print(f"-Xptxas -v: {len(redesigned)} instances of {', '.join(NO_SPILL_KERNELS)}: "
           f"{sum(r['spill_stores'] for r in redesigned.values())} bytes of spill stores, at most "
           f"{max(r['registers'] or 0 for r in redesigned.values())} registers; "
-          + "; ".join(line(n, r) for n, r in sorted(redesigned.items()) if "warp" in n)
+          + "; ".join(line(n, r) for n, r in sorted(redesigned.items()) if "warp" in n or "ring" in n)
           + "; the one-thread instances: "
           + "; ".join(line(n, r) for n, r in sorted(report.items()) if n not in redesigned))
     if bad:

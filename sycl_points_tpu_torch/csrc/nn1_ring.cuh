@@ -3,15 +3,26 @@
 //
 //   - The target is packed once: [M, 4] f32, 16 B a row, so that a 1-D bulk
 //     copy (cp.async.bulk, TMA) moves a chunk of rows as it lies.
-//   - A block holds kQT queries, R = 2 a thread (QT / 2 threads), so each
-//     16-byte broadcast load of a target row from shared memory feeds two
-//     distances.
-//   - Block (x, y) takes queries [x QT, (x + 1) QT) against target rows
-//     [y span, (y + 1) span) (the split over gridDim.y is chosen by the
-//     wrapper), streamed through a two-stage shared-memory ring of
-//     min(chunk, span) rows a stage: one thread arms a stage's mbarrier and
-//     starts its copy, chunk c + 1 lands while chunk c is compared, and a
-//     stage is refilled (chunk c + 2) once every thread is past it.
+//   - A block has kQT / 2 threads, each holding R = 2 query slots, so that
+//     each 16-byte load of a target row from shared memory feeds two
+//     distances. A form of one lane (kLanes = 1) gives each thread two
+//     queries: kQT queries a block. A lane form (kLanes = L > 1) gives each
+//     query L consecutive threads of a warp, lane l = threadIdx.x % L taking
+//     rows l, l + L, ... of each chunk with its own running best: kQT counts
+//     (query, lane) slots, and a block holds kQT / L queries, so the target
+//     is read from L2 L times as often as by a one-lane form at the same kQT.
+//     Query r of a thread is blockIdx.x kQT / L + r (kQT / 2) / L +
+//     threadIdx.x / L (ring_query).
+//   - Block (x, y) takes its queries against target rows [y span, (y + 1)
+//     span) (the split over gridDim.y is chosen by the wrapper), streamed
+//     through a two-stage shared-memory ring of min(chunk, span) rows a
+//     stage: one thread arms a stage's mbarrier and starts its copy, chunk
+//     c + 1 lands while chunk c is compared, and a stage is refilled (chunk
+//     c + 2) once every thread is past it.
+//   - After the split's last chunk a lane form's L lanes reduce their bests
+//     by __shfl_xor_sync, the smaller distance winning and, on equal
+//     distance, the smaller index; lane 0 posts. Every thread of the block
+//     joins the shuffles, those of a query past Q too.
 //   - The merge: each (query, split) leaves (d2 bits << 32) | index, its best,
 //     in a [Q] word by a 64-bit atomicMin; the words start at ~0 (a memset)
 //     and one unpack kernel writes idx and d2. A split whose best is still at
@@ -21,13 +32,15 @@
 //
 // A form is a struct with
 //   kStep                 rows a step (1, or 2: every span, chunk and M even);
+//   kLanes                threads a query (1, or 2 to 32 dividing 32);
 //   none()                the running best's start (a best still at it posts
 //                         nothing);
 //   sweep<R>(t, n, base, qx, qy, qz, bd, bi)
 //                         the compare of one chunk: rows t[0, n) of shared
-//                         memory, global rows base + j, into each query's
-//                         running (bd, bi), in index order, so that the first
-//                         least distance of the split wins.
+//                         memory (a lane form's lane its rows of them),
+//                         global rows base + j, into each query's running
+//                         (bd, bi), in index order, so that the first least
+//                         distance of the rows it takes wins.
 //
 // The kernels live in an unnamed namespace: each source that includes this
 // header has its own.
@@ -78,11 +91,19 @@ __device__ __forceinline__ void wait_phase(unsigned long long* bar, unsigned par
   } while (!done);
 }
 
+// The query of slot r of the calling thread (see the header).
+template <int kQT, int kLanes>
+__device__ __forceinline__ int ring_query(int r) {
+  constexpr int kThreadsB = kQT / kRingR;
+  return blockIdx.x * (kQT / kLanes) + r * (kThreadsB / kLanes) + threadIdx.x / kLanes;
+}
+
 template <int kQT, class Form>
 __global__ void __launch_bounds__(kQT / kRingR)
 nn1_ring_kernel(const float4* __restrict__ tgt, int M, int span, int chunk, const float* __restrict__ queries,
                 int Q, unsigned long long* __restrict__ best) {
-  constexpr int kThreadsB = kQT / kRingR;
+  constexpr int kLanes = Form::kLanes;
+  static_assert(32 % kLanes == 0 && (kQT / kRingR) % 32 == 0, "a query's lanes lie in one warp");
   extern __shared__ float4 ring[];  // 2 stages of `chunk` rows
   __shared__ unsigned long long bar[2];
 
@@ -106,7 +127,7 @@ nn1_ring_kernel(const float4* __restrict__ tgt, int M, int span, int chunk, cons
   int bi[kRingR];
 #pragma unroll
   for (int r = 0; r < kRingR; ++r) {
-    const int q = blockIdx.x * kQT + r * kThreadsB + threadIdx.x;
+    const int q = ring_query<kQT, kLanes>(r);
     qx[r] = q < Q ? queries[3 * q] : 0.f;
     qy[r] = q < Q ? queries[3 * q + 1] : 0.f;
     qz[r] = q < Q ? queries[3 * q + 2] : 0.f;
@@ -129,8 +150,19 @@ nn1_ring_kernel(const float4* __restrict__ tgt, int M, int span, int chunk, cons
 
 #pragma unroll
   for (int r = 0; r < kRingR; ++r) {
-    const int q = blockIdx.x * kQT + r * kThreadsB + threadIdx.x;
-    if (q < Q && bd[r] < Form::none())
+    // a lane form's end-of-split reduce (no step for one lane): the smaller
+    // distance, then the smaller index
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd[r], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi[r], off);
+      if (od < bd[r] || (od == bd[r] && oi < bi[r])) {
+        bd[r] = od;
+        bi[r] = oi;
+      }
+    }
+    const int q = ring_query<kQT, kLanes>(r);
+    if (threadIdx.x % kLanes == 0 && q < Q && bd[r] < Form::none())
       atomicMin(best + q, (static_cast<unsigned long long>(__float_as_uint(bd[r])) << 32) |
                               static_cast<unsigned>(bi[r]));
   }
@@ -157,17 +189,20 @@ cudaError_t launch_ring(const float4* tgt, int M, int span, int chunk, const flo
         cudaFuncSetAttribute(nn1_ring_kernel<kQT, Form>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((Q + kQT - 1) / kQT, (M + span - 1) / span);
+  constexpr int kQueries = kQT / Form::kLanes;  // queries a block
+  const dim3 grid((Q + kQueries - 1) / kQueries, (M + span - 1) / span);
   nn1_ring_kernel<kQT, Form><<<grid, kQT / kRingR, smem, s>>>(tgt, M, span, stage, queries, Q, best);
   return cudaGetLastError();
 }
 
 // The entry points' body: a memset of `best`, the ring kernel at `query_tile`
-// in {64, 128, 256, 512} and `chunk` in {512, ..., 4096} (a multiple of 512),
-// and the unpack, on the caller's stream; allocates nothing and returns the
-// first CUDA error. tgt [M, 4] f32, 16-byte aligned; span >= 1 rows a split
-// (for a form of two rows a step, M and span even); best [Q] u64 scratch;
-// out_idx [Q] i32, out_d2 [Q] f32.
+// in {64, 128, 256, 512} (query slots a block: queries, or for a lane form
+// (query, lane) pairs, query_tile / kLanes queries) and `chunk` in {512, ...,
+// 4096} (a multiple of 512, so of every kLanes), and the unpack, on the
+// caller's stream; allocates nothing and returns the first CUDA error. tgt
+// [M, 4] f32, 16-byte aligned; span >= 1 rows a split (for a form of two
+// rows a step, M and span even); best [Q] u64 scratch; out_idx [Q] i32,
+// out_d2 [Q] f32.
 template <class Form>
 int run_nn1_ring(const float* tgt, int M, const float* queries, int Q, int query_tile, int chunk, int span,
                  unsigned long long* best, int* out_idx, float* out_d2, void* stream) {

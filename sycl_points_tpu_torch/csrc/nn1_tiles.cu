@@ -61,6 +61,7 @@ using spt::sqdist;
 // The plain form: the distance, a strict `<` from +inf, a row a step.
 struct PlainForm {
   static constexpr int kStep = 1;
+  static constexpr int kLanes = 1;
   __device__ __forceinline__ static float none() { return CUDART_INF_F; }
   template <int R>
   __device__ __forceinline__ static void sweep(const float4* t, int n, int base, const float (&qx)[R],

@@ -6,8 +6,9 @@
 //
 // nn1_bias     (v1, `make_v1`, :106-131) adds a 0 / 3.0e38 bias to every
 //              distance in place of a select on the mask.
-// nn1_lanes<L> (v2, `make_v2`, :134-165) gives each query L lanes with their
-//              own running (best, idx), reduced once at the end.
+// nn1_lanes<L> (v2, `make_v2`, :134-165) is v1 with L lanes a query (8 or
+//              32), each keeping its own running (best, idx) over its rows,
+//              reduced once at the end: v2's per-column accumulator.
 // nn1_unroll2  (v3, `make_v3`, :168-200) is v1 with two targets a step,
 //              folded into one candidate before the running best.
 //
@@ -16,11 +17,11 @@
 // compare; the bias adds one); the target is 16 B a row, read once a query
 // tile from L2. ~0.006 ms at 1,000 queries against 24,000 valid rows.
 //
-// nn1_bias and nn1_unroll2 run in nn1_ring.cuh's pipeline, as nn1_tiled does
-// (nn1_tiles.cu): two queries a thread, the target packed once and streamed
-// by bulk copies through a two-stage mbarrier ring, split over gridDim.y,
-// each (query, split) merged by a 64-bit atomicMin of (d2 bits << 32) |
-// index. Their forms read a bias-packed target (ops/cuda_knn.pack_bias_target):
+// All three run in nn1_ring.cuh's pipeline, as nn1_tiled does (nn1_tiles.cu):
+// two query slots a thread, the target packed once and streamed by bulk
+// copies through a two-stage mbarrier ring, split over gridDim.y, each
+// (query, split) merged by a 64-bit atomicMin of (d2 bits << 32) | index.
+// Their forms read a bias-packed target (ops/cuda_knn.pack_bias_target):
 // [M', 4] f32 rows x, y, z, b, b = 0 for a valid row and kBig for a masked
 // one, masked rows keeping their coordinates, M' even (one masked pad row
 // (0, 0, 0, kBig) after an odd M). The bias rides in the pad lane that the
@@ -30,10 +31,23 @@
 //     infinite coordinate, NaN for a NaN one), and the running best starts
 //     at kBig, so the strict `<` never takes it; a split whose best is still
 //     kBig posts nothing, so a query with no valid row unpacks to idx 0,
-//     d2 = +inf.
+//     d2 = +inf (v2 on the TPU returns idx 2^31 - 1, d = 3e38 there).
 //   - Bit-equality with nn1_plain: d + 0.0f == d for d >= 0, and the library
 //     is built with --fmad=false, so the biased distance of a valid row is
 //     spt::sqdist's, and the merge keeps the first least index.
+//   - nn1_lanes<L> is BiasForm<L>, v1's compare over rows l, l + L, ... of
+//     each chunk for lane l = threadIdx.x % L of a query's L consecutive
+//     threads; v1 is BiasForm<1>. There is no reduction across lanes a
+//     chunk: after the split's last chunk the ring's __shfl_xor_sync reduce
+//     (log2 L steps of two shuffles a query) takes the smaller distance and,
+//     on equal distance, the smaller index (v2's smallest winning index
+//     among tied columns), and lane 0 posts the split's word. Each lane's
+//     strict `<` in index order keeps its first least row, so the reduce
+//     gives the split's first least row. Its query_tile counts (query, lane)
+//     slots, query_tile / 2 threads as for every form: a block holds
+//     query_tile / L queries and reads the target L times as often from L2
+//     as v1 at the same tile; the wrapper's split (ops/cuda_knn.nn1_tiled_span
+//     with lanes = L) counts those query blocks.
 //   - nn1_unroll2 takes rows j and j + 1, adjacent, a step. For each query
 //     the pair folds to fminf(d0, d1) with index j where it equals d0: v3's
 //     `d0 <= d1` select, j on a tie, written so that a NaN on either side
@@ -46,15 +60,14 @@
 //     chunk is a multiple of 512, so each chunk a bulk copy fills holds an
 //     even count of rows and row j + 1 is never stale.
 //
-// The first designs stay for timing (nn1_bias_simple, nn1_unroll2_simple):
-// one thread a query, 128 threads a block, the raw target and its mask
-// staged by the computing threads between two __syncthreads. At 1,000
-// queries they fill 8 of the 132 SMs, stall on each tile's copy, and issue
-// one scalar shared-memory load a coordinate (and the bias) a pair.
-// nn1_lanes<L> runs L consecutive threads on one query: lane l scans targets
-// l, l+L, ... of each shared tile with a strict `<`, and a __shfl_xor_sync
-// reduce at the end takes the smaller distance and, on equal distance, the
-// smaller index (v2's tie rule).
+// The first designs stay for timing (nn1_bias_simple, nn1_lanes_simple,
+// nn1_unroll2_simple): the raw target and its mask staged by the computing
+// threads between two __syncthreads, one scalar shared-memory load a
+// coordinate (and the bias) a pair, no overlap of copy and compute, no
+// split of the target. nn1_bias_simple and nn1_unroll2_simple run one
+// thread a query, 128 threads a block (8 of the 132 SMs at 1,000 queries);
+// nn1_lanes_simple<L> runs L consecutive threads a query, 256 threads a
+// block, with the same end-of-target shuffle reduce.
 //
 // All are exact and equal nn1_plain bit for bit. The queries come already
 // moved by the pose, as in the TPU study. Every entry point launches on the
@@ -72,7 +85,7 @@ using spt::sqdist;
 using spt::stage_tile;
 
 constexpr int kThreads = 128;       // nn1_bias_simple, nn1_unroll2_simple: one thread a query
-constexpr int kLaneThreads = 256;   // nn1_lanes: 256 / L queries a block
+constexpr int kLaneThreads = 256;   // nn1_lanes_simple: 256 / L queries a block
 constexpr int kTile = 2048;
 constexpr float kBig = 3.0e38f;     // the TPU kernels' _BIG
 
@@ -140,11 +153,11 @@ nn1_bias_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__
   }
 }
 
-// v2. Threads of a partial last group still stage tiles and join every
-// shuffle; only lane 0 of a group whose query exists writes.
+// v2, first design. Threads of a partial last group still stage tiles and
+// join every shuffle; only lane 0 of a group whose query exists writes.
 template <int L>
 __global__ void __launch_bounds__(kLaneThreads)
-nn1_lanes_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask,
+nn1_lanes_simple_kernel(const float* __restrict__ tgt, const unsigned char* __restrict__ mask,
                  int M, const float* __restrict__ queries, int Q,
                  int* __restrict__ out_idx, float* __restrict__ out_d2) {
   static_assert(L >= 1 && L <= 32 && (32 % L) == 0, "L lanes must divide a warp");
@@ -229,16 +242,19 @@ nn1_unroll2_kernel(const float* __restrict__ tgt, const unsigned char* __restric
   }
 }
 
-// v1 in the ring: the biased distance, a strict `<` from kBig, a row a step.
+// v1 (L = 1) and v2 (L = 8, 32) in the ring: the biased distance, a strict
+// `<` from kBig, rows lane, lane + L, ... of the chunk a step.
+template <int L>
 struct BiasForm {
   static constexpr int kStep = 1;
+  static constexpr int kLanes = L;
   __device__ __forceinline__ static float none() { return kBig; }
   template <int R>
   __device__ __forceinline__ static void sweep(const float4* t, int n, int base, const float (&qx)[R],
                                                const float (&qy)[R], const float (&qz)[R], float (&bd)[R],
                                                int (&bi)[R]) {
 #pragma unroll 4
-    for (int j = 0; j < n; ++j) {
+    for (int j = threadIdx.x % L; j < n; j += L) {
       const float4 p = t[j];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -256,6 +272,7 @@ struct BiasForm {
 // then a strict `<` from kBig.
 struct Unroll2Form {
   static constexpr int kStep = 2;
+  static constexpr int kLanes = 1;
   __device__ __forceinline__ static float none() { return kBig; }
   template <int R>
   __device__ __forceinline__ static void sweep(const float4* t, int n, int base, const float (&qx)[R],
@@ -293,17 +310,17 @@ extern "C" int spt_nn1_bias_simple(const float* tgt, const unsigned char* mask, 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int spt_nn1_lanes(const float* tgt, const unsigned char* mask, int M,
-                             const float* queries, int Q, int lanes, int* out_idx,
-                             float* out_d2, void* stream) {
+extern "C" int spt_nn1_lanes_simple(const float* tgt, const unsigned char* mask, int M,
+                                    const float* queries, int Q, int lanes, int* out_idx,
+                                    float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lanes) {
     case 8:
-      nn1_lanes_kernel<8><<<blocks_for(Q, kLaneThreads / 8), kLaneThreads, 0, s>>>(
+      nn1_lanes_simple_kernel<8><<<blocks_for(Q, kLaneThreads / 8), kLaneThreads, 0, s>>>(
           tgt, mask, M, queries, Q, out_idx, out_d2);
       break;
     case 32:
-      nn1_lanes_kernel<32><<<blocks_for(Q, kLaneThreads / 32), kLaneThreads, 0, s>>>(
+      nn1_lanes_simple_kernel<32><<<blocks_for(Q, kLaneThreads / 32), kLaneThreads, 0, s>>>(
           tgt, mask, M, queries, Q, out_idx, out_d2);
       break;
     default:
@@ -320,13 +337,30 @@ extern "C" int spt_nn1_unroll2_simple(const float* tgt, const unsigned char* mas
   return static_cast<int>(cudaGetLastError());
 }
 
-// v1 and v3 in the ring, against a bias-packed target (tgt [M, 4] f32, M
-// even, 16-byte aligned): query_tile in {64, 128, 256, 512}, chunk in {512,
-// 1024, 2048, 4096}, span >= 2 rows a split and even; best [Q] u64 scratch;
-// out_idx [Q] i32, out_d2 [Q] f32. A memset and two kernels.
+// v1, v2 and v3 in the ring, against a bias-packed target (tgt [M, 4] f32,
+// M even, 16-byte aligned): query_tile in {64, 128, 256, 512} (for v2 (query,
+// lane) slots: query_tile / lanes queries a block), chunk in {512, 1024,
+// 2048, 4096}, span >= 2 rows a split and even (v2: span >= 1); best [Q] u64
+// scratch; out_idx [Q] i32, out_d2 [Q] f32. A memset and two kernels.
 extern "C" int spt_nn1_bias(const float* tgt, int M, const float* queries, int Q, int query_tile, int chunk,
                             int span, unsigned long long* best, int* out_idx, float* out_d2, void* stream) {
-  return spt::run_nn1_ring<BiasForm>(tgt, M, queries, Q, query_tile, chunk, span, best, out_idx, out_d2, stream);
+  return spt::run_nn1_ring<BiasForm<1>>(tgt, M, queries, Q, query_tile, chunk, span, best, out_idx, out_d2,
+                                        stream);
+}
+
+extern "C" int spt_nn1_lanes(const float* tgt, int M, const float* queries, int Q, int lanes, int query_tile,
+                             int chunk, int span, unsigned long long* best, int* out_idx, float* out_d2,
+                             void* stream) {
+  switch (lanes) {
+    case 8:
+      return spt::run_nn1_ring<BiasForm<8>>(tgt, M, queries, Q, query_tile, chunk, span, best, out_idx, out_d2,
+                                            stream);
+    case 32:
+      return spt::run_nn1_ring<BiasForm<32>>(tgt, M, queries, Q, query_tile, chunk, span, best, out_idx, out_d2,
+                                             stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int spt_nn1_unroll2(const float* tgt, int M, const float* queries, int Q, int query_tile, int chunk,

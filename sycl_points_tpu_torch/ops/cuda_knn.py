@@ -51,8 +51,11 @@ queries already moved by the pose: ``nn1_bias`` (v1) and ``nn1_unroll2``
 once by :func:`pack_bias_target` (``*_prepped``; plain models
 :func:`nn1_bias_plain`, :func:`nn1_unroll2_plain`), their first designs
 (one thread a query on the raw target) kept as ``nn1_bias_simple`` and
-``nn1_unroll2_simple``; ``nn1_lanes`` (v2, 8 or 32 lanes a query). Every
-1-NN kernel equals :func:`nn1_plain`.
+``nn1_unroll2_simple``; ``nn1_lanes`` (v2, 8 or 32 lanes a query, each with
+its own running best, reduced once a split) is the ring's lane form on the
+same target (``nn1_lanes_prepped``; plain model :func:`nn1_lanes_plain`),
+its first design kept as ``nn1_lanes_simple``. Every 1-NN kernel equals
+:func:`nn1_plain`.
 
 ``csrc/range_image.cu`` holds the range-image k-NN of the raw scans; its
 wrappers in :mod:`..range_image_knn` count their launches here: the window
@@ -95,7 +98,7 @@ import subprocess
 import tempfile
 import threading
 from collections import Counter
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -160,12 +163,17 @@ H100_SMS = 132
 BIAS_BIG = 3.0e38
 NN1_BIAS_INSTANCE = (256, 1024)
 NN1_UNROLL2_INSTANCE = (256, 1024)
+# v2 in the ring (nn1_lanes_prepped): lanes -> (query tile, chunk), the
+# instance fastest at the pair's shape in the same sweep. A lane form's query
+# tile counts (query, lane) slots: query_tile / 2 threads and query_tile /
+# lanes queries a block (64 a block at 8 lanes, 8 at 32).
+NN1_LANES_INSTANCE = {8: (512, 1024), 32: (256, 1024)}
 
 # Kernel launches per wrapper; reset with reset_launch_counts().
 launch_counts = {
     "nn1": 0, "knn_k": 0, "nn1_batched": 0, "knn_k_batched": 0, "knn_k_simple": 0,
     "nn1_tiled": 0, "nn1_tiled_simple": 0, "nn1_bias": 0, "nn1_bias_simple": 0, "nn1_lanes": 0, "nn1_unroll2": 0,
-    "nn1_unroll2_simple": 0, "range_image": 0,
+    "nn1_lanes_simple": 0, "nn1_unroll2_simple": 0, "range_image": 0,
     "range_image_elevation": 0, "range_image_cells": 0, "range_image_rows": 0, "range_image_simple": 0,
     "grid_knn": 0, "grid_knn_simple": 0, "coarse_rank": 0, "coarse_refine": 0, "coarse_refine_simple": 0,
     "morton_min": 0, "morton_codes": 0, "morton_window": 0, "morton_window_union": 0, "morton_window_simple": 0,
@@ -267,7 +275,8 @@ def load_library() -> ctypes.CDLL:
             lib.spt_nn1_bias.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
             lib.spt_nn1_unroll2.argtypes = [p, i, p, i, i, i, i, p, p, p, p]
             lib.spt_nn1_bias_simple.argtypes = [p, p, i, p, i, p, p, p]
-            lib.spt_nn1_lanes.argtypes = [p, p, i, p, i, i, p, p, p]
+            lib.spt_nn1_lanes.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p]
+            lib.spt_nn1_lanes_simple.argtypes = [p, p, i, p, i, i, p, p, p]
             lib.spt_nn1_unroll2_simple.argtypes = [p, p, i, p, i, p, p, p]
             f = ctypes.c_float
             lib.spt_range_image_window.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p]
@@ -289,7 +298,7 @@ def load_library() -> ctypes.CDLL:
             for fn in (lib.spt_nn1_batched, lib.spt_knn_k_batched, lib.spt_knn_k_spill_batched,
                        lib.spt_knn_k_simple, lib.spt_nn1_tiled_simple, lib.spt_nn1_tiled,
                        lib.spt_nn1_bias, lib.spt_nn1_unroll2, lib.spt_nn1_bias_simple, lib.spt_nn1_lanes,
-                       lib.spt_nn1_unroll2_simple,
+                       lib.spt_nn1_lanes_simple, lib.spt_nn1_unroll2_simple,
                        lib.spt_range_image_window, lib.spt_range_image_window_spill,
                        lib.spt_range_image_window_simple,
                        lib.spt_range_image_elevation, lib.spt_range_image_cells, lib.spt_range_image_rows,
@@ -884,12 +893,13 @@ def pack_target(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def pack_bias_target(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The target as :func:`nn1_bias_prepped` and :func:`nn1_unroll2_prepped`
-    read it (the variant study's v1 / v3), made once: ``[M', 4]`` float32
-    rows x, y, z, b, with b = 0 for a valid row and :data:`BIAS_BIG` for a
-    masked one, whose coordinates stay as they are. ``M'`` is ``M`` rounded
-    up to even: after an odd ``M`` one masked row (0, 0, 0, BIAS_BIG), so
-    that v3's pairs of adjacent rows never reach past the target."""
+    """The target as :func:`nn1_bias_prepped`, :func:`nn1_lanes_prepped` and
+    :func:`nn1_unroll2_prepped` read it (the variant study's v1 / v2 / v3),
+    made once: ``[M', 4]`` float32 rows x, y, z, b, with b = 0 for a valid
+    row and :data:`BIAS_BIG` for a masked one, whose coordinates stay as
+    they are. ``M'`` is ``M`` rounded up to even: after an odd ``M`` one
+    masked row (0, 0, 0, BIAS_BIG), so that v3's pairs of adjacent rows
+    never reach past the target."""
     _check_target(points, mask)
     M = points.shape[0]
     packed = points.new_zeros((M + M % 2, 4))
@@ -899,16 +909,20 @@ def pack_bias_target(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-def nn1_tiled_span(Q: int, M: int, query_tile: int, n_sm: int) -> int:
+def nn1_tiled_span(Q: int, M: int, query_tile: int, n_sm: int, lanes: int = 1) -> int:
     """Target rows a split of :func:`nn1_tiled` at ``query_tile`` queries a
-    block: the target is cut into as many spans as give the card
+    block (of a ring form of ``lanes`` lanes a query, as
+    :func:`nn1_lanes_prepped`: ``query_tile`` (query, lane) slots, so
+    ``query_tile / lanes`` queries a block): the target is cut into as many spans as give the card
     :data:`NN1_TILED_WARPS_PER_SM` warps an SM over the ``ceil(Q /
-    query_tile)`` query tiles, none under :data:`NN1_TILED_MIN_SPAN` rows.
-    On the H100 (132 SMs) 1,000 queries against 24,576 rows take 96 spans
-    of 256 at every query tile; 22,528 against 22,528 take 12 spans of
-    1,878 at 64 queries a block."""
+    (query_tile / lanes))`` query blocks launched, none under
+    :data:`NN1_TILED_MIN_SPAN` rows. On the H100 (132 SMs) 1,000 queries
+    against 24,576 rows take 96 spans of 256 at every query tile; 22,528
+    against 22,528 take 12 spans of 1,878 at 64 queries a block; with 32
+    lanes, 1,000 queries against 24,576 rows take 9 spans of 2,731 at 512
+    slots (63 blocks of 16 queries)."""
     warps = max(1, query_tile // (32 * NN1_TILED_QUERIES_A_THREAD))
-    tiles = -(-Q // query_tile)
+    tiles = -(-Q // (query_tile // lanes))
     blocks = -(-NN1_TILED_WARPS_PER_SM * n_sm // warps)
     splits = max(1, min(-(-blocks // max(tiles, 1)), -(-M // NN1_TILED_MIN_SPAN)))
     return max(1, -(-M // splits))
@@ -987,6 +1001,28 @@ def _unroll2_search(rows: torch.Tensor, queries: torch.Tensor):
     return idx, d2
 
 
+def _lanes_search(rows: torch.Tensor, queries: torch.Tensor, lanes: int):
+    """v2's search of one span: lane ``l`` keeps the first least biased
+    distance below :data:`BIAS_BIG` of rows ``l, l + lanes, ...`` (else
+    BIAS_BIG at index 0, the kernel's start), then the lanes reduce to the
+    least distance and, on equal distance, the least index."""
+    n = rows.shape[0]
+    steps = -(-n // lanes)
+    idx = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    d2 = torch.full((queries.shape[0],), torch.inf, dtype=torch.float32, device=queries.device)
+    lane_rows = torch.arange(lanes, dtype=torch.int64, device=rows.device)
+    for s, block in _biased_blocks(rows, queries):
+        block = torch.nn.functional.pad(block, (0, steps * lanes - n), value=torch.inf)
+        d, k = torch.min(block.view(-1, steps, lanes), dim=1)  # each lane's first least row
+        found = d < BIAS_BIG
+        d = torch.where(found, d, BIAS_BIG)
+        i = torch.where(found, k * lanes + lane_rows, 0)
+        least = d.min(dim=1, keepdim=True).values
+        i = torch.where(d == least, i, _NO_KEY).min(dim=1).values
+        idx[s : s + d.shape[0]], d2[s : s + d.shape[0]] = i.to(torch.int32), least[:, 0]
+    return idx, d2
+
+
 def _check_pairs(rows: int, span: int, name: str) -> None:
     if rows % 2 or span % 2:
         raise ValueError(f"{name} takes pairs of rows: an even packed target (pack_bias_target) and an even span, "
@@ -1012,15 +1048,33 @@ def nn1_unroll2_plain(packed: torch.Tensor, queries: torch.Tensor, span: int):
     return _split_merge(packed, queries, span, _unroll2_search, BIAS_BIG)
 
 
-def _nn1_ring(name: str, entry: str, packed: torch.Tensor, queries, query_tile: int, chunk: int, plain,
-              pairs: bool):
+def _check_lanes(lanes: int, name: str) -> None:
+    if lanes not in NN1_LANES:
+        raise ValueError(f"{name} has lanes in {NN1_LANES}, got {lanes}")
+
+
+def nn1_lanes_plain(packed: torch.Tensor, queries: torch.Tensor, span: int, lanes: int):
+    """The plain model of :func:`nn1_lanes_prepped` (v2) on a bias-packed
+    target (:func:`pack_bias_target`): in each span of ``span`` rows, lane
+    ``l`` of ``lanes`` keeps its first least biased distance below
+    :data:`BIAS_BIG` over the span's rows ``l, l + lanes, ...`` (the kernel's
+    strict ``<`` in index order), the lanes reduce to the least distance and,
+    on equal distance, the least index (the kernel's shuffle reduce), and the
+    spans merge as in :func:`nn1_tiled_plain`. Equal to :func:`nn1_plain`
+    while valid distances stay below BIAS_BIG."""
+    _check_lanes(lanes, "nn1_lanes_plain")
+    return _split_merge(packed, queries, span, lambda rows, q: _lanes_search(rows, q, lanes), BIAS_BIG)
+
+
+def _nn1_ring(name: str, entry: str, packed: torch.Tensor, queries, query_tile: int, chunk: int, plain, span_of,
+              pairs: bool = False, extra: tuple = ()):
     """The ring's wrappers' shared body: refuse an instance not built or a
     packed target of the wrong shape (an odd row count where the form reads
     ``pairs`` of rows), type or alignment before any launch; CPU tensors run
     ``plain(packed, queries, span)`` at the split an H100 takes, CUDA tensors
-    launch ``lib.<entry>`` once (a memset, the kernel and the unpack) at the
-    card's split (:func:`nn1_even_span` for ``pairs``, else
-    :func:`nn1_tiled_span`), counted under ``name``."""
+    launch ``lib.<entry>(packed, M, queries, Q, *extra, query_tile, chunk,
+    span, ...)`` once (a memset, the kernel and the unpack) at the card's
+    split, ``span_of(Q, M, query_tile, n_sm)``, counted under ``name``."""
     if query_tile not in NN1_QUERY_TILES_STUDY or chunk not in NN1_TILES:
         raise ValueError(f"{name} has query_tile in {NN1_QUERY_TILES_STUDY} and chunk in {NN1_TILES}, got "
                          f"{query_tile}, {chunk}")
@@ -1029,7 +1083,6 @@ def _nn1_ring(name: str, entry: str, packed: torch.Tensor, queries, query_tile: 
         raise ValueError(f"expected a packed [M, 4] float32 target, got {tuple(packed.shape)} {packed.dtype}")
     if pairs:
         _check_pairs(M, 0, name)
-    span_of = nn1_even_span if pairs else nn1_tiled_span
     if packed.data_ptr() % 16:
         raise ValueError(f"{name} reads the packed target in 16-byte bulk copies: it must be 16-byte aligned")
     device = _check_queries(queries, None, packed)
@@ -1041,7 +1094,7 @@ def _nn1_ring(name: str, entry: str, packed: torch.Tensor, queries, query_tile: 
     span = span_of(Q, M, query_tile, _sm_count(device.index))
     best = torch.empty(Q, dtype=torch.int64, device=device)
     return _launch(name, device, (Q,), lambda lib, i, d, s: getattr(lib, entry)(
-        packed.data_ptr(), M, queries.data_ptr(), Q, query_tile, chunk, span, best.data_ptr(), i, d, s))
+        packed.data_ptr(), M, queries.data_ptr(), Q, *extra, query_tile, chunk, span, best.data_ptr(), i, d, s))
 
 
 def nn1_tiled_prepped(packed: torch.Tensor, queries, query_tile: int, chunk: int):
@@ -1052,7 +1105,8 @@ def nn1_tiled_prepped(packed: torch.Tensor, queries, query_tile: int, chunk: int
     of :data:`NN1_TILES`); the target split by :func:`nn1_tiled_span`.
     ``(idx [Q] int32, d2 [Q] f32)``, equal to :func:`nn1_plain`. CPU
     tensors run :func:`nn1_tiled_plain` at the split an H100 takes."""
-    return _nn1_ring("nn1_tiled", "spt_nn1_tiled", packed, queries, query_tile, chunk, nn1_tiled_plain, False)
+    return _nn1_ring("nn1_tiled", "spt_nn1_tiled", packed, queries, query_tile, chunk, nn1_tiled_plain,
+                     nn1_tiled_span)
 
 
 def nn1_tiled(target_xyz, target_mask, queries, query_tile: int, chunk: int):
@@ -1071,7 +1125,8 @@ def nn1_bias_prepped(packed: torch.Tensor, queries, query_tile: int = NN1_BIAS_I
     :func:`nn1_even_span`. ``(idx [Q] int32, d2 [Q] f32)``, equal to
     :func:`nn1_plain`: idx 0, d2 = +inf where no row is valid. CPU tensors
     run :func:`nn1_bias_plain` at the split an H100 takes."""
-    return _nn1_ring("nn1_bias", "spt_nn1_bias", packed, queries, query_tile, chunk, nn1_bias_plain, True)
+    return _nn1_ring("nn1_bias", "spt_nn1_bias", packed, queries, query_tile, chunk, nn1_bias_plain,
+                     nn1_even_span, pairs=True)
 
 
 def nn1_unroll2_prepped(packed: torch.Tensor, queries, query_tile: int = NN1_UNROLL2_INSTANCE[0],
@@ -1080,7 +1135,8 @@ def nn1_unroll2_prepped(packed: torch.Tensor, queries, query_tile: int = NN1_UNR
     query before the running best (the TPU study's v3), at
     :data:`NN1_UNROLL2_INSTANCE` unless given; CPU tensors run
     :func:`nn1_unroll2_plain`."""
-    return _nn1_ring("nn1_unroll2", "spt_nn1_unroll2", packed, queries, query_tile, chunk, nn1_unroll2_plain, True)
+    return _nn1_ring("nn1_unroll2", "spt_nn1_unroll2", packed, queries, query_tile, chunk, nn1_unroll2_plain,
+                     nn1_even_span, pairs=True)
 
 
 def nn1_bias(target_xyz, target_mask, queries):
@@ -1102,13 +1158,40 @@ def nn1_bias_simple(target_xyz, target_mask, queries):
     return _nn1_launch("nn1_bias_simple", "spt_nn1_bias_simple", target_xyz, target_mask, queries)
 
 
+def nn1_lanes_prepped(packed: torch.Tensor, queries, lanes: int, query_tile: Optional[int] = None,
+                      chunk: Optional[int] = None):
+    """:func:`nn1` without a pose with ``lanes`` (one of :data:`NN1_LANES`)
+    threads a query, each keeping its own running best over rows ``l, l +
+    lanes, ...`` of each chunk, reduced once a split (the TPU study's v2),
+    against a target made once by :func:`pack_bias_target`: the lane form of
+    ``nn1_tiled``'s ring (``csrc/nn1_ring.cuh``, ``csrc/nn1_variants.cu``) at
+    :data:`NN1_LANES_INSTANCE` unless another ``query_tile`` (one of
+    :data:`NN1_QUERY_TILES_STUDY`) and ``chunk`` are given. The query tile
+    counts (query, lane) slots: ``query_tile / 2`` threads and ``query_tile
+    / lanes`` queries a block. The target is split by :func:`nn1_tiled_span`
+    with ``lanes``. ``(idx [Q] int32, d2 [Q] f32)``, equal to
+    :func:`nn1_plain`: idx 0, d2 = +inf where no row is valid. CPU tensors
+    run :func:`nn1_lanes_plain` at the split an H100 takes."""
+    _check_lanes(lanes, "nn1_lanes_prepped")
+    tile, tc = NN1_LANES_INSTANCE[lanes]
+    return _nn1_ring("nn1_lanes", "spt_nn1_lanes", packed, queries, tile if query_tile is None else query_tile,
+                     tc if chunk is None else chunk, partial(nn1_lanes_plain, lanes=lanes),
+                     partial(nn1_tiled_span, lanes=lanes), extra=(lanes,))
+
+
 def nn1_lanes(target_xyz, target_mask, queries, lanes: int):
-    """:func:`nn1` without a pose, with ``lanes`` (one of :data:`NN1_LANES`)
-    threads a query, each keeping its own best, reduced at the end (the TPU
-    study's v2)."""
-    if lanes not in NN1_LANES:
-        raise ValueError(f"nn1_lanes has lanes in {NN1_LANES}, got {lanes}")
-    return _nn1_launch("nn1_lanes", "spt_nn1_lanes", target_xyz, target_mask, queries, (lanes,))
+    """:func:`nn1_lanes_prepped` with the target packed for this one call."""
+    _check_lanes(lanes, "nn1_lanes")
+    _check_inputs(target_xyz, target_mask, queries)
+    return nn1_lanes_prepped(pack_bias_target(target_xyz, target_mask), queries, lanes)
+
+
+def nn1_lanes_simple(target_xyz, target_mask, queries, lanes: int):
+    """:func:`nn1_lanes` through its first design (``lanes`` threads a query
+    over the raw target and mask staged into shared memory, 256 threads a
+    block, no split), kept for timing; counted under ``nn1_lanes_simple``."""
+    _check_lanes(lanes, "nn1_lanes_simple")
+    return _nn1_launch("nn1_lanes_simple", "spt_nn1_lanes_simple", target_xyz, target_mask, queries, (lanes,))
 
 
 def nn1_unroll2_simple(target_xyz, target_mask, queries):

@@ -11,7 +11,10 @@ kernels:
   v1  ``nn1_bias``: masking by an added 0 / 3e38 bias, in ``nn1_tiled``'s
       bulk-copied ring (``cuda_knn.nn1_bias_prepped`` on a target made once
       by ``pack_bias_target``); its first design ``nn1_bias_simple``
-  v2  ``nn1_lanes``: 8 or 32 lanes a query, one shuffle reduce at the end
+  v2  ``nn1_lanes``: 8 or 32 lanes a query, each with its own running best,
+      one shuffle reduce a split, as the lane form of the same ring
+      (``nn1_lanes_prepped`` on the same target); its first design
+      ``nn1_lanes_simple``
   v3  ``nn1_unroll2``: two adjacent rows a step, in the same ring
       (``nn1_unroll2_prepped``); its first design ``nn1_unroll2_simple``
 
@@ -23,12 +26,13 @@ per second, the share of indices equal to ``nn1_plain``'s and the largest
 share of indices equal to v0's, and for each (Q, M) the bound
 (``scripts.measure.nn1_bound``).
 
-``--sweep`` adds v1, v3 and ``nn1_tiled`` at every query tile x chunk
-(:data:`SWEEP`; the fastest v1 / v3 at the pair's shape is
-``cuda_knn.NN1_BIAS_INSTANCE`` / ``NN1_UNROLL2_INSTANCE``), and times
-``nn1_plain`` and the library call (``torch.cdist`` over +inf-masked
-targets, then ``min``) in the same turns; it prints each kernel's fastest
-instance at each shape.
+``--sweep`` adds v1, v2 at both lane counts, v3 and ``nn1_tiled`` at every
+query tile x chunk (:data:`SWEEP`; a lane form's query tile counts (query,
+lane) slots; the fastest v1 / v2 / v3 at the pair's shape is
+``cuda_knn.NN1_BIAS_INSTANCE`` / ``NN1_LANES_INSTANCE`` /
+``NN1_UNROLL2_INSTANCE``), and times ``nn1_plain`` and the library call
+(``torch.cdist`` over +inf-masked targets, then ``min``) in turns of their
+own; it prints each design's fastest instance at each shape.
 
 Usage: python -m sycl_points_tpu_torch.scripts.bench_nn1_variants [--sweep]
 """
@@ -65,20 +69,27 @@ INSTANCES = {
     "v0-prod": ("nn1", cuda_knn.prep_target, lambda prep, q: cuda_knn.nn1_prepped(prep, q)),
     "v1-bias": ("nn1_bias", cuda_knn.pack_bias_target, lambda packed, q: cuda_knn.nn1_bias_prepped(packed, q)),
     "v1-bias-simple": ("nn1_bias_simple", raw_target, lambda tm, q: cuda_knn.nn1_bias_simple(*tm, q)),
-    "v2-lanes8": ("nn1_lanes", raw_target, lambda tm, q: cuda_knn.nn1_lanes(*tm, q, 8)),
-    "v2-lanes32": ("nn1_lanes", raw_target, lambda tm, q: cuda_knn.nn1_lanes(*tm, q, 32)),
+    "v2-lanes8": ("nn1_lanes", cuda_knn.pack_bias_target,
+                  lambda packed, q: cuda_knn.nn1_lanes_prepped(packed, q, 8)),
+    "v2-lanes32": ("nn1_lanes", cuda_knn.pack_bias_target,
+                   lambda packed, q: cuda_knn.nn1_lanes_prepped(packed, q, 32)),
+    "v2-lanes8-simple": ("nn1_lanes_simple", raw_target, lambda tm, q: cuda_knn.nn1_lanes_simple(*tm, q, 8)),
+    "v2-lanes32-simple": ("nn1_lanes_simple", raw_target, lambda tm, q: cuda_knn.nn1_lanes_simple(*tm, q, 32)),
     "v3-unroll2": ("nn1_unroll2", cuda_knn.pack_bias_target,
                    lambda packed, q: cuda_knn.nn1_unroll2_prepped(packed, q)),
     "v3-unroll2-simple": ("nn1_unroll2_simple", raw_target, lambda tm, q: cuda_knn.nn1_unroll2_simple(*tm, q)),
 }
 
-# The ring's forms at every query tile x chunk: label -> as INSTANCES.
-_FORMS = (("v1-bias", "nn1_bias", cuda_knn.pack_bias_target, cuda_knn.nn1_bias_prepped),
-          ("v3-unroll2", "nn1_unroll2", cuda_knn.pack_bias_target, cuda_knn.nn1_unroll2_prepped),
-          ("tiled", "nn1_tiled", cuda_knn.pack_target, cuda_knn.nn1_tiled_prepped))
+# The ring's forms at every query tile x chunk: label -> as INSTANCES. The
+# tile is queries a block, or for a lane form (query, lane) slots a block.
+_FORMS = (("v1-bias", "nn1_bias", cuda_knn.pack_bias_target, cuda_knn.nn1_bias_prepped, "queries"),
+          *((f"v2-lanes{lanes}", "nn1_lanes", cuda_knn.pack_bias_target,
+             functools.partial(cuda_knn.nn1_lanes_prepped, lanes=lanes), "slots") for lanes in cuda_knn.NN1_LANES),
+          ("v3-unroll2", "nn1_unroll2", cuda_knn.pack_bias_target, cuda_knn.nn1_unroll2_prepped, "queries"),
+          ("tiled", "nn1_tiled", cuda_knn.pack_target, cuda_knn.nn1_tiled_prepped, "queries"))
 SWEEP = {
-    f"{form} queries={qt} chunk={tc}": (key, pack, functools.partial(fn, query_tile=qt, chunk=tc))
-    for form, key, pack, fn in _FORMS for qt in cuda_knn.NN1_QUERY_TILES_STUDY for tc in cuda_knn.NN1_TILES
+    f"{form} {tile}={qt} chunk={tc}": (key, pack, functools.partial(fn, query_tile=qt, chunk=tc))
+    for form, key, pack, fn, tile in _FORMS for qt in cuda_knn.NN1_QUERY_TILES_STUDY for tc in cuda_knn.NN1_TILES
 }
 
 
@@ -167,13 +178,14 @@ def run_study(instances: dict, shapes, mask_every: int, device, turns: int = 1, 
 
 
 def fastest(rows: list[dict], instances: dict) -> dict:
-    """{(Q, M): {launch-count key: (label, ms)}}: each kernel's fastest
-    instance at each shape."""
+    """{(Q, M): {design: (label, ms)}}: each design's fastest instance at each
+    shape, a design being a label's first word (``v2-lanes8`` and the sweep's
+    ``v2-lanes8 queries=... chunk=...`` are one)."""
     best = {}
     for r in rows:
         if r["name"] not in instances:
             continue
-        key = instances[r["name"]][0]
+        key = r["name"].split()[0]
         shape = best.setdefault((r["Q"], r["M"]), {})
         if key not in shape or r["ms"] < shape[key][1]:
             shape[key] = (r["name"], r["ms"])
@@ -189,8 +201,8 @@ def main(shapes=SHAPES, device: torch.device | str = "cuda", sweep: bool = False
                      YARDSTICKS if sweep else None)
     if sweep:
         for (Q, M), best in fastest(rows, instances).items():
-            print(f"Q={Q} M={M} fastest: " + ", ".join(f"{key} {label} {ms:.4f} ms"
-                                                         for key, (label, ms) in best.items()), flush=True)
+            print(f"Q={Q} M={M} fastest: " + ", ".join(f"{label} {ms:.4f} ms" for label, ms in best.values()),
+                  flush=True)
     return rows
 
 

@@ -13,13 +13,13 @@ within 1e-6 (``knn_mismatches``; ``topk`` on the card orders ties in no
 stated way), with distances within 1e-5 absolute (the remaining slack covers
 the [Q,M] reduction order of the plain version). The study kernels
 (nn1_tiled at every query tile x chunk, its first design nn1_tiled_simple,
-nn1_bias and nn1_unroll2 in nn1_tiled's ring at every query tile x chunk and
-their first designs, nn1_lanes) equal ``nn1_plain`` bit for bit, with Q off
-every query tile, M off every chunk, an odd M, every target masked, exact
-ties across the ring's splits, equal adjacent rows (ties inside
-nn1_unroll2's pairs) and masked rows on the queries; the ring's kernels also
-equal their plain models at the card's split; ``knn_k_simple`` against
-``knn_k_plain`` as before.
+nn1_bias, nn1_lanes at 8 and 32 lanes and nn1_unroll2 in nn1_tiled's ring at
+every query tile x chunk and their first designs) equal ``nn1_plain`` bit
+for bit, with Q off every query tile, M off every chunk, an odd M, every
+target masked, exact ties across the ring's splits, equal adjacent rows
+(ties inside nn1_unroll2's pairs, across nn1_lanes' lanes) and masked rows
+on the queries; the ring's kernels also equal their plain models at the
+card's split; ``knn_k_simple`` against ``knn_k_plain`` as before.
 
 The batched instances (``nn1_prepped_batched``, ``knn_k_batched``: a
 fleet's streams on the grid's z axis) must equal one single-stream launch
@@ -304,11 +304,25 @@ def test_nn1_tiled_ties_chunks_and_splits(case, query_tile):
         assert span == 1235 and -(-span // 512) == 3
 
 
-# The variant study's v1 / v3 in nn1_tiled's ring: (the prepped wrapper, its
-# plain model, the wrapper on the raw target)
+def _lane_form(lanes):
+    return (
+        "nn1_lanes",
+        lambda packed, q, qt, tc: cuda_knn.nn1_lanes_prepped(packed, q, lanes, qt, tc),
+        lambda packed, q, span: cuda_knn.nn1_lanes_plain(packed, q, span, lanes),
+        lambda t, m, q: cuda_knn.nn1_lanes(t, m, q, lanes),
+        lambda Q, M, qt, n_sm: cuda_knn.nn1_tiled_span(Q, M, qt, n_sm, lanes),
+    )
+
+
+# The variant study's v1 / v2 / v3 in nn1_tiled's ring: (launch-count key, the
+# prepped wrapper, its plain model, the wrapper on the raw target, its split)
 RING_FORMS = {
-    "nn1_bias": (cuda_knn.nn1_bias_prepped, cuda_knn.nn1_bias_plain, cuda_knn.nn1_bias),
-    "nn1_unroll2": (cuda_knn.nn1_unroll2_prepped, cuda_knn.nn1_unroll2_plain, cuda_knn.nn1_unroll2),
+    "nn1_bias": ("nn1_bias", cuda_knn.nn1_bias_prepped, cuda_knn.nn1_bias_plain, cuda_knn.nn1_bias,
+                 cuda_knn.nn1_even_span),
+    "nn1_lanes 8": _lane_form(8),
+    "nn1_lanes 32": _lane_form(32),
+    "nn1_unroll2": ("nn1_unroll2", cuda_knn.nn1_unroll2_prepped, cuda_knn.nn1_unroll2_plain, cuda_knn.nn1_unroll2,
+                    cuda_knn.nn1_even_span),
 }
 RING_CASES = ["dup", "equal adjacent rows", "masked rows on the queries", "odd M", "M off the chunks", "pair",
               "empty target", "no queries"]
@@ -318,17 +332,18 @@ RING_CASES = ["dup", "equal adjacent rows", "masked rows on the queries", "odd M
 @pytest.mark.parametrize("query_tile", cuda_knn.NN1_QUERY_TILES_STUDY)
 @pytest.mark.parametrize("case", RING_CASES)
 def test_nn1_bias_forms_ties_chunks_and_splits(case, query_tile, form):
-    """nn1_bias and nn1_unroll2 at every chunk, on a target made by
+    """nn1_bias, nn1_lanes (8 and 32 lanes; the query tile counts (query,
+    lane) slots) and nn1_unroll2 at every chunk, on a target made by
     pack_bias_target: exact ties whose twins lie in other splits, equal
-    adjacent rows (a tie inside each of nn1_unroll2's pairs: the even row
-    wins), the queries as masked rows ahead of the target (at d = 0 they must
+    adjacent rows (a tie inside each of nn1_unroll2's pairs and across two
+    of nn1_lanes' lanes: the even row wins), the queries as masked rows ahead of the target (at d = 0 they must
     lose to far valid rows), an odd M (a masked pad row), a target streamed
     in several chunks a split with its last chunk partial (12,345 rows,
     30,000 queries), the pair's 1,000 queries against 24,576 rows, an empty
     target and no queries; bit-equal to nn1_plain, to the plain model at the
     card's split and through the wrapper on the raw target; one launch a
     call."""
-    prepped, plain, wrapper = RING_FORMS[form]
+    key, prepped, plain, wrapper, span_of = RING_FORMS[form]
     if case == "dup":
         tgt, mask = _dup_cloud(1000, 9, 40)
         qry = torch.cat([tgt[::7], _cloud(300, 41)[0]]).contiguous()
@@ -354,15 +369,15 @@ def test_nn1_bias_forms_ties_chunks_and_splits(case, query_tile, form):
     packed = cuda_knn.pack_bias_target(tgt, mask)
     Q = qry.shape[0]
     ref = cuda_knn.nn1_plain(tgt, mask, qry)
-    span = cuda_knn.nn1_even_span(Q, packed.shape[0], query_tile, cuda_knn._sm_count(0))
+    span = span_of(Q, packed.shape[0], query_tile, cuda_knn._sm_count(0))
     model = plain(packed, qry, span)
     assert torch.equal(model[0], ref[0]) and torch.equal(model[1], ref[1])
     for chunk in cuda_knn.NN1_TILES:
-        before = cuda_knn.launch_counts[form]
+        before = cuda_knn.launch_counts[key]
         got = prepped(packed, qry, query_tile, chunk)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), chunk
-        assert cuda_knn.launch_counts[form] == before + (1 if Q else 0)
+        assert cuda_knn.launch_counts[key] == before + (1 if Q else 0)
     got = wrapper(tgt, mask, qry)
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

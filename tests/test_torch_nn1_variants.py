@@ -6,9 +6,10 @@ their files; on the loaded module objects only, ``pl`` is replaced by a
 namespace whose ``pallas_call`` runs in interpret mode. The same seeded
 numpy inputs (M=3000 targets with every 37th masked, Q=700 queries, uniform
 +-50 m) go through each Pallas kernel and the port's wrapper, which runs
-``nn1_plain`` for CPU tensors (``nn1_tiled``, ``nn1_bias``, ``nn1_unroll2``:
-``nn1_tiled_plain``, ``nn1_bias_plain``, ``nn1_unroll2_plain``, the plain
-models of the ring's split merge, at the split an H100 takes).
+``nn1_plain`` for CPU tensors (``nn1_tiled``, ``nn1_bias``, ``nn1_lanes``,
+``nn1_unroll2``: ``nn1_tiled_plain``, ``nn1_bias_plain``,
+``nn1_lanes_plain``, ``nn1_unroll2_plain``, the plain models of the ring's
+split merge, at the split an H100 takes).
 
 ``nn1_tiled_plain`` (the least ``(d2 bits << 32) | index`` over the target's
 splits) is held bit for bit to ``nn1_plain`` and to ``make_nn1`` at spans of
@@ -20,7 +21,11 @@ y, z, b, masked rows keeping their coordinates, an even row count) at the
 same spans rounded up to even, with the queries as masked rows of the
 target and an odd M besides, against ``nn1_plain`` bit for bit and JAX's
 v1 / v3 as below; ties inside a pair; the packing's layout; the refusals
-before any launch.
+before any launch. ``nn1_lanes_plain`` (v2's lanes, each with its own
+running best over rows ``l, l + L, ...`` of a split, reduced to the least
+distance and then the least index) at L = 8 and 32 likewise, at the spans as
+they are, against JAX's v2; twins ``L - 1``, ``L`` and ``L + 1`` rows apart;
+the lane-aware split plan (``nn1_tiled_span`` with ``lanes``).
 
 Tolerances: indices equal except where the two distances are tied within
 1e-6; distances within atol=1e-5 (both sides are exact f32 difference-form
@@ -93,6 +98,10 @@ CASES = {
     # the first designs of v1 and v3, kept for timing
     "v1(1024,2048) / nn1_bias_simple": (lambda s: s.variants.make_v1(1024, 2048), cuda_knn.nn1_bias_simple),
     "v3(512,1024) / nn1_unroll2_simple": (lambda s: s.variants.make_v3(512, 1024), cuda_knn.nn1_unroll2_simple),
+    "v2(512,1024) / nn1_lanes_simple 8": (lambda s: s.variants.make_v2(512, 1024),
+                                          functools.partial(cuda_knn.nn1_lanes_simple, lanes=8)),
+    "v2(512,1024) / nn1_lanes_simple 32": (lambda s: s.variants.make_v2(512, 1024),
+                                           functools.partial(cuda_knn.nn1_lanes_simple, lanes=32)),
     # the first design, nn1_tiled_simple (threads x tile)
     "make_nn1(1024,512) / nn1_tiled 128x2048": (lambda s: s.tiles.make_nn1(1024, 512),
                                                 functools.partial(cuda_knn.nn1_tiled_simple, threads=128, tile=2048)),
@@ -145,7 +154,11 @@ def test_all_masked(studies, kernel):
                  cuda_knn.nn1_unroll2_simple,
                  lambda t, m, q: cuda_knn.nn1_bias_prepped(cuda_knn.pack_bias_target(t, m), q, 64, 512),
                  lambda t, m, q: cuda_knn.nn1_unroll2_prepped(cuda_knn.pack_bias_target(t, m), q, 512, 4096),
-                 functools.partial(cuda_knn.nn1_lanes, lanes=8),
+                 functools.partial(cuda_knn.nn1_lanes, lanes=8), functools.partial(cuda_knn.nn1_lanes, lanes=32),
+                 functools.partial(cuda_knn.nn1_lanes_simple, lanes=8),
+                 functools.partial(cuda_knn.nn1_lanes_simple, lanes=32),
+                 lambda t, m, q: cuda_knn.nn1_lanes_prepped(cuda_knn.pack_bias_target(t, m), q, 8, 64, 512),
+                 lambda t, m, q: cuda_knn.nn1_lanes_prepped(cuda_knn.pack_bias_target(t, m), q, 32, 512, 4096),
                  functools.partial(cuda_knn.nn1_tiled_simple, threads=256, tile=1024),
                  functools.partial(cuda_knn.nn1_tiled, query_tile=128, chunk=1024)):
         ti, td = port(*args)
@@ -158,13 +171,20 @@ def test_wrappers_reject_instances_not_built():
         cuda_knn.nn1_tiled_simple(t, mask, q, threads=96, tile=2048)
     with pytest.raises(ValueError):
         cuda_knn.nn1_tiled_simple(t, mask, q, threads=128, tile=8192)
-    with pytest.raises(ValueError):
-        cuda_knn.nn1_lanes(t, mask, q, lanes=16)
+    for lanes in (1, 16, 64):
+        with pytest.raises(ValueError, match="lanes"):
+            cuda_knn.nn1_lanes(t, mask, q, lanes=lanes)
+        with pytest.raises(ValueError, match="lanes"):
+            cuda_knn.nn1_lanes_simple(t, mask, q, lanes=lanes)
+        with pytest.raises(ValueError, match="lanes"):
+            cuda_knn.nn1_lanes_prepped(cuda_knn.pack_bias_target(t, mask), q, lanes)
+        with pytest.raises(ValueError, match="lanes"):
+            cuda_knn.nn1_lanes_plain(cuda_knn.pack_bias_target(t, mask), q, 256, lanes)
     with pytest.raises(ValueError):
         cuda_knn.nn1_bias(t[:, :2].contiguous(), mask, q)
 
 
-@pytest.mark.parametrize("study,n_instances", [(bench_nn1_tiles, 16), (bench_nn1_variants, 7)])
+@pytest.mark.parametrize("study,n_instances", [(bench_nn1_tiles, 16), (bench_nn1_variants, 9)])
 def test_study_entry_points_on_the_cpu(study, n_instances):
     """``n_instances`` a design: the tile sweep runs both of its designs'
     16 instances and the cluster nn1 at each shape."""
@@ -269,9 +289,16 @@ def test_nn1_tiled_refuses_instances_not_built_before_any_launch():
 # -- nn1_bias / nn1_unroll2 in the ring: the plain models, the packing, the refusals
 
 
-BIAS_FORMS = {  # TPU kernel on the loaded studies, the port's plain model
-    "v1 / nn1_bias_plain": (lambda s: s.variants.make_v1(1024, 2048), cuda_knn.nn1_bias_plain),
-    "v3 / nn1_unroll2_plain": (lambda s: s.variants.make_v3(512, 1024), cuda_knn.nn1_unroll2_plain),
+TPU_BIAS = {  # the TPU study's kernels on the loaded studies
+    "v1": lambda s: s.variants.make_v1(1024, 2048),
+    "v2": lambda s: s.variants.make_v2(512, 1024),
+    "v3": lambda s: s.variants.make_v3(512, 1024),
+}
+BIAS_FORMS = {  # TPU kernel, the port's plain model, whether its wrapper rounds the span up to even
+    "v1 / nn1_bias_plain": ("v1", cuda_knn.nn1_bias_plain, True),
+    "v2 / nn1_lanes_plain 8": ("v2", functools.partial(cuda_knn.nn1_lanes_plain, lanes=8), False),
+    "v2 / nn1_lanes_plain 32": ("v2", functools.partial(cuda_knn.nn1_lanes_plain, lanes=32), False),
+    "v3 / nn1_unroll2_plain": ("v3", cuda_knn.nn1_unroll2_plain, True),
 }
 BIAS_CASES = MERGE_CASES + ["masked rows on the queries", "odd M"]
 N_ON_QUERIES = 300
@@ -291,15 +318,15 @@ def _bias_case(case):
 
 @pytest.fixture(scope="module")
 def tpu_bias_forms(studies):
-    """JAX's v1 / v3 on each case, run once: (form, case) -> (idx, d2)."""
+    """JAX's v1 / v2 / v3 on each case, run once: (kernel, case) -> (idx, d2)."""
     cache = {}
 
-    def get(form, case):
-        if (form, case) not in cache:
+    def get(kernel, case):
+        if (kernel, case) not in cache:
             t, mask, q = _bias_case(case)
-            ji, jd = BIAS_FORMS[form][0](studies)(jnp.asarray(t), jnp.asarray(mask), jnp.asarray(q))
-            cache[form, case] = torch.from_numpy(np.array(ji)), torch.from_numpy(np.array(jd))
-        return cache[form, case]
+            ji, jd = TPU_BIAS[kernel](studies)(jnp.asarray(t), jnp.asarray(mask), jnp.asarray(q))
+            cache[kernel, case] = torch.from_numpy(np.array(ji)), torch.from_numpy(np.array(jd))
+        return cache[kernel, case]
 
     return get
 
@@ -308,22 +335,24 @@ def tpu_bias_forms(studies):
 @pytest.mark.parametrize("case", BIAS_CASES)
 @pytest.mark.parametrize("form", sorted(BIAS_FORMS))
 def test_bias_forms_plain_equal_nn1_plain_and_the_tpu_study(tpu_bias_forms, form, case, span):
-    """The biased distance (v1) and the fold of adjacent rows (v3), split and
-    merged at the span rounded up to even (the wrappers' nn1_even_span), are
-    nn1_plain bit for bit: the lower index on ties, idx 0 and d2 = +inf where
-    no row is valid, masked rows at d = 0 losing to far valid rows; and they
-    agree with JAX's v1 / v3 as test_port_matches_tpu_study holds the other
-    ports (the study's all-masked traits apart)."""
+    """The biased distance (v1), v2's lanes and the fold of adjacent rows
+    (v3), split and merged at the span (rounded up to even for v1 / v3, as
+    the wrappers' nn1_even_span does), are nn1_plain bit for bit: the lower
+    index on ties, idx 0 and d2 = +inf where no row is valid, masked rows at
+    d = 0 losing to far valid rows; and they agree with JAX's v1 / v2 / v3 as
+    test_port_matches_tpu_study holds the other ports (the study's
+    all-masked traits apart: v2 returns idx 2**31 - 1 there)."""
+    kernel, plain, even = BIAS_FORMS[form]
     t, mask, q = _bias_case(case)
     tt, tm, tq = (torch.from_numpy(a) for a in (t, mask, q))
     packed = cuda_knn.pack_bias_target(tt, tm)
-    got = BIAS_FORMS[form][1](packed, tq, span + span % 2)
+    got = plain(packed, tq, span + span % 2 if even else span)
     ref = cuda_knn.nn1_plain(tt, tm, tq)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    ji, jd = tpu_bias_forms(form, case)
+    ji, jd = tpu_bias_forms(kernel, case)
     if case == "every row masked":
         assert bool((got[0] == 0).all()) and bool(torch.isinf(got[1]).all())
-        assert bool((ji == 0).all()) and bool((jd == np.float32(BIG)).all())
+        assert bool((ji == ALL_MASKED[kernel][1]).all()) and bool((jd == np.float32(BIG)).all())
         return
     assert cuda_knn.nn1_mismatches(got[0], got[1], ji, jd, TIE) == 0
     np.testing.assert_allclose(np_(got[1]), np_(jd), rtol=0, atol=D_ATOL)
@@ -409,3 +438,89 @@ def test_nn1_even_span_plan():
         assert cuda_knn.nn1_even_span(Q, Mt, qt, 132) == span + span % 2
     assert cuda_knn.nn1_even_span(1000, 24576, 128, 132) == 256
     assert cuda_knn.nn1_even_span(1, 1, 64, 132) == 2
+
+
+# -- nn1_lanes: v2's lanes in the ring -----------------------------------------
+
+
+@pytest.mark.parametrize("span", ["the twins' distance", 256, 6000])
+@pytest.mark.parametrize("apart", [-1, 0, 1])
+@pytest.mark.parametrize("lanes", cuda_knn.NN1_LANES)
+def test_lanes_ties_across_lanes_and_splits(lanes, apart, span):
+    """Twins ``lanes + apart`` rows apart (each block of 2 d rows holds d
+    points twice): in one lane for ``apart`` = 0, in two lanes otherwise, and
+    in two splits where the span is their distance. Queries on the valid
+    points (d2 = 0, tied) and off them: the lower index wins, bit for bit
+    nn1_plain."""
+    d = lanes + apart
+    t, mask, q = _inputs(seed=14)
+    n = (M // 2) // d * d
+    blocks = t[:n].reshape(-1, d, 3)
+    t2 = np.concatenate([blocks, blocks], axis=1).reshape(-1, 3)
+    m2 = np.concatenate([mask[:n].reshape(-1, d)] * 2, axis=1).reshape(-1)
+    on = t2[::5][m2[::5]]  # valid points
+    q2 = np.concatenate([on, q])
+    tt, tm, tq = (torch.from_numpy(a) for a in (t2, m2, q2))
+    ref = cuda_knn.nn1_plain(tt, tm, tq)
+    on_points = on.shape[0]
+    assert bool((ref[0][:on_points] % (2 * d) < d).all()) and bool((ref[1][:on_points] == 0).all())
+    got = cuda_knn.nn1_lanes_plain(cuda_knn.pack_bias_target(tt, tm), tq, d if isinstance(span, str) else span,
+                                   lanes)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_nn1_lanes_refuses_before_any_launch():
+    """A packed target of the wrong shape (three columns, a batch axis), type
+    or alignment, lanes not built, an instance not built and queries of the
+    wrong shape raise before any launch; an odd row count is taken (v2 reads
+    a row a step) and equals nn1_plain."""
+    t, mask, q = (torch.from_numpy(a) for a in _inputs(seed=15))
+    packed = cuda_knn.pack_bias_target(t, mask)
+    buf = torch.empty(packed.numel() + 1)
+    buf[1:] = packed.flatten()
+    unaligned = buf[1:].view(M, 4)
+    assert unaligned.data_ptr() % 16 and torch.equal(unaligned, packed)
+    before = dict(cuda_knn.launch_counts)
+    for lanes in cuda_knn.NN1_LANES:
+        for bad in (packed[:, :3].contiguous(), packed[None], packed.double()):
+            with pytest.raises(ValueError, match="packed"):
+                cuda_knn.nn1_lanes_prepped(bad, q, lanes)
+        with pytest.raises(ValueError, match="16-byte"):
+            cuda_knn.nn1_lanes_prepped(unaligned, q, lanes)
+        for qt, tc in ((96, 1024), (128, 8192), (1024, 512), (32, 512)):
+            with pytest.raises(ValueError, match="nn1_lanes"):
+                cuda_knn.nn1_lanes_prepped(packed, q, lanes, qt, tc)
+        with pytest.raises(ValueError):
+            cuda_knn.nn1_lanes_prepped(packed, q[:, :2].contiguous(), lanes)
+    for lanes in (0, 4, 16):
+        with pytest.raises(ValueError, match="lanes"):
+            cuda_knn.nn1_lanes_prepped(packed, q, lanes)
+    assert cuda_knn.launch_counts == before
+    odd = torch.cat([packed, packed[:1]])
+    ref = cuda_knn.nn1_plain(torch.cat([t, t[:1]]), torch.cat([mask, mask[:1]]), q)
+    for lanes in cuda_knn.NN1_LANES:
+        got = cuda_knn.nn1_lanes_prepped(odd, q, lanes)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_nn1_lanes_span_plan():
+    """The split of a lane form counts the query blocks it launches, ceil(Q /
+    (query_tile / lanes)): at the pair's shape 32 lanes take 9 spans of
+    2,731 rows at every slot count (500 one-warp blocks of 2 queries to 63
+    eight-warp blocks of 16), 8 lanes 34 spans of 723 (125 and 63 blocks) or
+    33 of 745 (32 and 16 blocks), where one lane takes 96 of 256; lanes = 1 is
+    nn1_tiled's plan."""
+    qts = cuda_knn.NN1_QUERY_TILES_STUDY
+    assert [cuda_knn.nn1_tiled_span(1000, 24576, qt, 132, 32) for qt in qts] == [2731] * 4
+    assert [cuda_knn.nn1_tiled_span(1000, 24576, qt, 132, 8) for qt in qts] == [723, 723, 745, 745]
+    for Q, Mt in ((1000, 24576), (22528, 22528), (8192, 131072), (1024, 6144), (1, 1), (70, 300), (50000, 2049)):
+        for qt in qts:
+            assert cuda_knn.nn1_tiled_span(Q, Mt, qt, 132, 1) == cuda_knn.nn1_tiled_span(Q, Mt, qt, 132)
+            for lanes in cuda_knn.NN1_LANES:
+                span = cuda_knn.nn1_tiled_span(Q, Mt, qt, 132, lanes)
+                blocks = -(-Q // (qt // lanes))
+                splits = -(-Mt // span)
+                assert 1 <= span <= Mt and splits <= max(1, -(-Mt // cuda_knn.NN1_TILED_MIN_SPAN))
+                # as many splits as give 32 warps an SM over the blocks, or the fewest above it
+                want = -(-cuda_knn.NN1_TILED_WARPS_PER_SM * 132 // (qt // 64))
+                assert splits == 1 or (splits - 1) * blocks < want or span <= cuda_knn.NN1_TILED_MIN_SPAN + 1
